@@ -1,0 +1,148 @@
+"""CMPC model assembly for the flagship configuration (multiscore decoder).
+
+Forward pipeline (CMPC_model.py:89-142): backbone taps -> text encoder ->
+laterals (+l2norm) -> spatial grid -> language parser -> per-level lang2vis
+(mutan + spatial graph) -> aux score heads -> nec_lang -> 2x gated exchange
++ ConvLSTM fusion -> multiscore 3x3 score conv -> TF1 resize -> sigmoid.
+
+Precision (docs/DESIGN.md §2): with compute_dtype 'bfloat16' the backbone
+and the head run their products in bf16; norm statistics, softmaxes, the
+score convs, logits and the sigmoid stay in float32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from cmpc_refseg_torch.config import ModelConfig
+from cmpc_refseg_torch.convert import params_from_jax
+from cmpc_refseg_torch.models import cmpc
+from cmpc_refseg_torch.models.backbone import apply_backbone, init_backbone
+from cmpc_refseg_torch.models.language import encode_text, init_text_encoder
+from cmpc_refseg_torch.ops.layers import conv2d, init_conv, split_stream
+from cmpc_refseg_torch.ops.normalization import l2_normalize
+from cmpc_refseg_torch.ops.resize import resize_bilinear
+from cmpc_refseg_torch.ops.spatial import spatial_coordinate_grid
+
+LATERAL_IN_DIM = {"c3": 512, "c4": 1024, "c5": 2048}
+
+
+class ModelOutputs(NamedTuple):
+    pred: torch.Tensor                # low-res logits [B,h,w,1]
+    up: torch.Tensor                  # full-res logits [B,H,W,1]
+    sigm: torch.Tensor                # sigmoid(up)
+    up_levels: dict                   # {level: [B,H,W,1]} aux logits
+    words_parse: torch.Tensor         # [B,1,T,K]
+    gw: dict                          # {level: (w_aff, v_aff)} graph attn
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.decoder != "multiscore" or cfg.hsv or cfg.tanh_lateral \
+            or cfg.bbox_head or cfg.video:
+        raise NotImplementedError(
+            f"variant {cfg.variant or cfg!r}: only the flagship CMPC_model "
+            "configuration is ported")
+
+
+def init_numpy(seed, cfg: ModelConfig) -> dict:
+    """The parameter tree as numpy arrays in the JAX package's layout, draw
+    for draw what the JAX package's init_model makes from the same seed."""
+    _check_supported(cfg)
+    keys = split_stream(seed, 12)
+    params = {
+        "backbone": init_backbone(keys[0], cfg.res4_blocks),
+        "text": init_text_encoder(keys[1], cfg),
+        "parser": cmpc.init_lang_parser(keys[2], cfg),
+        "levels": {},
+        "fusion_stack": cmpc.init_fusion_stack(keys[3], cfg),
+        "laterals": {},
+        "scores": {},
+    }
+    lkeys = keys[4].split(len(cfg.levels) * 3)
+    for i, lv in enumerate(cfg.levels):
+        params["laterals"][lv] = init_conv(
+            lkeys[3 * i], 1, LATERAL_IN_DIM[lv], cfg.v_emb_dim)
+        params["levels"][lv] = cmpc.init_lang2vis(lkeys[3 * i + 1], cfg)
+        params["scores"][f"score_{lv}"] = init_conv(
+            lkeys[3 * i + 2], 3, cfg.mlp_dim, 1)
+    params["scores"]["score"] = init_conv(keys[5], 3, cfg.mlp_dim, 1)
+    return params
+
+
+def init_model(seed, cfg: ModelConfig, *, device=None) -> dict:
+    """Port parameters (float32 tensors on `device`, CUDA when None) from an
+    int seed."""
+    return params_from_jax(init_numpy(seed, cfg), cfg, device=device)
+
+
+def prepare_params(params: dict, cfg: ModelConfig) -> dict:
+    """Inference view of the parameters, built once: backbone kernels in the
+    compute dtype (channels_last) and each level's mutan weight [K, 5C] in
+    the compute dtype as the kernel takes it.  The f32 originals stay."""
+    if cfg.compute_dtype != "bfloat16":
+        return params
+    dt = torch.bfloat16
+
+    def cast_units(node):
+        if isinstance(node, dict) and "w" in node:
+            return {**node, "w": node["w"].to(dt).contiguous(
+                memory_format=torch.channels_last)}
+        return {k: cast_units(v) for k, v in node.items()}
+
+    levels = {}
+    for lv, level in params["levels"].items():
+        w_wide = level["mutan"]["vis_trans"]["DW"][0, 0].to(dt).contiguous()
+        levels[lv] = {**level, "mutan": {**level["mutan"], "w_wide": w_wide}}
+    return {**params, "backbone": cast_units(params["backbone"]),
+            "levels": levels}
+
+
+def apply_model(params, cfg: ModelConfig, batch: dict, *,
+                use_kernels: bool = True) -> ModelOutputs:
+    """Inference forward.  batch: 'im' [B,H,W,3] float32 (BGR,
+    mean-subtracted), 'words' [B,T] back-padded token ids, 'seq_len' [B].
+
+    `use_kernels=False` runs the plain PyTorch versions of the kernels on
+    any device (the reference the kernels are held against)."""
+    _check_supported(cfg)
+    im = batch["im"]
+    dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+    vis = apply_backbone(params["backbone"], im, compute_dtype=dt,
+                         taps=tuple(cfg.levels), res4_blocks=cfg.res4_blocks)
+    if dt is not None:
+        vis = {k: v.to(dt) for k, v in vis.items()}
+
+    text = encode_text(params["text"], cfg, batch["words"], batch["seq_len"])
+    words_parse = cmpc.apply_lang_parser(params["parser"], text.parse_feat,
+                                         text.seq_mask)
+
+    laterals = {lv: l2_normalize(conv2d(params["laterals"][lv], vis[lv]), -1)
+                for lv in cfg.levels}
+
+    b = im.shape[0]
+    h, w = laterals[cfg.levels[0]].shape[1:3]
+    spatial = spatial_coordinate_grid(h, w, device=im.device)[None].expand(
+        b, h, w, 8)
+
+    fusion_list, gw_list = cmpc.apply_lang2vis_multi(
+        [params["levels"][lv] for lv in cfg.levels], cfg,
+        [laterals[lv] for lv in cfg.levels], text.words_feat, words_parse,
+        text.seq_mask, spatial, use_kernels=use_kernels)
+    fusions, gw, up_levels = {}, {}, {}
+    for lv, fusion_lv, gw_lv in zip(cfg.levels, fusion_list, gw_list):
+        fusions[lv] = fusion_lv
+        gw[lv] = gw_lv
+        score_lv = conv2d(params["scores"][f"score_{lv}"], fusion_lv.float())
+        up_levels[lv] = resize_bilinear(score_lv, cfg.H, cfg.W)
+
+    nec = cmpc.valid_lang_feat(words_parse, text.words_feat,
+                               tuple(range(cfg.parse_classes - 1)))
+    fused = cmpc.apply_fusion_stack(params["fusion_stack"], cfg, fusions, nec)
+
+    pred = conv2d(params["scores"]["score"], fused.float())
+    up = resize_bilinear(pred, cfg.H, cfg.W)
+    return ModelOutputs(pred, up, torch.sigmoid(up), up_levels, words_parse,
+                        gw)

@@ -1,0 +1,139 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+CUDA kernels have no CPU mode, so these tests need a CUDA device and skip
+without one.  The file imports no JAX, so it runs on a GPU machine without
+it (tests/conftest.py imports JAX; skip it there):
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+
+Shapes are small and ragged on purpose: row counts, K and column widths
+that are not multiples of the kernels' tiles exercise the masked edges.
+chip_smoke.py does the same checks at the flagship shapes.  Tolerance: the
+largest error within 1e-2 of the reference's largest entry.  The kernel
+and its plain version round to bf16 at the same places but sum in other
+orders, so a rounding may land one bf16 ulp apart, which is at most 2^-7
+of the entry.  The layer-norm statistics, given as (sum, sum of squares)
+partials, are held per sample as a mean and a variance, each within
+STATS_TOL of its own scale: the same f32 sums in other orders move them far
+less, while a wrong or missing column moves them by its whole size."""
+
+import numpy as np
+import pytest
+import torch
+
+from cmpc_refseg_torch.ops import kernels
+
+TOL = 1e-2
+STATS_TOL = 1e-3
+
+
+@pytest.fixture
+def cuda(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; CUDA kernels have no CPU mode")
+    # the plain versions' float32 products and convs in full float32
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rnd(g, *shape, dtype=torch.bfloat16, scale=1.0):
+    return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def _moments(stats, count):
+    """Per-sample (mean, variance) from (sum, sum of squares) partials."""
+    s = stats.double().sum(1)
+    mean = s[:, 0] / count
+    return mean, s[:, 1] / count - mean * mean
+
+
+def _close(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, w in zip(got, want):
+        if a.dim() == 3 and a.shape[-1] == 2:        # statistics partials
+            # the two columns held apart, each at its own scale: the mean's
+            # error over the std and the variance's relative error, within
+            # STATS_TOL per sample
+            count = want[0][0].numel()
+            (gm, gv), (wm, wv) = _moments(a, count), _moments(w, count)
+            assert ((gm - wm).abs() <= STATS_TOL * wv.sqrt()).all()
+            assert ((gv - wv).abs() <= STATS_TOL * wv).all()
+            continue
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= TOL * w.float().abs().max().item()
+
+
+def _inputs(g, name, l2n=False, masked=True):
+    b, n, c, t = 2, 100, 72, 6
+    f32 = torch.float32
+    if name == "mutan_fused":
+        return ((_rnd(g, b * n, 80), _rnd(g, 80, 5 * c, scale=0.1),
+                 _rnd(g, 5 * c, dtype=f32), torch.tanh(_rnd(g, b, 5 * c,
+                                                          dtype=f32))),
+                {"heads": 5, "rows_per_sample": n})
+    if name == "spa_affinity":
+        mask = torch.ones(b, 1, t, device="cuda")
+        mask[:, :, 4:] = 0
+        return ((_rnd(g, b, n, c), _rnd(g, c, 40, scale=0.2), _rnd(g, 40),
+                 _rnd(g, b, t, 40),
+                 torch.rand(b, 1, t, generator=g, device="cuda"), mask),
+                {"scale": 8.0, "l2n": l2n, "masked": masked})
+    if name == "graph_msg":
+        return (_rnd(g, b, n, t), _rnd(g, b, t, c)), {}
+    msg, st = kernels.graph_msg_plain(_rnd(g, b, n, t), _rnd(g, b, t, c))
+    return ((_rnd(g, b, n, c), msg, st, _rnd(g, c, c, scale=0.1),
+             _rnd(g, c), 1 + _rnd(g, c, dtype=f32, scale=0.1),
+             _rnd(g, c, dtype=f32)), {})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,l2n,masked", [
+    ("mutan_fused", False, True),
+    ("spa_affinity", False, True), ("spa_affinity", False, False),
+    ("spa_affinity", True, False), ("spa_affinity", True, True),
+    ("graph_msg", False, True), ("graph_update", False, True)])
+def test_kernel_matches_plain_version(cuda, name, l2n, masked):
+    args, kw = _inputs(cuda, name, l2n, masked)
+    wrapper = getattr(kernels, name)
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    want = kernels.PLAIN[wrapper](*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _close(got, want)
+
+
+@pytest.mark.gpu
+def test_wrapper_raises_on_wrong_dtype(cuda):
+    args, kw = _inputs(cuda, "graph_msg")
+    with pytest.raises(TypeError, match="bfloat16"):
+        kernels.graph_msg(args[0].float(), args[1])
+
+
+@pytest.mark.gpu
+def test_small_forward_kernel_route_matches_plain_route(cuda):
+    """A TINY bf16 forward on the card: every kernel launches 3 times and
+    sigm agrees with the plain route."""
+    from cmpc_refseg_torch.api import build_model
+    from cmpc_refseg_torch.models.model import apply_model
+    model = build_model("CMPC_model", dtype="bfloat16", H=32, W=32,
+                        num_steps=6, vocab_size=30, glove_dim=8, rnn_size=16,
+                        v_emb_dim=16, mlp_dim=12, batch_size=3,
+                        res4_blocks=2)
+    rng = np.random.default_rng(1)
+    words = np.zeros((3, 6), np.int64)
+    words[:, :4] = rng.integers(3, 30, (3, 4))
+    batch = {"im": (20 * rng.standard_normal((3, 32, 32, 3))
+                    ).astype(np.float32),
+             "words": words, "seq_len": np.array([4, 2, 6])}
+    kernels.reset_launch_counts()
+    out = model.forward(batch)
+    assert set(kernels.launch_counts().values()) == {3}
+    with torch.inference_mode():
+        ref = apply_model(model.params, model.cfg,
+                          {k: torch.as_tensor(v, device="cuda")
+                           for k, v in batch.items()}, use_kernels=False)
+    assert torch.isfinite(out.sigm).all()
+    assert (out.sigm - ref.sigm).abs().max().item() <= 2e-2
