@@ -1,11 +1,14 @@
-"""High-level API: build a model by reference name and run its forward.
+"""High-level API: build a model or a predict service by reference name.
 
->>> from cmpc_refseg_torch.api import build_model
+>>> from cmpc_refseg_torch.api import build_model, build_service
 >>> model = build_model("CMPC_model", batch_size=8, dtype="bfloat16")
 >>> out = model.forward(batch)          # on the CUDA device
+>>> service = build_service("CMPC_model", dtype="bfloat16")
+>>> prob, mask = service.predict(image_rgb, "the man on the left")
 
-The model runs on CUDA unless the caller passes ``device="cpu"``; with no
-CUDA device and no explicit device, `build_model` raises.
+Both run on CUDA unless the caller passes ``device="cpu"``; with no CUDA
+device and no explicit device, they raise.  The weights come from `seed`
+(no trained checkpoint ships with the repository).
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ import torch
 
 from cmpc_refseg_torch.config import ModelConfig, get_config
 from cmpc_refseg_torch.convert import resolve_device
+from cmpc_refseg_torch.data.text import synthetic_vocab
 from cmpc_refseg_torch.models.model import (ModelOutputs, apply_model,
                                             init_model, prepare_params)
+from cmpc_refseg_torch.serving.server import PredictService
 
 
 @dataclasses.dataclass
@@ -47,3 +52,18 @@ def build_model(name: str, *, seed: int = 0, device=None, dtype=None,
     cfg = get_config(name, **overrides)
     params = prepare_params(init_model(seed, cfg, device=dev), cfg)
     return Model(cfg=cfg, params=params, device=dev)
+
+
+def build_service(name: str, *, seed: int = 0, device=None, dtype=None,
+                  vocab=None, **overrides) -> PredictService:
+    """A batch-1 `PredictService` for variant `name` with parameters from
+    `seed`, on `device` (CUDA when None).  `vocab` is a word -> index map;
+    when None, a synthetic vocabulary of the config's size stands in for
+    the reference's vocabulary file."""
+    dev = resolve_device(device)
+    if dtype is not None:
+        overrides["compute_dtype"] = str(dtype).replace("torch.", "")
+    cfg = get_config(name, **{**overrides, "batch_size": 1})
+    return PredictService(cfg, init_model(seed, cfg, device=dev),
+                          vocab or synthetic_vocab(cfg.vocab_size),
+                          device=dev)

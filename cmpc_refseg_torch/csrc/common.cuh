@@ -4,11 +4,13 @@
 //
 // The tile product is deliberately simple: a [BM, K] x [K, BN] block
 // product staged through two shared-memory buffers in 32-deep slices with
-// 16-byte vector loads, four 16x16 fragments per warp.  Ragged edges are
-// masked at 8-element granularity, so K, the row strides and the column
-// bounds must be multiples of 8 (the wrappers check this).  Each kernel customises how
-// the A operand is loaded (a plain row block, or a row block computed on
-// the fly by the kernel's prologue).
+// vector loads of VEC bf16 elements, four 16x16 fragments per warp.
+// Ragged edges are masked at VEC-element granularity, so K, the row
+// strides and the column bounds must be multiples of VEC (the wrappers
+// check this).  VEC = 8 (16-byte loads) is the default; VEC = 4 (8-byte
+// loads) serves widths such as C = 500, whose rows are only 8-byte
+// aligned.  Each kernel customises how the A operand is loaded (a plain
+// row block, or a row block computed on the fly by the kernel's prologue).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,7 +29,38 @@ struct __align__(16) Vec8 {
   bf16 v[8];
 };
 
+struct __align__(8) Vec4 {
+  bf16 v[4];
+};
+
+__device__ __forceinline__ Vec4 as_vec4(uint2 u) {
+  Vec4 r;
+  *reinterpret_cast<uint2*>(&r) = u;
+  return r;
+}
+
+__device__ __forceinline__ uint2 as_uint2(const Vec4& v) {
+  return *reinterpret_cast<const uint2*>(&v);
+}
+
 __device__ __forceinline__ uint4 zero_vec() { return make_uint4(0u, 0u, 0u, 0u); }
+
+// The vector type of VEC bf16 elements, and a load of one.
+template <int VEC>
+struct VecT;
+template <>
+struct VecT<8> {
+  using type = uint4;
+};
+template <>
+struct VecT<4> {
+  using type = uint2;
+};
+
+template <int VEC>
+__device__ __forceinline__ typename VecT<VEC>::type load_vec(const bf16* p) {
+  return *reinterpret_cast<const typename VecT<VEC>::type*>(p);
+}
 
 __device__ __forceinline__ Vec8 as_vec8(uint4 u) {
   Vec8 r;
@@ -84,73 +117,74 @@ struct GemmTile {
   static constexpr int kABBytes = 2 * kStageElems * 2;         // two stages
   static constexpr int kCBytes = BM * kCLd * 4;
   static constexpr int kSmemBytes = kABBytes > kCBytes ? kABBytes : kCBytes;
-  static constexpr int kAVecs = BM * kBK / 8 / kThreads;  // 16-byte loads per thread
-  static constexpr int kBVecs = kBK * BN / 8 / kThreads;
-  static_assert(kAVecs * kThreads * 8 == BM * kBK, "A slice must split evenly");
-  static_assert(kBVecs * kThreads * 8 == kBK * BN, "B slice must split evenly");
 };
 
 // A operand: `nrows` rows of a row-major bf16 matrix starting at `a`;
 // zero past the last row and past K.
-struct RowsA {
+template <int VEC>
+struct RowsAT {
   const bf16* a;
   int lda;
   int K;
   int nrows;
-  __device__ __forceinline__ uint4 operator()(int r, int k) const {
-    if (r < nrows && k < K)
-      return *reinterpret_cast<const uint4*>(a + static_cast<size_t>(r) * lda + k);
-    return zero_vec();
+  __device__ __forceinline__ typename VecT<VEC>::type operator()(int r, int k) const {
+    if (r < nrows && k < K) return load_vec<VEC>(a + static_cast<size_t>(r) * lda + k);
+    return typename VecT<VEC>::type{};
   }
 };
+using RowsA = RowsAT<8>;
 
 // C[BM, BN] = A[BM, K] x B[K, col0:col0+BN] with f32 accumulation, left in
 // shared memory as floats with leading dim GemmTile::kCLd.  Columns at or
-// past `col_end` read as zero.  Two shared-memory stages: the global loads
+// past `col_end` read as zero.  `load_a(r, k)` returns VEC elements of A.  Two shared-memory stages: the global loads
 // of slice k+1 are issued into registers before the tensor cores work on
 // slice k, and stored to the other stage after, so one barrier per slice
 // separates them.  The result aliases the stages, so it is valid until the
 // next call (which begins with a barrier).
-template <int BM, int BN, class ALoad>
+template <int BM, int BN, int VEC = 8, class ALoad>
 __device__ __forceinline__ void tile_gemm(const ALoad& load_a,
                                           const bf16* __restrict__ b, int ldb,
                                           int K, int col0, int col_end,
                                           unsigned char* smem) {
   using T = GemmTile<BM, BN>;
+  using V = typename VecT<VEC>::type;
   using namespace nvcuda;
+  constexpr int kAVecs = BM * kBK / VEC / T::kThreads;  // vector loads per thread
+  constexpr int kBVecs = kBK * BN / VEC / T::kThreads;
+  static_assert(kAVecs * T::kThreads * VEC == BM * kBK, "A slice must split evenly");
+  static_assert(kBVecs * T::kThreads * VEC == kBK * BN, "B slice must split evenly");
   bf16* stage0 = reinterpret_cast<bf16*>(smem);
   float* cs = reinterpret_cast<float*>(smem);
   const int warp = threadIdx.x / 32;
   const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
 
-  uint4 ra[T::kAVecs], rb[T::kBVecs];
+  V ra[kAVecs], rb[kBVecs];
   auto fetch = [&](int k0) {
 #pragma unroll
-    for (int i = 0; i < T::kAVecs; ++i) {
+    for (int i = 0; i < kAVecs; ++i) {
       const int v = threadIdx.x + i * T::kThreads;
-      ra[i] = load_a(v / (kBK / 8), k0 + (v % (kBK / 8)) * 8);
+      ra[i] = load_a(v / (kBK / VEC), k0 + (v % (kBK / VEC)) * VEC);
     }
 #pragma unroll
-    for (int i = 0; i < T::kBVecs; ++i) {
+    for (int i = 0; i < kBVecs; ++i) {
       const int v = threadIdx.x + i * T::kThreads;
-      const int k = k0 + v / (BN / 8), col = col0 + (v % (BN / 8)) * 8;
-      rb[i] = (k < K && col < col_end)
-                  ? *reinterpret_cast<const uint4*>(b + static_cast<size_t>(k) * ldb + col)
-                  : zero_vec();
+      const int k = k0 + v / (BN / VEC), col = col0 + (v % (BN / VEC)) * VEC;
+      rb[i] = (k < K && col < col_end) ? load_vec<VEC>(b + static_cast<size_t>(k) * ldb + col)
+                                       : V{};
     }
   };
   auto stash = [&](int s) {
     bf16* as = stage0 + s * T::kStageElems;
     bf16* bs = as + BM * kALd;
 #pragma unroll
-    for (int i = 0; i < T::kAVecs; ++i) {
+    for (int i = 0; i < kAVecs; ++i) {
       const int v = threadIdx.x + i * T::kThreads;
-      *reinterpret_cast<uint4*>(as + (v / (kBK / 8)) * kALd + (v % (kBK / 8)) * 8) = ra[i];
+      *reinterpret_cast<V*>(as + (v / (kBK / VEC)) * kALd + (v % (kBK / VEC)) * VEC) = ra[i];
     }
 #pragma unroll
-    for (int i = 0; i < T::kBVecs; ++i) {
+    for (int i = 0; i < kBVecs; ++i) {
       const int v = threadIdx.x + i * T::kThreads;
-      *reinterpret_cast<uint4*>(bs + (v / (BN / 8)) * T::kBLd + (v % (BN / 8)) * 8) = rb[i];
+      *reinterpret_cast<V*>(bs + (v / (BN / VEC)) * T::kBLd + (v % (BN / VEC)) * VEC) = rb[i];
     }
   };
 

@@ -14,7 +14,9 @@
 // squares) partial goes to its own slot, so the statistics need no atomics
 // and are summed in a fixed order by graph_update.
 //
-// graph_update replaces ::_graph_update_call (ungrouped form).  Bound on the
+// graph_update replaces ::_graph_update_call, in both forms: one weight set,
+// or G groups (w [G, C, C], bias, g1, b1 [G, C]; sample s uses group
+// s / (B / G), the level-packed layout).  Bound on the
 // card: operations (the [B*N, C] x [C, C] product, 25.6 GFLOP at the
 // flagship shapes).  Design: the tensor-core tile product of common.cuh
 // with an A loader that forms relu(x + LN1(msg)) from x, msg and the
@@ -116,7 +118,8 @@ graph_update_kernel(const bf16* __restrict__ x, const bf16* __restrict__ msg,
                     const float* __restrict__ stats1, int parts1,
                     const bf16* __restrict__ w, const bf16* __restrict__ bias,
                     const float* __restrict__ g1, const float* __restrict__ b1,
-                    bf16* __restrict__ z, float* __restrict__ stats2, int N, int C) {
+                    bf16* __restrict__ z, float* __restrict__ stats2, int N, int C,
+                    int per_group) {
   __shared__ __align__(128) unsigned char smem[UpdTile::kSmemBytes];
   __shared__ float red[UpdTile::kThreads / 32];
   __shared__ float ln1[2];
@@ -125,6 +128,11 @@ graph_update_kernel(const bf16* __restrict__ x, const bf16* __restrict__ msg,
   const int row0 = rb * kUpdBM, c0 = ct * kUpdBN;
   const int nrows = min(kUpdBM, N - row0);
   const size_t grow0 = static_cast<size_t>(s) * N + row0;
+  const size_t goff = static_cast<size_t>(s / per_group) * C;
+  w += goff * C;
+  bias += goff;
+  g1 += goff;
+  b1 += goff;
 
   if (threadIdx.x == 0) {
     float a = 0.f, b = 0.f;
@@ -191,14 +199,16 @@ extern "C" int cmpc_graph_msg(const void* w_aff, const void* pooled, void* msg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, msg [B*N, C] bf16; stats1 [B, parts1, 2] f32 (graph_msg's); w [C, C],
-// bias [C] bf16; g1, b1 [C] f32 (LN1 affine) -> z [B*N, C] bf16 and
-// stats2 [B, update_parts, 2] f32.
+// x, msg [B*N, C] bf16; stats1 [B, parts1, 2] f32 (graph_msg's); w
+// [G, C, C], bias [G, C] bf16; g1, b1 [G, C] f32 (LN1 affine) -> z [B*N, C]
+// bf16 and stats2 [B, update_parts, 2] f32.  G divides B; sample s uses
+// group s / (B / G).
 extern "C" int cmpc_graph_update(const void* x, const void* msg, const void* stats1,
                                  int parts1, const void* w, const void* bias,
                                  const void* g1, const void* b1, void* z, void* stats2,
-                                 int B, int N, int C, void* stream) {
+                                 int B, int N, int C, int groups, void* stream) {
   using namespace cmpc;
+  if (groups < 1 || B % groups) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((C + kUpdBN - 1) / kUpdBN, (N + kUpdBM - 1) / kUpdBM, B);
   graph_update_kernel<<<grid, UpdTile::kThreads, 2 * C * sizeof(float),
                         static_cast<cudaStream_t>(stream)>>>(
@@ -206,6 +216,6 @@ extern "C" int cmpc_graph_update(const void* x, const void* msg, const void* sta
       static_cast<const float*>(stats1), parts1, static_cast<const bf16*>(w),
       static_cast<const bf16*>(bias), static_cast<const float*>(g1),
       static_cast<const float*>(b1), static_cast<bf16*>(z), static_cast<float*>(stats2),
-      N, C);
+      N, C, B / groups);
   return static_cast<int>(cudaGetLastError());
 }

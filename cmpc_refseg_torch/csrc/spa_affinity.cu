@@ -1,7 +1,9 @@
 // Spatial-graph word affinity with both softmax normalisations.
 //
-// Replaces cmpc_refseg_tpu/ops/pallas_kernels.py::spa_affinity_fused
-// (ungrouped form).  Per sample s and node row n:
+// Replaces cmpc_refseg_tpu/ops/pallas_kernels.py::spa_affinity_fused, in
+// both forms: one weight pair, or G groups (wg [G, C, A], bg [G, A]; sample
+// s uses group s / (B / G), the level-packed layout).  Per sample s and
+// node row n:
 //   g    = bf16(bf16(x[n] @ Wg) + bg)                     (projection, [A])
 //   g    = bf16(g * rsqrt(max(|g|^2, 1e-12)))             (if L2N)
 //   affi = rel[s] * ((g @ wt[s]^T) / scale)               ([T], f32)
@@ -52,7 +54,7 @@ spa_affinity_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
                     const float* __restrict__ rel, const float* __restrict__ mask,
                     float* __restrict__ w_out, float* __restrict__ affi_out,
                     float* __restrict__ stats, int N, int C, int A, int T,
-                    float scale) {
+                    int per_group, float scale) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float warp_max_s[kAffWarps][kMaxT];
@@ -67,6 +69,9 @@ spa_affinity_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   const int nrows = min(kAffBM, N - row0);
   const size_t grow0 = static_cast<size_t>(s) * N + row0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = s / per_group;
+  wg += static_cast<size_t>(grp) * C * A;
+  bg += static_cast<size_t>(grp) * A;
 
   // 1. projection g = bf16(bf16(x @ Wg) + bg), zero in the pad columns
   const RowsA load_x{x + grow0 * C, C, C, nrows};
@@ -162,8 +167,8 @@ spa_affinity_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
 template <bool L2N, bool MASKED>
 int launch_affinity(const void* x, const void* wg, const void* bg, const void* wt,
                     const void* rel, const void* mask, void* w_out, void* affi_out,
-                    void* stats, int B, int N, int C, int A, int T, float scale,
-                    cudaStream_t s) {
+                    void* stats, int B, int N, int C, int A, int T, int groups,
+                    float scale, cudaStream_t s) {
   const size_t bytes = AffLayout(A).bytes;
   auto kernel = spa_affinity_kernel<L2N, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -175,7 +180,7 @@ int launch_affinity(const void* x, const void* wg, const void* bg, const void* w
       static_cast<const bf16*>(bg), static_cast<const bf16*>(wt),
       static_cast<const float*>(rel), static_cast<const float*>(mask),
       static_cast<float*>(w_out), static_cast<float*>(affi_out),
-      static_cast<float*>(stats), N, C, A, T, scale);
+      static_cast<float*>(stats), N, C, A, T, B / groups, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,26 +190,27 @@ extern "C" int cmpc_spa_affinity_row_blocks(int N) {
   return (N + cmpc::kAffBM - 1) / cmpc::kAffBM;
 }
 
-// x [B*N, C], wg [C, A], bg [A], wt [B, T, A] bf16; rel, mask [B, T] f32 ->
-// w_out, affi_out [B*N, T] f32 and stats [B, row_blocks, 2, T] f32
-// (per-block column max, then sum of exp(affi - max)).
+// x [B*N, C], wg [G, C, A], bg [G, A], wt [B, T, A] bf16; rel, mask [B, T]
+// f32 -> w_out, affi_out [B*N, T] f32 and stats [B, row_blocks, 2, T] f32
+// (per-block column max, then sum of exp(affi - max)).  G divides B;
+// sample s uses weight group s / (B / G).
 extern "C" int cmpc_spa_affinity(const void* x, const void* wg, const void* bg,
                                  const void* wt, const void* rel, const void* mask,
                                  void* w_out, void* affi_out, void* stats, int B,
-                                 int N, int C, int A, int T, float scale, int l2n,
-                                 int masked, void* stream) {
+                                 int N, int C, int A, int T, int groups, float scale,
+                                 int l2n, int masked, void* stream) {
   using namespace cmpc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
+  if (T > kMaxT || groups < 1 || B % groups) return static_cast<int>(cudaErrorInvalidValue);
   if (l2n && masked)
     return launch_affinity<true, true>(x, wg, bg, wt, rel, mask, w_out, affi_out,
-                                       stats, B, N, C, A, T, scale, s);
+                                       stats, B, N, C, A, T, groups, scale, s);
   if (l2n)
     return launch_affinity<true, false>(x, wg, bg, wt, rel, mask, w_out, affi_out,
-                                        stats, B, N, C, A, T, scale, s);
+                                        stats, B, N, C, A, T, groups, scale, s);
   if (masked)
     return launch_affinity<false, true>(x, wg, bg, wt, rel, mask, w_out, affi_out,
-                                        stats, B, N, C, A, T, scale, s);
+                                        stats, B, N, C, A, T, groups, scale, s);
   return launch_affinity<false, false>(x, wg, bg, wt, rel, mask, w_out, affi_out,
-                                       stats, B, N, C, A, T, scale, s);
+                                       stats, B, N, C, A, T, groups, scale, s);
 }

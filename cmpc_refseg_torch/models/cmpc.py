@@ -2,16 +2,18 @@
 gated multi-level exchange and ConvLSTM fusion (CMPC_model.py:144-410).
 
 The port of the JAX package's models/cmpc.py for the flagship configuration.
-Mutan, the spatial-graph affinity and the graph convolution run through the
-hand-written kernels of ``ops/kernels.py`` (their plain versions when the
-tensors lie on the CPU, or everywhere with ``use_kernels=False``).  The
-exchange (SE-sum) and ConvLSTM run as plain PyTorch.  The spatial graph
-runs level by level at every batch; the level-packed form is not ported.
+Mutan, the spatial-graph affinity, the graph convolution, the exchange's
+SE sum and the ConvLSTM step run through the hand-written kernels of
+``ops/kernels.py`` (their plain versions when the tensors lie on the CPU,
+or everywhere with ``use_kernels=False``).  The spatial graph runs level
+by level, or level-packed (one set of launches for all levels, grouped
+weights) at small batch: `pack_levels` holds the rule.
 
-The JAX package's plain references `_mutan_reference` and
-`_spa_affinity_xla` are ``kernels.mutan_plain`` and
-``kernels.spa_affinity_plain`` here, beside their kernels; `_graph_conv`
-stays below as the graph kernels' plain route.
+The JAX package's plain references `_mutan_reference`,
+`_spa_affinity_xla` and `_se_sum_xla` are ``kernels.mutan_plain``,
+``kernels.spa_affinity_plain`` and ``kernels.se_sum_plain`` here, beside
+their kernels; `_graph_conv` stays below as the graph kernels' plain
+route.
 
 The [HW, HW] adjacency is never materialized: ``adj @ X = W @ (V^T @ X)``.
 Init functions return numpy trees in the JAX package's layout (HWIO
@@ -149,53 +151,137 @@ def _graph_conv(gp, x_nodes, w_aff, v_aff):
     return torch.relu(y)
 
 
-def graph_conv(gp, x_nodes, w_aff, v_aff):
-    """The same graph convolution through the graph_msg and graph_update
+def _graph_conv_grouped(gps, x_nodes, w_aff, v_aff):
+    """Plain graph convolution of the level-packed batch: samples
+    [g*B/G, (g+1)*B/G) use gps[g]."""
+    b = x_nodes.shape[0] // len(gps)
+    return torch.cat([
+        _graph_conv(gp, x_nodes[g * b:(g + 1) * b], w_aff[g * b:(g + 1) * b],
+                    v_aff[g * b:(g + 1) * b])
+        for g, gp in enumerate(gps)])
+
+
+def _stack(leaves, dtype):
+    return torch.stack(list(leaves)).to(dtype).contiguous()
+
+
+def stack_gconv(gps, dtype):
+    """One graph-conv round of G levels as `graph_conv` takes it, stacked
+    along a leading group axis: the update's `w` [G, C, C] and `b` [G, C]
+    in `dtype`, its two layer norms' `g1`, `b1`, `g2`, `b2` [G, C] in f32."""
+    def ln(name, key):
+        return _stack((gp[name][key] for gp in gps), torch.float32)
+    return {"w": _stack((gp["update"]["DW"][0, 0] for gp in gps), dtype),
+            "b": _stack((gp["update"]["biases"] for gp in gps), dtype),
+            "g1": ln("feat_ln", "gamma"), "b1": ln("feat_ln", "beta"),
+            "g2": ln("update_ln", "gamma"), "b2": ln("update_ln", "beta")}
+
+
+def stack_graph_params(params_list, dtype):
+    """The spatial-graph weights of G levels as the kernels take them: the
+    projection `wg` [G, C, A] and `bg` [G, A] in `dtype`, and each round's
+    `stack_gconv`.  model.prepare_params builds it once; `level_of` takes
+    one level's slice."""
+    projs = [p["spa_graph_trans2"] for p in params_list]
+    return {"wg": _stack((q["DW"][0, 0] for q in projs), dtype),
+            "bg": _stack((q["biases"] for q in projs), dtype),
+            "gconv": [stack_gconv([p["gconv"][r] for p in params_list], dtype)
+                      for r in range(len(params_list[0]["gconv"]))]}
+
+
+def level_of(stack, g: int):
+    """Level g of a `stack_graph_params` stack, as a stack of one (views)."""
+    return {"wg": stack["wg"][g:g + 1], "bg": stack["bg"][g:g + 1],
+            "gconv": [{k: v[g:g + 1] for k, v in r.items()}
+                      for r in stack["gconv"]]}
+
+
+def graph_conv(gs, x_nodes, w_aff, v_aff):
+    """The graph convolution through the graph_msg and graph_update
     kernels: pooled = v_aff^T @ x and the final relu(LN2(z)) are plain
-    PyTorch, as the JAX package leaves them to XLA."""
+    PyTorch, as the JAX package leaves them to XLA.
+
+    `gs` is one round's `stack_gconv` of G groups; samples
+    [g*B/G, (g+1)*B/G) use group g.  G = 1 launches the update kernel's
+    ungrouped form, G > 1 its grouped form."""
     dt = x_nodes.dtype
     pooled = torch.matmul(v_aff.to(dt).transpose(1, 2), x_nodes)  # [B,T,C]
     msg, stats1 = kernels.graph_msg(w_aff.to(dt).contiguous(), pooled)
-    z, stats2 = kernels.graph_update(
-        x_nodes, msg, stats1, gp["update"]["DW"][0, 0].to(dt).contiguous(),
-        gp["update"]["biases"].to(dt), gp["feat_ln"]["gamma"].float(),
-        gp["feat_ln"]["beta"].float())
-    out = kernels.ln_from_stats(z, stats2, gp["update_ln"]["gamma"],
-                                gp["update_ln"]["beta"])
-    return torch.relu(out).to(dt)
+    weights = (gs["w"], gs["b"], gs["g1"], gs["b1"])
+    if gs["w"].shape[0] == 1:
+        z, stats2 = kernels.graph_update(x_nodes, msg, stats1,
+                                         *(v[0] for v in weights))
+    else:
+        z, stats2 = kernels.graph_update_grouped(x_nodes, msg, stats1,
+                                                 *weights)
+    return torch.relu(kernels.ln_from_stats(z, stats2, gs["g2"],
+                                            gs["b2"])).to(dt)
 
 
-def apply_spa_graph(params, cfg, spa_graph, words_feat, words_parse, seq_mask,
-                    *, use_kernels: bool = True):
-    """Spatial graph reasoning (CMPC_model.py:376-410) for the graph norms
-    'masked', 'unmasked' and 'softmax_mask'.
+def apply_spa_graph_grouped(params_list, cfg, spa_graphs, words_feat,
+                            words_parse, seq_mask, *, stack=None,
+                            use_kernels: bool = True):
+    """Spatial graph reasoning (CMPC_model.py:376-410) of G levels in one
+    set of launches, for the graph norms 'masked', 'unmasked' and
+    'softmax_mask': the levels' nodes are concatenated along the batch axis
+    (level packing, cmpc.py:368-425 of the JAX package) and the affinity
+    and graph update take the levels' weights as groups.  G = 1 is one
+    level alone, through the kernels' ungrouped forms.
 
-    spa_graph [B,H,W,C]; words_feat [B,1,T,Cl]; seq_mask [B,1,T,1].
-    Returns (out [B,H,W,C], (w_aff, v_aff))."""
+    spa_graphs: G of [B,H,W,C]; words_feat [B,1,T,Cl]; seq_mask [B,1,T,1];
+    `stack`: `stack_graph_params(params_list, ...)`, built here when None.
+    Returns (list of [B,H,W,C] outputs, list of (w_aff, v_aff))."""
     if cfg.graph_norm not in ("masked", "unmasked", "softmax_mask"):
         raise NotImplementedError(f"graph_norm {cfg.graph_norm!r} is not "
                                   "ported yet")
-    b, h, w, c = spa_graph.shape
-    dt = spa_graph.dtype
-    words_trans = conv2d(params["words_trans"], words_feat)[:, 0]   # [B,T,A]
-    if cfg.l2norm_affinity:
-        words_trans = l2_normalize(words_trans, -1)
-    nodes = spa_graph.reshape(b, h * w, c)
-    proj = params["spa_graph_trans2"]
-    fn = kernels.spa_affinity if use_kernels else kernels.spa_affinity_plain
-    w_aff, v_aff = fn(
-        nodes, proj["DW"][0, 0].to(dt).contiguous(), proj["biases"].to(dt),
-        words_trans.to(dt).contiguous(),
-        words_parse[:, :, :, 2].float().contiguous(),
-        seq_mask[:, :, :, 0].float().contiguous(),
-        scale=math.sqrt(cfg.v_emb_dim), l2n=bool(cfg.l2norm_affinity),
-        masked=cfg.graph_norm in ("masked", "unmasked"))
+    g_n = len(params_list)
+    b, h, w, c = spa_graphs[0].shape
+    dt = spa_graphs[0].dtype
+    if stack is None:
+        stack = stack_graph_params(params_list, dt)
+    wts = []
+    for p in params_list:
+        wt = conv2d(p["words_trans"], words_feat)[:, 0]           # [B,T,A]
+        if cfg.l2norm_affinity:
+            wt = l2_normalize(wt, -1)
+        wts.append(wt)
+    x = spa_graphs[0].reshape(b, h * w, c) if g_n == 1 else \
+        torch.cat([sg.reshape(b, h * w, c) for sg in spa_graphs])
+    args = (torch.cat(wts).to(dt).contiguous(),
+            words_parse[:, :, :, 2].float().repeat(g_n, 1, 1),
+            seq_mask[:, :, :, 0].float().repeat(g_n, 1, 1))
+    kw = dict(scale=math.sqrt(cfg.v_emb_dim), l2n=bool(cfg.l2norm_affinity),
+              masked=cfg.graph_norm in ("masked", "unmasked"))
+    if not use_kernels:
+        w_aff, v_aff = kernels.spa_affinity_grouped_plain(
+            x, stack["wg"], stack["bg"], *args, **kw)
+    elif g_n == 1:
+        w_aff, v_aff = kernels.spa_affinity(x, stack["wg"][0],
+                                            stack["bg"][0], *args, **kw)
+    else:
+        w_aff, v_aff = kernels.spa_affinity_grouped(x, stack["wg"],
+                                                    stack["bg"], *args, **kw)
 
-    x = nodes
-    for gp in params["gconv"]:
-        x = graph_conv(gp, x, w_aff, v_aff) if use_kernels \
-            else _graph_conv(gp, x, w_aff, v_aff)
-    return l2_normalize(x.reshape(b, h, w, c), -1), (w_aff, v_aff)
+    for r, gs in enumerate(stack["gconv"]):
+        x = graph_conv(gs, x, w_aff, v_aff) if use_kernels else \
+            _graph_conv_grouped([p["gconv"][r] for p in params_list], x,
+                                w_aff, v_aff)
+    outs, gws = [], []
+    for g in range(g_n):
+        s = slice(g * b, (g + 1) * b)
+        outs.append(l2_normalize(x[s].reshape(b, h, w, c), -1))
+        gws.append((w_aff[s], v_aff[s]))
+    return outs, gws
+
+
+def apply_spa_graph(params, cfg, spa_graph, words_feat, words_parse, seq_mask,
+                    *, stack=None, use_kernels: bool = True):
+    """One level's spatial graph: `apply_spa_graph_grouped` with G = 1.
+    Returns (out [B,H,W,C], (w_aff, v_aff))."""
+    outs, gws = apply_spa_graph_grouped([params], cfg, [spa_graph],
+                                        words_feat, words_parse, seq_mask,
+                                        stack=stack, use_kernels=use_kernels)
+    return outs[0], gws[0]
 
 
 # ---------------------------------------------------------------------------
@@ -214,21 +300,56 @@ def init_lang2vis(key, cfg):
     }
 
 
+# The packed graph takes one launch of each kernel and its glue instead of
+# one per level (the graph is bound by the host at small batch); it pays
+# with the concatenated nodes and all levels' intermediates held at once.
+# The 3-level graph at flagship widths on an NVIDIA H100 80GB HBM3,
+# 700.00 W (chip_smoke.py, serving phase): host-clock ms per call and peak
+# device memory per call, per-level vs packed:
+#   b=1    3.798 vs  1.514 ms   0.027 vs 0.068 GB
+#   b=8    4.527 vs  4.020 ms   0.213 vs 0.549 GB
+#   b=32  14.956 vs 14.402 ms   0.850 vs 2.191 GB
+#   b=64  28.288 vs 27.901 ms   1.699 vs 4.383 GB
+#   b=128 55.026 vs 55.092 ms   3.398 vs 8.763 GB
+# Packing won by >= 2.8% at every batch up to 32 in five runs (PERF.md).
+# Above 32 it gains at most 1.4% (64) or loses (128), while its peak is
+# 2.6x the per-level one (2.7 GB more at 64, 5.4 GB at 128): there memory
+# decides, and the graph runs level by level.
+LEVEL_PACK_MAX_BATCH = 32
+
+
+def pack_levels(batch: int, num_levels: int) -> bool:
+    """Whether the spatial graph runs level-packed at this batch."""
+    return num_levels > 1 and batch <= LEVEL_PACK_MAX_BATCH
+
+
 def apply_lang2vis_multi(params_list, cfg, visuals, words_feat, words_parse,
-                         seq_mask, spatial, *, use_kernels: bool = True):
+                         seq_mask, spatial, *, graph_stack=None,
+                         use_kernels: bool = True):
     """Per-level cross-modal comprehension (CMPC_model.py:330-345) for all
-    levels, level by level.  Returns (list of fusions, list of gw)."""
+    levels, the spatial graph level-packed when `pack_levels` says so.
+    `graph_stack`: the levels' `stack_graph_params`, built here when None.
+    Returns (list of fusions, list of gw)."""
     valid = valid_lang_feat(words_parse, words_feat, (0, 1))  # E+A
-    fusions, gws = [], []
-    for p, v in zip(params_list, visuals):
-        vis_la_sp = apply_mutan(p["mutan"], valid, spatial, v,
+    vis_list = [apply_mutan(p["mutan"], valid, spatial, v,
+                            use_kernels=use_kernels)
+                for p, v in zip(params_list, visuals)]
+    graphs = [p["graph"] for p in params_list]
+    if graph_stack is None:
+        graph_stack = stack_graph_params(graphs, vis_list[0].dtype)
+    lang = (words_feat, words_parse, seq_mask)
+    if pack_levels(vis_list[0].shape[0], len(vis_list)):
+        feats, gws = apply_spa_graph_grouped(graphs, cfg, vis_list, *lang,
+                                             stack=graph_stack,
+                                             use_kernels=use_kernels)
+    else:
+        outs = [apply_spa_graph(g, cfg, v, *lang,
+                                stack=level_of(graph_stack, i),
                                 use_kernels=use_kernels)
-        graph_feat, gw = apply_spa_graph(p["graph"], cfg, vis_la_sp,
-                                         words_feat, words_parse, seq_mask,
-                                         use_kernels=use_kernels)
-        fusions.append(_lang2vis_fuse(p, vis_la_sp, graph_feat, valid,
-                                      spatial))
-        gws.append(gw)
+                for i, (g, v) in enumerate(zip(graphs, vis_list))]
+        feats, gws = [o[0] for o in outs], [o[1] for o in outs]
+    fusions = [_lang2vis_fuse(p, v, f, valid, spatial)
+               for p, v, f in zip(params_list, vis_list, feats)]
     return fusions, gws
 
 
@@ -303,27 +424,30 @@ def init_exchange(key, cfg, num_others: int):
             "gv": _init_gv(ks[-1], cfg)}
 
 
-def _se_sum_xla(feat, others, gates, ws, bs):
-    """feat [B,N,C] + sum_i relu(others_i @ ws_i + bs_i) * gates_i, then a
-    row l2norm (the exchange epilogue at CMPC_model.py:245-259)."""
-    dt = feat.dtype
-    out = feat
-    for o, g, w, b in zip(others, gates, ws, bs):
-        t = torch.relu(torch.matmul(o.to(dt), w.to(dt)) + b.to(dt))
-        out = out + t * g.to(dt)[:, None, :]
-    return l2_normalize(out, -1)
+def se_tables(pex, dtype):
+    """The SE sum's weights [C, C] and biases [C] of each other level, in
+    `dtype` as the kernel takes them (built once by model.prepare_params)."""
+    return {"w": [se["trans_feat"]["DW"][0, 0].to(dtype).contiguous()
+                  for se in pex["se"]],
+            "b": [se["trans_feat"]["biases"].to(dtype) for se in pex["se"]]}
 
 
-def exchange_step_normed(pex, cfg, feat, others, lang_feat):
-    """One gated-exchange module + the l2norm epilogue (standard layout)."""
+def exchange_step_normed(pex, cfg, feat, others, lang_feat, *,
+                         use_kernels: bool = True):
+    """One gated-exchange module + the l2norm epilogue (standard layout):
+    the gv and gates are [B,1,1,C]-small plain PyTorch; the SE sum and
+    the row l2norm are one se_sum kernel launch.  The SE weights are
+    `pex['se_tables']` when model.prepare_params built them."""
     b, h, w, c = feat.shape
+    dt = feat.dtype
     gv = _apply_gv(pex["gv"], cfg, feat, lang_feat)
-    gates = [torch.sigmoid(conv2d(se["lang_feat"], gv)).reshape(b, -1)
+    gates = [torch.sigmoid(conv2d(se["lang_feat"], gv)).reshape(b, -1).to(dt)
              for se in pex["se"]]
-    ws = [se["trans_feat"]["DW"][0, 0] for se in pex["se"]]
-    bs = [se["trans_feat"]["biases"] for se in pex["se"]]
-    out = _se_sum_xla(feat.reshape(b, h * w, c),
-                      [o.reshape(b, h * w, c) for o in others], gates, ws, bs)
+    tables = pex.get("se_tables") or se_tables(pex, dt)
+    fn = kernels.se_sum if use_kernels else kernels.se_sum_plain
+    out = fn(feat.reshape(b, h * w, c),
+             [o.reshape(b, h * w, c) for o in others], gates, tables["w"],
+             tables["b"])
     return out.reshape(b, h, w, c)
 
 
@@ -350,28 +474,48 @@ def init_convlstm(key, cfg):
     }
 
 
-def convlstm_step(p, x, c, h):
-    """One ConvLSTM step (util/cell.py:36-79).  1x1 kernel => channel matmul
-    over [x, h].  Gate split order (j, i, f, o); peepholes on i/f use the
-    old cell and on o the new cell; j/i/f/o/c are whole-sample layer
-    normalized; forget bias 1.0; no conv bias."""
-    dt = x.dtype
-    y = torch.matmul(torch.cat([x, h], dim=-1), p["kernel"][0, 0].to(dt))
-    j, i, f, o = torch.split(y, y.shape[-1] // 4, dim=-1)
-    i = i + p["W_ci"].to(dt) * c
-    f = f + p["W_cf"].to(dt) * c
-    ln = p["ln"]
-    j = tf1_layer_norm(j, ln[0]["gamma"], ln[0]["beta"])
-    i = tf1_layer_norm(i, ln[1]["gamma"], ln[1]["beta"])
-    f = tf1_layer_norm(f, ln[2]["gamma"], ln[2]["beta"])
-    f = torch.sigmoid(f + 1.0)
-    i = torch.sigmoid(i)
-    new_c = c * f + i * torch.tanh(j)
-    o = o + p["W_co"].to(dt) * new_c
-    o = tf1_layer_norm(o, ln[3]["gamma"], ln[3]["beta"])
-    new_c = tf1_layer_norm(new_c, ln[4]["gamma"], ln[4]["beta"])
-    o = torch.sigmoid(o)
-    return new_c, o * torch.tanh(new_c)
+def convlstm_tables(p, dtype):
+    """The ConvLSTM weights as its kernels take them (built once by
+    model.prepare_params): the 1x1 kernel `w` [2C, 4C] and the peepholes
+    `ci`, `cf`, `co` [N, C] in `dtype`, and the 5 layer norms' `gamma` and
+    `beta` [5, C] in f32, in the order j, i, f, o, c."""
+    c = p["W_ci"].shape[-1]
+    peep = {k: p[f"W_{k}"].reshape(-1, c).to(dtype).contiguous()
+            for k in ("ci", "cf", "co")}
+    return {"w": p["kernel"][0, 0].to(dtype).contiguous(), **peep,
+            **{k: _stack((ln[k] for ln in p["ln"]), torch.float32)
+               for k in ("gamma", "beta")}}
+
+
+def convlstm_step_fused(p, x, c, h, *, use_kernels: bool = True):
+    """One ConvLSTM step (util/cell.py:36-79): 1x1 kernel, gate order
+    (j, i, f, o), peepholes on i/f from the old cell and on o from the new
+    one, whole-sample layer norms of j/i/f/o/c, forget bias 1.0, no conv
+    bias.  It runs as the convlstm_gates and convlstm_raw kernels and
+    a plain-PyTorch finalize (new_c = LN_c(new_c_raw), new_h =
+    sigmoid(LN_o(o_raw)) * tanh(new_c)), as the JAX package's
+    convlstm_step_fused finalizes in XLA.  The layer norms take their
+    statistics as (sum, sum of squares) from the kernels.  The weights are
+    `p['tables']` when model.prepare_params built them."""
+    b, hh, ww, cc = x.shape
+    n = hh * ww
+    t = p.get("tables") or convlstm_tables(p, x.dtype)
+    gamma, beta = t["gamma"], t["beta"]
+    if use_kernels:
+        gates_fn, raw_fn = kernels.convlstm_gates, kernels.convlstm_raw
+    else:
+        gates_fn = kernels.convlstm_gates_plain
+        raw_fn = kernels.convlstm_raw_plain
+    c2 = c.reshape(b, n, cc)
+    gates, stats = gates_fn(x.reshape(b, n, cc), h.reshape(b, n, cc), c2,
+                            t["w"], t["ci"], t["cf"])
+    new_c_raw, o_raw, stats2 = raw_fn(gates, c2, t["co"], stats, gamma, beta)
+    new_c = kernels.ln_from_stats(new_c_raw, stats2[:, :, 0], gamma[4],
+                                  beta[4]).to(x.dtype)
+    o = torch.sigmoid(kernels.ln_from_stats(o_raw, stats2[:, :, 1], gamma[3],
+                                            beta[3])).to(x.dtype)
+    new_h = o * torch.tanh(new_c)
+    return new_c.reshape(b, hh, ww, cc), new_h.reshape(b, hh, ww, cc)
 
 
 def init_fusion_stack(key, cfg):
@@ -390,7 +534,8 @@ def init_fusion_stack(key, cfg):
     return p
 
 
-def apply_fusion_stack(p, cfg, feats: dict, lang_feat):
+def apply_fusion_stack(p, cfg, feats: dict, lang_feat, *,
+                       use_kernels: bool = True):
     """feats: {level: [B,H,W,mlp]} -> fused [B,H,W,mlp].  The ConvLSTM scans
     the levels low to high (CMPC_model.py:288-289) and returns the last
     hidden state."""
@@ -400,10 +545,11 @@ def apply_fusion_stack(p, cfg, feats: dict, lang_feat):
         cur = {lv: exchange_step_normed(p["exchange"][f"{lv}{rnd}"], cfg,
                                         cur[lv],
                                         [cur[o] for o in levels if o != lv],
-                                        lang_feat)
+                                        lang_feat, use_kernels=use_kernels)
                for lv in levels}
     c = torch.zeros_like(cur[levels[0]])
     h = torch.zeros_like(c)
     for lv in levels:
-        c, h = convlstm_step(p["convlstm"], cur[lv], c, h)
+        c, h = convlstm_step_fused(p["convlstm"], cur[lv], c, h,
+                                   use_kernels=use_kernels)
     return h

@@ -78,12 +78,13 @@ def init_model(seed, cfg: ModelConfig, *, device=None) -> dict:
 
 
 def prepare_params(params: dict, cfg: ModelConfig) -> dict:
-    """Inference view of the parameters, built once: backbone kernels in the
-    compute dtype (channels_last) and each level's mutan weight [K, 5C] in
-    the compute dtype as the kernel takes it.  The f32 originals stay."""
-    if cfg.compute_dtype != "bfloat16":
-        return params
-    dt = torch.bfloat16
+    """Inference view of the parameters, built once: the weights the head's
+    kernels take, in the compute dtype (each level's mutan weight [K, 5C],
+    the spatial graph's weights stacked over the levels, the exchanges' SE
+    weights and the ConvLSTM's tables) and, in bf16, the backbone kernels
+    (channels_last).  The f32 originals stay."""
+    bf16 = cfg.compute_dtype == "bfloat16"
+    dt = torch.bfloat16 if bf16 else torch.float32
 
     def cast_units(node):
         if isinstance(node, dict) and "w" in node:
@@ -95,8 +96,19 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     for lv, level in params["levels"].items():
         w_wide = level["mutan"]["vis_trans"]["DW"][0, 0].to(dt).contiguous()
         levels[lv] = {**level, "mutan": {**level["mutan"], "w_wide": w_wide}}
-    return {**params, "backbone": cast_units(params["backbone"]),
-            "levels": levels}
+    fs = params["fusion_stack"]
+    fusion_stack = {
+        **fs,
+        "exchange": {k: {**pex, "se_tables": cmpc.se_tables(pex, dt)}
+                     for k, pex in fs["exchange"].items()},
+        "convlstm": {**fs["convlstm"],
+                     "tables": cmpc.convlstm_tables(fs["convlstm"], dt)}}
+    graph_stack = cmpc.stack_graph_params(
+        [params["levels"][lv]["graph"] for lv in cfg.levels], dt)
+    return {**params, "levels": levels, "fusion_stack": fusion_stack,
+            "graph_stack": graph_stack,
+            "backbone": cast_units(params["backbone"]) if bf16
+            else params["backbone"]}
 
 
 def apply_model(params, cfg: ModelConfig, batch: dict, *,
@@ -130,7 +142,8 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     fusion_list, gw_list = cmpc.apply_lang2vis_multi(
         [params["levels"][lv] for lv in cfg.levels], cfg,
         [laterals[lv] for lv in cfg.levels], text.words_feat, words_parse,
-        text.seq_mask, spatial, use_kernels=use_kernels)
+        text.seq_mask, spatial, graph_stack=params.get("graph_stack"),
+        use_kernels=use_kernels)
     fusions, gw, up_levels = {}, {}, {}
     for lv, fusion_lv, gw_lv in zip(cfg.levels, fusion_list, gw_list):
         fusions[lv] = fusion_lv
@@ -140,7 +153,8 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
 
     nec = cmpc.valid_lang_feat(words_parse, text.words_feat,
                                tuple(range(cfg.parse_classes - 1)))
-    fused = cmpc.apply_fusion_stack(params["fusion_stack"], cfg, fusions, nec)
+    fused = cmpc.apply_fusion_stack(params["fusion_stack"], cfg, fusions, nec,
+                                    use_kernels=use_kernels)
 
     pred = conv2d(params["scores"]["score"], fused.float())
     up = resize_bilinear(pred, cfg.H, cfg.W)

@@ -19,12 +19,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("mutan", "spa_affinity", "graph_conv")
+SOURCES = ("mutan", "spa_affinity", "graph_conv", "se_sum", "convlstm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of device pointers
 # C signatures: name -> (argtypes, restype)
 SIGNATURES = {
     "mutan": {
@@ -32,15 +34,23 @@ SIGNATURES = {
         "cmpc_mutan_col_tiles": ([_I], _I),
     },
     "spa_affinity": {
-        "cmpc_spa_affinity": ([_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _I, _P],
-                              _I),
+        "cmpc_spa_affinity": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
         "cmpc_spa_affinity_row_blocks": ([_I], _I),
     },
     "graph_conv": {
         "cmpc_graph_msg": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "cmpc_graph_msg_parts": ([_I], _I),
-        "cmpc_graph_update": ([_P] * 3 + [_I] + [_P] * 6 + [_I] * 3 + [_P], _I),
+        "cmpc_graph_update": ([_P] * 3 + [_I] + [_P] * 6 + [_I] * 4 + [_P], _I),
         "cmpc_graph_update_parts": ([_I, _I], _I),
+    },
+    "se_sum": {
+        "cmpc_se_sum": ([_P] + [_PP] * 4 + [_I, _P] + [_I] * 3 + [_P], _I),
+    },
+    "convlstm": {
+        "cmpc_convlstm_gates": ([_P] * 8 + [_I] * 3 + [_P], _I),
+        "cmpc_convlstm_gates_parts": ([_I, _I], _I),
+        "cmpc_convlstm_raw": ([_P] * 4 + [_I] + [_P] * 5 + [_I] * 3 + [_P], _I),
+        "cmpc_convlstm_raw_parts": ([_I], _I),
     },
 }
 

@@ -16,6 +16,8 @@ design does about that is noted at the top of its source file.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cmpc_refseg_torch.ops import build
@@ -45,11 +47,17 @@ def _expect(name: str, t, dtype, shape) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _multiple_of_8(**dims) -> None:
+def _multiple_of(vec: int, **dims) -> None:
     for name, v in dims.items():
-        if v % 8:
-            raise ValueError(f"{name}={v}: the CUDA kernels need a multiple "
-                             "of 8 (16-byte vector loads)")
+        if v % vec:
+            raise ValueError(f"{name}={v}: this CUDA kernel needs a multiple "
+                             f"of {vec} ({2 * vec}-byte vector loads)")
+
+
+def _check_groups(bsz: int, groups: int, what: str) -> None:
+    if groups < 1 or bsz % groups:
+        raise ValueError(f"{what}: batch {bsz} not divisible by {groups} "
+                         "weight groups")
 
 
 def _stream() -> int:
@@ -92,7 +100,7 @@ def mutan_fused(x, w, b, lang, *, heads: int, rows_per_sample: int):
     _expect("w", w, torch.bfloat16, (k, heads * c))
     _expect("b", b, torch.float32, (heads * c,))
     _expect("lang", lang, torch.float32, (bsz, heads * c))
-    _multiple_of_8(K=k, C=c)
+    _multiple_of(8, K=k, C=c)
     lib = build.library("mutan")
     tiles = lib.cmpc_mutan_col_tiles(c)
     y = torch.empty((m, c), dtype=torch.float32, device=x.device)
@@ -141,23 +149,33 @@ def spa_affinity_plain(x, wg, bg, wt, rel, mask, *, scale: float, l2n: bool,
     return w_aff, v_aff
 
 
-def spa_affinity(x, wg, bg, wt, rel, mask, *, scale: float, l2n: bool,
-                 masked: bool):
-    """Wrapper of the affinity kernel; same contract as `spa_affinity_plain`.
-    The column softmax over N is finalised here from the kernel's per-block
-    (max, sum exp) partials, as the JAX package finalises it in XLA."""
-    if _on_cpu(x, wg, bg, wt, rel, mask):
-        return spa_affinity_plain(x, wg, bg, wt, rel, mask, scale=scale,
-                                  l2n=l2n, masked=masked)
+def spa_affinity_grouped_plain(x, wgs, bgs, wt, rel, mask, *, scale: float,
+                               l2n: bool, masked: bool):
+    """The level-packed affinity: wgs [G, C, A], bgs [G, A]; samples
+    [g*B/G, (g+1)*B/G) use group g.  Otherwise `spa_affinity_plain`."""
+    groups = wgs.shape[0]
+    _check_groups(x.shape[0], groups, "spa_affinity_grouped")
+    per = x.shape[0] // groups
+    outs = [spa_affinity_plain(x[s], wgs[g], bgs[g], wt[s], rel[s], mask[s],
+                               scale=scale, l2n=l2n, masked=masked)
+            for g in range(groups)
+            for s in [slice(g * per, (g + 1) * per)]]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def _affinity_launch(x, wgs, bgs, wt, rel, mask, *, scale, l2n, masked):
+    """One launch of the affinity kernel with G = wgs.shape[0] groups."""
     bsz, n, c = x.shape
-    t, a = wt.shape[1], wt.shape[2]
+    groups, a = wgs.shape[0], wgs.shape[2]
+    t = wt.shape[1]
+    _check_groups(bsz, groups, "spa_affinity")
     _expect("x", x, torch.bfloat16, (bsz, n, c))
-    _expect("wg", wg, torch.bfloat16, (c, a))
-    _expect("bg", bg, torch.bfloat16, (a,))
+    _expect("wg", wgs, torch.bfloat16, (groups, c, a))
+    _expect("bg", bgs, torch.bfloat16, (groups, a))
     _expect("wt", wt, torch.bfloat16, (bsz, t, a))
     _expect("rel", rel, torch.float32, (bsz, 1, t))
     _expect("mask", mask, torch.float32, (bsz, 1, t))
-    _multiple_of_8(C=c, A=a)
+    _multiple_of(8, C=c, A=a)
     if t > 32:
         raise ValueError(f"T={t}: the affinity kernel takes at most 32 words")
     lib = build.library("spa_affinity")
@@ -166,13 +184,12 @@ def spa_affinity(x, wg, bg, wt, rel, mask, *, scale: float, l2n: bool,
     affi = torch.empty((bsz, n, t), dtype=torch.float32, device=x.device)
     stats = torch.empty((bsz, blocks, 2, t), dtype=torch.float32,
                         device=x.device)
-    rc = lib.cmpc_spa_affinity(x.data_ptr(), wg.data_ptr(), bg.data_ptr(),
+    rc = lib.cmpc_spa_affinity(x.data_ptr(), wgs.data_ptr(), bgs.data_ptr(),
                                wt.data_ptr(), rel.data_ptr(), mask.data_ptr(),
                                w_out.data_ptr(), affi.data_ptr(),
-                               stats.data_ptr(), bsz, n, c, a, t, float(scale),
-                               int(l2n), int(masked), _stream())
+                               stats.data_ptr(), bsz, n, c, a, t, groups,
+                               float(scale), int(l2n), int(masked), _stream())
     build.check(lib, rc, "spa_affinity")
-    spa_affinity.launches += 1
     col_max = stats[:, :, 0].amax(dim=1, keepdim=True)       # [B, 1, T]
     col_sum = torch.sum(stats[:, :, 1] * torch.exp(stats[:, :, 0] - col_max),
                         dim=1, keepdim=True)
@@ -180,7 +197,37 @@ def spa_affinity(x, wg, bg, wt, rel, mask, *, scale: float, l2n: bool,
     return w_out, v_aff
 
 
+def spa_affinity(x, wg, bg, wt, rel, mask, *, scale: float, l2n: bool,
+                 masked: bool):
+    """Wrapper of the affinity kernel; same contract as `spa_affinity_plain`.
+    The column softmax over N is finalised here from the kernel's per-block
+    (max, sum exp) partials, as the JAX package finalises it in XLA."""
+    if _on_cpu(x, wg, bg, wt, rel, mask):
+        return spa_affinity_plain(x, wg, bg, wt, rel, mask, scale=scale,
+                                  l2n=l2n, masked=masked)
+    out = _affinity_launch(x, wg[None], bg[None], wt, rel, mask, scale=scale,
+                           l2n=l2n, masked=masked)
+    spa_affinity.launches += 1
+    return out
+
+
 spa_affinity.launches = 0
+
+
+def spa_affinity_grouped(x, wgs, bgs, wt, rel, mask, *, scale: float,
+                         l2n: bool, masked: bool):
+    """Wrapper of the affinity kernel's grouped form (one launch for all G
+    levels); same contract as `spa_affinity_grouped_plain`."""
+    if _on_cpu(x, wgs, bgs, wt, rel, mask):
+        return spa_affinity_grouped_plain(x, wgs, bgs, wt, rel, mask,
+                                          scale=scale, l2n=l2n, masked=masked)
+    out = _affinity_launch(x, wgs, bgs, wt, rel, mask, scale=scale, l2n=l2n,
+                           masked=masked)
+    spa_affinity_grouped.launches += 1
+    return out
+
+
+spa_affinity_grouped.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -196,14 +243,19 @@ def _sum_stats(v):
 
 def ln_from_stats(v, stats, gamma, beta):
     """Whole-sample layer norm of v [B, N, C] from summed statistics
-    [B, P, 2] (var = E[v^2] - mean^2, clamped at 0); f32 result."""
-    cnt = float(v.shape[1] * v.shape[2])
+    [B, P, 2] (var = E[v^2] - mean^2, clamped at 0); f32 result.  gamma,
+    beta [C], or [G, C] per group: samples [g*B/G, (g+1)*B/G) use row g."""
+    bsz, n, c = v.shape
     s = stats.sum(dim=1)
-    mean = s[:, 0] / cnt
-    var = torch.clamp(s[:, 1] / cnt - mean * mean, min=0.0)
+    mean = s[:, 0] / float(n * c)
+    var = torch.clamp(s[:, 1] / float(n * c) - mean * mean, min=0.0)
     inv = torch.rsqrt(var + _LN_EPS)
-    return (v.float() - mean[:, None, None]) * inv[:, None, None] * gamma \
-        + beta
+    y = (v.float() - mean[:, None, None]) * inv[:, None, None]
+    if gamma.dim() == 1:
+        return torch.addcmul(beta, y, gamma)
+    groups = gamma.shape[0]
+    return torch.addcmul(beta[:, None], y.view(groups, -1, c),
+                         gamma[:, None]).view(bsz, n, c)
 
 
 def graph_msg_plain(w_aff, pooled):
@@ -223,7 +275,7 @@ def graph_msg(w_aff, pooled):
     c = pooled.shape[2]
     _expect("w_aff", w_aff, torch.bfloat16, (bsz, n, t))
     _expect("pooled", pooled, torch.bfloat16, (bsz, t, c))
-    _multiple_of_8(C=c)
+    _multiple_of(8, C=c)
     if t > 32:
         raise ValueError(f"T={t}: the message kernel takes at most 32 words")
     lib = build.library("graph_conv")
@@ -254,38 +306,242 @@ def graph_update_plain(x, msg, stats1, w, b, g1, b1):
     return z, _sum_stats(z)
 
 
-def graph_update(x, msg, stats1, w, b, g1, b1):
-    """Wrapper of the update kernel; same contract as `graph_update_plain`."""
-    if _on_cpu(x, msg, stats1, w, b, g1, b1):
-        return graph_update_plain(x, msg, stats1, w, b, g1, b1)
+def graph_update_grouped_plain(x, msg, stats1, ws, bs, g1s, b1s):
+    """The level-packed update: ws [G, C, C], bs, g1s, b1s [G, C]; samples
+    [g*B/G, (g+1)*B/G) use group g.  Otherwise `graph_update_plain`."""
+    groups = ws.shape[0]
+    _check_groups(x.shape[0], groups, "graph_update_grouped")
+    per = x.shape[0] // groups
+    outs = [graph_update_plain(x[s], msg[s], stats1[s], ws[g], bs[g], g1s[g],
+                               b1s[g])
+            for g in range(groups)
+            for s in [slice(g * per, (g + 1) * per)]]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def _update_launch(x, msg, stats1, ws, bs, g1s, b1s):
+    """One launch of the update kernel with G = ws.shape[0] groups."""
     bsz, n, c = x.shape
+    groups = ws.shape[0]
     parts1 = stats1.shape[1]
+    _check_groups(bsz, groups, "graph_update")
     _expect("x", x, torch.bfloat16, (bsz, n, c))
     _expect("msg", msg, torch.bfloat16, (bsz, n, c))
     _expect("stats1", stats1, torch.float32, (bsz, parts1, 2))
-    _expect("w", w, torch.bfloat16, (c, c))
-    _expect("b", b, torch.bfloat16, (c,))
-    _expect("g1", g1, torch.float32, (c,))
-    _expect("b1", b1, torch.float32, (c,))
-    _multiple_of_8(C=c)
+    _expect("w", ws, torch.bfloat16, (groups, c, c))
+    _expect("b", bs, torch.bfloat16, (groups, c))
+    _expect("g1", g1s, torch.float32, (groups, c))
+    _expect("b1", b1s, torch.float32, (groups, c))
+    _multiple_of(8, C=c)
     lib = build.library("graph_conv")
     parts = lib.cmpc_graph_update_parts(n, c)
     z = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=x.device)
     stats = torch.empty((bsz, parts, 2), dtype=torch.float32, device=x.device)
     rc = lib.cmpc_graph_update(x.data_ptr(), msg.data_ptr(), stats1.data_ptr(),
-                               parts1, w.data_ptr(), b.data_ptr(),
-                               g1.data_ptr(), b1.data_ptr(), z.data_ptr(),
-                               stats.data_ptr(), bsz, n, c, _stream())
+                               parts1, ws.data_ptr(), bs.data_ptr(),
+                               g1s.data_ptr(), b1s.data_ptr(), z.data_ptr(),
+                               stats.data_ptr(), bsz, n, c, groups, _stream())
     build.check(lib, rc, "graph_update")
-    graph_update.launches += 1
     return z, stats
+
+
+def graph_update(x, msg, stats1, w, b, g1, b1):
+    """Wrapper of the update kernel; same contract as `graph_update_plain`."""
+    if _on_cpu(x, msg, stats1, w, b, g1, b1):
+        return graph_update_plain(x, msg, stats1, w, b, g1, b1)
+    out = _update_launch(x, msg, stats1, w[None], b[None], g1[None], b1[None])
+    graph_update.launches += 1
+    return out
 
 
 graph_update.launches = 0
 
-KERNELS = (mutan_fused, spa_affinity, graph_msg, graph_update)
+
+def graph_update_grouped(x, msg, stats1, ws, bs, g1s, b1s):
+    """Wrapper of the update kernel's grouped form (one launch for all G
+    levels); same contract as `graph_update_grouped_plain`."""
+    if _on_cpu(x, msg, stats1, ws, bs, g1s, b1s):
+        return graph_update_grouped_plain(x, msg, stats1, ws, bs, g1s, b1s)
+    out = _update_launch(x, msg, stats1, ws, bs, g1s, b1s)
+    graph_update_grouped.launches += 1
+    return out
+
+
+graph_update_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# gated-exchange SE sum (csrc/se_sum.cu)
+# ---------------------------------------------------------------------------
+
+def se_sum_plain(feat, others, gates, ws, bs):
+    """l2norm_row(feat + sum_i relu(others_i @ ws_i + bs_i) * gates_i),
+    rounded to feat's dtype at each step as the TPU kernel rounds: the
+    product (f32 accumulation), the bias add, the gating and each add; the
+    row norm in f32.
+
+    feat, others_i [B, N, C]; gates_i [B, C]; ws_i [C, C]; bs_i [C] (all
+    feat's dtype) -> [B, N, C]."""
+    dt = feat.dtype
+    acc = feat
+    for o, g, w, b in zip(others, gates, ws, bs):
+        t = (o.float() @ w.float()).to(dt) + b
+        acc = acc + torch.relu(t) * g[:, None, :]
+    af = acc.float()
+    sq = torch.sum(af * af, dim=-1, keepdim=True)
+    return (af * torch.rsqrt(torch.clamp(sq, min=1e-12))).to(dt)
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def se_sum(feat, others, gates, ws, bs):
+    """Wrapper of the SE-sum kernel; same contract as `se_sum_plain`."""
+    if _on_cpu(feat, *others, *gates, *ws, *bs):
+        return se_sum_plain(feat, others, gates, ws, bs)
+    bsz, n, c = feat.shape
+    k = len(others)
+    if not 1 <= k <= 4 or not len(gates) == len(ws) == len(bs) == k:
+        raise ValueError(f"se_sum: {k} others, {len(gates)} gates, {len(ws)} "
+                         f"weights, {len(bs)} biases; the kernel takes 1-4 "
+                         "of each, as many of each")
+    _expect("feat", feat, torch.bfloat16, (bsz, n, c))
+    for i in range(k):
+        _expect(f"others[{i}]", others[i], torch.bfloat16, (bsz, n, c))
+        _expect(f"gates[{i}]", gates[i], torch.bfloat16, (bsz, c))
+        _expect(f"ws[{i}]", ws[i], torch.bfloat16, (c, c))
+        _expect(f"bs[{i}]", bs[i], torch.bfloat16, (c,))
+    _multiple_of(4, C=c)
+    lib = build.library("se_sum")
+    out = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=feat.device)
+    rc = lib.cmpc_se_sum(feat.data_ptr(), _pointers(others), _pointers(ws),
+                         _pointers(bs), _pointers(gates), k, out.data_ptr(),
+                         bsz * n, n, c, _stream())
+    build.check(lib, rc, "se_sum")
+    se_sum.launches += 1
+    return out
+
+
+se_sum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# ConvLSTM step (csrc/convlstm.cu)
+# ---------------------------------------------------------------------------
+
+def convlstm_gates_plain(x, h, c, w, ci, cf):
+    """The 4 gates (j, i, f, o) = bf16([x | h] @ w), the peepholes i +=
+    ci * c and f += cf * c (in x's dtype), and the whole-sample (sum, sum
+    of squares) of j, i and f.
+
+    x, h, c [B, N, C]; w [2C, 4C]; ci, cf [N, C] (x dtype) ->
+    (gates [4, B, N, C], stats [B, P, 3, 2] f32)."""
+    dt = x.dtype
+    y = (torch.cat([x, h], dim=-1).float() @ w.float()).to(dt)
+    j, i, f, o = torch.split(y, x.shape[-1], dim=-1)
+    i = i + ci * c
+    f = f + cf * c
+    stats = torch.stack([_sum_stats(v) for v in (j, i, f)], dim=2)
+    return torch.stack([j, i, f, o]), stats
+
+
+def convlstm_gates(x, h, c, w, ci, cf):
+    """Wrapper of the ConvLSTM gates kernel; same contract as
+    `convlstm_gates_plain`."""
+    if _on_cpu(x, h, c, w, ci, cf):
+        return convlstm_gates_plain(x, h, c, w, ci, cf)
+    bsz, n, cc = x.shape
+    for name, t in (("x", x), ("h", h), ("c", c)):
+        _expect(name, t, torch.bfloat16, (bsz, n, cc))
+    _expect("w", w, torch.bfloat16, (2 * cc, 4 * cc))
+    _expect("ci", ci, torch.bfloat16, (n, cc))
+    _expect("cf", cf, torch.bfloat16, (n, cc))
+    _multiple_of(4, C=cc)
+    lib = build.library("convlstm")
+    parts = lib.cmpc_convlstm_gates_parts(n, cc)
+    gates = torch.empty((4, bsz, n, cc), dtype=torch.bfloat16,
+                        device=x.device)
+    stats = torch.empty((bsz, parts, 3, 2), dtype=torch.float32,
+                        device=x.device)
+    rc = lib.cmpc_convlstm_gates(x.data_ptr(), h.data_ptr(), c.data_ptr(),
+                                 w.data_ptr(), ci.data_ptr(), cf.data_ptr(),
+                                 gates.data_ptr(), stats.data_ptr(), bsz, n,
+                                 cc, _stream())
+    build.check(lib, rc, "convlstm_gates")
+    convlstm_gates.launches += 1
+    return gates, stats
+
+
+convlstm_gates.launches = 0
+
+
+def convlstm_raw_plain(gates, c, co, stats, gamma, beta):
+    """j, i, f layer-normed from their (sum, sum of squares); then
+    new_c_raw = c * sigmoid(f + 1) + sigmoid(i) * tanh(j) (the cell's fixed
+    forget bias 1.0) and
+    o_raw = o + co * new_c_raw, each factor and result in c's dtype, and
+    the whole-sample (sum, sum of squares) of new_c_raw and o_raw.
+
+    gates [4, B, N, C]; c [B, N, C]; co [N, C] (c dtype); stats
+    [B, P, 3, 2]; gamma, beta [5, C] f32 (j, i, f, o, c) ->
+    (new_c_raw, o_raw [B, N, C], stats [B, P', 2, 2] f32)."""
+    dt = c.dtype
+
+    def ln(k):
+        return ln_from_stats(gates[k], stats[:, :, k], gamma[k], beta[k])
+
+    jn = torch.tanh(ln(0)).to(dt)
+    i_s = torch.sigmoid(ln(1)).to(dt)
+    f_s = torch.sigmoid(ln(2) + 1.0).to(dt)
+    new_c_raw = c * f_s + i_s * jn
+    o_raw = gates[3] + co * new_c_raw
+    stats2 = torch.stack([_sum_stats(new_c_raw), _sum_stats(o_raw)], dim=2)
+    return new_c_raw, o_raw, stats2
+
+
+def convlstm_raw(gates, c, co, stats, gamma, beta):
+    """Wrapper of the ConvLSTM raw kernel; same contract as
+    `convlstm_raw_plain`."""
+    if _on_cpu(gates, c, co, stats, gamma, beta):
+        return convlstm_raw_plain(gates, c, co, stats, gamma, beta)
+    bsz, n, cc = c.shape
+    parts1 = stats.shape[1]
+    _expect("gates", gates, torch.bfloat16, (4, bsz, n, cc))
+    _expect("c", c, torch.bfloat16, (bsz, n, cc))
+    _expect("co", co, torch.bfloat16, (n, cc))
+    _expect("stats", stats, torch.float32, (bsz, parts1, 3, 2))
+    _expect("gamma", gamma, torch.float32, (5, cc))
+    _expect("beta", beta, torch.float32, (5, cc))
+    _multiple_of(4, C=cc)
+    lib = build.library("convlstm")
+    parts = lib.cmpc_convlstm_raw_parts(n)
+    new_c_raw = torch.empty((bsz, n, cc), dtype=torch.bfloat16,
+                            device=c.device)
+    o_raw = torch.empty_like(new_c_raw)
+    stats2 = torch.empty((bsz, parts, 2, 2), dtype=torch.float32,
+                         device=c.device)
+    rc = lib.cmpc_convlstm_raw(gates.data_ptr(), c.data_ptr(), co.data_ptr(),
+                               stats.data_ptr(), parts1, gamma.data_ptr(),
+                               beta.data_ptr(), new_c_raw.data_ptr(),
+                               o_raw.data_ptr(), stats2.data_ptr(), bsz, n,
+                               cc, _stream())
+    build.check(lib, rc, "convlstm_raw")
+    convlstm_raw.launches += 1
+    return new_c_raw, o_raw, stats2
+
+
+convlstm_raw.launches = 0
+
+KERNELS = (mutan_fused, spa_affinity, spa_affinity_grouped, graph_msg,
+           graph_update, graph_update_grouped, se_sum, convlstm_gates,
+           convlstm_raw)
 PLAIN = {mutan_fused: mutan_plain, spa_affinity: spa_affinity_plain,
-         graph_msg: graph_msg_plain, graph_update: graph_update_plain}
+         spa_affinity_grouped: spa_affinity_grouped_plain,
+         graph_msg: graph_msg_plain, graph_update: graph_update_plain,
+         graph_update_grouped: graph_update_grouped_plain,
+         se_sum: se_sum_plain, convlstm_gates: convlstm_gates_plain,
+         convlstm_raw: convlstm_raw_plain}
 
 
 def launch_counts() -> dict:

@@ -48,44 +48,80 @@ def _moments(stats, count):
     return mean, s[:, 1] / count - mean * mean
 
 
-def _close(got, want):
+# which outputs of each wrapper are statistics partials [B, P, (Q,) 2]
+STATS_OUTPUTS = {"graph_msg": 1, "graph_update": 1, "graph_update_grouped": 1,
+                 "convlstm_gates": 1, "convlstm_raw": 2}
+
+
+def _close_stats(got, want, count):
+    """The two columns held apart, each at its own scale: the mean's error
+    over the std and the variance's relative error, within STATS_TOL per
+    sample, for each statistic Q of [B, P, Q, 2] partials."""
+    if got.dim() == 3:
+        got, want = got[:, :, None], want[:, :, None]
+    for q in range(got.shape[2]):
+        (gm, gv), (wm, wv) = (_moments(got[:, :, q], count),
+                              _moments(want[:, :, q], count))
+        assert ((gm - wm).abs() <= STATS_TOL * wv.sqrt()).all()
+        assert ((gv - wv).abs() <= STATS_TOL * wv).all()
+
+
+def _close(name, got, want, count):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    for a, w in zip(got, want):
-        if a.dim() == 3 and a.shape[-1] == 2:        # statistics partials
-            # the two columns held apart, each at its own scale: the mean's
-            # error over the std and the variance's relative error, within
-            # STATS_TOL per sample
-            count = want[0][0].numel()
-            (gm, gv), (wm, wv) = _moments(a, count), _moments(w, count)
-            assert ((gm - wm).abs() <= STATS_TOL * wv.sqrt()).all()
-            assert ((gv - wv).abs() <= STATS_TOL * wv).all()
+    for i, (a, w) in enumerate(zip(got, want)):
+        if STATS_OUTPUTS.get(name) == i:
+            _close_stats(a, w, count)
             continue
         err = (a.float() - w.float()).abs().max().item()
         assert err <= TOL * w.float().abs().max().item()
 
 
 def _inputs(g, name, l2n=False, masked=True):
+    """(args, kwargs, count of entries per sample behind its statistics)."""
     b, n, c, t = 2, 100, 72, 6
     f32 = torch.float32
     if name == "mutan_fused":
         return ((_rnd(g, b * n, 80), _rnd(g, 80, 5 * c, scale=0.1),
                  _rnd(g, 5 * c, dtype=f32), torch.tanh(_rnd(g, b, 5 * c,
                                                           dtype=f32))),
-                {"heads": 5, "rows_per_sample": n})
-    if name == "spa_affinity":
+                {"heads": 5, "rows_per_sample": n}, None)
+    if name in ("spa_affinity", "spa_affinity_grouped"):
+        grouped = name.endswith("grouped")
+        b = 3 if grouped else b           # 3 groups of 1 sample: batch 1
+        lead = (b,) if grouped else ()
         mask = torch.ones(b, 1, t, device="cuda")
         mask[:, :, 4:] = 0
-        return ((_rnd(g, b, n, c), _rnd(g, c, 40, scale=0.2), _rnd(g, 40),
-                 _rnd(g, b, t, 40),
+        return ((_rnd(g, b, n, c), _rnd(g, *lead, c, 40, scale=0.2),
+                 _rnd(g, *lead, 40), _rnd(g, b, t, 40),
                  torch.rand(b, 1, t, generator=g, device="cuda"), mask),
-                {"scale": 8.0, "l2n": l2n, "masked": masked})
+                {"scale": 8.0, "l2n": l2n, "masked": masked}, None)
     if name == "graph_msg":
-        return (_rnd(g, b, n, t), _rnd(g, b, t, c)), {}
-    msg, st = kernels.graph_msg_plain(_rnd(g, b, n, t), _rnd(g, b, t, c))
-    return ((_rnd(g, b, n, c), msg, st, _rnd(g, c, c, scale=0.1),
-             _rnd(g, c), 1 + _rnd(g, c, dtype=f32, scale=0.1),
-             _rnd(g, c, dtype=f32)), {})
+        return (_rnd(g, b, n, t), _rnd(g, b, t, c)), {}, n * c
+    if name in ("graph_update", "graph_update_grouped"):
+        grouped = name.endswith("grouped")
+        b = 3 if grouped else b
+        lead = (b,) if grouped else ()
+        msg, st = kernels.graph_msg_plain(_rnd(g, b, n, t), _rnd(g, b, t, c))
+        return ((_rnd(g, b, n, c), msg, st, _rnd(g, *lead, c, c, scale=0.1),
+                 _rnd(g, *lead, c), 1 + _rnd(g, *lead, c, dtype=f32,
+                                             scale=0.1),
+                 _rnd(g, *lead, c, dtype=f32)), {}, n * c)
+    # SE sum and ConvLSTM: C a multiple of 4 but not of 8 (8-byte rows)
+    c = 36
+    if name == "se_sum":
+        return ((_rnd(g, b, n, c), [_rnd(g, b, n, c) for _ in range(2)],
+                 [torch.sigmoid(_rnd(g, b, c)) for _ in range(2)],
+                 [_rnd(g, c, c, scale=0.2) for _ in range(2)],
+                 [_rnd(g, c, scale=0.1) for _ in range(2)]), {}, None)
+    x, h, cell = (_rnd(g, b, n, c) for _ in range(3))
+    w = _rnd(g, 2 * c, 4 * c, scale=0.2)
+    ci, cf, co = (_rnd(g, n, c, scale=0.2) for _ in range(3))
+    if name == "convlstm_gates":
+        return (x, h, cell, w, ci, cf), {}, n * c
+    gates, st = kernels.convlstm_gates_plain(x, h, cell, w, ci, cf)
+    return ((gates, cell, co, st, 1 + _rnd(g, 5, c, dtype=f32, scale=0.1),
+             _rnd(g, 5, c, dtype=f32, scale=0.1)), {}, n * c)
 
 
 @pytest.mark.gpu
@@ -93,30 +129,37 @@ def _inputs(g, name, l2n=False, masked=True):
     ("mutan_fused", False, True),
     ("spa_affinity", False, True), ("spa_affinity", False, False),
     ("spa_affinity", True, False), ("spa_affinity", True, True),
-    ("graph_msg", False, True), ("graph_update", False, True)])
+    ("graph_msg", False, True), ("graph_update", False, True),
+    ("spa_affinity_grouped", False, True),
+    ("spa_affinity_grouped", True, False),
+    ("graph_update_grouped", False, True), ("se_sum", False, True),
+    ("convlstm_gates", False, True), ("convlstm_raw", False, True)])
 def test_kernel_matches_plain_version(cuda, name, l2n, masked):
-    args, kw = _inputs(cuda, name, l2n, masked)
+    args, kw, count = _inputs(cuda, name, l2n, masked)
     wrapper = getattr(kernels, name)
     before = wrapper.launches
     got = wrapper(*args, **kw)
     want = kernels.PLAIN[wrapper](*args, **kw)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    _close(got, want)
+    _close(name, got, want, count)
 
 
 @pytest.mark.gpu
 def test_wrapper_raises_on_wrong_dtype(cuda):
-    args, kw = _inputs(cuda, "graph_msg")
+    args, _, _ = _inputs(cuda, "graph_msg")
     with pytest.raises(TypeError, match="bfloat16"):
         kernels.graph_msg(args[0].float(), args[1])
 
 
 @pytest.mark.gpu
 def test_small_forward_kernel_route_matches_plain_route(cuda):
-    """A TINY bf16 forward on the card: every kernel launches 3 times and
-    sigm agrees with the plain route."""
+    """A TINY bf16 forward on the card at batch 3: each kernel launches as
+    often as the path needs (3 times per level-wise kernel, 6 SE sums, or
+    once per grouped kernel where the levels are packed) and sigm agrees
+    with the plain route."""
     from cmpc_refseg_torch.api import build_model
+    from cmpc_refseg_torch.models.cmpc import pack_levels
     from cmpc_refseg_torch.models.model import apply_model
     model = build_model("CMPC_model", dtype="bfloat16", H=32, W=32,
                         num_steps=6, vocab_size=30, glove_dim=8, rnn_size=16,
@@ -130,7 +173,13 @@ def test_small_forward_kernel_route_matches_plain_route(cuda):
              "words": words, "seq_len": np.array([4, 2, 6])}
     kernels.reset_launch_counts()
     out = model.forward(batch)
-    assert set(kernels.launch_counts().values()) == {3}
+    packed = pack_levels(3, 3)
+    assert kernels.launch_counts() == {
+        "mutan_fused": 3, "spa_affinity": 0 if packed else 3,
+        "spa_affinity_grouped": 1 if packed else 0,
+        "graph_msg": 1 if packed else 3, "graph_update": 0 if packed else 3,
+        "graph_update_grouped": 1 if packed else 0, "se_sum": 6,
+        "convlstm_gates": 3, "convlstm_raw": 3}
     with torch.inference_mode():
         ref = apply_model(model.params, model.cfg,
                           {k: torch.as_tensor(v, device="cuda")

@@ -180,7 +180,9 @@ def test_graph_conv_matches_jax_reference(rng, port_fn):
     gp, tgp, x, wa, va = _graph_case(rng)
     want = jcmpc._graph_conv(gp, jnp.asarray(x), jnp.asarray(wa),
                              jnp.asarray(va))
-    got = getattr(tcmpc, port_fn)(tgp, _t(x), _t(wa), _t(va))
+    arg = tcmpc.stack_gconv([tgp], torch.float32) \
+        if port_fn == "graph_conv" else tgp
+    got = getattr(tcmpc, port_fn)(arg, _t(x), _t(wa), _t(va))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LN_TOL)
 
 
@@ -189,7 +191,8 @@ def test_graph_conv_matches_pallas_interpret(rng, n):
     gp, tgp, x, wa, va = _graph_case(rng, n=n)
     want = pk.graph_conv_fused(gp, jnp.asarray(x), jnp.asarray(wa),
                                jnp.asarray(va), interpret=True)
-    got = tcmpc.graph_conv(tgp, _t(x), _t(wa), _t(va))
+    got = tcmpc.graph_conv(tcmpc.stack_gconv([tgp], torch.float32), _t(x),
+                           _t(wa), _t(va))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

@@ -1,11 +1,12 @@
 """The port's whole forward, weights and entry points against the JAX package.
 
 The flagship CMPC_model at the TINY geometry of tests/test_model.py with
-batch 3, which takes the per-level spatial-graph path as batch 8 does.  The
-JAX side runs both as plain XLA and with this slice's Pallas kernels in
-interpret mode.  Comparisons in float32 on the CPU: `sigm` within atol 1e-4
-(the acceptance bound); the logits within 1e-4 (float32 sums in other
-orders through ~40 layers)."""
+batch 3 and batch 1.  The port packs the spatial graph's levels at both
+(its rule, `cmpc.pack_levels`, set on the H100); the JAX package runs
+batch 3 level by level and packs batch 1.  The JAX side runs both as plain
+XLA and with every forward Pallas kernel in interpret mode.  Comparisons in float32 on the CPU: `sigm` within atol 1e-4 (the
+acceptance bound); the logits within 1e-4 (float32 sums in other orders
+through ~40 layers)."""
 
 import re
 from pathlib import Path
@@ -22,6 +23,7 @@ from cmpc_refseg_torch.convert import params_from_jax
 from cmpc_refseg_torch.models import cmpc as tcmpc
 from cmpc_refseg_torch.models.model import apply_model as tapply
 from cmpc_refseg_torch.models.model import init_model as tinit
+from cmpc_refseg_torch.models.model import prepare_params
 from cmpc_refseg_torch.ops import kernels
 from cmpc_refseg_torch.ops import normalization as tnorm
 from cmpc_refseg_tpu.config import get_config as jget
@@ -37,15 +39,16 @@ TINY = dict(H=32, W=32, num_steps=6, vocab_size=30, glove_dim=8,
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _batch():
+def _batch(size=3):
     rng = np.random.default_rng(1)
     words = np.zeros((3, 6), np.int32)
     words[0, :3] = [3, 4, 5]
     words[1, :2] = [6, 7]
     words[2, :6] = [8, 9, 10, 11, 12, 13]
-    return {"im": (20 * rng.standard_normal((3, 32, 32, 3))
-                   ).astype(np.float32),
-            "words": words, "seq_len": np.array([3, 2, 6], np.int32)}
+    batch = {"im": (20 * rng.standard_normal((3, 32, 32, 3))
+                    ).astype(np.float32),
+             "words": words, "seq_len": np.array([3, 2, 6], np.int32)}
+    return {k: v[-size:] for k, v in batch.items()}
 
 
 def _leaves(tree, prefix=""):
@@ -59,16 +62,14 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("jax_mode", ["xla", "interpret"])
-def test_forward_matches_jax(monkeypatch, jax_mode):
+def _check_forward(monkeypatch, jax_mode, size):
     if jax_mode == "interpret":
         monkeypatch.setenv("CMPC_FUSED", "interpret")
-        monkeypatch.setenv("CMPC_FUSED_SESUM", "off")
-        monkeypatch.setenv("CMPC_FUSED_CONVLSTM", "off")
     else:
         monkeypatch.delenv("CMPC_FUSED", raising=False)
-    jcfg, tcfg = jget("CMPC_model", **TINY), tget("CMPC_model", **TINY)
-    batch = _batch()
+    geo = {**TINY, "batch_size": size}
+    jcfg, tcfg = jget("CMPC_model", **geo), tget("CMPC_model", **geo)
+    batch = _batch(size)
     jp, js = jinit(0, jcfg)
     want, _ = jax.jit(lambda p, s, b: japply(p, s, jcfg, b))(
         jp, js, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -90,6 +91,30 @@ def test_forward_matches_jax(monkeypatch, jax_mode):
                                        atol=1e-5, err_msg=f"gw {lv}")
 
 
+@pytest.mark.parametrize("jax_mode", ["xla", "interpret"])
+def test_forward_matches_jax(monkeypatch, jax_mode):
+    """Batch 3: the JAX package's per-level spatial graph against the
+    port's packed one."""
+    _check_forward(monkeypatch, jax_mode, 3)
+
+
+@pytest.mark.parametrize("jax_mode", ["xla", "interpret"])
+def test_forward_per_level_matches_jax(monkeypatch, jax_mode):
+    """Batch 3 with the port's spatial graph level by level (its form above
+    the packing threshold), as the JAX package runs it there."""
+    monkeypatch.setattr(tcmpc, "LEVEL_PACK_MAX_BATCH", 2)
+    assert not tcmpc.pack_levels(3, 3)
+    _check_forward(monkeypatch, jax_mode, 3)
+
+
+@pytest.mark.parametrize("jax_mode", ["xla", "interpret"])
+def test_forward_batch1_matches_jax(monkeypatch, jax_mode):
+    """Batch 1, the serving batch: the level-packed spatial graph on both
+    sides (the grouped kernels in JAX's interpret mode)."""
+    assert tcmpc.pack_levels(1, 3)
+    _check_forward(monkeypatch, jax_mode, 1)
+
+
 def _to_torch(tree):
     if isinstance(tree, dict):
         return {k: _to_torch(v) for k, v in tree.items()}
@@ -99,8 +124,8 @@ def _to_torch(tree):
 
 
 def test_exchange_step_matches_jax_and_module():
-    """The fused-form exchange step (SE-sum + row l2norm, plain in this
-    slice) against JAX's and against the reference-shaped module."""
+    """The fused-form exchange step (SE-sum + row l2norm) against JAX's
+    and against the reference-shaped module."""
     geo = dict(mlp_dim=12, rnn_size=16)
     jcfg, tcfg = jget("CMPC_model", **geo), tget("CMPC_model", **geo)
     pex = jcmpc.init_exchange(5, jcfg, 2)
@@ -124,14 +149,16 @@ def test_exchange_step_matches_jax_and_module():
 
 
 def test_convlstm_step_matches_jax():
+    """The port's ConvLSTM step (the fused form, its only one) against the
+    JAX package's plain step."""
     cfg_kw = dict(H=64, W=64, mlp_dim=12)
     p = jcmpc.init_convlstm(6, jget("CMPC_model", **cfg_kw))
     rng = np.random.default_rng(3)
     x, c, h = (rng.standard_normal((2, 8, 8, 12)).astype(np.float32)
                for _ in range(3))
     want = jcmpc.convlstm_step(p, *map(jnp.asarray, (x, c, h)))
-    got = tcmpc.convlstm_step(_to_torch(p), *map(torch.from_numpy,
-                                                 (x, c, h)))
+    got = tcmpc.convlstm_step_fused(_to_torch(p), *map(torch.from_numpy,
+                                                       (x, c, h)))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
                                    atol=2e-5)
@@ -149,6 +176,28 @@ def test_plain_route_matches_kernel_route_on_cpu():
         b = tapply(params, cfg, feed, use_kernels=False)
     np.testing.assert_allclose(a.sigm.numpy(), b.sigm.numpy(), rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("max_batch", [3, 2])
+def test_prepared_params_give_the_same_forward(monkeypatch, max_batch):
+    """prepare_params builds the head's kernel weights once (the stacked
+    spatial graph, the SE and ConvLSTM tables); the forward from them is
+    the forward that builds them on each call, on both graph paths
+    (batch 3 packed, then level by level)."""
+    cfg = tget("CMPC_model", **TINY)
+    params = tinit(0, cfg, device="cpu")
+    prepared = prepare_params(params, cfg)
+    stack = prepared["graph_stack"]
+    assert stack["wg"].shape == (3, 16, 16)
+    assert stack["gconv"][0]["g2"].shape == (3, 16)
+    assert prepared["fusion_stack"]["convlstm"]["tables"]["co"].shape == \
+        (16, 12)
+    monkeypatch.setattr(tcmpc, "LEVEL_PACK_MAX_BATCH", max_batch)
+    feed = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    with torch.inference_mode():
+        a = tapply(prepared, cfg, feed)
+        b = tapply(params, cfg, feed)
+    assert torch.equal(a.sigm, b.sigm)
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -22,7 +22,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CATEGORIES = (
-    ("port kernels", re.compile(r"mutan_|spa_affinity|graph_msg|graph_update")),
+    ("port kernels", re.compile(r"mutan_|spa_affinity|graph_msg|graph_update|se_sum|convlstm_")),
     ("convolution", re.compile(r"conv|cudnn|implicit_gemm|xmma_fprop|dgrad",
                                re.I)),
     ("gemm", re.compile(r"gemm|gemv|cutlass|cublas|sm90_xmma", re.I)),
