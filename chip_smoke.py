@@ -7,16 +7,20 @@ Phases, each fatal on failure:
  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
  2. build: nvcc builds every kernel of the port from its sources (timed);
  3. kernels: each kernel's wrapper at the shapes each path of phases 4
-    and 5 gives it, against its plain PyTorch version on the same CUDA
+    to 6 gives it, against its plain PyTorch version on the same CUDA
     tensors: the flagship bs=8 forward (320x320 -> N=1600 nodes, C=1000,
-    K=1008, A=1000, T=20, mlp C=500), the batch-1 request and the bs=64
-    forward.  Where the packing rule packs the levels (bs=8 and bs=1), the
-    graph kernels run on the packed batch (G=3 levels of B samples) and
-    the affinity and update in their grouped forms; at bs=64 the graph
-    runs level by level through the ungrouped forms.  One record per
-    kernel and path: error against a stated tolerance; median times (CUDA
-    events) of the kernel, the plain version and cuBLAS's bf16 product
-    alone; the least time the card could take at those shapes;
+    K=1008, A=1000, T=20, mlp C=500), the batch-1 request, the bs=64
+    forward and the bs=8 train step (the mutan kernel's training form
+    with the bf16 residual v, the dz pass of its backward and the dW
+    product in place of the inference mutan).  Where the packing rule packs
+    the levels (bs=8 and bs=1), the graph kernels run on the packed batch
+    (G=3 levels of B samples) and the affinity and update in their grouped
+    forms; at bs=64 the graph runs level by level through the ungrouped
+    forms.  One record per kernel and path: error against a stated
+    tolerance; median times (CUDA events) of the kernel, the plain version
+    and cuBLAS's bf16 product alone (for dW, `torch.mm` computes the same
+    function: its time is `library_ms`, and the kernel is held against it
+    too); the least time the card could take at those shapes;
  4. forward: build_model("CMPC_model") on CUDA at 320x320, bs=8, bf16,
     full depth.  Launch counts are reset just before the timed forwards and
     read just after (the counts the path needs per forward, see
@@ -31,7 +35,14 @@ Phases, each fatal on failure:
     agrees with the plain route's.  Per-request latency, and the
     level-packed against the per-level spatial graph at batch 1 to
     128 (time and peak memory);
- 6. the kernels' share of each path's run, the `kernels` JSON line (each
+ 6. train: build_trainer("CMPC_model") on CUDA at 320x320, bs=8, bf16,
+    full depth, frozen backbone.  On one seeded batch from the initial
+    weights, the loss and every trainable gradient of the kernel route
+    against the plain route (autograd through the plain versions); then
+    one warm-up step and 10 timed steps on seeded uint8 batches (3-20
+    words, box masks), launch counts reset just before them and read just
+    after; losses and gradients finite; ms/step, steps/s, peak memory;
+ 7. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.
 
@@ -59,9 +70,15 @@ B_LARGE = 64                 # above the packing threshold: per-level graph
 N_FWD = 5
 SIGM_TOL = 2e-2
 N_REQ = 20
+N_TRAIN = 10
+TRAIN_LOSS_TOL = 1e-2        # kernel vs plain route, relative
+TRAIN_GRAD_TOL = 5e-2        # per leaf, ||g_k - g_p|| / ||g_p||
 PACK_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
 REPLACES = {
     "mutan_fused": "cmpc_refseg_tpu/ops/pallas_kernels.py:98",
+    "mutan_fwd_residual": "cmpc_refseg_tpu/ops/pallas_kernels.py:332",
+    "mutan_bwd_dz": "cmpc_refseg_tpu/ops/pallas_kernels.py:457",
+    "mutan_dw": "cmpc_refseg_tpu/ops/pallas_kernels.py:400",
     "spa_affinity": "cmpc_refseg_tpu/ops/pallas_kernels.py:1025",
     "spa_affinity_grouped": "cmpc_refseg_tpu/ops/pallas_kernels.py:1025",
     "graph_msg": "cmpc_refseg_tpu/ops/pallas_kernels.py:842",
@@ -73,6 +90,9 @@ REPLACES = {
 }
 SOURCES = {
     "mutan_fused": "cmpc_refseg_torch/csrc/mutan.cu",
+    "mutan_fwd_residual": "cmpc_refseg_torch/csrc/mutan.cu",
+    "mutan_bwd_dz": "cmpc_refseg_torch/csrc/mutan_bwd.cu",
+    "mutan_dw": "cmpc_refseg_torch/csrc/mutan_bwd.cu",
     "spa_affinity": "cmpc_refseg_torch/csrc/spa_affinity.cu",
     "spa_affinity_grouped": "cmpc_refseg_torch/csrc/spa_affinity.cu",
     "graph_msg": "cmpc_refseg_torch/csrc/graph_conv.cu",
@@ -187,21 +207,25 @@ def compare_stats(torch, got, want, count, tol, what):
 
 
 def path_batches():
-    """The paths phases 4 and 5 drive, each with the batch its forward
-    runs at: the bs=8 forward, the batch-1 request, and the bs=64 forward
-    (above the packing threshold: the per-level spatial graph)."""
-    return {"forward_bs8": B, "serving_bs1": 1,
-            f"forward_bs{B_LARGE}": B_LARGE}
+    """The paths phases 4 to 6 drive, each with its batch and whether it
+    trains: the bs=8 forward, the batch-1 request, the bs=64 forward
+    (above the packing threshold: the per-level spatial graph) and the
+    bs=8 train step."""
+    return {"forward_bs8": (B, False), "serving_bs1": (1, False),
+            f"forward_bs{B_LARGE}": (B_LARGE, False), "train_bs8": (B, True)}
 
 
-def kernel_inputs(torch, kernels, cmpc, dev, batch):
+def kernel_inputs(torch, kernels, cmpc, dev, batch, train=False):
     """The inputs of each kernel the forward at `batch` launches, at the
     shapes it gives them, made from a seed and scaled so the logits and
     products are O(1) as in the model; graph_update takes graph_msg's
     (msg, stats) and convlstm_raw takes convlstm_gates' (gates, stats), as
     the path does.  Where the rule packs the levels, the graph kernels see
     the packed batch G*batch and the affinity and update take G weight
-    groups.  Returns {wrapper name: (args, kwargs, kernel batch, groups)}."""
+    groups.  With `train`, the mutan kernel's training form takes the
+    inference form's place, and the dz pass takes the residual v it makes
+    and a cotangent, the dW product x and the dz pass's dz.
+    Returns {wrapper name: (args, kwargs, kernel batch, groups)}."""
     g = torch.Generator(device=dev).manual_seed(batch)
     f32 = torch.float32
 
@@ -240,13 +264,22 @@ def kernel_inputs(torch, kernels, cmpc, dev, batch):
                                       limit=math.sqrt(6 / (6 * CM))),
                   uniform(N, CM, limit=0.1), uniform(N, CM, limit=0.1))
     gates, gstats = kernels.convlstm_gates_plain(*gates_args)
+    mutan_args = (randn(batch * N, K),
+                  uniform(K, HEADS * C, limit=math.sqrt(6 / (K + HEADS * C))),
+                  randn(HEADS * C, scale=0.1, dtype=f32),
+                  torch.tanh(randn(batch, HEADS * C, dtype=f32)))
+    mutan_kw = {"heads": HEADS, "rows_per_sample": N}
+    if train:
+        _, v = kernels.mutan_fwd_residual_plain(*mutan_args, **mutan_kw)
+        dz_args = (v, mutan_args[3], randn(batch * N, C, scale=1e-3))
+        dz, _, _ = kernels.mutan_bwd_dz_plain(*dz_args, **mutan_kw)
+        mutan = {"mutan_fwd_residual": (mutan_args, mutan_kw, batch, 1),
+                 "mutan_bwd_dz": (dz_args, mutan_kw, batch, 1),
+                 "mutan_dw": ((mutan_args[0], dz), {}, batch, 1)}
+    else:
+        mutan = {"mutan_fused": (mutan_args, mutan_kw, batch, 1)}
     return {
-        "mutan_fused": ((randn(batch * N, K),
-                         uniform(K, HEADS * C,
-                                 limit=math.sqrt(6 / (K + HEADS * C))),
-                         randn(HEADS * C, scale=0.1, dtype=f32),
-                         torch.tanh(randn(batch, HEADS * C, dtype=f32))),
-                        {"heads": HEADS, "rows_per_sample": N}, batch, 1),
+        **mutan,
         "spa_affinity" + sfx: (*affinity, bg, groups),
         "graph_msg": (msg_args(bg), {}, bg, 1),
         "graph_update" + sfx: (update, {}, bg, groups),
@@ -269,10 +302,20 @@ def kernel_cost(name, bk, groups):
     function on a batch of `bk` samples of N rows with `groups` weight
     groups: each input read once, each output written once."""
     m, cm = bk * N, CM
-    if name == "mutan_fused":
+    if name in ("mutan_fused", "mutan_fwd_residual"):
+        v_out = m * HEADS * C * 2 if name == "mutan_fwd_residual" else 0
         return (2 * m * K * HEADS * C, 4 * m * HEADS * C + 4 * m * C,
                 m * K * 2 + K * HEADS * C * 2 + HEADS * C * 4
-                + bk * HEADS * C * 4 + m * C * 2)
+                + bk * HEADS * C * 4 + m * C * 2 + v_out)
+    if name == "mutan_bwd_dz":
+        # per v entry: the head sum, dz, dlang and db (~9 operations); per
+        # output column: tanh, the norm and the l2norm's vjp (~12)
+        return (0, 9 * m * HEADS * C + 12 * m * C,
+                2 * m * HEADS * C * 2 + m * C * 2 + 2 * bk * HEADS * C * 4
+                + HEADS * C * 4)
+    if name == "mutan_dw":
+        return (2 * m * K * HEADS * C, 0,
+                m * K * 2 + m * HEADS * C * 2 + K * HEADS * C * 4)
     if name.startswith("spa_affinity"):
         return (2 * m * C * A + 2 * m * A * T, 2 * m * A + 12 * m * T,
                 m * C * 2 + groups * (C * A + A) * 2 + bk * T * A * 2
@@ -296,16 +339,27 @@ def kernel_cost(name, bk, groups):
             + 2 * 5 * cm * 4 + 2 * m * cm * 2)
 
 
+def library_call(torch, name, args):
+    """One PyTorch call that computes the kernel's whole function on the
+    same inputs, where there is one (dW = x^T @ dz: `torch.mm` with an f32
+    result); else None."""
+    if name == "mutan_dw":
+        return lambda: torch.mm(args[0].t(), args[1], out_dtype=torch.float32)
+    return None
+
+
 def library_product(torch, name, args):
     """cuBLAS's bf16 product of the kernel's main GEMM alone on the same
     inputs, a yardstick (not the same function); None where the kernel has
     no product."""
+    if name == "mutan_dw":
+        return library_call(torch, name, args)
     if name == "convlstm_gates":
         xh, w = torch.cat(args[:2], dim=-1), args[3]
         return lambda: torch.matmul(xh, w)
     if name == "se_sum":
         return lambda: [torch.matmul(o, w) for o, w in zip(args[1], args[3])]
-    if name == "convlstm_raw":
+    if name in ("convlstm_raw", "mutan_bwd_dz"):
         return None
     if name == "graph_msg":
         return lambda: torch.bmm(args[0], args[1])
@@ -329,8 +383,8 @@ def check_kernels(torch, kernels, cmpc, dev):
     # wrong or missing column moves them by its whole size
     stats_tol = 1e-3
     records = []
-    for path, batch in path_batches().items():
-        inputs = kernel_inputs(torch, kernels, cmpc, dev, batch)
+    for path, (batch, train) in path_batches().items():
+        inputs = kernel_inputs(torch, kernels, cmpc, dev, batch, train)
         for name, (args, kw, bk, groups) in inputs.items():
             wrapper = getattr(kernels, name)
             plain = kernels.PLAIN[wrapper]
@@ -351,10 +405,17 @@ def check_kernels(torch, kernels, cmpc, dev):
                              "stats_tolerance": stats_tol}
                 else:
                     errs.append(compare(torch, a, b, tol, f"{what} output {i}"))
+            library = library_call(torch, name, args)
+            if library:
+                lib_err = compare(torch, got[0], library(), tol,
+                                  f"{what} against the library call")
+                stats.update(library_max_abs_err=lib_err[0],
+                             library_norm_err=lib_err[1])
             del got, want
             ms = gpu_ms(torch, lambda: wrapper(*args, **kw))
             plain_ms = gpu_ms(torch, lambda: plain(*args, **kw), groups=3,
                               reps=3)
+            library_ms = gpu_ms(torch, library) if library else None
             product = library_product(torch, name, args)
             matmul_ms = gpu_ms(torch, product) if product else None
             bound_ms, bound_by = bound(*kernel_cost(name, bk, groups))
@@ -367,12 +428,17 @@ def check_kernels(torch, kernels, cmpc, dev):
                 "max_norm_err": max(n for _, n in errs),
                 "tolerance": tol, **stats, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "matmul_ms": matmul_ms,
+                "library_ms": library_ms, "matmul_ms": matmul_ms,
             }
             records.append(rec)
             stats_note = (f"; statistics: mean/variance error "
-                          f"{stats_err:.3e} <= {stats_tol:.0e}"
-                          if stats else "")
+                          f"{stats['stats_err']:.3e} <= {stats_tol:.0e}"
+                          if "stats_err" in stats else "")
+            if library:
+                stats_note = (f"; against torch.mm: max abs err "
+                              f"{stats['library_max_abs_err']:.3e} (norm "
+                              f"{stats['library_norm_err']:.3e}), "
+                              f"library_ms {library_ms:.4f}")
             prod = (f"cuBLAS product alone {matmul_ms:.4f} ms"
                     if matmul_ms is not None else "no product")
             log(f"[kernels] {name} at {path} (batch {bk}, {groups} weight "
@@ -385,13 +451,19 @@ def check_kernels(torch, kernels, cmpc, dev):
     return records
 
 
-def expected_launches(cmpc, batch, levels=3):
-    """Kernel launches of one flagship forward at `batch`: one mutan, one
-    graph per level (or one packed set of launches), one SE sum per level
-    in each of the two exchange rounds, and one ConvLSTM step per level."""
+def expected_launches(cmpc, batch, levels=3, train=False):
+    """Kernel launches of one flagship forward (or train step) at `batch`:
+    one mutan per level (a train step: the training form, the dz pass and
+    the dW product, each once per level), one graph per level (or one
+    packed set of launches), one SE sum per level in each of the two
+    exchange rounds, and one ConvLSTM step per level.  The backward
+    launches no other kernel: it recomputes the other ops' plain routes."""
     packed = cmpc.pack_levels(batch, levels)
     per_level = 0 if packed else levels
-    return {"mutan_fused": levels, "spa_affinity": per_level,
+    mutan = dict.fromkeys(("mutan_fwd_residual", "mutan_bwd_dz", "mutan_dw"),
+                          levels if train else 0)
+    return {"mutan_fused": 0 if train else levels, **mutan,
+            "spa_affinity": per_level,
             "spa_affinity_grouped": int(packed),
             "graph_msg": 1 if packed else levels, "graph_update": per_level,
             "graph_update_grouped": int(packed),
@@ -671,15 +743,214 @@ def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card):
         summary
 
 
+def train_batch(cfg, batch, seed):
+    """A seeded uint8 train batch: RGB images, a box mask per sample (a
+    quarter to all of each side), 3-20-word expressions."""
+    rng = np.random.default_rng(100 + seed)
+    target = np.zeros((batch, cfg.H, cfg.W, 1), np.uint8)
+    for t in target:
+        h, w = rng.integers(cfg.H // 4, cfg.H + 1), rng.integers(
+            cfg.W // 4, cfg.W + 1)
+        y, x = rng.integers(0, cfg.H - h + 1), rng.integers(0, cfg.W - w + 1)
+        t[y:y + h, x:x + w] = 1
+    lens = rng.integers(3, cfg.num_steps + 1, batch)
+    words = np.zeros((batch, cfg.num_steps), np.int64)
+    for i, n in enumerate(lens):
+        words[i, :n] = rng.integers(3, cfg.vocab_size, n)
+    return {"im_u8": rng.integers(0, 256, (batch, cfg.H, cfg.W, 3),
+                                  dtype=np.uint8),
+            "target_u8": target, "words": words, "seq_len": lens}
+
+
+def check_train_routes(torch, trainer, reference, compute_gradients,
+                       named_leaves, batch):
+    """The loss and every trainable gradient of the kernel route (g_k)
+    against the plain route (g_p) on one batch from the trainer's current
+    weights.
+
+    `reference` is a float32 TrainState from the same seed: its plain
+    route gives each gradient without bf16 rounding (g_32).  A leaf whose
+    g_32 lies below the bf16 rounding noise of the plain route itself,
+    ||g_p - g_32|| > TRAIN_GRAD_TOL ||g_p||, is unresolved in bf16: its
+    gradient is a small sum of large terms that cancel (PERF.md, "Train
+    path").  The rule reads the plain routes only, so no kernel fault can
+    move a leaf into that set.  A resolved leaf is held at
+    ||g_k - g_p|| <= TRAIN_GRAD_TOL ||g_p||.  An unresolved one is held to
+    the plain route's own noise: ||g_k - g_32|| <= 2 ||g_p - g_32||, both
+    gradients nonzero and ||g_p|| / 2 <= ||g_k|| <= 2 ||g_p||, so that a
+    gradient dropped, zeroed or blown up fails.  Returns a summary; fails
+    past the tolerances or on a non-finite gradient."""
+    state, cfg = trainer.state, trainer.cfg
+    paths = ["/".join(map(str, p)) for p, _ in named_leaves(state.trainable)]
+
+    def grads(st, c, use_kernels):
+        loss, _ = compute_gradients(st, c, batch, use_kernels=use_kernels)
+        out = [leaf.grad.double() for _, leaf in named_leaves(st.trainable)]
+        st.optimizer.zero_grad(set_to_none=True)
+        for path, g in zip(paths, out):
+            if not torch.isfinite(g).all():
+                fail(f"train: non-finite gradient of {path}")
+        return loss.item(), out
+
+    loss_k, gk = grads(state, cfg, True)
+    loss_p, gp = grads(state, cfg, False)
+    loss_32, g32 = grads(reference.state, reference.cfg, False)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    if not loss_err <= TRAIN_LOSS_TOL:
+        fail(f"train: loss of the kernel route {loss_k:.6g} vs the plain "
+             f"route {loss_p:.6g}: relative error {loss_err:.3e} > "
+             f"{TRAIN_LOSS_TOL}")
+    rows = []
+    for path, a, b, c in zip(paths, gk, gp, g32):
+        norm = b.norm().item()
+        if norm == 0 or a.norm().item() == 0:
+            fail(f"train: zero gradient of {path}: kernel route "
+                 f"{a.norm().item():.3e}, plain route {norm:.3e}")
+        rows.append({"leaf": path, "rel": (a - b).norm().item() / norm,
+                     "plain_vs_f32": (b - c).norm().item() / norm,
+                     "kernel_vs_f32": (a - c).norm().item() / norm,
+                     "kernel_norm": a.norm().item() / norm,
+                     "f32_norm": c.norm().item() / norm, "norm": norm})
+    rows.sort(key=lambda r: -r["rel"])
+    unresolved = [r for r in rows if r["plain_vs_f32"] > TRAIN_GRAD_TOL]
+    resolved = [r for r in rows if r not in unresolved]
+    for r in rows[:6]:
+        log(f"[train] gradient of {r['leaf']}: ||g_k - g_p|| / ||g_p|| = "
+            f"{r['rel']:.3e}; over ||g_p|| = {r['norm']:.3e}: ||g_k|| "
+            f"{r['kernel_norm']:.3e}, ||g_32|| {r['f32_norm']:.3e}, "
+            f"||g_p - g_32|| {r['plain_vs_f32']:.3e}, ||g_k - g_32|| "
+            f"{r['kernel_vs_f32']:.3e}")
+    bad = [r for r in resolved if r["rel"] > TRAIN_GRAD_TOL] + [
+        r for r in unresolved if r["kernel_vs_f32"] > 2 * r["plain_vs_f32"]
+        or not 0.5 <= r["kernel_norm"] <= 2]
+    if bad:
+        fail(f"train: kernel vs plain route gradients of {len(bad)} leaves "
+             f"beyond the tolerance, first {bad[0]}")
+    return {"loss_rel_err": loss_err, "loss_f32_rel_err":
+            abs(loss_k - loss_32) / abs(loss_32),
+            "worst_grad_rel_err": rows[0]["rel"],
+            "worst_grad_leaf": rows[0]["leaf"],
+            "worst_resolved_grad_rel_err": resolved[0]["rel"],
+            "worst_resolved_grad_leaf": resolved[0]["leaf"],
+            "leaves": len(rows), "unresolved_leaves": [
+                {k: r[k] for k in ("leaf", "rel", "kernel_norm", "f32_norm",
+                                   "plain_vs_f32", "kernel_vs_f32")}
+                for r in unresolved]}
+
+
+def recompute_ms(torch, autograd, step):
+    """Host-clock ms that the backward's recompute of the plain routes
+    (`autograd._Recompute.backward`: affinity, graph conv, SE sums,
+    ConvLSTM steps) takes in one call of `step`, each recompute bracketed
+    by synchronizes, and the whole call's ms."""
+    spent = []
+    original = autograd._Recompute.backward
+
+    def timed(ctx, *grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(ctx, *grads)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    autograd._Recompute.backward = staticmethod(timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        autograd._Recompute.backward = staticmethod(original)
+    return sum(spent), total
+
+
+def run_train(torch, kernels, autograd, cmpc, build_trainer,
+              compute_gradients, named_leaves, card):
+    """Phase 6: the bs=8 train step through build_trainer / Trainer.step."""
+    trainer = build_trainer("CMPC_model", device=DEV, dtype="bfloat16",
+                            batch_size=B)
+    cfg = trainer.cfg
+    if (cfg.H, cfg.res4_blocks, cfg.v_emb_dim, cfg.conv5, cfg.grad_accum) \
+            != (H_IMG, RES4, C, False, 1):
+        fail(f"unexpected train config {cfg}")
+    batches = [train_batch(cfg, B, i) for i in range(N_TRAIN + 1)]
+    reference = build_trainer("CMPC_model", device=DEV, dtype="float32",
+                              batch_size=B)
+    routes = check_train_routes(torch, trainer, reference, compute_gradients,
+                                named_leaves, batches[0])
+    del reference
+    torch.cuda.empty_cache()
+    trainer.step(batches[0])                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, metrics = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        metrics.append(trainer.step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts(counts, expected_launches(cmpc, B, train=True), N_TRAIN,
+                 "train")
+    losses = [float(m["loss_total"]) for m in metrics]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"train: non-finite loss in {losses}")
+    for path, leaf in named_leaves(trainer.state.trainable):
+        if leaf.grad is None or not torch.isfinite(leaf.grad).all() \
+                or not torch.isfinite(leaf).all():
+            fail(f"train: missing or non-finite gradient or weight at {path}")
+    if trainer.state.step != N_TRAIN + 1:
+        fail(f"train: state.step {trainer.state.step}, expected "
+             f"{N_TRAIN + 1}")
+    rec_ms, rec_step_ms = recompute_ms(
+        torch, autograd, lambda: trainer.step(batches[-1]))
+    ms = statistics.median(times)
+    summary = {"steps": N_TRAIN, "median_ms": ms, "min_ms": min(times),
+               "recompute_ms": rec_ms, "recompute_step_ms": rec_step_ms,
+               "max_ms": max(times), "steps_per_s": 1e3 / ms,
+               "peak_gb": peak, **routes, "losses": losses,
+               "learning_rate": float(metrics[-1]["learning_rate"])}
+    log(f"[train] {card}: CMPC_model 320x320 bs={B} bf16 res4_blocks=23, "
+        f"frozen backbone: {ms:.3f} ms/step (median of {N_TRAIN}; range "
+        f"{min(times):.3f}-{max(times):.3f}; all "
+        f"{[round(t, 3) for t in times]}), {1e3 / ms:.2f} steps/s, "
+        f"{B * 1e3 / ms:.1f} samples/s; peak memory {peak:.2f} GB")
+    unresolved = [(r["leaf"], *(round(r[k], 4) for k in (
+        "kernel_norm", "f32_norm", "plain_vs_f32", "kernel_vs_f32")))
+        for r in routes["unresolved_leaves"]]
+    log(f"[train] kernel vs plain route on one batch: loss relative error "
+        f"{routes['loss_rel_err']:.3e} <= {TRAIN_LOSS_TOL} (vs the f32 "
+        f"plain route {routes['loss_f32_rel_err']:.3e}); worst gradient "
+        f"||g_k - g_p|| / ||g_p|| {routes['worst_resolved_grad_rel_err']:.3e}"
+        f" <= {TRAIN_GRAD_TOL} ({routes['worst_resolved_grad_leaf']}) over "
+        f"the {routes['leaves'] - len(unresolved)} leaves the bf16 plain "
+        f"route resolves; {len(unresolved)} leaves below its bf16 noise, "
+        f"each kernel route within twice the plain route's distance to the "
+        f"f32 gradient and within 2x of its norm: {unresolved} (leaf, then "
+        f"over ||g_p||: ||g_k||, ||g_32||, ||g_p - g_32||, ||g_k - g_32||); "
+        f"losses {[round(v, 2) for v in losses]}")
+    log(f"[train] launches in {N_TRAIN} steps: {counts}")
+    log(f"[train] backward recompute of the plain routes: {rec_ms:.3f} ms "
+        f"of a {rec_step_ms:.3f} ms step ({rec_ms / rec_step_ms:.1%}; one "
+        "extra step, each recompute bracketed by synchronizes)")
+    return {"train_bs8": (counts, N_TRAIN, ms)}, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "CUDA GPU")
-    from cmpc_refseg_torch.api import build_model, build_service
+    from cmpc_refseg_torch.api import build_model, build_service, build_trainer
     from cmpc_refseg_torch.models import cmpc
     from cmpc_refseg_torch.models.model import apply_model
-    from cmpc_refseg_torch.ops import build, kernels
+    from cmpc_refseg_torch.ops import autograd, build, kernels
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+    from cmpc_refseg_torch.train.trainer import compute_gradients
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -704,21 +975,28 @@ def main():
     srv_paths, serving = run_serving(torch, np, kernels, cmpc, build_service,
                                      apply_model, card)
     paths.update(srv_paths)
+    torch.cuda.empty_cache()
+    train_paths, train = run_train(torch, kernels, autograd, cmpc,
+                                   build_trainer, compute_gradients,
+                                   named_leaves, card)
+    paths.update(train_paths)
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
         if not rec["launches"]:
             fail(f"{rec['name']}: no launch on its path")
-    unheld = {k for counts, _, _ in paths.values() for k, n in counts.items()
-              if n} - {r["kernel"] for r in records if r["launches"]}
+    unheld = {f"{k}@{path}" for path, (counts, _, _) in paths.items()
+              for k, n in counts.items() if n} - {r["name"] for r in records}
     if unheld:
-        fail(f"launched on a path but not held in phase 3: {sorted(unheld)}")
+        fail(f"launched on a path but not held at its shapes in phase 3: "
+             f"{sorted(unheld)}")
     for path, (_, runs, run_ms) in paths.items():
         share = sum(r["ms"] * r["launches"] / runs for r in records
                     if r["path"] == path) / run_ms
         log(f"[{path}] the kernels take {share:.1%} of the {run_ms:.3f} ms "
             "run (kernel ms at this path's shapes x launches per run)")
     log(f"[serving] {json.dumps(serving)}")
+    log(f"[train] {json.dumps(train)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

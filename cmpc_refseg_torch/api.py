@@ -1,12 +1,16 @@
-"""High-level API: build a model or a predict service by reference name.
+"""High-level API: build a model, a predict service or a trainer by
+reference name.
 
 >>> from cmpc_refseg_torch.api import build_model, build_service
 >>> model = build_model("CMPC_model", batch_size=8, dtype="bfloat16")
 >>> out = model.forward(batch)          # on the CUDA device
 >>> service = build_service("CMPC_model", dtype="bfloat16")
 >>> prob, mask = service.predict(image_rgb, "the man on the left")
+>>> trainer = build_trainer("CMPC_model", batch_size=8, dtype="bfloat16")
+>>> metrics = trainer.step(batch)       # one Adam update
+>>> trainer.train(reader, max_iter=1000)
 
-Both run on CUDA unless the caller passes ``device="cpu"``; with no CUDA
+All run on CUDA unless the caller passes ``device="cpu"``; with no CUDA
 device and no explicit device, they raise.  The weights come from `seed`
 (no trained checkpoint ships with the repository).
 """
@@ -23,6 +27,8 @@ from cmpc_refseg_torch.data.text import synthetic_vocab
 from cmpc_refseg_torch.models.model import (ModelOutputs, apply_model,
                                             init_model, prepare_params)
 from cmpc_refseg_torch.serving.server import PredictService
+from cmpc_refseg_torch.train.trainer import (TrainState, create_train_state,
+                                             make_train_step, train_loop)
 
 
 @dataclasses.dataclass
@@ -40,6 +46,32 @@ class Model:
             return apply_model(self.params, self.cfg, feed)
 
 
+@dataclasses.dataclass
+class Trainer:
+    cfg: ModelConfig
+    state: TrainState
+
+    def __post_init__(self):
+        self._step = make_train_step(self.cfg)
+
+    def step(self, batch: dict) -> dict:
+        """One train step on `batch` (see `trainer.make_train_step`):
+        updates the state, returns the metrics."""
+        return self._step(self.state, batch)
+
+    def train(self, reader, *, max_iter: int, **kw) -> TrainState:
+        """`trainer.train_loop` from this state over `reader`."""
+        self.state = train_loop(self.cfg, reader, max_iter=max_iter,
+                                state=self.state, **kw)
+        return self.state
+
+
+def _config(name: str, dtype, overrides: dict) -> ModelConfig:
+    if dtype is not None:
+        overrides["compute_dtype"] = str(dtype).replace("torch.", "")
+    return get_config(name, **overrides)
+
+
 def build_model(name: str, *, seed: int = 0, device=None, dtype=None,
                 **overrides) -> Model:
     """Construct a variant by reference name with parameters from `seed`,
@@ -47,9 +79,7 @@ def build_model(name: str, *, seed: int = 0, device=None, dtype=None,
     itself).  `dtype` ('bfloat16' / 'float32' or a torch dtype) sets the
     compute dtype."""
     dev = resolve_device(device)
-    if dtype is not None:
-        overrides["compute_dtype"] = str(dtype).replace("torch.", "")
-    cfg = get_config(name, **overrides)
+    cfg = _config(name, dtype, overrides)
     params = prepare_params(init_model(seed, cfg, device=dev), cfg)
     return Model(cfg=cfg, params=params, device=dev)
 
@@ -61,9 +91,17 @@ def build_service(name: str, *, seed: int = 0, device=None, dtype=None,
     when None, a synthetic vocabulary of the config's size stands in for
     the reference's vocabulary file."""
     dev = resolve_device(device)
-    if dtype is not None:
-        overrides["compute_dtype"] = str(dtype).replace("torch.", "")
-    cfg = get_config(name, **{**overrides, "batch_size": 1})
+    cfg = _config(name, dtype, {**overrides, "batch_size": 1})
     return PredictService(cfg, init_model(seed, cfg, device=dev),
                           vocab or synthetic_vocab(cfg.vocab_size),
                           device=dev)
+
+
+def build_trainer(name: str, *, seed: int = 0, device=None, dtype=None,
+                  **overrides) -> Trainer:
+    """A `Trainer` for variant `name` from parameters drawn from `seed`, on
+    `device` (CUDA when None; raises without it).  `dtype` sets the compute
+    dtype; the trainable weights and Adam's moments stay float32."""
+    cfg = _config(name, dtype, overrides)
+    return Trainer(cfg=cfg, state=create_train_state(
+        seed, cfg, device=resolve_device(device)))

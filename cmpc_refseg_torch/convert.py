@@ -1,4 +1,5 @@
-"""Bridge from the JAX package's parameter pytree to the port's parameters.
+"""Bridge from the JAX package's parameter pytree (and train state) to the
+port's parameters (and TrainState).
 
 The port keeps the JAX pytree's structure and names.  Leaves become float32
 tensors; the backbone's conv kernels go from HWIO to PyTorch's OIHW (the
@@ -57,6 +58,32 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
     if tuple(tree["levels"]) != tuple(cfg.levels):
         raise ValueError(f"levels {tuple(tree['levels'])} do not match the "
                          f"config's {tuple(cfg.levels)}")
-    out = {k: _tree(v, device) for k, v in tree.items() if k != "backbone"}
-    out["backbone"] = _tree(tree["backbone"], device, in_backbone=True)
-    return out
+    return _convert(tree, device)
+
+
+def _convert(tree: dict, device) -> dict:
+    return {k: _tree(v, device, in_backbone=k == "backbone")
+            for k, v in tree.items()}
+
+
+def train_state_from_jax(trainable: dict, frozen: dict, mu: dict, nu: dict,
+                         count, cfg: ModelConfig, *, device=None):
+    """The port's TrainState from a JAX train state: the trainable and
+    frozen trees and Adam's first and second moments `mu`, `nu` (trees of
+    the trainable's structure) and `count`, all as numpy (the JAX package's
+    ``state.unravel(...)`` of its flat vectors).  The port's Adam then holds
+    the same exp_avg, exp_avg_sq and step, and the state's step is
+    `count`."""
+    from cmpc_refseg_torch.train.optimizer import merge_params, named_leaves
+    from cmpc_refseg_torch.train.trainer import train_state_from_params
+    device = resolve_device(device)
+    state = train_state_from_params(
+        params_from_jax(merge_params(trainable, frozen), cfg, device=device),
+        cfg)
+    moments = [dict(named_leaves(_convert(m, device))) for m in (mu, nu)]
+    for path, p in named_leaves(state.trainable):
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": moments[0][path], "exp_avg_sq": moments[1][path]}
+    state.step = int(count)
+    return state

@@ -1,7 +1,11 @@
 // Mutan bilinear fusion: out = l2norm_row(tanh(sum_h tanh(x @ W_h + b_h) * lang_h))
 //
 // Replaces cmpc_refseg_tpu/ops/pallas_kernels.py::mutan_fused_padded and
-// ::_mutan_fused_fwd (the same function; the port needs no lane padding).
+// ::_mutan_fused_fwd (the same function; the port needs no lane padding),
+// and, with a residual buffer, ::_mutan_fwd_with_residual: the training
+// forward that also writes v = tanh(x @ W + b) [rows, heads*C] in bf16 for
+// the backward (csrc/mutan_bwd.cu).  That is one extra bf16 store per head
+// epilogue element; out is computed from the f32 v as without it.
 //
 // Bound on the card: operations.  At the flagship shapes (x [8*1600, 1008],
 // W [1008, 5*1000]) the product is 129 GFLOP against ~60 MB of operands.
@@ -25,11 +29,13 @@ constexpr int kMutPer = kMutBM * kMutBN / MutTile::kThreads;
 // memory rather than registers so that three blocks fit on an SM.
 constexpr int kMutSmem = MutTile::kSmemBytes + kMutBM * kMutBN * 4;
 
+// kResidual: also store v = tanh(x @ W_h + b_h) in bf16, row-major [M, heads*C].
+template <bool kResidual>
 __global__ void __launch_bounds__(MutTile::kThreads, 3)
 mutan_heads_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ lang,
                    float* __restrict__ y, float* __restrict__ rowsq,
-                   int M, int K, int C, int N, int heads) {
+                   bf16* __restrict__ v, int M, int K, int C, int N, int heads) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float half_sq[kMutBM][2];
   float* acc = reinterpret_cast<float*>(smem + MutTile::kSmemBytes);
@@ -54,8 +60,9 @@ mutan_heads_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int r = e / kMutBN, c = e % kMutBN, col = c0 + c;
       if (r < nrows && col < C) {
         const int row = row0 + r;
-        const float part = cs[r * MutTile::kCLd + c] + bias[h * C + col];
-        acc[e] += tanhf(part) * lang[static_cast<size_t>(row / N) * ldw + h * C + col];
+        const float t = tanhf(cs[r * MutTile::kCLd + c] + bias[h * C + col]);
+        if constexpr (kResidual) v[static_cast<size_t>(row) * ldw + h * C + col] = f2bf(t);
+        acc[e] += t * lang[static_cast<size_t>(row / N) * ldw + h * C + col];
       }
     }
   }
@@ -102,21 +109,25 @@ extern "C" int cmpc_mutan_col_tiles(int C) { return (C + cmpc::kMutBN - 1) / cmp
 
 // x [M, K] bf16, w [K, heads*C] bf16, bias [heads*C] f32, lang [M/N, heads*C]
 // f32 -> out [M, C] bf16; y [M, C] f32 and rowsq [M, col_tiles] f32 are
-// scratch.  Row r uses lang row r / N.
+// scratch.  Row r uses lang row r / N.  v: null, or [M, heads*C] bf16 that
+// receives tanh(x @ W + b) (the training residual).
 extern "C" int cmpc_mutan_fused(const void* x, const void* w, const void* bias,
                                 const void* lang, void* y, void* rowsq, void* out,
-                                int M, int K, int C, int N, int heads, void* stream) {
+                                void* v, int M, int K, int C, int N, int heads,
+                                void* stream) {
   using namespace cmpc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int col_tiles = cmpc_mutan_col_tiles(C);
+  const auto kernel = v ? mutan_heads_kernel<true> : mutan_heads_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      mutan_heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMutSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMutSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(col_tiles, (M + kMutBM - 1) / kMutBM);
-  mutan_heads_kernel<<<grid, MutTile::kThreads, kMutSmem, s>>>(
+  kernel<<<grid, MutTile::kThreads, kMutSmem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(lang),
-      static_cast<float*>(y), static_cast<float*>(rowsq), M, K, C, N, heads);
+      static_cast<float*>(y), static_cast<float*>(rowsq), static_cast<bf16*>(v),
+      M, K, C, N, heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   mutan_norm_kernel<<<M, 256, 0, s>>>(static_cast<const float*>(y),

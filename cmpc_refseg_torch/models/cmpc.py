@@ -9,6 +9,12 @@ or everywhere with ``use_kernels=False``).  The spatial graph runs level
 by level, or level-packed (one set of launches for all levels, grouped
 weights) at small batch: `pack_levels` holds the rule.
 
+Where autograd records (``torch.is_grad_enabled()``, as in the train
+step), the kernels run through the autograd functions of
+``ops/autograd.py``, from the f32 trainable weights cast on every call;
+the weights `model.prepare_params` builds once serve inference only, which
+runs under ``torch.inference_mode``.
+
 The JAX package's plain references `_mutan_reference`,
 `_spa_affinity_xla` and `_se_sum_xla` are ``kernels.mutan_plain``,
 ``kernels.spa_affinity_plain`` and ``kernels.se_sum_plain`` here, beside
@@ -26,23 +32,52 @@ import math
 
 import torch
 
-from cmpc_refseg_torch.ops import kernels
+from cmpc_refseg_torch.ops import autograd, kernels
 from cmpc_refseg_torch.ops.layers import (conv2d, glorot_uniform, init_conv,
                                           init_layer_norm, split_stream)
 from cmpc_refseg_torch.ops.normalization import l2_normalize, tf1_layer_norm
+
+
+class _MatmulF32(torch.autograd.Function):
+    """a @ b of bf16 CUDA matrices with an f32 result (cuBLAS, f32
+    accumulation), differentiable: the backward's two products take the
+    cotangent in bf16 and accumulate in f32, and each gradient comes back
+    in its operand's dtype, as JAX's transpose of the product does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        need_a, need_b = ctx.needs_input_grad
+        ga = torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype) \
+            if need_a else None
+        gb = torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype) \
+            if need_b else None
+        return ga, gb
 
 
 def _matmul_f32(a, b):
     """a @ b with f32 accumulation and an f32 result, whatever the inputs'
     dtype (the JAX package's ``preferred_element_type=float32``).  On CUDA
     a bf16 product with a 2-D right operand goes to cuBLAS as it is, with
-    an f32 output; elsewhere the operands are widened first (the same exact
+    an f32 output, through `_MatmulF32` (``torch.mm(out_dtype=)`` has no
+    derivative); elsewhere the operands are widened first (the same exact
     products and f32 sums)."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and b.dim() == 2:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                       out_dtype=torch.float32)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     return a.float() @ b.float()
+
+
+def _differentiable(use_kernels: bool) -> bool:
+    """Whether a head op takes the kernels' autograd route
+    (``ops/autograd.py``): with the kernels, where autograd records."""
+    return use_kernels and torch.is_grad_enabled()
 
 
 # ---------------------------------------------------------------------------
@@ -92,21 +127,26 @@ def init_mutan(key, cfg, num_heads: int = 5):
 def apply_mutan(params, lang_feat, spatial_feat, visual_feat,
                 num_heads: int = 5, *, use_kernels: bool = True):
     """sum_h tanh(conv_h([vis, spatial])) * tanh(conv_h(lang)), tanh, l2norm
-    (CMPC_model.py:311-328), as one mutan kernel launch.  The visual weight
-    in the compute dtype is `params['w_wide']` when model.prepare_params
-    built it, else cast here."""
+    (CMPC_model.py:311-328), as one mutan kernel launch (where autograd
+    records, the training form through `autograd.mutan`).  The visual
+    weight in the compute dtype is `params['w_wide']` when
+    model.prepare_params built it, else cast here."""
     b, h, w, c = visual_feat.shape
     dt = visual_feat.dtype
     vis_in = torch.cat([visual_feat, spatial_feat.to(dt)], dim=-1)
     lang = torch.tanh(conv2d(params["lang_trans"], lang_feat))  # [B,1,1,5C]
+    args = (vis_in.reshape(b * h * w, vis_in.shape[-1]),
+            params["vis_trans"]["DW"][0, 0],
+            params["vis_trans"]["biases"].float(),
+            lang.reshape(b, -1).float())
+    kw = dict(heads=num_heads, rows_per_sample=h * w)
+    if _differentiable(use_kernels):
+        return autograd.mutan(*args, **kw).reshape(b, h, w, c)
     w_wide = params.get("w_wide")
     if w_wide is None:
-        w_wide = params["vis_trans"]["DW"][0, 0].to(dt)
+        w_wide = args[1].to(dt)
     fn = kernels.mutan_fused if use_kernels else kernels.mutan_plain
-    out = fn(vis_in.reshape(b * h * w, vis_in.shape[-1]), w_wide,
-             params["vis_trans"]["biases"].float(),
-             lang.reshape(b, -1).float(), heads=num_heads,
-             rows_per_sample=h * w)
+    out = fn(args[0], w_wide, *args[2:], **kw)
     return out.reshape(b, h, w, c)
 
 
@@ -229,7 +269,9 @@ def apply_spa_graph_grouped(params_list, cfg, spa_graphs, words_feat,
     level alone, through the kernels' ungrouped forms.
 
     spa_graphs: G of [B,H,W,C]; words_feat [B,1,T,Cl]; seq_mask [B,1,T,1];
-    `stack`: `stack_graph_params(params_list, ...)`, built here when None.
+    `stack`: `stack_graph_params(params_list, ...)`, built here when None
+    (the autograd route takes the weights from `params_list` instead,
+    through the autograd functions).
     Returns (list of [B,H,W,C] outputs, list of (w_aff, v_aff))."""
     if cfg.graph_norm not in ("masked", "unmasked", "softmax_mask"):
         raise NotImplementedError(f"graph_norm {cfg.graph_norm!r} is not "
@@ -237,7 +279,8 @@ def apply_spa_graph_grouped(params_list, cfg, spa_graphs, words_feat,
     g_n = len(params_list)
     b, h, w, c = spa_graphs[0].shape
     dt = spa_graphs[0].dtype
-    if stack is None:
+    grad_route = _differentiable(use_kernels)
+    if stack is None and not grad_route:
         stack = stack_graph_params(params_list, dt)
     wts = []
     for p in params_list:
@@ -252,7 +295,12 @@ def apply_spa_graph_grouped(params_list, cfg, spa_graphs, words_feat,
             seq_mask[:, :, :, 0].float().repeat(g_n, 1, 1))
     kw = dict(scale=math.sqrt(cfg.v_emb_dim), l2n=bool(cfg.l2norm_affinity),
               masked=cfg.graph_norm in ("masked", "unmasked"))
-    if not use_kernels:
+    if grad_route:
+        projs = [p["spa_graph_trans2"] for p in params_list]
+        w_aff, v_aff = autograd.spa_affinity_grouped(
+            x, [q["DW"][0, 0] for q in projs], [q["biases"] for q in projs],
+            *args, **kw)
+    elif not use_kernels:
         w_aff, v_aff = kernels.spa_affinity_grouped_plain(
             x, stack["wg"], stack["bg"], *args, **kw)
     elif g_n == 1:
@@ -262,10 +310,14 @@ def apply_spa_graph_grouped(params_list, cfg, spa_graphs, words_feat,
         w_aff, v_aff = kernels.spa_affinity_grouped(x, stack["wg"],
                                                     stack["bg"], *args, **kw)
 
-    for r, gs in enumerate(stack["gconv"]):
-        x = graph_conv(gs, x, w_aff, v_aff) if use_kernels else \
-            _graph_conv_grouped([p["gconv"][r] for p in params_list], x,
-                                w_aff, v_aff)
+    for r in range(len(params_list[0]["gconv"])):
+        gps = [p["gconv"][r] for p in params_list]
+        if grad_route:
+            x = autograd.graph_conv(gps, x, w_aff, v_aff)
+        elif use_kernels:
+            x = graph_conv(stack["gconv"][r], x, w_aff, v_aff)
+        else:
+            x = _graph_conv_grouped(gps, x, w_aff, v_aff)
     outs, gws = [], []
     for g in range(g_n):
         s = slice(g * b, (g + 1) * b)
@@ -328,24 +380,24 @@ def apply_lang2vis_multi(params_list, cfg, visuals, words_feat, words_parse,
                          use_kernels: bool = True):
     """Per-level cross-modal comprehension (CMPC_model.py:330-345) for all
     levels, the spatial graph level-packed when `pack_levels` says so.
-    `graph_stack`: the levels' `stack_graph_params`, built here when None.
+    `graph_stack`: the levels' `stack_graph_params`, built here when None
+    (not on the autograd route, which takes the f32 weights).
     Returns (list of fusions, list of gw)."""
+    route = dict(use_kernels=use_kernels)
     valid = valid_lang_feat(words_parse, words_feat, (0, 1))  # E+A
-    vis_list = [apply_mutan(p["mutan"], valid, spatial, v,
-                            use_kernels=use_kernels)
+    vis_list = [apply_mutan(p["mutan"], valid, spatial, v, **route)
                 for p, v in zip(params_list, visuals)]
     graphs = [p["graph"] for p in params_list]
-    if graph_stack is None:
+    if graph_stack is None and not _differentiable(use_kernels):
         graph_stack = stack_graph_params(graphs, vis_list[0].dtype)
     lang = (words_feat, words_parse, seq_mask)
     if pack_levels(vis_list[0].shape[0], len(vis_list)):
         feats, gws = apply_spa_graph_grouped(graphs, cfg, vis_list, *lang,
-                                             stack=graph_stack,
-                                             use_kernels=use_kernels)
+                                             stack=graph_stack, **route)
     else:
         outs = [apply_spa_graph(g, cfg, v, *lang,
-                                stack=level_of(graph_stack, i),
-                                use_kernels=use_kernels)
+                                stack=None if graph_stack is None
+                                else level_of(graph_stack, i), **route)
                 for i, (g, v) in enumerate(zip(graphs, vis_list))]
         feats, gws = [o[0] for o in outs], [o[1] for o in outs]
     fusions = [_lang2vis_fuse(p, v, f, valid, spatial)
@@ -436,19 +488,24 @@ def exchange_step_normed(pex, cfg, feat, others, lang_feat, *,
                          use_kernels: bool = True):
     """One gated-exchange module + the l2norm epilogue (standard layout):
     the gv and gates are [B,1,1,C]-small plain PyTorch; the SE sum and
-    the row l2norm are one se_sum kernel launch.  The SE weights are
-    `pex['se_tables']` when model.prepare_params built them."""
+    the row l2norm are one se_sum kernel launch (where autograd records,
+    through `autograd.se_sum`).  The SE weights are `pex['se_tables']` when
+    model.prepare_params built them."""
     b, h, w, c = feat.shape
     dt = feat.dtype
     gv = _apply_gv(pex["gv"], cfg, feat, lang_feat)
     gates = [torch.sigmoid(conv2d(se["lang_feat"], gv)).reshape(b, -1).to(dt)
              for se in pex["se"]]
+    rows = (feat.reshape(b, h * w, c),
+            [o.reshape(b, h * w, c) for o in others], gates)
+    if _differentiable(use_kernels):
+        trans = [se["trans_feat"] for se in pex["se"]]
+        out = autograd.se_sum(*rows, [t["DW"] for t in trans],
+                              [t["biases"] for t in trans])
+        return out.reshape(b, h, w, c)
     tables = pex.get("se_tables") or se_tables(pex, dt)
     fn = kernels.se_sum if use_kernels else kernels.se_sum_plain
-    out = fn(feat.reshape(b, h * w, c),
-             [o.reshape(b, h * w, c) for o in others], gates, tables["w"],
-             tables["b"])
-    return out.reshape(b, h, w, c)
+    return fn(*rows, tables["w"], tables["b"]).reshape(b, h, w, c)
 
 
 def apply_exchange(p, cfg, feat, others, lang_feat):
@@ -496,7 +553,10 @@ def convlstm_step_fused(p, x, c, h, *, use_kernels: bool = True):
     sigmoid(LN_o(o_raw)) * tanh(new_c)), as the JAX package's
     convlstm_step_fused finalizes in XLA.  The layer norms take their
     statistics as (sum, sum of squares) from the kernels.  The weights are
-    `p['tables']` when model.prepare_params built them."""
+    `p['tables']` when model.prepare_params built them.  Where autograd
+    records, the step runs through `autograd.convlstm_step`."""
+    if _differentiable(use_kernels):
+        return autograd.convlstm_step(p, x, c, h)
     b, hh, ww, cc = x.shape
     n = hh * ww
     t = p.get("tables") or convlstm_tables(p, x.dtype)

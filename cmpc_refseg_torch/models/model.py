@@ -8,6 +8,8 @@ laterals (+l2norm) -> spatial grid -> language parser -> per-level lang2vis
 Precision (docs/DESIGN.md §2): with compute_dtype 'bfloat16' the backbone
 and the head run their products in bf16; norm statistics, softmaxes, the
 score convs, logits and the sigmoid stay in float32.
+
+Losses follow train_op (CMPC_model.py:426-492): `compute_loss`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from cmpc_refseg_torch.convert import params_from_jax
 from cmpc_refseg_torch.models import cmpc
 from cmpc_refseg_torch.models.backbone import apply_backbone, init_backbone
 from cmpc_refseg_torch.models.language import encode_text, init_text_encoder
+from cmpc_refseg_torch.ops import losses
 from cmpc_refseg_torch.ops.layers import conv2d, init_conv, split_stream
 from cmpc_refseg_torch.ops.normalization import l2_normalize
 from cmpc_refseg_torch.ops.resize import resize_bilinear
@@ -77,21 +80,28 @@ def init_model(seed, cfg: ModelConfig, *, device=None) -> dict:
     return params_from_jax(init_numpy(seed, cfg), cfg, device=device)
 
 
+def prepare_backbone(backbone: dict, cfg: ModelConfig) -> dict:
+    """The backbone's conv kernels in bf16 (channels_last) when the compute
+    dtype is bf16, built once; unchanged in f32.  Training keeps this view
+    of the frozen backbone."""
+    if cfg.compute_dtype != "bfloat16":
+        return backbone
+
+    def cast_units(node):
+        if isinstance(node, dict) and "w" in node:
+            return {**node, "w": node["w"].to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)}
+        return {k: cast_units(v) for k, v in node.items()}
+    return cast_units(backbone)
+
+
 def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     """Inference view of the parameters, built once: the weights the head's
     kernels take, in the compute dtype (each level's mutan weight [K, 5C],
     the spatial graph's weights stacked over the levels, the exchanges' SE
-    weights and the ConvLSTM's tables) and, in bf16, the backbone kernels
-    (channels_last).  The f32 originals stay."""
-    bf16 = cfg.compute_dtype == "bfloat16"
-    dt = torch.bfloat16 if bf16 else torch.float32
-
-    def cast_units(node):
-        if isinstance(node, dict) and "w" in node:
-            return {**node, "w": node["w"].to(dt).contiguous(
-                memory_format=torch.channels_last)}
-        return {k: cast_units(v) for k, v in node.items()}
-
+    weights and the ConvLSTM's tables) and `prepare_backbone`.  The f32
+    originals stay."""
+    dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     levels = {}
     for lv, level in params["levels"].items():
         w_wide = level["mutan"]["vis_trans"]["DW"][0, 0].to(dt).contiguous()
@@ -107,20 +117,25 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
         [params["levels"][lv]["graph"] for lv in cfg.levels], dt)
     return {**params, "levels": levels, "fusion_stack": fusion_stack,
             "graph_stack": graph_stack,
-            "backbone": cast_units(params["backbone"]) if bf16
-            else params["backbone"]}
+            "backbone": prepare_backbone(params["backbone"], cfg)}
 
 
 def apply_model(params, cfg: ModelConfig, batch: dict, *,
                 use_kernels: bool = True) -> ModelOutputs:
-    """Inference forward.  batch: 'im' [B,H,W,3] float32 (BGR,
-    mean-subtracted), 'words' [B,T] back-padded token ids, 'seq_len' [B].
+    """Forward.  batch: 'im' [B,H,W,3] float32 (BGR, mean-subtracted),
+    'words' [B,T] back-padded token ids, 'seq_len' [B].
 
     `use_kernels=False` runs the plain PyTorch versions of the kernels on
-    any device (the reference the kernels are held against)."""
+    any device (the reference the kernels are held against).  Where
+    autograd records, this is the differentiable forward of the train step:
+    the head's kernels run through ``ops/autograd.py``, from the f32
+    weights (not `prepare_params`' inference view of the head); the frozen
+    backbone's weights need no gradient, so autograd records nothing
+    there."""
     _check_supported(cfg)
     im = batch["im"]
     dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+    route = dict(use_kernels=use_kernels)
 
     vis = apply_backbone(params["backbone"], im, compute_dtype=dt,
                          taps=tuple(cfg.levels), res4_blocks=cfg.res4_blocks)
@@ -143,7 +158,7 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
         [params["levels"][lv] for lv in cfg.levels], cfg,
         [laterals[lv] for lv in cfg.levels], text.words_feat, words_parse,
         text.seq_mask, spatial, graph_stack=params.get("graph_stack"),
-        use_kernels=use_kernels)
+        **route)
     fusions, gw, up_levels = {}, {}, {}
     for lv, fusion_lv, gw_lv in zip(cfg.levels, fusion_list, gw_list):
         fusions[lv] = fusion_lv
@@ -154,9 +169,61 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     nec = cmpc.valid_lang_feat(words_parse, text.words_feat,
                                tuple(range(cfg.parse_classes - 1)))
     fused = cmpc.apply_fusion_stack(params["fusion_stack"], cfg, fusions, nec,
-                                    use_kernels=use_kernels)
+                                    **route)
 
     pred = conv2d(params["scores"]["score"], fused.float())
     up = resize_bilinear(pred, cfg.H, cfg.W)
     return ModelOutputs(pred, up, torch.sigmoid(up), up_levels, words_parse,
                         gw)
+
+
+# ---------------------------------------------------------------------------
+# loss (train_op, CMPC_model.py:426-447)
+# ---------------------------------------------------------------------------
+
+def _collect_reg_leaves(params) -> list:
+    """Regularized leaves: every 'DW' conv kernel of the head (the
+    reference filters trainable names for 'DW', CMPC_model.py:433).  The
+    backbone is frozen: training res3-5 (conv5=True) is not ported."""
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k == "DW":
+                    leaves.append(v)
+                else:
+                    walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk({k: v for k, v in params.items() if k != "backbone"})
+    return leaves
+
+
+def compute_loss(outputs: ModelOutputs, target, cfg: ModelConfig,
+                 params=None):
+    """The 4-term weighed logistic loss + L2 regularization
+    (CMPC_model.py:439-447): main and per-level losses weighted by
+    cfg.loss_weights (main, c5, c4, c3).  Returns (total, metrics) with
+    'loss_main', 'loss_<level>', 'loss_cls_all', 'loss_reg' (when `params`
+    is given) and 'loss_total'."""
+    metrics = {}
+    main = losses.weighed_logistic_loss(outputs.up, target, 1, 1)
+    metrics["loss_main"] = main
+    total = cfg.loss_weights[0] * main
+    level_order = [lv for lv in ("c5", "c4", "c3") if lv in cfg.levels]
+    for wgt, lv in zip(cfg.loss_weights[1:], level_order):
+        lv_loss = losses.weighed_logistic_loss(outputs.up_levels[lv], target,
+                                               1, 1)
+        metrics[f"loss_{lv}"] = lv_loss
+        total = total + wgt * lv_loss
+    metrics["loss_cls_all"] = total
+    if params is not None:
+        reg = losses.l2_regularization_loss(_collect_reg_leaves(params),
+                                            cfg.weight_decay)
+        metrics["loss_reg"] = reg
+        total = total + reg
+    metrics["loss_total"] = total
+    return total, metrics

@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("mutan", "spa_affinity", "graph_conv", "se_sum", "convlstm")
+SOURCES = ("mutan", "mutan_bwd", "spa_affinity", "graph_conv", "se_sum",
+           "convlstm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -30,8 +31,13 @@ _PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of device pointers
 # C signatures: name -> (argtypes, restype)
 SIGNATURES = {
     "mutan": {
-        "cmpc_mutan_fused": ([_P] * 7 + [_I] * 5 + [_P], _I),
+        "cmpc_mutan_fused": ([_P] * 8 + [_I] * 5 + [_P], _I),
         "cmpc_mutan_col_tiles": ([_I], _I),
+    },
+    "mutan_bwd": {
+        "cmpc_mutan_bwd_dz": ([_P] * 7 + [_I] * 4 + [_P], _I),
+        "cmpc_mutan_dz_rows_per_block": ([_I], _I),
+        "cmpc_mutan_dw": ([_P] * 3 + [_I] * 3 + [_P], _I),
     },
     "spa_affinity": {
         "cmpc_spa_affinity": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),

@@ -68,28 +68,46 @@ def _stream() -> int:
 # mutan (csrc/mutan.cu)
 # ---------------------------------------------------------------------------
 
+def _acc(t):
+    """`t` in the accumulation dtype of the mutan plain versions: f32, or
+    f64 for f64 inputs (gradient checks)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _mutan_terms(x, w, b, lang, heads, rows_per_sample):
+    """v = tanh(x @ W + b) [M, heads*C] and out = l2norm_row(tanh(sum_h v_h *
+    lang_h)) [M, C], both f32 (the product accumulates in f32)."""
+    m = x.shape[0]
+    c = w.shape[1] // heads
+    bsz = m // rows_per_sample
+    v = torch.tanh(_acc(x) @ _acc(w) + _acc(b))
+    prod = v.view(bsz, rows_per_sample, heads, c) \
+        * _acc(lang).view(bsz, 1, heads, c)
+    y = torch.tanh(prod.sum(dim=2)).view(m, c)
+    sq = torch.sum(y * y, dim=-1, keepdim=True)
+    return v, y * torch.rsqrt(torch.clamp(sq, min=1e-12))
+
+
 def mutan_plain(x, w, b, lang, *, heads: int, rows_per_sample: int):
     """l2norm_row(tanh(sum_h tanh(x @ W_h + b_h) * lang_h)).
 
     x [M, K]; w [K, heads*C] (x dtype); b [heads*C] f32; lang [M/N, heads*C]
     f32, row r of x using lang row r // rows_per_sample -> [M, C] x dtype.
     The product accumulates in f32; the tanh chain and norm run in f32."""
-    m = x.shape[0]
-    c = w.shape[1] // heads
-    bsz = m // rows_per_sample
-    v = torch.tanh(x.float() @ w.float() + b.float())
-    prod = v.view(bsz, rows_per_sample, heads, c) \
-        * lang.float().view(bsz, 1, heads, c)
-    y = torch.tanh(prod.sum(dim=2)).view(m, c)
-    sq = torch.sum(y * y, dim=-1, keepdim=True)
-    return (y * torch.rsqrt(torch.clamp(sq, min=1e-12))).to(x.dtype)
+    return _mutan_terms(x, w, b, lang, heads, rows_per_sample)[1].to(x.dtype)
 
 
-def mutan_fused(x, w, b, lang, *, heads: int, rows_per_sample: int):
-    """Wrapper of the mutan kernel; same contract as `mutan_plain`."""
-    if _on_cpu(x, w, b, lang):
-        return mutan_plain(x, w, b, lang, heads=heads,
-                           rows_per_sample=rows_per_sample)
+def mutan_fwd_residual_plain(x, w, b, lang, *, heads: int,
+                             rows_per_sample: int):
+    """`mutan_plain` that also returns the training residual v = tanh(x @ W
+    + b) [M, heads*C] in x's dtype: (out, v).  out is computed from the f32
+    v, as the kernel computes it."""
+    v, out = _mutan_terms(x, w, b, lang, heads, rows_per_sample)
+    return out.to(x.dtype), v.to(x.dtype)
+
+
+def _mutan_launch(x, w, b, lang, heads, rows_per_sample, residual):
+    """One launch of the mutan kernel; with `residual` it also writes v."""
     m, k = x.shape
     c = w.shape[1] // heads
     if m % rows_per_sample:
@@ -106,16 +124,132 @@ def mutan_fused(x, w, b, lang, *, heads: int, rows_per_sample: int):
     y = torch.empty((m, c), dtype=torch.float32, device=x.device)
     rowsq = torch.empty((m, tiles), dtype=torch.float32, device=x.device)
     out = torch.empty((m, c), dtype=torch.bfloat16, device=x.device)
+    v = torch.empty((m, heads * c), dtype=torch.bfloat16, device=x.device) \
+        if residual else None
     rc = lib.cmpc_mutan_fused(x.data_ptr(), w.data_ptr(), b.data_ptr(),
                               lang.data_ptr(), y.data_ptr(), rowsq.data_ptr(),
-                              out.data_ptr(), m, k, c, rows_per_sample, heads,
+                              out.data_ptr(), None if v is None else
+                              v.data_ptr(), m, k, c, rows_per_sample, heads,
                               _stream())
     build.check(lib, rc, "mutan_fused")
+    return out, v
+
+
+def mutan_fused(x, w, b, lang, *, heads: int, rows_per_sample: int):
+    """Wrapper of the mutan kernel; same contract as `mutan_plain`."""
+    if _on_cpu(x, w, b, lang):
+        return mutan_plain(x, w, b, lang, heads=heads,
+                           rows_per_sample=rows_per_sample)
+    out, _ = _mutan_launch(x, w, b, lang, heads, rows_per_sample, False)
     mutan_fused.launches += 1
     return out
 
 
 mutan_fused.launches = 0
+
+
+def mutan_fwd_residual(x, w, b, lang, *, heads: int, rows_per_sample: int):
+    """Wrapper of the mutan kernel's training form (out and the bf16
+    residual v); same contract as `mutan_fwd_residual_plain`."""
+    if _on_cpu(x, w, b, lang):
+        return mutan_fwd_residual_plain(x, w, b, lang, heads=heads,
+                                        rows_per_sample=rows_per_sample)
+    out = _mutan_launch(x, w, b, lang, heads, rows_per_sample, True)
+    mutan_fwd_residual.launches += 1
+    return out
+
+
+mutan_fwd_residual.launches = 0
+
+
+def mutan_bwd_dz_plain(v, lang, g, *, heads: int, rows_per_sample: int):
+    """The mutan backward's dz pass (pallas_kernels.py:506-524 of the JAX
+    package), in f32 from the residual v: per row acc = sum_h v_h * lang_h,
+    y = tanh(acc), out = y * rsqrt(max(sum y^2, 1e-12)); from the cotangent
+    g of out, dacc = dy * (1 - y^2) with dy the l2norm's vjp, and
+    dz_h = dacc * lang_h * (1 - v_h^2).
+
+    v [M, heads*C]; lang [M/N, heads*C] f32; g [M, C] -> (dz [M, heads*C]
+    in v's dtype, dlang [M/N, heads*C] f32 = the sum over each sample's rows
+    of dacc * v_h, db [heads*C] f32 = the sum over all rows of the f32 dz)."""
+    m, wd = v.shape
+    c = wd // heads
+    bsz = m // rows_per_sample
+    eps = 1e-12
+    vf = _acc(v).view(bsz, rows_per_sample, heads, c)
+    lf = _acc(lang).view(bsz, 1, heads, c)
+    y = torch.tanh((vf * lf).sum(dim=2))                     # [B, N, C]
+    sq = torch.sum(y * y, dim=-1, keepdim=True)
+    r = torch.rsqrt(torch.clamp(sq, min=eps))
+    out = y * r
+    gt = _acc(g).view(bsz, rows_per_sample, c)
+    gy = torch.sum(gt * out, dim=-1, keepdim=True)
+    dy = torch.where(sq > eps, (gt - out * gy) * r, gt * r)
+    dacc = (dy * (1.0 - y * y))[:, :, None, :]              # [B, N, 1, C]
+    dz = dacc * lf * (1.0 - vf * vf)                         # [B, N, H, C]
+    dlang = (dacc * vf).sum(dim=1).reshape(bsz, wd)
+    db = dz.sum(dim=(0, 1)).reshape(wd)
+    return dz.reshape(m, wd).to(v.dtype), dlang, db
+
+
+def mutan_bwd_dz(v, lang, g, *, heads: int, rows_per_sample: int):
+    """Wrapper of the dz kernel; same contract as `mutan_bwd_dz_plain`."""
+    if _on_cpu(v, lang, g):
+        return mutan_bwd_dz_plain(v, lang, g, heads=heads,
+                                  rows_per_sample=rows_per_sample)
+    m, wd = v.shape
+    c = wd // heads
+    if m % rows_per_sample:
+        raise ValueError(f"rows {m} not a multiple of rows_per_sample "
+                         f"{rows_per_sample}")
+    bsz = m // rows_per_sample
+    _expect("v", v, torch.bfloat16, (m, heads * c))
+    _expect("lang", lang, torch.float32, (bsz, heads * c))
+    _expect("g", g, torch.bfloat16, (m, c))
+    _multiple_of(2, C=c)
+    lib = build.library("mutan_bwd")
+    blocks = m // lib.cmpc_mutan_dz_rows_per_block(rows_per_sample)
+    dz = torch.empty((m, wd), dtype=torch.bfloat16, device=v.device)
+    part = torch.empty((2, blocks, wd), dtype=torch.float32, device=v.device)
+    dlang = torch.empty((bsz, wd), dtype=torch.float32, device=v.device)
+    db = torch.empty((wd,), dtype=torch.float32, device=v.device)
+    rc = lib.cmpc_mutan_bwd_dz(v.data_ptr(), lang.data_ptr(), g.data_ptr(),
+                               dz.data_ptr(), part.data_ptr(),
+                               dlang.data_ptr(), db.data_ptr(), m, c,
+                               rows_per_sample, heads, _stream())
+    build.check(lib, rc, "mutan_bwd_dz")
+    mutan_bwd_dz.launches += 1
+    return dz, dlang, db
+
+
+mutan_bwd_dz.launches = 0
+
+
+def mutan_dw_plain(x, dz):
+    """dW = x^T @ dz with f32 accumulation: x [M, K], dz [M, W] -> [K, W]
+    f32."""
+    return _acc(x).t() @ _acc(dz)
+
+
+def mutan_dw(x, dz):
+    """Wrapper of the dW kernel; same contract as `mutan_dw_plain`."""
+    if _on_cpu(x, dz):
+        return mutan_dw_plain(x, dz)
+    m, k = x.shape
+    wd = dz.shape[1]
+    _expect("x", x, torch.bfloat16, (m, k))
+    _expect("dz", dz, torch.bfloat16, (m, wd))
+    _multiple_of(8, K=k, W=wd)
+    lib = build.library("mutan_bwd")
+    dw = torch.empty((k, wd), dtype=torch.float32, device=x.device)
+    rc = lib.cmpc_mutan_dw(x.data_ptr(), dz.data_ptr(), dw.data_ptr(), m, k,
+                           wd, _stream())
+    build.check(lib, rc, "mutan_dw")
+    mutan_dw.launches += 1
+    return dw
+
+
+mutan_dw.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -533,10 +667,13 @@ def convlstm_raw(gates, c, co, stats, gamma, beta):
 
 convlstm_raw.launches = 0
 
-KERNELS = (mutan_fused, spa_affinity, spa_affinity_grouped, graph_msg,
-           graph_update, graph_update_grouped, se_sum, convlstm_gates,
-           convlstm_raw)
-PLAIN = {mutan_fused: mutan_plain, spa_affinity: spa_affinity_plain,
+KERNELS = (mutan_fused, mutan_fwd_residual, mutan_bwd_dz, mutan_dw,
+           spa_affinity, spa_affinity_grouped, graph_msg, graph_update,
+           graph_update_grouped, se_sum, convlstm_gates, convlstm_raw)
+PLAIN = {mutan_fused: mutan_plain,
+         mutan_fwd_residual: mutan_fwd_residual_plain,
+         mutan_bwd_dz: mutan_bwd_dz_plain, mutan_dw: mutan_dw_plain,
+         spa_affinity: spa_affinity_plain,
          spa_affinity_grouped: spa_affinity_grouped_plain,
          graph_msg: graph_msg_plain, graph_update: graph_update_plain,
          graph_update_grouped: graph_update_grouped_plain,

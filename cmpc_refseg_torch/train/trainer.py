@@ -1,0 +1,255 @@
+"""The train step of the flagship and its loop (reference:
+trainval_model.py:19-147).
+
+A step is the differentiable forward (`models.model.apply_model` where
+autograd records: the head's kernels through ``ops/autograd.py``, the
+frozen backbone outside the graph), the loss, autograd's backward, the
+conv-bias gradient x2 and one Adam update whose lr comes from the
+polynomial schedule at the step count.  Batches arrive as uint8 images and
+masks (`prepare_image_batch_u8`) and are expanded on the device.
+
+Not ported: the JAX step's layout knobs (the flat master vector, the grad
+modes, the fused Adam, the XLA dW switch), which are TPU launch-count
+workarounds with the same math; mesh sharding; checkpoints (ROADMAP queue
+1, item 7); grad_accum > 1 and conv5=True (item 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from cmpc_refseg_torch.config import ModelConfig
+from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR
+from cmpc_refseg_torch.models.model import (apply_model, compute_loss,
+                                            init_model, prepare_backbone)
+from cmpc_refseg_torch.train.optimizer import (check_trainable,
+                                               make_optimizer, merge_params,
+                                               named_leaves, partition_params,
+                                               polynomial_lr, scale_bias_grads)
+from cmpc_refseg_torch.utils.moving_average import MovingAverage
+
+
+@dataclasses.dataclass
+class TrainState:
+    """`trainable`: the f32 parameter tensors that train (requires_grad);
+    `frozen`: the frozen backbone, in `prepare_backbone`'s view;
+    `optimizer`: Adam over the trainable tensors; `step`: updates done."""
+    trainable: dict
+    frozen: dict
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(named_leaves(self.trainable))[1].device
+
+    def params(self) -> dict:
+        """The full parameter tree (trainable merged with frozen)."""
+        return merge_params(self.trainable, self.frozen)
+
+
+def train_state_from_params(params: dict, cfg: ModelConfig) -> TrainState:
+    """A fresh TrainState (step 0, empty Adam moments) from port
+    parameters; the trainable tensors are switched to requires_grad in
+    place."""
+    trainable, frozen = partition_params(params, cfg)
+    leaves = [leaf.requires_grad_() for _, leaf in named_leaves(trainable)]
+    return TrainState(trainable=trainable,
+                      frozen={"backbone": prepare_backbone(
+                          frozen["backbone"], cfg)},
+                      optimizer=make_optimizer(cfg, leaves))
+
+
+def create_train_state(seed, cfg: ModelConfig, device=None) -> TrainState:
+    """TrainState from an int seed (the JAX package's init_model draws), on
+    `device` (CUDA when None; raises without it)."""
+    return train_state_from_params(init_model(seed, cfg, device=device), cfg)
+
+
+def aug_generator(step: int) -> torch.Generator:
+    """The brightness augmentation's generator for a step, seeded from
+    (42, step) as the JAX step folds the step into PRNGKey(42)."""
+    seed = int(np.random.SeedSequence([42, int(step)]).generate_state(1)[0])
+    return torch.Generator().manual_seed(seed)
+
+
+def brightness_aug(generator: torch.Generator, im, max_delta: float = 0.2):
+    """`tf.image.random_brightness(im, 0.2)` (CMPCv4_model.py:83-84): one
+    uniform delta in [-max_delta, max_delta) added to the whole batch
+    tensor.  The delta comes from `generator`, so it cannot match the JAX
+    package's PRNG draw bit for bit; its law is the same."""
+    delta = (torch.rand((), generator=generator).item() * 2 - 1) * max_delta
+    return im + delta
+
+
+def prepare_image_batch(collated: dict, cfg: ModelConfig) -> dict:
+    """Host-side packing (trainval_model.py:83-96): uint8 RGB -> float32
+    BGR - mean; bool mask -> float target; int32 text."""
+    im = collated["im_batch"].astype(np.float32)
+    out = {"im": (im[..., ::-1] - IMAGE_MEAN_BGR).astype(np.float32),
+           "target": collated["mask_batch"].astype(np.float32)[..., None],
+           "words": collated["text_batch"].astype(np.int32)}
+    if "seq_length" in collated:
+        out["seq_len"] = collated["seq_length"].astype(np.int32).reshape(-1)
+    return out
+
+
+def prepare_image_batch_u8(collated: dict) -> dict:
+    """Compact host packing: uint8 RGB and uint8 mask, normalized on the
+    device (`device_image_prologue`), 4x fewer host-to-device bytes than
+    the float32 feed."""
+    out = {"im_u8": np.ascontiguousarray(collated["im_batch"].astype(np.uint8)),
+           "target_u8": collated["mask_batch"].astype(np.uint8)[..., None],
+           "words": collated["text_batch"].astype(np.int32)}
+    if "seq_length" in collated:
+        out["seq_len"] = collated["seq_length"].astype(np.int32).reshape(-1)
+    return out
+
+
+def device_image_prologue(batch: dict, device) -> dict:
+    """The batch as tensors on `device`, a compact uint8 batch expanded
+    there: RGB uint8 -> f32 BGR - mean, uint8 mask -> f32 target.  An
+    already expanded batch ('im', 'target') is moved as it is."""
+    b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    if "im_u8" in b:
+        mean = torch.as_tensor(IMAGE_MEAN_BGR, dtype=torch.float32,
+                               device=device)
+        b["im"] = b.pop("im_u8").float().flip(-1) - mean
+    if "target_u8" in b:
+        b["target"] = b.pop("target_u8").float()
+    return b
+
+
+def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
+                      use_kernels: bool = True):
+    """Forward, loss and backward of one batch: leaves every trainable
+    tensor's gradient in .grad (the conv biases' doubled) and returns
+    (loss_total, metrics), detached.  `use_kernels=False` runs the plain
+    PyTorch versions of the kernels under autograd (the reference the
+    kernel route is held against)."""
+    b = device_image_prologue(batch, state.device)
+    if cfg.is_aug:
+        b["im"] = brightness_aug(aug_generator(state.step), b["im"])
+    params = state.params()
+    outputs = apply_model(params, cfg, b, use_kernels=use_kernels)
+    total, metrics = compute_loss(outputs, b["target"], cfg, params)
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    scale_bias_grads(state.trainable)
+    with torch.no_grad():
+        # on-graph batch mIoU summary (CMPC_model.py:486-490)
+        pred, labl = outputs.up > 0, b["target"] > 0
+        inter = (pred & labl).sum(dim=(1, 2, 3)).float()
+        union = (pred | labl).sum(dim=(1, 2, 3)).float()
+        metrics["train_mIoU"] = torch.mean(inter / union.clamp(min=1))
+    return total.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(cfg: ModelConfig) -> Callable:
+    """(state, batch) -> metrics: one update of `state` in place.
+
+    batch: 'im_u8' [B,H,W,3] uint8 RGB and 'target_u8' [B,H,W,1] uint8 (or
+    'im' f32 BGR - mean and 'target' f32), 'words' [B,T], 'seq_len' [B];
+    numpy or tensors.  Metrics: the losses of `compute_loss`, 'train_mIoU'
+    (0-d tensors on the device) and 'learning_rate' (the lr of this
+    update)."""
+    check_trainable(cfg)
+    schedule = polynomial_lr(cfg)
+
+    def train_step(state: TrainState, batch: dict) -> dict:
+        _, metrics = compute_gradients(state, cfg, batch)
+        lr = schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        metrics["learning_rate"] = lr
+        return metrics
+
+    return train_step
+
+
+class PreemptionGuard:
+    """SIGTERM/SIGINT set a flag that the train loop reads at each step
+    boundary, so it stops cleanly there.  The previous handlers come back
+    at the first signal, so a second one still interrupts.  A no-op off the
+    main thread, where handlers cannot be installed."""
+
+    def __init__(self):
+        self.fired = False
+        self._prev = {}
+
+    def __enter__(self):
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                self._prev[sig] = signal.signal(sig, self._handle)
+        except ValueError:   # not the main thread
+            self._prev = {}
+        return self
+
+    def _handle(self, signum, frame):
+        self.fired = True
+        self._restore()
+
+    def _restore(self):
+        for sig, h in self._prev.items():
+            signal.signal(sig, h)
+        self._prev = {}
+
+    def __exit__(self, *exc):
+        self._restore()
+        return False
+
+
+def train_loop(cfg: ModelConfig, reader, *, max_iter: int,
+               state: Optional[TrainState] = None, seed: int = 0,
+               device=None, log_every: int = 100,
+               checkpoint_dir: Optional[str] = None,
+               logger=None) -> TrainState:
+    """`max_iter` train steps over `reader.read_collated(batch_size)` (dicts
+    of stacked arrays: 'im_batch', 'mask_batch', 'text_batch',
+    'seq_length').  Logs every `log_every` iterations (console, and
+    `logger.log(it, metrics)` when given).  `state` defaults to
+    `create_train_state(seed, cfg, device)`.  SIGTERM or SIGINT stops the
+    loop at the next step boundary (`PreemptionGuard`)."""
+    if checkpoint_dir is not None:
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
+                                  "queue 1, item 7)")
+    if state is None:
+        state = create_train_state(seed, cfg, device=device)
+    step_fn = make_train_step(cfg)
+    with PreemptionGuard() as guard:
+        return _train_iters(cfg, reader, state, step_fn, guard,
+                            max_iter=max_iter, log_every=log_every,
+                            logger=logger)
+
+
+def _train_iters(cfg, reader, state, step_fn, guard, *, max_iter, log_every,
+                 logger):
+    time_avg = MovingAverage(100)
+    last = time.time()
+    for it in range(max_iter):
+        if guard.fired:
+            print(f"preempted at iter {it}: stopping cleanly", flush=True)
+            return state
+        batch = prepare_image_batch_u8(reader.read_collated(cfg.batch_size))
+        metrics = step_fn(state, batch)
+        now = time.time()
+        time_avg.add(now - last)
+        last = now
+        if it % log_every == 0:
+            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics["step_time_s"] = time_avg.get()
+            print(f"iter {it}: loss {metrics['loss_cls_all']:.2f} "
+                  f"mIoU {metrics['train_mIoU']:.3f} "
+                  f"lr {metrics['learning_rate']:.2e} "
+                  f"({time_avg.get():.3f}s/it)", flush=True)
+            if logger is not None:
+                logger.log(it, metrics)
+    return state

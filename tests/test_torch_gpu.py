@@ -81,11 +81,21 @@ def _inputs(g, name, l2n=False, masked=True):
     """(args, kwargs, count of entries per sample behind its statistics)."""
     b, n, c, t = 2, 100, 72, 6
     f32 = torch.float32
-    if name == "mutan_fused":
-        return ((_rnd(g, b * n, 80), _rnd(g, 80, 5 * c, scale=0.1),
-                 _rnd(g, 5 * c, dtype=f32), torch.tanh(_rnd(g, b, 5 * c,
-                                                          dtype=f32))),
-                {"heads": 5, "rows_per_sample": n}, None)
+    mutan = ((_rnd(g, b * n, 80), _rnd(g, 80, 5 * c, scale=0.1),
+              _rnd(g, 5 * c, dtype=f32), torch.tanh(_rnd(g, b, 5 * c,
+                                                       dtype=f32))),
+             {"heads": 5, "rows_per_sample": n})
+    if name in ("mutan_fused", "mutan_fwd_residual"):
+        return (*mutan, None)
+    if name in ("mutan_bwd_dz", "mutan_dw"):
+        # 100 rows per sample: the dz pass takes blocks of 25 rows; 200
+        # rows, K = 80 and 5C = 360 leave ragged dW tiles
+        _, v = kernels.mutan_fwd_residual_plain(*mutan[0], **mutan[1])
+        dz_args = (v, mutan[0][3], _rnd(g, b * n, c, scale=0.1))
+        if name == "mutan_bwd_dz":
+            return (dz_args, mutan[1], None)
+        dz, _, _ = kernels.mutan_bwd_dz_plain(*dz_args, **mutan[1])
+        return (mutan[0][0], dz), {}, None
     if name in ("spa_affinity", "spa_affinity_grouped"):
         grouped = name.endswith("grouped")
         b = 3 if grouped else b           # 3 groups of 1 sample: batch 1
@@ -126,7 +136,8 @@ def _inputs(g, name, l2n=False, masked=True):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,l2n,masked", [
-    ("mutan_fused", False, True),
+    ("mutan_fused", False, True), ("mutan_fwd_residual", False, True),
+    ("mutan_bwd_dz", False, True), ("mutan_dw", False, True),
     ("spa_affinity", False, True), ("spa_affinity", False, False),
     ("spa_affinity", True, False), ("spa_affinity", True, True),
     ("graph_msg", False, True), ("graph_update", False, True),
@@ -175,7 +186,8 @@ def test_small_forward_kernel_route_matches_plain_route(cuda):
     out = model.forward(batch)
     packed = pack_levels(3, 3)
     assert kernels.launch_counts() == {
-        "mutan_fused": 3, "spa_affinity": 0 if packed else 3,
+        "mutan_fused": 3, "mutan_fwd_residual": 0, "mutan_bwd_dz": 0,
+        "mutan_dw": 0, "spa_affinity": 0 if packed else 3,
         "spa_affinity_grouped": 1 if packed else 0,
         "graph_msg": 1 if packed else 3, "graph_update": 0 if packed else 3,
         "graph_update_grouped": 1 if packed else 0, "se_sum": 6,
@@ -186,3 +198,45 @@ def test_small_forward_kernel_route_matches_plain_route(cuda):
                            for k, v in batch.items()}, use_kernels=False)
     assert torch.isfinite(out.sigm).all()
     assert (out.sigm - ref.sigm).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+def test_small_train_step_kernel_route_matches_plain_route(cuda):
+    """A TINY bf16 train step on the card at batch 3 (levels packed): the
+    loss and each trainable gradient of the kernel route against the plain
+    route (loss within 1e-2 relative, each leaf's gradient within 5e-2 in
+    norm: the bf16 residual of mutan's backward is the known
+    approximation), then one step through Trainer.step with the train
+    path's launch counts."""
+    from cmpc_refseg_torch.api import build_trainer
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+    from cmpc_refseg_torch.train.trainer import compute_gradients
+    trainer = build_trainer("CMPC_model", dtype="bfloat16", H=32, W=32,
+                            num_steps=6, vocab_size=30, glove_dim=8,
+                            rnn_size=16, v_emb_dim=16, mlp_dim=12,
+                            batch_size=3, res4_blocks=2)
+    rng = np.random.default_rng(2)
+    words = np.zeros((3, 6), np.int64)
+    words[:, :4] = rng.integers(3, 30, (3, 4))
+    batch = {"im_u8": rng.integers(0, 256, (3, 32, 32, 3), dtype=np.uint8),
+             "target_u8": (rng.random((3, 32, 32, 1)) > 0.6).astype(
+                 np.uint8), "words": words, "seq_len": np.array([4, 2, 6])}
+    state, cfg = trainer.state, trainer.cfg
+    leaves = list(named_leaves(state.trainable))
+    loss_k, _ = compute_gradients(state, cfg, batch)
+    grads_k = [leaf.grad.clone() for _, leaf in leaves]
+    loss_p, _ = compute_gradients(state, cfg, batch, use_kernels=False)
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-2 * abs(loss_p.item())
+    for (path, leaf), gk in zip(leaves, grads_k):
+        assert torch.isfinite(gk).all(), path
+        err = (gk.double() - leaf.grad.double()).norm()
+        assert err <= 5e-2 * leaf.grad.double().norm(), path
+    kernels.reset_launch_counts()
+    metrics = trainer.step(batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss_total"]))
+    assert kernels.launch_counts() == {
+        "mutan_fused": 0, "mutan_fwd_residual": 3, "mutan_bwd_dz": 3,
+        "mutan_dw": 3, "spa_affinity": 0, "spa_affinity_grouped": 1,
+        "graph_msg": 1, "graph_update": 0, "graph_update_grouped": 1,
+        "se_sum": 6, "convlstm_gates": 3, "convlstm_raw": 3}
