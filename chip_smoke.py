@@ -5,7 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each fatal on failure:
  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
- 2. build: nvcc builds every kernel of the port from its sources (timed);
+ 2. build: nvcc builds every kernel of the port from its sources (timed;
+    ptxas's report per kernel: registers, spills, static shared memory and
+    any waits it injected into a wgmma pipeline);
  3. kernels: each kernel's wrapper at the shapes each path of phases 4
     to 6 gives it, against its plain PyTorch version on the same CUDA
     tensors: the flagship bs=8 forward (320x320 -> N=1600 nodes, C=1000,
@@ -20,7 +22,10 @@ Phases, each fatal on failure:
     tolerance; median times (CUDA events) of the kernel, the plain version
     and cuBLAS's bf16 product alone (for dW, `torch.mm` computes the same
     function: its time is `library_ms`, and the kernel is held against it
-    too); the least time the card could take at those shapes;
+    too, at 1e-3); the least time the card could take at those shapes.
+    Then the TMA + wgmma kernels at small ragged shapes ("edge" records:
+    M, K, C and W off their tiles, tiles that straddle samples, C = 1000
+    against the per-head edge of W's tensor map);
  4. forward: build_model("CMPC_model") on CUDA at 320x320, bs=8, bf16,
     full depth.  Launch counts are reset just before the timed forwards and
     read just after (the counts the path needs per forward, see
@@ -44,7 +49,8 @@ Phases, each fatal on failure:
     after; losses and gradients finite; ms/step, steps/s, peak memory;
  7. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
-    final JSON line.
+    final JSON line.  The edge records go to their own log line, not into
+    the `kernels` line: they are on no path.
 
 Exits non-zero, printing no result, without CUDA or without the package.
 """
@@ -69,6 +75,11 @@ CM, G = 500, 3               # mlp width (fusion stack); levels packed at bs=1
 B_LARGE = 64                 # above the packing threshold: per-level graph
 N_FWD = 5
 SIGM_TOL = 2e-2
+# kernel outputs against the plain version, as a share of the largest entry
+# (check_kernels); dW's f32 result sums exact bf16 products, so only the
+# order of its f32 sums differs from the plain version and torch.mm
+KERNEL_TOL = {"mutan_dw": 1e-3}
+EDGE_ROWS, EDGE_N, EDGE_K = 300, 100, 136
 N_REQ = 20
 N_TRAIN = 10
 TRAIN_LOSS_TOL = 1e-2        # kernel vs plain route, relative
@@ -376,7 +387,7 @@ def check_kernels(torch, kernels, cmpc, dev):
     # bf16 outputs: the kernel and its plain version round at the same
     # places but sum in other orders, so a rounding may land one bf16 ulp
     # apart; 1e-2 of the largest entry admits one ulp there (at most 2^-7)
-    tol = 1e-2
+    default_tol = 1e-2
     # statistics: the same f32 sums in other orders over up to 1.6M entries
     # per sample, of values that may sit one bf16 ulp apart; both move the
     # mean and the variance by far less than 1e-3 of their size, while a
@@ -389,6 +400,7 @@ def check_kernels(torch, kernels, cmpc, dev):
             wrapper = getattr(kernels, name)
             plain = kernels.PLAIN[wrapper]
             what = f"{name} at {path}"
+            tol = KERNEL_TOL.get(name, default_tol)
             torch.cuda.synchronize()
             got = wrapper(*args, **kw)
             want = plain(*args, **kw)
@@ -448,6 +460,85 @@ def check_kernels(torch, kernels, cmpc, dev):
                 f"{bound_ms:.4f} ms ({bound_by})")
         del inputs
         torch.cuda.empty_cache()
+    return records
+
+
+def ptxas_report(text):
+    """Per kernel entry of an nvcc -Xptxas -v log: registers, spill bytes
+    (stores + loads), static shared memory, and the waits ptxas injected
+    into a wgmma pipeline (C7517: the pipeline is serialised there)."""
+    out, name, injected = [], None, {}
+    for line in text.splitlines():
+        if "C7517" in line:
+            fn = line.split("in function '")[1].split("'")[0]
+            injected[fn] = injected.get(fn, 0) + 1
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spill = nums[1] + nums[2] if len(nums) >= 3 else None
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            regs = int(words[words.index("registers") - 1])
+            smem = int(words[words.index("smem") - 2]) if "smem" in words \
+                else 0
+            out.append({"kernel": name, "registers": regs,
+                        "spill_bytes": spill, "static_smem": smem})
+            name = None
+    for rec in out:
+        rec["wgmma_waits_injected"] = injected.get(rec["kernel"], 0)
+    return out
+
+
+def edge_inputs(torch, dev):
+    """The TMA + wgmma kernels at small ragged shapes: EDGE_ROWS rows of
+    EDGE_N per sample (tiles straddle samples; 300 is off both row tiles),
+    K = EDGE_K (off the 64-deep stages), C = 1000 (off the 128-column tiles,
+    so W's 3D tensor map must read zeros past each head); dW at M = 1000,
+    K = 136, W = 360."""
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    samples = EDGE_ROWS // EDGE_N
+    mutan = ((randn(EDGE_ROWS, EDGE_K), randn(EDGE_K, HEADS * C, scale=0.1),
+              randn(HEADS * C, scale=0.1, dtype=torch.float32),
+              torch.tanh(randn(samples, HEADS * C, dtype=torch.float32))),
+             {"heads": HEADS, "rows_per_sample": EDGE_N})
+    return {"mutan_fused": mutan, "mutan_fwd_residual": mutan,
+            "mutan_dw": ((randn(1000, EDGE_K), randn(1000, 360, scale=0.1)),
+                         {})}
+
+
+def check_edges(torch, kernels, dev):
+    """Each TMA + wgmma kernel at its edge shapes against its plain version
+    (and dW against torch.mm), with the path records' tolerances."""
+    records = []
+    for name, (args, kw) in edge_inputs(torch, dev).items():
+        wrapper = getattr(kernels, name)
+        tol = KERNEL_TOL.get(name, 1e-2)
+        got = wrapper(*args, **kw)
+        want = kernels.PLAIN[wrapper](*args, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [compare(torch, a, b, tol, f"{name} at the edge output {i}")
+                for i, (a, b) in enumerate(zip(got, want))]
+        library = library_call(torch, name, args)
+        if library:
+            errs.append(compare(torch, got[0], library(), tol,
+                                f"{name} at the edge against torch.mm"))
+        rec = {"name": f"{name}@edge", "shapes": [list(a.shape) for a in
+                                                  args], "tolerance": tol,
+               "max_abs_err": max(e for e, _ in errs),
+               "max_norm_err": max(n for _, n in errs)}
+        records.append(rec)
+        log(f"[kernels] {name} at the edge {rec['shapes']}: max abs err "
+            f"{rec['max_abs_err']:.3e} (norm {rec['max_norm_err']:.3e} <= "
+            f"{tol:.0e})")
     return records
 
 
@@ -956,20 +1047,25 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    nvcc = subprocess.run([build.nvcc_path(), "--version"], check=True,
+                          capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
     log(f"[card] {card} | torch {torch.__version__} CUDA "
-        f"{torch.version.cuda} | {kind}")
+        f"{torch.version.cuda} | {kind} | nvcc {nvcc}")
 
     secs = build.build_all()
-    log(f"[build] {secs:.1f} s for {list(build.SOURCES)}")
+    log(f"[build] {secs:.1f} s for {list(build.SOURCES)} (one nvcc each, "
+        "in parallel)")
     for name in build.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        log(f"[build] {name}, ptxas: "
+            f"{json.dumps(ptxas_report(build.build_log(name)))}")
 
     if cmpc.pack_levels(B_LARGE, G) or not cmpc.pack_levels(B, G):
         fail(f"the packing rule no longer packs bs={B} and not bs={B_LARGE}:"
              " phase 3's paths need new batches")
     records = check_kernels(torch, kernels, cmpc, torch.device(DEV))
+    edges = check_edges(torch, kernels, torch.device(DEV))
+    torch.cuda.empty_cache()
     # path -> (launch counts of its runs, runs, ms per run)
     paths = run_forward(torch, kernels, cmpc, build_model, apply_model, card)
     srv_paths, serving = run_serving(torch, np, kernels, cmpc, build_service,
@@ -995,6 +1091,7 @@ def main():
                     if r["path"] == path) / run_ms
         log(f"[{path}] the kernels take {share:.1%} of the {run_ms:.3f} ms "
             "run (kernel ms at this path's shapes x launches per run)")
+    log(f"[kernels] edge records: {json.dumps(edges)}")
     log(f"[serving] {json.dumps(serving)}")
     log(f"[train] {json.dumps(train)}")
     print(json.dumps({"kernels": records}), flush=True)

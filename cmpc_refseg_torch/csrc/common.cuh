@@ -1,6 +1,7 @@
 // Shared device code of the port's Hopper kernels: bf16 helpers, warp and
 // block reductions, and one bf16 tile product on the tensor cores (WMMA,
-// f32 accumulation) that every kernel builds on.
+// f32 accumulation) that the kernels other than mutan's forward and dW
+// product build on (those two use TMA and wgmma, csrc/hopper.cuh).
 //
 // The tile product is deliberately simple: a [BM, K] x [K, BN] block
 // product staged through two shared-memory buffers in 32-deep slices with
@@ -102,6 +103,10 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   for (int w = 0; w < warps; ++w) total += scratch[w];
   return total;
 }
+
+// Error codes at or above this are kTmapError + the CUresult of a refused
+// cuTensorMapEncodeTiled (csrc/hopper.cuh).
+constexpr int kTmapError = 20000;
 
 constexpr int kBK = 32;          // depth of one staged slice
 constexpr int kALd = kBK + 8;    // padded leading dim of the A slice (bf16)
@@ -235,5 +240,7 @@ __device__ __forceinline__ void tile_gemm(const ALoad& load_a,
 }  // namespace cmpc
 
 extern "C" const char* cmpc_error_string(int code) {
+  if (code >= cmpc::kTmapError)
+    return "cuTensorMapEncodeTiled refused a tensor map (code - 20000 is its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -23,15 +23,27 @@
 //
 // 2. The dW product dW[K, heads*C] = x^T @ dz, f32 accumulation over all M
 //    rows.  Replaces pallas_kernels.py::_mutan_dw_call.  Bound on the card:
-//    operations (129 GFLOP at the flagship shapes).  x [M, K] and dz are
-//    read in their row-major layout: each 32-row slice of x is staged in
-//    shared memory as it lies in memory ([rows][K tile]) and the tensor
-//    cores read it transposed, as a column-major A fragment, which is the
-//    in-VMEM tile transpose of the TPU kernel at no extra cost.  One block
-//    owns a [128 x 64] tile of dW and loops over all M rows; two register
-//    staged shared-memory buffers, as in common.cuh's tile product.
-// Not yet done: TMA / wgmma pipelining, a split over M for more blocks.
+//    operations (129 GFLOP at the flagship shapes); only wgmma reaches
+//    Hopper's tensor-core rate, and only if its tiles arrive while it works.
+//    Design (csrc/hopper.cuh): both operands are read as they lie in memory,
+//    M-major: a [64 rows of x][64 of K] TMA box is the A = x^T tile with
+//    trans-a = 1 (the TPU kernel's in-VMEM transpose, for free), a [64 rows
+//    of dz][64 columns] box the B tile with trans-b = 1.  One producer warp
+//    keeps a 4-stage ring (x [64 x 128], dz [64 x 256], 128-byte swizzle,
+//    full / empty mbarriers) in flight; two consumer warpgroups each own 64
+//    rows x 256 columns of dW in registers for their share of the reduction
+//    over M, and store them once, masked at K and W.  Blocks run in 2 x 2
+//    clusters: each loads half of the x and of the dz tile and multicasts
+//    them to the blocks that share them, which halves the tiles' L2 traffic
+//    (~2 GB at 128 x 128 tiles without it, about as long as the product).
+//    Blocks that share dz columns are adjacent in launch order, so dz
+//    streams from HBM about once and x stays in L2.  The reduction is split
+//    over M in two (two f32 partials, added in a fixed order by a second
+//    pass, so the result stays deterministic), which fills the 132 SMs'
+//    second wave of 128 x 256 tiles: the fastest of the tilings measured
+//    (PERF.md).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace cmpc {
 
@@ -157,110 +169,127 @@ __global__ void mutan_dz_finalize_kernel(const float* __restrict__ part_dl,
 // ---------------------------------------------------------------------------
 
 constexpr int kDwBM = 128;                 // rows of dW (x's columns) per block
-constexpr int kDwBN = 64;                  // columns of dW (dz's) per block
-constexpr int kDwWarpsN = kDwBN / 32;
-constexpr int kDwThreads = (kDwBM / 32) * kDwWarpsN * 32;
-constexpr int kXLd = kDwBM + 8;            // x slice [kBK rows][kXLd]
-constexpr int kZLd = kDwBN + 8;            // dz slice [kBK rows][kZLd]
-constexpr int kDwStage = kBK * kXLd + kBK * kZLd;
-constexpr int kDwABBytes = 2 * kDwStage * 2;
-constexpr int kDwCLd = kDwBN + 4;
-constexpr int kDwCBytes = kDwBM * kDwCLd * 4;
-constexpr int kDwSmem = kDwABBytes > kDwCBytes ? kDwABBytes : kDwCBytes;
-constexpr int kXVecs = kBK * kDwBM / 8 / kDwThreads;
-constexpr int kZVecs = kBK * kDwBN / 8 / kDwThreads;
-static_assert(kXVecs * kDwThreads * 8 == kBK * kDwBM, "x slice must split evenly");
-static_assert(kZVecs * kDwThreads * 8 == kBK * kDwBN, "dz slice must split evenly");
+constexpr int kDwBN = 256;                 // columns of dW per block
+constexpr int kDwSplits = 2;               // parts of the reduction over M, at most
+constexpr int kDwStages = 4;
+constexpr int kDwThreads = 2 * 128 + 32;   // two consumer warpgroups, one producer warp
+constexpr int kDwChunkBytes = kTileK * kSwizzleBytes;   // [64 rows][64 bf16]
+constexpr int kDwABytes = (kDwBM / kChunk) * kDwChunkBytes;   // x [64][128]
+constexpr int kDwBBytes = (kDwBN / kChunk) * kDwChunkBytes;   // dz [64][256]
+constexpr int kDwStageBytes = kDwABytes + kDwBBytes;
+constexpr int kDwSmem = 1024 + kDwStages * kDwStageBytes;
 
-__global__ void __launch_bounds__(kDwThreads)
-mutan_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
-                float* __restrict__ dw, int M, int K, int W) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[kDwSmem];
-  bf16* stage0 = reinterpret_cast<bf16*>(smem);
-  float* cs = reinterpret_cast<float*>(smem);
-  const int k0 = blockIdx.y * kDwBM;
-  const int c0 = blockIdx.x * kDwBN;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / kDwWarpsN, wn = warp % kDwWarpsN;
+// blockIdx.x: the dW row tile (fastest, so the blocks that read the same dz
+// columns run together), y: the column tile, z: the split of the rows of x
+// and dz, which writes its own [K, W] slice of `out`.  2 x 2 clusters: the
+// blocks of a cluster column share x's columns, those of a cluster row dz's.
+// The grid may be padded to whole clusters; a padded block loads and
+// computes like the others (its tiles read zero) and stores nothing.
+__global__ void __cluster_dims__(kClusterX, kClusterY, 1) __launch_bounds__(kDwThreads, 1)
+mutan_dw_kernel(const __grid_constant__ CUtensorMap x_map,
+                const __grid_constant__ CUtensorMap dz_map, float* __restrict__ out,
+                int M, int K, int W, int rows_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kDwStages], empty[kDwStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int k0 = blockIdx.x * kDwBM, c0 = blockIdx.y * kDwBN;
+  const int m0 = blockIdx.z * rows_per_split;
+  const int tiles = (min(M - m0, rows_per_split) + kTileK - 1) / kTileK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  uint4 rx[kXVecs], rz[kZVecs];
-  auto fetch = [&](int m0) {
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int e = threadIdx.x + i * kDwThreads;
-      const int m = m0 + e / (kDwBM / 8), k = k0 + (e % (kDwBM / 8)) * 8;
-      rx[i] = (m < M && k < K) ? load_vec<8>(x + static_cast<size_t>(m) * K + k) : zero_vec();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kClusterSize);
     }
-#pragma unroll
-    for (int i = 0; i < kZVecs; ++i) {
-      const int e = threadIdx.x + i * kDwThreads;
-      const int m = m0 + e / (kDwBN / 8), c = c0 + (e % (kDwBN / 8)) * 8;
-      rz[i] = (m < M && c < W) ? load_vec<8>(dz + static_cast<size_t>(m) * W + c) : zero_vec();
-    }
-  };
-  auto stash = [&](int s) {
-    bf16* xs = stage0 + s * kDwStage;
-    bf16* zs = xs + kBK * kXLd;
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int e = threadIdx.x + i * kDwThreads;
-      *reinterpret_cast<uint4*>(xs + (e / (kDwBM / 8)) * kXLd + (e % (kDwBM / 8)) * 8) = rx[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kZVecs; ++i) {
-      const int e = threadIdx.x + i * kDwThreads;
-      *reinterpret_cast<uint4*>(zs + (e / (kDwBN / 8)) * kZLd + (e % (kDwBN / 8)) * 8) = rz[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  int s = 0;
-  for (int m0 = 0; m0 < M; m0 += kBK) {
-    const bool more = m0 + kBK < M;
-    if (more) fetch(m0 + kBK);
-    const bf16* xs = stage0 + s * kDwStage;
-    const bf16* zs = xs + kBK * kXLd;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      // A = x^T: element (row k, depth m) sits at xs[m * kXLd + k], which is
-      // a column-major A tile with leading dimension kXLd.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], xs + kk * kXLd + wm * 32 + i * 16, kXLd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], zs + kk * kZLd + wn * 32 + j * 16, kZLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (more) stash(s ^ 1);
-    __syncthreads();
-    s ^= 1;
+    mbar_fence_init();
   }
+  cluster_sync();
+
+  if (warp == 8) {
+    // producer: one thread issues this block's share of every stage: the x
+    // boxes j = cy (mod 2) to its cluster column, the dz boxes j = cx
+    // (mod 2) to its cluster row
+    if (lane == 0) {
+      const int cx = cluster_x(), cy = cluster_y();
+      const uint16_t x_mask = cluster_col_mask(cx);
+      const uint16_t z_mask = cluster_row_mask(cy);
+      tma_prefetch(&x_map);
+      tma_prefetch(&dz_map);
+      for (int it = 0; it < tiles + kDwStages; ++it) {
+        const int s = it % kDwStages;
+        mbar_wait(&empty[s], ((it / kDwStages) & 1) ^ 1);
+        if (it >= tiles) continue;   // the tail: wait until every stage is released
+        unsigned char* a = smem + s * kDwStageBytes;
+        const int m = m0 + it * kTileK;
+        mbar_arrive_expect_tx(&full[s], kDwStageBytes);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+        for (int j = cy; j < kDwBM / kChunk; j += kClusterY)
+          tma_load_2d_mc(a + j * kDwChunkBytes, &x_map, &full[s], k0 + j * kChunk, m,
+                         x_mask);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kDwCLd + wn * 32 + j * 16,
-                              acc[i][j], kDwCLd, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kDwBM * kDwBN; e += kDwThreads) {
-    const int r = e / kDwBN, c = e % kDwBN;
-    if (k0 + r < K && c0 + c < W)
-      dw[static_cast<size_t>(k0 + r) * W + c0 + c] = cs[r * kDwCLd + c];
+        for (int j = cx; j < kDwBN / kChunk; j += kClusterX)
+          tma_load_2d_mc(a + kDwABytes + j * kDwChunkBytes, &dz_map, &full[s],
+                         c0 + j * kChunk, m, z_mask);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns dW rows k0 + 64 wg ... + 63
+  const int wg = warp / 4, wl = warp % 4, wtid = threadIdx.x % 128;
+  const uint32_t base = smem_u32(smem);
+  constexpr uint32_t kStep = (16 * kSwizzleBytes) >> 4;   // 16 rows of M
+  float acc[kDwBN / 2];
+  int s = 0;
+  for (int it = 0; it < tiles; ++it) {
+    s = it % kDwStages;
+    mbar_wait(&full[s], (it / kDwStages) & 1);
+    const uint32_t a = base + s * kDwStageBytes + wg * kDwChunkBytes;
+    const uint32_t b = base + s * kDwStageBytes + kDwABytes;
+    wgmma_fence();
+    mma_stage<kDwBN, 1, 1>(acc, sw128_desc(a, kDwChunkBytes, 1024),
+                           sw128_desc(b, kDwChunkBytes, 1024), kStep, kStep, it == 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (it > 0)
+      release_stage_cluster(&empty[(it + kDwStages - 1) % kDwStages], wtid);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release_stage_cluster(&empty[s], wtid);
+
+  // row k0 + 64 wg + r of this split's slice, r = 16 wl + lane / 4 (+ 8)
+  float* slice = out + static_cast<size_t>(blockIdx.z) * K * W;
+  const int r = k0 + wg * 64 + wl * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < kDwBN / 8; ++j) {
+    const int col = c0 + 8 * j + 2 * (lane % 4);
+    if (col >= W) continue;
+    if (r < K)
+      *reinterpret_cast<float2*>(slice + static_cast<size_t>(r) * W + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < K)
+      *reinterpret_cast<float2*>(slice + static_cast<size_t>(r + 8) * W + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// dw = sum of the splits' partials in split order (n a multiple of 4).
+__global__ void mutan_dw_sum_kernel(const float4* __restrict__ part,
+                                    float4* __restrict__ dw, size_t n4, int splits) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float4 acc = part[i];
+    for (int z = 1; z < splits; ++z) {
+      const float4 p = part[z * n4 + i];
+      acc.x += p.x;
+      acc.y += p.y;
+      acc.z += p.z;
+      acc.w += p.w;
+    }
+    dw[i] = acc;
   }
 }
 
@@ -304,15 +333,51 @@ extern "C" int cmpc_mutan_bwd_dz(const void* v, const void* lang, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x [M, K] bf16, dz [M, W] bf16 -> dw [K, W] f32 = x^T @ dz.  K and W must
-// be multiples of 8 (16-byte loads).
-extern "C" int cmpc_mutan_dw(const void* x, const void* dz, void* dw, int M, int K,
-                             int W, void* stream) {
+// The splits of the dW reduction over M that `cmpc_mutan_dw` runs: each
+// takes the same whole number of 64-row tiles of M, so a small M has fewer
+// than kDwSplits.
+extern "C" int cmpc_mutan_dw_splits(int M) {
+  const int tiles = (M + cmpc::kTileK - 1) / cmpc::kTileK;
+  const int splits = cmpc::kDwSplits > tiles ? tiles : cmpc::kDwSplits;
+  const int per_split = (tiles + splits - 1) / splits;
+  return (tiles + per_split - 1) / per_split;
+}
+
+// x [M, K] bf16, dz [M, W] bf16 -> dw [K, W] f32 = x^T @ dz.  x and dz
+// 16-byte aligned, K and W multiples of 8 (TMA strides).  With more than
+// one split (cmpc_mutan_dw_splits(M)), part is scratch [splits, K, W] f32;
+// else it is unused.
+extern "C" int cmpc_mutan_dw(const void* x, const void* dz, void* dw, void* part, int M,
+                             int K, int W, void* stream) {
   using namespace cmpc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((W + kDwBN - 1) / kDwBN, (K + kDwBM - 1) / kDwBM);
-  mutan_dw_kernel<<<grid, kDwThreads, 0, s>>>(static_cast<const bf16*>(x),
-                                              static_cast<const bf16*>(dz),
-                                              static_cast<float*>(dw), M, K, W);
+  const int splits = cmpc_mutan_dw_splits(M);
+  const int rows_per_split = ((M + kTileK - 1) / kTileK + splits - 1) / splits * kTileK;
+  const uint64_t bf = sizeof(bf16);
+  const uint32_t box[2] = {kChunk, kTileK};
+  CUtensorMap x_map, dz_map;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t x_strides[1] = {K * bf};
+  int rc = encode_tmap(&x_map, x, 2, x_dims, x_strides, box);
+  if (rc) return rc;
+  const uint64_t z_dims[2] = {static_cast<uint64_t>(W), static_cast<uint64_t>(M)};
+  const uint64_t z_strides[1] = {W * bf};
+  rc = encode_tmap(&dz_map, dz, 2, z_dims, z_strides, box);
+  if (rc) return rc;
+  float* out = static_cast<float*>(splits > 1 ? part : dw);
+  cudaError_t err = cudaFuncSetAttribute(
+      mutan_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // padded to whole clusters
+  const dim3 grid(((K + kDwBM - 1) / kDwBM + kClusterX - 1) / kClusterX * kClusterX,
+                  ((W + kDwBN - 1) / kDwBN + kClusterY - 1) / kClusterY * kClusterY,
+                  splits);
+  mutan_dw_kernel<<<grid, kDwThreads, kDwSmem, s>>>(x_map, dz_map, out, M, K, W,
+                                                    rows_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t n4 = static_cast<size_t>(K) * W / 4;
+  mutan_dw_sum_kernel<<<264, 256, 0, s>>>(static_cast<const float4*>(part),
+                                         static_cast<float4*>(dw), n4, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,7 +37,8 @@ SIGNATURES = {
     "mutan_bwd": {
         "cmpc_mutan_bwd_dz": ([_P] * 7 + [_I] * 4 + [_P], _I),
         "cmpc_mutan_dz_rows_per_block": ([_I], _I),
-        "cmpc_mutan_dw": ([_P] * 3 + [_I] * 3 + [_P], _I),
+        "cmpc_mutan_dw": ([_P] * 4 + [_I] * 3 + [_P], _I),
+        "cmpc_mutan_dw_splits": ([_I], _I),
     },
     "spa_affinity": {
         "cmpc_spa_affinity": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),

@@ -54,6 +54,15 @@ def _multiple_of(vec: int, **dims) -> None:
                              f"of {vec} ({2 * vec}-byte vector loads)")
 
 
+def _aligned16(**tensors) -> None:
+    """TMA reads and writes these tensors: their base addresses must be
+    16-byte aligned."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data_ptr() {t.data_ptr():#x} is not "
+                             "16-byte aligned (TMA needs it)")
+
+
 def _check_groups(bsz: int, groups: int, what: str) -> None:
     if groups < 1 or bsz % groups:
         raise ValueError(f"{what}: batch {bsz} not divisible by {groups} "
@@ -119,6 +128,7 @@ def _mutan_launch(x, w, b, lang, heads, rows_per_sample, residual):
     _expect("b", b, torch.float32, (heads * c,))
     _expect("lang", lang, torch.float32, (bsz, heads * c))
     _multiple_of(8, K=k, C=c)
+    _aligned16(x=x, w=w)
     lib = build.library("mutan")
     tiles = lib.cmpc_mutan_col_tiles(c)
     y = torch.empty((m, c), dtype=torch.float32, device=x.device)
@@ -240,9 +250,14 @@ def mutan_dw(x, dz):
     _expect("x", x, torch.bfloat16, (m, k))
     _expect("dz", dz, torch.bfloat16, (m, wd))
     _multiple_of(8, K=k, W=wd)
+    _aligned16(x=x, dz=dz)
     lib = build.library("mutan_bwd")
+    splits = lib.cmpc_mutan_dw_splits(m)
     dw = torch.empty((k, wd), dtype=torch.float32, device=x.device)
-    rc = lib.cmpc_mutan_dw(x.data_ptr(), dz.data_ptr(), dw.data_ptr(), m, k,
+    part = torch.empty((splits, k, wd), dtype=torch.float32,
+                       device=x.device) if splits > 1 else None
+    rc = lib.cmpc_mutan_dw(x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
+                           None if part is None else part.data_ptr(), m, k,
                            wd, _stream())
     build.check(lib, rc, "mutan_dw")
     mutan_dw.launches += 1

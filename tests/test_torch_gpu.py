@@ -156,6 +156,78 @@ def test_kernel_matches_plain_version(cuda, name, l2n, masked):
     _close(name, got, want, count)
 
 
+def _mutan_args(g, c, k, n=100, samples=3, heads=5):
+    """Mutan inputs: samples * n rows (n = 100: a 64- or 128-row tile
+    straddles two samples), K = k, heads * c columns of W."""
+    return ((_rnd(g, samples * n, k), _rnd(g, k, heads * c, scale=0.1),
+             _rnd(g, heads * c, dtype=torch.float32, scale=0.1),
+             torch.tanh(_rnd(g, samples, heads * c, dtype=torch.float32))),
+            {"heads": heads, "rows_per_sample": n})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,k,samples", [(72, 200, 3), (1000, 136, 3),
+                                         (1000, 1008, 16)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_mutan_tma_kernel_matches_plain_version(cuda, c, k, samples,
+                                                residual):
+    """Both forms of the TMA + wgmma mutan kernel: K = 200 or 136 is ragged
+    against the 64-deep stages, 300 rows against the 128-row tiles (the
+    grid is padded to whole 2 x 2 clusters), and C = 1000 against the
+    128-column tiles, where the 3D tensor map of W must read zeros past
+    each head's last column; then 1600 rows and K = 1008, the flagship's
+    bs=1 widths."""
+    args, kw = _mutan_args(cuda, c, k, samples=samples)
+    got = kernels._mutan_launch(*args, kw["heads"], kw["rows_per_sample"],
+                                residual)
+    plain = kernels.mutan_fwd_residual_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _close("mutan_fwd_residual", got[0], plain[0], None)
+    if residual:
+        _close("mutan_fwd_residual", got[1], plain[1], None)
+    else:
+        assert got[1] is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,w", [(64, 80, 360), (200, 80, 360),
+                                   (1000, 136, 5 * 40), (1600, 1008, 5000)])
+def test_mutan_dw_matches_torch_mm(cuda, m, k, w):
+    """dW = x^T dz against torch.mm with an f32 result, within 1e-3 of the
+    largest entry: the products of bf16 values are exact in f32, so only
+    the order of the f32 sums differs.  Ragged M, K and W, and the
+    flagship's K and W at bs=1; M = 64 is one tile of M, so the reduction
+    runs unsplit, the others in two partials added in a fixed order.  A
+    second launch gives the same bits."""
+    x, dz = _rnd(cuda, m, k), _rnd(cuda, m, w, scale=0.1)
+    got = kernels.mutan_dw(x, dz)
+    want = torch.mm(x.t(), dz, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-3 * want.abs().max().item()
+    assert torch.equal(got, kernels.mutan_dw(x, dz))
+
+
+@pytest.mark.gpu
+def test_tma_wrappers_raise_on_misaligned_or_noncontiguous(cuda):
+    """TMA needs 16-byte-aligned bases and contiguous rows: the mutan and
+    dW wrappers raise on anything else rather than launch."""
+    (x, w, b, lang), kw = _mutan_args(cuda, 72, 200, samples=2)
+    m, k = x.shape
+    shifted = torch.empty(m * k + 8, dtype=torch.bfloat16,
+                          device="cuda")[1:1 + m * k].view(m, k)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.mutan_fused(shifted, w, b, lang, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.mutan_fused(x.t().contiguous().t(), w, b, lang, **kw)
+    dz = _rnd(cuda, m, 360)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.mutan_dw(shifted, dz)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.mutan_dw(x, dz.t().contiguous().t())
+
+
 @pytest.mark.gpu
 def test_wrapper_raises_on_wrong_dtype(cuda):
     args, _, _ = _inputs(cuda, "graph_msg")
