@@ -23,9 +23,10 @@ Phases, each fatal on failure:
     and cuBLAS's bf16 product alone (for dW, `torch.mm` computes the same
     function: its time is `library_ms`, and the kernel is held against it
     too, at 1e-3); the least time the card could take at those shapes.
-    Then the TMA + wgmma kernels at small ragged shapes ("edge" records:
-    M, K, C and W off their tiles, tiles that straddle samples, C = 1000
-    against the per-head edge of W's tensor map);
+    Then the wgmma kernels at small ragged shapes ("edge" records: M, K,
+    C and W off their tiles, tiles that straddle samples, C = 1000 against
+    the per-head edge of W's tensor map; the ConvLSTM gates and SE sum at
+    an odd B*N = 75 with 25-row samples, and SE sum with 4 others);
  4. forward: build_model("CMPC_model") on CUDA at 320x320, bs=8, bf16,
     full depth.  Launch counts are reset just before the timed forwards and
     read just after (the counts the path needs per forward, see
@@ -492,11 +493,13 @@ def ptxas_report(text):
 
 
 def edge_inputs(torch, dev):
-    """The TMA + wgmma kernels at small ragged shapes: EDGE_ROWS rows of
+    """The wgmma kernels at small ragged shapes: mutan at EDGE_ROWS rows of
     EDGE_N per sample (tiles straddle samples; 300 is off both row tiles),
     K = EDGE_K (off the 64-deep stages), C = 1000 (off the 128-column tiles,
     so W's 3D tensor map must read zeros past each head); dW at M = 1000,
-    K = 136, W = 360."""
+    K = 136, W = 360; the ConvLSTM gates and the SE sum (4 others) at 3
+    samples of 25 rows (75 rows: odd, and row tiles past each sample) and
+    the fusion stack's C = CM."""
     g = torch.Generator(device=dev).manual_seed(7)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -508,14 +511,26 @@ def edge_inputs(torch, dev):
               randn(HEADS * C, scale=0.1, dtype=torch.float32),
               torch.tanh(randn(samples, HEADS * C, dtype=torch.float32))),
              {"heads": HEADS, "rows_per_sample": EDGE_N})
+    b, n = 3, 25
+    sig = [torch.sigmoid(randn(b, CM, dtype=torch.float32)).to(
+        torch.bfloat16) for _ in range(4)]
     return {"mutan_fused": mutan, "mutan_fwd_residual": mutan,
             "mutan_dw": ((randn(1000, EDGE_K), randn(1000, 360, scale=0.1)),
-                         {})}
+                         {}),
+            "convlstm_gates": ((*(randn(b, n, CM) for _ in range(3)),
+                                randn(2 * CM, 4 * CM, scale=CM ** -0.5),
+                                randn(n, CM, scale=0.1),
+                                randn(n, CM, scale=0.1)), {}),
+            "se_sum": ((randn(b, n, CM), [randn(b, n, CM) for _ in range(4)],
+                        sig, [randn(CM, CM, scale=CM ** -0.5)
+                              for _ in range(4)],
+                        [randn(CM, scale=0.1) for _ in range(4)]), {})}
 
 
 def check_edges(torch, kernels, dev):
-    """Each TMA + wgmma kernel at its edge shapes against its plain version
-    (and dW against torch.mm), with the path records' tolerances."""
+    """Each wgmma kernel at its edge shapes against its plain version (and
+    dW against torch.mm), with the path records' tolerances (statistics
+    partials as in phase 3)."""
     records = []
     for name, (args, kw) in edge_inputs(torch, dev).items():
         wrapper = getattr(kernels, name)
@@ -526,13 +541,20 @@ def check_edges(torch, kernels, dev):
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         errs = [compare(torch, a, b, tol, f"{name} at the edge output {i}")
-                for i, (a, b) in enumerate(zip(got, want))]
+                for i, (a, b) in enumerate(zip(got, want))
+                if STATS_OUTPUT.get(name) != i]
+        if name in STATS_OUTPUT:
+            i = STATS_OUTPUT[name]
+            compare_stats(torch, got[i], want[i],
+                          want[0].shape[-2] * want[0].shape[-1], 1e-3,
+                          f"{name} at the edge statistics")
         library = library_call(torch, name, args)
         if library:
             errs.append(compare(torch, got[0], library(), tol,
                                 f"{name} at the edge against torch.mm"))
-        rec = {"name": f"{name}@edge", "shapes": [list(a.shape) for a in
-                                                  args], "tolerance": tol,
+        shapes = [list(a.shape) if hasattr(a, "shape") else
+                  [list(t.shape) for t in a] for a in args]
+        rec = {"name": f"{name}@edge", "shapes": shapes, "tolerance": tol,
                "max_abs_err": max(e for e, _ in errs),
                "max_norm_err": max(n for _, n in errs)}
         records.append(rec)

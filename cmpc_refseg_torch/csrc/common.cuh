@@ -1,17 +1,15 @@
 // Shared device code of the port's Hopper kernels: bf16 helpers, warp and
 // block reductions, and one bf16 tile product on the tensor cores (WMMA,
-// f32 accumulation) that the kernels other than mutan's forward and dW
-// product build on (those two use TMA and wgmma, csrc/hopper.cuh).
+// f32 accumulation) that graph_conv.cu and spa_affinity.cu build on (the
+// other kernels' products are wgmma, csrc/hopper.cuh).
 //
 // The tile product is deliberately simple: a [BM, K] x [K, BN] block
 // product staged through two shared-memory buffers in 32-deep slices with
-// vector loads of VEC bf16 elements, four 16x16 fragments per warp.
-// Ragged edges are masked at VEC-element granularity, so K, the row
-// strides and the column bounds must be multiples of VEC (the wrappers
-// check this).  VEC = 8 (16-byte loads) is the default; VEC = 4 (8-byte
-// loads) serves widths such as C = 500, whose rows are only 8-byte
-// aligned.  Each kernel customises how the A operand is loaded (a plain
-// row block, or a row block computed on the fly by the kernel's prologue).
+// 16-byte vector loads (8 bf16), four 16x16 fragments per warp.  Ragged
+// edges are masked at 8-element granularity, so K, the row strides and the
+// column bounds must be multiples of 8 (the wrappers check this).  Each
+// kernel customises how the A operand is loaded (a plain row block, or a
+// row block computed on the fly by the kernel's prologue).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,6 +76,15 @@ __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 // Round a float to bf16 precision and back (a bf16 store + reload).
 __device__ __forceinline__ float round_bf(float v) { return bf2f(f2bf(v)); }
 
+// Two neighbouring bf16 (4-byte aligned) as floats, and the store of two.
+__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void st_bf2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -126,33 +133,33 @@ struct GemmTile {
 
 // A operand: `nrows` rows of a row-major bf16 matrix starting at `a`;
 // zero past the last row and past K.
-template <int VEC>
-struct RowsAT {
+struct RowsA {
   const bf16* a;
   int lda;
   int K;
   int nrows;
-  __device__ __forceinline__ typename VecT<VEC>::type operator()(int r, int k) const {
-    if (r < nrows && k < K) return load_vec<VEC>(a + static_cast<size_t>(r) * lda + k);
-    return typename VecT<VEC>::type{};
+  __device__ __forceinline__ uint4 operator()(int r, int k) const {
+    if (r < nrows && k < K) return load_vec<8>(a + static_cast<size_t>(r) * lda + k);
+    return uint4{};
   }
 };
-using RowsA = RowsAT<8>;
 
 // C[BM, BN] = A[BM, K] x B[K, col0:col0+BN] with f32 accumulation, left in
 // shared memory as floats with leading dim GemmTile::kCLd.  Columns at or
-// past `col_end` read as zero.  `load_a(r, k)` returns VEC elements of A.  Two shared-memory stages: the global loads
+// past `col_end` read as zero.  `load_a(r, k)` returns 8 elements of A
+// (a uint4).  Two shared-memory stages: the global loads
 // of slice k+1 are issued into registers before the tensor cores work on
 // slice k, and stored to the other stage after, so one barrier per slice
 // separates them.  The result aliases the stages, so it is valid until the
 // next call (which begins with a barrier).
-template <int BM, int BN, int VEC = 8, class ALoad>
+template <int BM, int BN, class ALoad>
 __device__ __forceinline__ void tile_gemm(const ALoad& load_a,
                                           const bf16* __restrict__ b, int ldb,
                                           int K, int col0, int col_end,
                                           unsigned char* smem) {
   using T = GemmTile<BM, BN>;
-  using V = typename VecT<VEC>::type;
+  constexpr int VEC = 8;
+  using V = uint4;
   using namespace nvcuda;
   constexpr int kAVecs = BM * kBK / VEC / T::kThreads;  // vector loads per thread
   constexpr int kBVecs = kBK * BN / VEC / T::kThreads;

@@ -12,13 +12,34 @@
 //
 // gates replaces cmpc_refseg_tpu/ops/pallas_kernels.py::_convlstm_gates_call.
 // Bound on the card: operations (the [B*N, 2C] x [2C, 4C] product, 51
-// GFLOP at the flagship shapes, against ~97 MB).  Design: a block owns 128
-// rows of one sample and 64 columns of each gate and loops over the 4
-// gates with the tensor-core tile product of common.cuh; its A loader
-// reads [x | h] from two pointers (K = 2C = 1000, split at 500, never
-// concatenated).  C = 500 rows are 8-byte aligned, so loads are 8 bytes
-// (VEC = 4).  The statistics partials go to per-block slots: no atomics,
-// a fixed summing order.
+// GFLOP at the flagship shapes, against ~97 MB).  Design (csrc/hopper.cuh):
+// a block owns 128 rows of one sample and one 64-column chunk c0 of all
+// four gates, so its [x | h] rows are read once for the four.  A producer
+// warpgroup keeps a 4-stage ring full: the A tile [128 x 64 of K] by
+// cp.async (C = 500 rows are 1000 bytes apart, which a TMA tensor map
+// refuses: 8-byte copies written into the 128-byte swizzled layout, zeros
+// past the sample's rows and past C), and the B tile by TMA, four boxes
+// [64 of K x 64 columns] of w as it lies, one per gate, which make one
+// N = 256 operand.  Two tensor maps over w, rows 0..C-1 (the x part) and
+// rows C..2C-1 (the h part), each zero past its C rows, so the K loop runs
+// ceil(C/64) tiles over x, then as many over h, and [x | h] is never
+// concatenated.  TMA takes a box only at a 16-byte aligned column, and
+// g*C is not one for odd g when C % 8 == 4 (C = 500): gate g's box starts
+// box_shift(g) = 4 columns early, at g*C + c0 - 4, and the block owns the
+// columns its box covers.  Columns of a neighbouring gate in a box are
+// masked in the epilogue; gate o's box past 4C reads zero.  The issuing
+// threads wait for their copies, fence them to the async proxy and arrive
+// on the stage's full barrier two iterations later, before they wait for
+// the next free stage, so copies stay in flight.  Each of two consumer
+// warpgroups runs one m64n256k16 wgmma per k16 step into 128 f32
+// registers a thread; the epilogue rounds, adds the peepholes (reading c,
+// ci and cf as bf16 pairs) and stores bf16 pairs straight from the
+// fragment, and sums the statistics per thread, then per warp, then per
+// block in a fixed order (no atomics).  Blocks run in pairs along the rows
+// (2-block clusters): each loads two of the four weight boxes and
+// multicasts them to both (3-4% faster than single blocks at bs=1, 8
+// and 64, PERF.md).  At N = 1600 the 13th row tile of each sample is half
+// empty (4% of the rows).
 //
 // raw replaces ::_convlstm_raw_call.  Bound on the card: bytes (reads 4
 // gates, c and W_co, writes 2 tensors, 91 MB at the flagship shapes).
@@ -26,70 +47,186 @@
 // element vectors; the block first sums its sample's gate statistics in a
 // fixed order, then writes its own partials.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace cmpc {
 
-constexpr int kGateBM = 128;
-constexpr int kGateBN = 64;
-using GateTile = GemmTile<kGateBM, kGateBN>;
+constexpr int kGateBM = 128;                         // rows per block (2 x 64)
+constexpr int kGateBN = 64;                          // columns of each gate
+constexpr int kGateN = 4 * kGateBN;                  // wgmma N: the 4 gates
+constexpr int kGateStages = 4;
+constexpr int kGateLag = 2;   // iterations between a cp.async issue and its arrival
+constexpr int kGateCluster = 2;                      // blocks along the rows
+constexpr int kGateThreads = 3 * 128;   // 2 consumer warpgroups, 1 producer
+constexpr int kGateABytes = kGateBM * kSwizzleBytes;          // [128][64]
+constexpr int kGateBoxBytes = kTileK * kSwizzleBytes;         // [64][64]
+constexpr int kGateStageBytes = kGateABytes + 4 * kGateBoxBytes;
+constexpr int kGateSmem = 1024 + kGateStages * kGateStageBytes;
 constexpr int kRawRows = 32;
 constexpr int kRawThreads = 256;
 constexpr float kForgetBias = 1.f;   // the cell's fixed forget bias
 
-// A operand [x | h]: columns below C from x, the rest from h.
-struct XHLoad {
-  const bf16* x;
-  const bf16* h;
-  int C;
-  int nrows;
-  __device__ __forceinline__ uint2 operator()(int r, int k) const {
-    if (r >= nrows || k >= 2 * C) return uint2{};
-    const size_t o = static_cast<size_t>(r) * C;
-    return load_vec<4>(k < C ? x + o + k : h + o + (k - C));
-  }
-};
+// TMA reads boxes from 16-byte aligned columns only: gate g's boxes start
+// this many columns before its chunk (4 when C % 8 == 4, for odd g), and
+// the block owns the columns its boxes cover.  ceil(C/64) chunks still
+// cover every column: C % 8 == 4 leaves at least 4 columns in the last.
+__device__ __forceinline__ int box_shift(int g, int C) { return (g * C) % 8; }
 
-__global__ void __launch_bounds__(GateTile::kThreads, 2)
-convlstm_gates_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
-                      const bf16* __restrict__ c, const bf16* __restrict__ w,
-                      const bf16* __restrict__ ci, const bf16* __restrict__ cf,
-                      bf16* __restrict__ gates, float* __restrict__ stats, int N, int C,
-                      int M) {
-  __shared__ __align__(128) unsigned char smem[GateTile::kSmemBytes];
-  __shared__ float red[GateTile::kThreads / 32];
-  const int s = blockIdx.z, rb = blockIdx.y, ct = blockIdx.x;
-  const int row0 = rb * kGateBM, c0 = ct * kGateBN;
-  const int nrows = min(kGateBM, N - row0);
+// blockIdx.x: the 64-column chunk, y: the 128-row tile of sample z, in
+// clusters of kGateCluster along y.  The grid's y may be padded to whole
+// clusters; a padded block loads and computes like the others (its A rows
+// read zero), stores no gate and writes zero statistics.
+__global__ void __cluster_dims__(1, kGateCluster, 1) __launch_bounds__(kGateThreads, 1)
+convlstm_gates_kernel(const __grid_constant__ CUtensorMap wx_map,
+                      const __grid_constant__ CUtensorMap wh_map,
+                      const bf16* __restrict__ x, const bf16* __restrict__ h,
+                      const bf16* __restrict__ c, const bf16* __restrict__ ci,
+                      const bf16* __restrict__ cf, bf16* __restrict__ gates,
+                      float* __restrict__ stats, int N, int C, int M) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kGateStages], empty[kGateStages];
+  __shared__ float red[8][6];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int ct = blockIdx.x, rb = blockIdx.y, s = blockIdx.z;
+  const int c0 = ct * kGateBN, row0 = rb * kGateBM;
+  const int nrows = max(0, min(kGateBM, N - row0));
   const size_t grow0 = static_cast<size_t>(s) * N + row0;
-  const XHLoad load{x + grow0 * C, h + grow0 * C, C, nrows};
-  const float* cs = reinterpret_cast<const float*>(smem);
-  float part[6];
+  const int kx = (C + kTileK - 1) / kTileK;   // k tiles of x, then as many of h
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int g = 0; g < 4; ++g) {
-    tile_gemm<kGateBM, kGateBN, 4>(load, w, 4 * C, 2 * C, g * C + c0, g * C + C, smem);
-    float sum = 0.f, sumsq = 0.f;
-    for (int e = threadIdx.x; e < kGateBM * kGateBN; e += GateTile::kThreads) {
-      const int r = e / kGateBN, cc = e % kGateBN, col = c0 + cc;
-      if (r < nrows && col < C) {
-        float y = round_bf(cs[r * GateTile::kCLd + cc]);
-        if (g == 1 || g == 2) {
-          const bf16* peep = g == 1 ? ci : cf;
-          const float cv = bf2f(c[(grow0 + r) * C + col]);
-          y = round_bf(y + round_bf(bf2f(peep[static_cast<size_t>(row0 + r) * C + col]) * cv));
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kGateStages; ++q) {
+      mbar_init(&full[q], 128 + 1);   // the producer's 128 threads + the TMA bytes
+      mbar_init(&empty[q], 2 * kGateCluster);
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();
+
+  if (warp >= 8) {
+    // producer: all 128 threads copy A; thread 256 also issues this
+    // block's two weight boxes (gates rank, rank + 2) to both blocks
+    const int tid = threadIdx.x - 256;
+    const uint32_t rank = cluster_rank();
+    const uint32_t base = smem_u32(smem);
+    if (tid == 0) {
+      tma_prefetch(&wx_map);
+      tma_prefetch(&wh_map);
+    }
+    const int iters = 2 * kx;
+    for (int it = 0; it < iters + kGateLag; ++it) {
+      // first publish the stage issued kGateLag iterations ago (its copies
+      // are in), then wait for a free stage: the consumers never wait on a
+      // stage whose copies landed while the producer sat on an empty barrier
+      if (it >= kGateLag) {
+        cp_async_wait<kGateLag - 1>();
+        fence_proxy_async();
+        mbar_arrive(&full[(it - kGateLag) % kGateStages]);
+      }
+      if (it < iters) {
+        const int q = it % kGateStages;
+        mbar_wait(&empty[q], ((it / kGateStages) & 1) ^ 1);
+        const bool hpart = it >= kx;
+        const int k0 = (hpart ? it - kx : it) * kTileK;
+        const uint32_t a = base + q * kGateStageBytes;
+        if (tid == 0) {
+          mbar_arrive_expect_tx(&full[q], 4 * kGateBoxBytes);
+          unsigned char* b = smem + q * kGateStageBytes + kGateABytes;
+#pragma unroll
+          for (int g = rank; g < 4; g += kGateCluster)
+            tma_load_2d_mc(b + g * kGateBoxBytes, hpart ? &wh_map : &wx_map, &full[q],
+                           g * C - box_shift(g, C) + c0, k0, (1u << kGateCluster) - 1);
         }
-        gates[(static_cast<size_t>(g) * M + grow0 + r) * C + col] = f2bf(y);
-        sum += y;
-        sumsq += y * y;
+        const bf16* src = (hpart ? h : x) + grow0 * C + k0;
+        cp_async_tile<kGateBM, kTileK, 128>(a, src, C, nrows, C - k0, x, tid);
+      }
+      cp_async_commit();   // empty groups in the tail keep the lag's count
+    }
+    // the tail: until every stage is released by the consumers of both
+    // blocks, so no peer arrives at or multicasts into a block that exited
+    for (int it = iters; it < iters + kGateStages; ++it)
+      mbar_wait(&empty[it % kGateStages], ((it / kGateStages) & 1) ^ 1);
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows row0 + 64 wg ... + 63
+  const int wg = warp / 4, wl = warp % 4, wtid = threadIdx.x % 128;
+  const uint32_t base = smem_u32(smem);
+  constexpr uint32_t kStepB = (16 * kSwizzleBytes) >> 4;   // 16 rows of K
+  float acc[kGateN / 2];
+  const int iters = 2 * kx;
+  int q = 0;
+  for (int it = 0; it < iters; ++it) {
+    q = it % kGateStages;
+    mbar_wait(&full[q], (it / kGateStages) & 1);
+    const uint32_t a = base + q * kGateStageBytes + wg * 64 * kSwizzleBytes;
+    const uint32_t b = base + q * kGateStageBytes + kGateABytes;
+    wgmma_fence();
+    mma_stage<kGateN, 0, 1>(acc, sw128_desc(a, 16, 1024), sw128_desc(b, kGateBoxBytes, 1024),
+                            2, kStepB, it == 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (it > 0 && wtid < kGateCluster)
+      mbar_arrive_remote(&empty[(it + kGateStages - 1) % kGateStages], wtid);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (wtid < kGateCluster) mbar_arrive_remote(&empty[q], wtid);
+
+  // epilogue from the fragment: register 4 (8 g + j) + 2 hf + e holds gate g
+  // at row r_lo + 8 hf, column c0 - box_shift(g) + 8 j + 2 (lane % 4) + e;
+  // this block owns the gate's columns its box covers (ragged ends masked)
+  const int r_lo = wg * 64 + wl * 16 + lane / 4;
+  float part[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r_lo + 8 * hf;
+    const bool row_ok = r < nrows;
+    // loads from clamped, valid addresses, masked afterwards: the unrolled
+    // loads issue together instead of one L2 round trip after another
+    const int rc = min(r, max(nrows - 1, 0));
+    const size_t grow = grow0 + r;
+    const bf16* crow = c + min(grow0 + rc, static_cast<size_t>(M) - 1) * C;
+    const bf16* peep[2] = {ci + static_cast<size_t>(min(row0 + rc, N - 1)) * C,
+                           cf + static_cast<size_t>(min(row0 + rc, N - 1)) * C};
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int col_t = c0 - box_shift(g, C) + 2 * (lane % 4);
+      bf16* out = gates + (static_cast<size_t>(g) * M + grow) * C;
+#pragma unroll
+      for (int j = 0; j < kGateBN / 8; ++j) {
+        const int col = col_t + 8 * j;
+        const bool ok = row_ok && col >= 0 && col < C;
+        float y0 = round_bf(acc[4 * (8 * g + j) + 2 * hf]);
+        float y1 = round_bf(acc[4 * (8 * g + j) + 2 * hf + 1]);
+        if (g == 1 || g == 2) {   // the peepholes of i and f
+          const int colc = max(0, min(col, C - 2));
+          const float2 cv = ld_bf2(crow + colc), pv = ld_bf2(peep[g - 1] + colc);
+          y0 = round_bf(y0 + round_bf(pv.x * cv.x));
+          y1 = round_bf(y1 + round_bf(pv.y * cv.y));
+        }
+        if (!ok) continue;
+        st_bf2(out + col, y0, y1);
+        if (g < 3) {
+          part[2 * g] += y0 + y1;
+          part[2 * g + 1] += y0 * y0 + y1 * y1;
+        }
       }
     }
-    if (g < 3) {
-      part[2 * g] = block_sum(sum, red);
-      part[2 * g + 1] = block_sum(sumsq, red);
-    }
   }
-  if (threadIdx.x == 0) {
+  // the block's statistics: per warp, then the 8 consumer warps in order
+#pragma unroll
+  for (int v = 0; v < 6; ++v) part[v] = warp_sum(part[v]);
+  if (lane == 0)
+#pragma unroll
+    for (int v = 0; v < 6; ++v) red[warp][v] = part[v];
+  named_bar_sync(1, 256);
+  if (threadIdx.x < 6) {
+    float t = 0.f;
+    for (int w = 0; w < 8; ++w) t += red[w][threadIdx.x];
     const size_t p = (static_cast<size_t>(s) * gridDim.y + rb) * gridDim.x + ct;
-    for (int q = 0; q < 6; ++q) stats[p * 6 + q] = part[q];
+    stats[p * 6 + threadIdx.x] = t;
   }
 }
 
@@ -173,8 +310,14 @@ convlstm_raw_kernel(const bf16* __restrict__ gates, const bf16* __restrict__ c,
 
 }  // namespace cmpc
 
+// Row tiles of a sample, padded to whole clusters.
+static int gate_row_tiles(int N) {
+  const int tiles = (N + cmpc::kGateBM - 1) / cmpc::kGateBM;
+  return (tiles + cmpc::kGateCluster - 1) / cmpc::kGateCluster * cmpc::kGateCluster;
+}
+
 extern "C" int cmpc_convlstm_gates_parts(int N, int C) {
-  return ((N + cmpc::kGateBM - 1) / cmpc::kGateBM) * ((C + cmpc::kGateBN - 1) / cmpc::kGateBN);
+  return gate_row_tiles(N) * ((C + cmpc::kGateBN - 1) / cmpc::kGateBN);
 }
 
 extern "C" int cmpc_convlstm_raw_parts(int N) {
@@ -184,17 +327,30 @@ extern "C" int cmpc_convlstm_raw_parts(int N) {
 // x, h, c [B*N, C] bf16; w [2C, 4C] bf16 (gate g in columns g*C..g*C+C-1,
 // order j, i, f, o); ci, cf [N, C] bf16 -> gates [4, B*N, C] bf16 and
 // stats [B, gates_parts, 3, 2] f32 (sum, sum of squares of j, i, f).
-// C must be a multiple of 4.
+// C must be a multiple of 4 (8-byte rows); w 16-byte aligned (TMA).
 extern "C" int cmpc_convlstm_gates(const void* x, const void* h, const void* c,
                                    const void* w, const void* ci, const void* cf,
                                    void* gates, void* stats, int B, int N, int C,
                                    void* stream) {
   using namespace cmpc;
   if (C % 4) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((C + kGateBN - 1) / kGateBN, (N + kGateBM - 1) / kGateBM, B);
-  convlstm_gates_kernel<<<grid, GateTile::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(h), static_cast<const bf16*>(c),
-      static_cast<const bf16*>(w), static_cast<const bf16*>(ci), static_cast<const bf16*>(cf),
+  // w's x rows and h rows as two [C][4C] maps, each zero past its C rows
+  const uint64_t dims[2] = {static_cast<uint64_t>(4 * C), static_cast<uint64_t>(C)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(4 * C) * sizeof(bf16)};
+  const uint32_t box[2] = {kChunk, kTileK};
+  CUtensorMap wx_map, wh_map;
+  int rc = encode_tmap(&wx_map, w, 2, dims, strides, box);
+  if (rc) return rc;
+  rc = encode_tmap(&wh_map, static_cast<const bf16*>(w) + static_cast<size_t>(C) * 4 * C, 2,
+                   dims, strides, box);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      convlstm_gates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGateSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((C + kGateBN - 1) / kGateBN, gate_row_tiles(N), B);
+  convlstm_gates_kernel<<<grid, kGateThreads, kGateSmem, static_cast<cudaStream_t>(stream)>>>(
+      wx_map, wh_map, static_cast<const bf16*>(x), static_cast<const bf16*>(h),
+      static_cast<const bf16*>(c), static_cast<const bf16*>(ci), static_cast<const bf16*>(cf),
       static_cast<bf16*>(gates), static_cast<float*>(stats), N, C, B * N);
   return static_cast<int>(cudaGetLastError());
 }

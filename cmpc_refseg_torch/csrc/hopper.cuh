@@ -1,12 +1,17 @@
-// Hopper building blocks of the port's TMA + wgmma kernels (csrc/mutan.cu,
-// the dW product of csrc/mutan_bwd.cu), as inline PTX for sm_90a:
+// Hopper building blocks of the port's wgmma kernels (csrc/mutan.cu, the dW
+// product of csrc/mutan_bwd.cu, convlstm.cu's gates, se_sum.cu), as inline
+// PTX for sm_90a:
 //
-// - mbarriers: init, arrive with an expected byte count, parity wait;
+// - mbarriers: init, arrive (plain or with an expected byte count), parity
+//   wait;
+// - cp.async 8-byte copies with zero fill, written into the 128-byte
+//   swizzled layout below, for operands TMA cannot load (rows whose stride
+//   is not a multiple of 16 bytes, such as C = 500 bf16);
 // - TMA (cp.async.bulk.tensor) 2D / 3D loads that complete on an mbarrier,
 //   multicast to the blocks of a cluster, and a 3D store from
 //   shared memory tracked by bulk groups;
-// - cluster position, masks and sync, and arrivals on another block's
-//   mbarrier;
+// - cluster position, rank, masks and sync, arrivals on another block's
+//   mbarrier, and reads of another block's shared memory (DSMEM);
 // - the 64-bit wgmma shared-memory descriptor for 128-byte swizzled tiles;
 // - wgmma.fence / commit_group / wait_group and the m64n128k16 and
 //   m64n256k16 bf16 products with f32 accumulators, trans-a / trans-b as
@@ -54,6 +59,10 @@ __device__ __forceinline__ void mbar_fence_init() {
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // Waits until the barrier's current phase differs from `parity`.
@@ -111,6 +120,31 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// This block's rank in its cluster, and the cluster's size in blocks.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(v));
+  return v;
+}
+
+// The float at the same shared-memory offset as `p` in block `rank` of the
+// cluster (the block must still be running: see cluster_sync).
+__device__ __forceinline__ float ld_cluster_f32(const float* p, uint32_t rank) {
+  float v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [remote];\n}\n"
+      : "=f"(v) : "r"(smem_u32(p)), "r"(rank) : "memory");
+  return v;
+}
+
 // Arrive on the barrier at the same shared-memory offset in block `rank`.
 __device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
   asm volatile(
@@ -126,6 +160,53 @@ __device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank)
 // r arrives at block r's barrier, all in one instruction.
 __device__ __forceinline__ void release_stage_cluster(uint64_t* empty, int wtid) {
   if (wtid < kClusterSize) mbar_arrive_remote(empty, wtid);
+}
+
+// ---- cp.async into swizzled tiles -----------------------------------------
+
+// 8 bytes from global `src` to shared `dst`; src_bytes = 0 writes zeros and
+// reads nothing.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most kPending of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Copies a [kRows x kCols] block of a row-major bf16 matrix into shared
+// memory at `dst` (1024-byte aligned) in the layout a TMA load with 128-byte
+// swizzle and an inner box of 64 would give: kCols / 64 chunks of [kRows][64],
+// kRows * 128 bytes apart, 16-byte group q of row r at q ^ (r % 8).  `src`
+// is the block's first element, `ld` the matrix's row stride in elements,
+// `rows` / `cols` how many of the block's rows / columns exist (the rest
+// read zero; `safe` is any readable address, passed for them).  Rows must
+// be 8-byte aligned and `cols` a multiple of 4: each copy moves 4 bf16.
+// The kThreads threads `tid` = 0 .. kThreads - 1 share the copies;
+// consecutive threads copy consecutive 8 bytes of a row.
+template <int kRows, int kCols, int kThreads>
+__device__ __forceinline__ void cp_async_tile(uint32_t dst, const bf16* src, size_t ld,
+                                              int rows, int cols, const bf16* safe,
+                                              int tid) {
+  constexpr int kPieces = kCols / 4;   // 8-byte copies per row
+  constexpr int kCopies = kRows * kPieces;
+  static_assert(kCopies % kThreads == 0, "copies must split evenly");
+#pragma unroll
+  for (int i = 0; i < kCopies / kThreads; ++i) {
+    const int e = tid + i * kThreads;
+    const int r = e / kPieces, q = e % kPieces;
+    const bool ok = r < rows && q * 4 < cols;
+    const uint32_t d = dst + (q / 16) * (kRows * kSwizzleBytes) + r * kSwizzleBytes +
+                       ((((q / 2) % 8) ^ (r % 8)) << 4) + (q % 2) * 8;
+    cp_async8(d, ok ? src + r * ld + q * 4 : safe, ok ? 8 : 0);
+  }
 }
 
 // ---- TMA -------------------------------------------------------------------
@@ -181,8 +262,9 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// Orders this thread's shared-memory writes before later async-proxy reads
-// (a TMA store of the same buffer).
+// Orders this thread's shared-memory writes (plain stores, or cp.async
+// copies it has waited for) before later async-proxy reads (a TMA store or
+// a wgmma of the same buffer).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -562,6 +562,9 @@ def se_sum(feat, others, gates, ws, bs):
         _expect(f"ws[{i}]", ws[i], torch.bfloat16, (c, c))
         _expect(f"bs[{i}]", bs[i], torch.bfloat16, (c,))
     _multiple_of(4, C=c)
+    if c > 1024:
+        raise ValueError(f"C={c}: the SE-sum kernel's cluster covers rows of "
+                         "at most 1024 columns")
     lib = build.library("se_sum")
     out = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=feat.device)
     rc = lib.cmpc_se_sum(feat.data_ptr(), _pointers(others), _pointers(ws),
@@ -607,6 +610,7 @@ def convlstm_gates(x, h, c, w, ci, cf):
     _expect("ci", ci, torch.bfloat16, (n, cc))
     _expect("cf", cf, torch.bfloat16, (n, cc))
     _multiple_of(4, C=cc)
+    _aligned16(w=w)
     lib = build.library("convlstm")
     parts = lib.cmpc_convlstm_gates_parts(n, cc)
     gates = torch.empty((4, bsz, n, cc), dtype=torch.bfloat16,

@@ -208,10 +208,100 @@ def test_mutan_dw_matches_torch_mm(cuda, m, k, w):
     assert torch.equal(got, kernels.mutan_dw(x, dz))
 
 
+def _uniform(g, *shape, limit):
+    u = torch.rand(*shape, generator=g, device="cuda") * 2 - 1
+    return (u * limit).to(torch.bfloat16)
+
+
+def _se_args(g, b, n, c, k):
+    """SE-sum inputs at the model's scales: k others, b samples of n rows."""
+    return (_rnd(g, b, n, c), [_rnd(g, b, n, c) for _ in range(k)],
+            [torch.sigmoid(_rnd(g, b, c, dtype=torch.float32)).to(
+                torch.bfloat16) for _ in range(k)],
+            [_uniform(g, c, c, limit=(3 / c) ** 0.5) for _ in range(k)],
+            [_rnd(g, c, scale=0.1) for _ in range(k)])
+
+
+def _gates_args(g, b, n, c):
+    """ConvLSTM gates inputs at the model's scales."""
+    return (*(_rnd(g, b, n, c) for _ in range(3)),
+            _uniform(g, 2 * c, 4 * c, limit=(1 / c) ** 0.5),
+            _uniform(g, n, c, limit=0.1), _uniform(g, n, c, limit=0.1))
+
+
+# (B, N, others): B*N = 75 is odd and 25- and 100-row samples straddle the
+# 64- and 128-row tiles; 1600 rows per sample is the flagship's
+SHAPES = [(1, 25, 1), (3, 25, 4), (3, 100, 2), (1, 1600, 3), (3, 1600, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [12, 72, 500, 512])
+@pytest.mark.parametrize("b,n,k", SHAPES)
+def test_se_sum_wgmma_kernel_matches_plain_version(cuda, b, n, k, c):
+    """The wgmma SE-sum kernel against its plain version: C = 12 and 72
+    leave most of one 128-column slice empty, C = 500 ends inside the
+    fourth slice and its 1000-byte rows are loaded by cp.async, C = 512
+    fills four; 1-4 others; 64-row tiles (fewer blocks than SMs) and
+    128-row tiles (3 samples of 1600 rows at C >= 500)."""
+    args = _se_args(cuda, b, n, c, k)
+    got = kernels.se_sum(*args)
+    want = kernels.se_sum_plain(*args)
+    torch.cuda.synchronize()
+    _close("se_sum", got, want, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [12, 72, 500, 512])
+@pytest.mark.parametrize("b,n", sorted({(b, n) for b, n, _ in SHAPES}))
+def test_convlstm_gates_wgmma_kernel_matches_plain_version(cuda, b, n, c):
+    """The wgmma gates kernel against its plain version (the gates and the
+    layer-norm statistics per sample), then the raw kernel fed the gates
+    kernel's statistics slots against the plain step fed the plain
+    statistics.  C = 12 and 72 leave most of a 64-column chunk past C (the
+    weight boxes read the next gate's columns there), C = 500 ends inside
+    the eighth chunk and C = 512 fills it; padded row tiles of 25 and 100
+    rows, odd B*N = 75."""
+    args = _gates_args(cuda, b, n, c)
+    gates, stats = kernels.convlstm_gates(*args)
+    want = kernels.convlstm_gates_plain(*args)
+    torch.cuda.synchronize()
+    _close("convlstm_gates", (gates, stats), want, n * c)
+    cell = args[2]
+    rest = (_uniform(cuda, n, c, limit=0.1),
+            1 + _rnd(cuda, 5, c, dtype=torch.float32, scale=0.1),
+            _rnd(cuda, 5, c, dtype=torch.float32, scale=0.1))
+    got = kernels.convlstm_raw(gates, cell, rest[0], stats, *rest[1:])
+    ref = kernels.convlstm_raw_plain(want[0], cell, rest[0], want[1],
+                                     *rest[1:])
+    torch.cuda.synchronize()
+    _close("convlstm_raw", got, ref, n * c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["se_sum", "convlstm_gates"])
+def test_wgmma_kernel_repeats_bit_identically(cuda, name):
+    """50 launches at the flagship's bs=1 shapes give the same bits: a
+    missing proxy fence between the cp.async copies and the wgmmas, or a
+    missing cluster barrier, shows as a result that changes now and then."""
+    if name == "se_sum":
+        args = _se_args(cuda, 1, 1600, 500, 2)
+    else:
+        args = _gates_args(cuda, 1, 1600, 500)
+    wrapper = getattr(kernels, name)
+    first = wrapper(*args)
+    first = first if isinstance(first, tuple) else (first,)
+    for _ in range(49):
+        again = wrapper(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_tma_wrappers_raise_on_misaligned_or_noncontiguous(cuda):
-    """TMA needs 16-byte-aligned bases and contiguous rows: the mutan and
-    dW wrappers raise on anything else rather than launch."""
+    """TMA needs 16-byte-aligned bases and contiguous rows: the mutan, dW
+    and ConvLSTM gates wrappers raise on anything else rather than
+    launch."""
     (x, w, b, lang), kw = _mutan_args(cuda, 72, 200, samples=2)
     m, k = x.shape
     shifted = torch.empty(m * k + 8, dtype=torch.bfloat16,
@@ -226,6 +316,12 @@ def test_tma_wrappers_raise_on_misaligned_or_noncontiguous(cuda):
         kernels.mutan_dw(shifted, dz)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.mutan_dw(x, dz.t().contiguous().t())
+    args = _gates_args(cuda, 1, 25, 12)
+    w = args[3]
+    shifted_w = torch.empty(w.numel() + 8, dtype=torch.bfloat16,
+                            device="cuda")[1:1 + w.numel()].view(w.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.convlstm_gates(*args[:3], shifted_w, *args[4:])
 
 
 @pytest.mark.gpu
