@@ -26,7 +26,9 @@ Phases, each fatal on failure:
     Then the wgmma kernels at small ragged shapes ("edge" records: M, K,
     C and W off their tiles, tiles that straddle samples, C = 1000 against
     the per-head edge of W's tensor map; the ConvLSTM gates and SE sum at
-    an odd B*N = 75 with 25-row samples, and SE sum with 4 others);
+    an odd B*N = 75 with 25-row samples, and SE sum with 4 others; the
+    grouped affinity and update at 3 samples of 75 rows, C = 72, A = 40,
+    T = 40 words, G = 3, and graph_msg at T = 40);
  4. forward: build_model("CMPC_model") on CUDA at 320x320, bs=8, bf16,
     full depth.  Launch counts are reset just before the timed forwards and
     read just after (the counts the path needs per forward, see
@@ -34,6 +36,8 @@ Phases, each fatal on failure:
     agree with the same forward through the plain versions.  Then one
     forward at bs=64, above the packing threshold, where the spatial graph
     runs level by level through the ungrouped kernels, counted likewise;
+    and one bs=1 forward with num_steps = 40 (more words than one 32-word
+    chunk of the affinity and message kernels) against the plain route;
  5. serving: build_service("CMPC_model") at 320x320, bf16, full depth,
     answers 20 requests (seeded images of several sizes and aspect ratios,
     3-20-word expressions) at batch 1.  Counts reset before the requests
@@ -81,6 +85,8 @@ SIGM_TOL = 2e-2
 # order of its f32 sums differs from the plain version and torch.mm
 KERNEL_TOL = {"mutan_dw": 1e-3}
 EDGE_ROWS, EDGE_N, EDGE_K = 300, 100, 136
+EDGE_C, EDGE_A, EDGE_T = 72, 40, 40   # the graph kernels' edge shapes
+LONG_T = 40                  # num_steps of the long-expression forward
 N_REQ = 20
 N_TRAIN = 10
 TRAIN_LOSS_TOL = 1e-2        # kernel vs plain route, relative
@@ -492,14 +498,17 @@ def ptxas_report(text):
     return out
 
 
-def edge_inputs(torch, dev):
+def edge_inputs(torch, kernels, dev):
     """The wgmma kernels at small ragged shapes: mutan at EDGE_ROWS rows of
     EDGE_N per sample (tiles straddle samples; 300 is off both row tiles),
     K = EDGE_K (off the 64-deep stages), C = 1000 (off the 128-column tiles,
     so W's 3D tensor map must read zeros past each head); dW at M = 1000,
     K = 136, W = 360; the ConvLSTM gates and the SE sum (4 others) at 3
     samples of 25 rows (75 rows: odd, and row tiles past each sample) and
-    the fusion stack's C = CM."""
+    the fusion stack's C = CM; the grouped affinity (l2n, masked) and
+    update and graph_msg at 3 samples of 25 * 3 = 75 rows (the last 128-row
+    tile of each sample part empty), C = EDGE_C (one 256-column block),
+    A = EDGE_A != C, T = EDGE_T words (two 32-word chunks) and G = 3."""
     g = torch.Generator(device=dev).manual_seed(7)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -514,7 +523,25 @@ def edge_inputs(torch, dev):
     b, n = 3, 25
     sig = [torch.sigmoid(randn(b, CM, dtype=torch.float32)).to(
         torch.bfloat16) for _ in range(4)]
-    return {"mutan_fused": mutan, "mutan_fwd_residual": mutan,
+    f32, gn = torch.float32, 3 * n
+    mask = torch.zeros(b, 1, EDGE_T, device=dev)
+    mask[:, :, :30] = 1
+    affinity = ((randn(b, gn, EDGE_C), randn(G, EDGE_C, EDGE_A,
+                                              scale=EDGE_C ** -0.5),
+                 randn(G, EDGE_A, scale=0.1), randn(b, EDGE_T, EDGE_A),
+                 torch.rand(b, 1, EDGE_T, generator=g, device=dev), mask),
+                {"scale": EDGE_C ** 0.5, "l2n": True, "masked": True})
+    msg_args = (torch.softmax(randn(b, gn, EDGE_T, dtype=f32), -1).to(
+        torch.bfloat16), randn(b, EDGE_T, EDGE_C))
+    msg, st = kernels.graph_msg_plain(*msg_args)
+    update = (randn(b, gn, EDGE_C), msg, st,
+              randn(G, EDGE_C, EDGE_C, scale=EDGE_C ** -0.5),
+              randn(G, EDGE_C, scale=0.1),
+              1 + randn(G, EDGE_C, scale=0.1, dtype=f32),
+              randn(G, EDGE_C, scale=0.1, dtype=f32))
+    return {"spa_affinity_grouped": affinity, "graph_msg": (msg_args, {}),
+            "graph_update_grouped": (update, {}),
+            "mutan_fused": mutan, "mutan_fwd_residual": mutan,
             "mutan_dw": ((randn(1000, EDGE_K), randn(1000, 360, scale=0.1)),
                          {}),
             "convlstm_gates": ((*(randn(b, n, CM) for _ in range(3)),
@@ -532,7 +559,7 @@ def check_edges(torch, kernels, dev):
     dW against torch.mm), with the path records' tolerances (statistics
     partials as in phase 3)."""
     records = []
-    for name, (args, kw) in edge_inputs(torch, dev).items():
+    for name, (args, kw) in edge_inputs(torch, kernels, dev).items():
         wrapper = getattr(kernels, name)
         tol = KERNEL_TOL.get(name, 1e-2)
         got = wrapper(*args, **kw)
@@ -688,6 +715,27 @@ def run_forward(torch, kernels, cmpc, build_model, apply_model, card):
         f"masks/s; sigm vs plain max abs {big_err:.3e}; launches {big_counts}")
     return {"forward_bs8": (counts, N_FWD, ms),
             f"forward_bs{B_LARGE}": (big_counts, 1, big_ms)}
+
+
+def run_long_forward(torch, build_model, apply_model, card):
+    """A bs=1 forward with num_steps = LONG_T and a LONG_T-word expression:
+    the affinity and message kernels take more words than one 32-word
+    chunk; sigm against the plain route's."""
+    model = build_model("CMPC_model", device=DEV, dtype="bfloat16",
+                        batch_size=1, num_steps=LONG_T)
+    cfg = model.cfg
+    batch = make_batch(cfg, 1, seed=2)
+    rng = np.random.default_rng(2)
+    batch["words"][0] = rng.integers(3, cfg.vocab_size, LONG_T)
+    batch["seq_len"][0] = LONG_T
+    feed = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+    out = model.forward(feed)
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        ref = apply_model(model.params, cfg, feed, use_kernels=False)
+    err = check_forward(torch, cfg, out, ref, 1, f"forward num_steps={LONG_T}")
+    log(f"[forward] {card}: bs=1 num_steps={LONG_T} ({LONG_T}-word "
+        f"expression): sigm vs plain max abs {err:.3e} <= {SIGM_TOL}")
 
 
 def request_set(np, vocab_size):
@@ -1090,6 +1138,8 @@ def main():
     torch.cuda.empty_cache()
     # path -> (launch counts of its runs, runs, ms per run)
     paths = run_forward(torch, kernels, cmpc, build_model, apply_model, card)
+    run_long_forward(torch, build_model, apply_model, card)
+    torch.cuda.empty_cache()
     srv_paths, serving = run_serving(torch, np, kernels, cmpc, build_service,
                                      apply_model, card)
     paths.update(srv_paths)

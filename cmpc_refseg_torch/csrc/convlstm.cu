@@ -267,12 +267,12 @@ convlstm_raw_kernel(const bf16* __restrict__ gates, const bf16* __restrict__ c,
     const int r = v / vecs, col = (v % vecs) * 4;
     const size_t o = (grow0 + r) * C + col;
     const size_t gs = static_cast<size_t>(M) * C;
-    const Vec4 gj = as_vec4(load_vec<4>(gates + o));
-    const Vec4 gi = as_vec4(load_vec<4>(gates + gs + o));
-    const Vec4 gf = as_vec4(load_vec<4>(gates + 2 * gs + o));
-    const Vec4 go = as_vec4(load_vec<4>(gates + 3 * gs + o));
-    const Vec4 cv = as_vec4(load_vec<4>(c + o));
-    const Vec4 cov = as_vec4(load_vec<4>(co + static_cast<size_t>(row0 + r) * C + col));
+    const Vec4 gj = as_vec4(load_vec4(gates + o));
+    const Vec4 gi = as_vec4(load_vec4(gates + gs + o));
+    const Vec4 gf = as_vec4(load_vec4(gates + 2 * gs + o));
+    const Vec4 go = as_vec4(load_vec4(gates + 3 * gs + o));
+    const Vec4 cv = as_vec4(load_vec4(c + o));
+    const Vec4 cov = as_vec4(load_vec4(co + static_cast<size_t>(row0 + r) * C + col));
     Vec4 nc, orw;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {

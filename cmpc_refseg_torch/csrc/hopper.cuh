@@ -1,6 +1,6 @@
 // Hopper building blocks of the port's wgmma kernels (csrc/mutan.cu, the dW
-// product of csrc/mutan_bwd.cu, convlstm.cu's gates, se_sum.cu), as inline
-// PTX for sm_90a:
+// product of csrc/mutan_bwd.cu, convlstm.cu's gates, se_sum.cu,
+// graph_conv.cu's update, spa_affinity.cu), as inline PTX for sm_90a:
 //
 // - mbarriers: init, arrive (plain or with an expected byte count), parity
 //   wait;
@@ -8,14 +8,14 @@
 //   swizzled layout below, for operands TMA cannot load (rows whose stride
 //   is not a multiple of 16 bytes, such as C = 500 bf16);
 // - TMA (cp.async.bulk.tensor) 2D / 3D loads that complete on an mbarrier,
-//   multicast to the blocks of a cluster, and a 3D store from
+//   into this block or multicast to the blocks of a cluster, and a 3D store from
 //   shared memory tracked by bulk groups;
 // - cluster position, rank, masks and sync, arrivals on another block's
 //   mbarrier, and reads of another block's shared memory (DSMEM);
 // - the 64-bit wgmma shared-memory descriptor for 128-byte swizzled tiles;
 // - wgmma.fence / commit_group / wait_group and the m64n128k16 and
 //   m64n256k16 bf16 products with f32 accumulators, trans-a / trans-b as
-//   immediates;
+//   immediates, and m64n32k16 with A from registers;
 // - setmaxnreg, to move registers from a producer to consumer warpgroups;
 // - a host helper that encodes a CUtensorMap (cuTensorMapEncodeTiled, a
 //   driver-API symbol fetched through the runtime, so no -lcuda).
@@ -239,6 +239,16 @@ __device__ __forceinline__ void tma_load_3d_mc(void* dst, const CUtensorMap* map
       "r"(c2), "h"(mask) : "memory");
 }
 
+// The same into this block's shared memory only.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Out-of-bounds parts of the box are not written.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
                                              int c0, int c1, int c2) {
@@ -315,6 +325,25 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[16] += A[64x16] * B[16x32] with A from registers: a[4] holds a
+// thread's 8 bf16 of the 64x16 A tile in the layout of an f32 accumulator
+// fragment's two 8-column groups (a[0]: row r, columns 2c, 2c+1; a[1]:
+// row r + 8; a[2], a[3]: the same 8 columns on), so one wgmma's result
+// feeds the next.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
 // d[64] += A[64x16] * B[16x128]; scale_d = 0 overwrites d.

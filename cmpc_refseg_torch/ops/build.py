@@ -42,7 +42,7 @@ SIGNATURES = {
     },
     "spa_affinity": {
         "cmpc_spa_affinity": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
-        "cmpc_spa_affinity_row_blocks": ([_I], _I),
+        "cmpc_spa_affinity_row_blocks": ([_I, _I], _I),
     },
     "graph_conv": {
         "cmpc_graph_msg": ([_P] * 4 + [_I] * 4 + [_P], _I),

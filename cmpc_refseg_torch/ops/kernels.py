@@ -325,10 +325,12 @@ def _affinity_launch(x, wgs, bgs, wt, rel, mask, *, scale, l2n, masked):
     _expect("rel", rel, torch.float32, (bsz, 1, t))
     _expect("mask", mask, torch.float32, (bsz, 1, t))
     _multiple_of(8, C=c, A=a)
-    if t > 32:
-        raise ValueError(f"T={t}: the affinity kernel takes at most 32 words")
+    if a > 2048:
+        raise ValueError(f"A={a}: the affinity kernel's cluster of 8 blocks "
+                         "covers at most 2048 projection columns")
+    _aligned16(x=x, wg=wgs, wt=wt)
     lib = build.library("spa_affinity")
-    blocks = lib.cmpc_spa_affinity_row_blocks(n)
+    blocks = lib.cmpc_spa_affinity_row_blocks(n, a)
     w_out = torch.empty((bsz, n, t), dtype=torch.float32, device=x.device)
     affi = torch.empty((bsz, n, t), dtype=torch.float32, device=x.device)
     stats = torch.empty((bsz, blocks, 2, t), dtype=torch.float32,
@@ -425,8 +427,6 @@ def graph_msg(w_aff, pooled):
     _expect("w_aff", w_aff, torch.bfloat16, (bsz, n, t))
     _expect("pooled", pooled, torch.bfloat16, (bsz, t, c))
     _multiple_of(8, C=c)
-    if t > 32:
-        raise ValueError(f"T={t}: the message kernel takes at most 32 words")
     lib = build.library("graph_conv")
     parts = lib.cmpc_graph_msg_parts(n)
     msg = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=w_aff.device)
@@ -482,6 +482,10 @@ def _update_launch(x, msg, stats1, ws, bs, g1s, b1s):
     _expect("g1", g1s, torch.float32, (groups, c))
     _expect("b1", b1s, torch.float32, (groups, c))
     _multiple_of(8, C=c)
+    if c > 4096:
+        raise ValueError(f"C={c}: the update kernel stages the layer norm's "
+                         "affine of at most 4096 columns in shared memory")
+    _aligned16(x=x, msg=msg, w=ws)
     lib = build.library("graph_conv")
     parts = lib.cmpc_graph_update_parts(n, c)
     z = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=x.device)

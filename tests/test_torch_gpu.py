@@ -277,24 +277,154 @@ def test_convlstm_gates_wgmma_kernel_matches_plain_version(cuda, b, n, c):
     _close("convlstm_raw", got, ref, n * c)
 
 
+def _word_mask(b, t):
+    """[b, 1, t] f32: the first max(1, 2t/3) words of each sample on."""
+    mask = torch.zeros(b, 1, t, device="cuda")
+    mask[:, :, :max(1, 2 * t // 3)] = 1
+    return mask
+
+
+def _affinity_args(g, b, n, c, a, t, groups):
+    """Affinity inputs at the model's scales: b samples of n rows, G =
+    `groups` weight groups (0: the ungrouped form's [C, A] weights)."""
+    lead = (groups,) if groups else ()
+    return (_rnd(g, b, n, c), _uniform(g, *lead, c, a, limit=(3 / c) ** 0.5),
+            _rnd(g, *lead, a, scale=0.1), _rnd(g, b, t, a),
+            torch.rand(b, 1, t, generator=g, device="cuda"), _word_mask(b, t))
+
+
+def _update_args(g, b, n, c, groups, t=20):
+    """graph_update inputs at the model's scales, msg and its statistics
+    from graph_msg's plain version (G = `groups`; 0: ungrouped)."""
+    lead = (groups,) if groups else ()
+    msg, st = kernels.graph_msg_plain(
+        torch.softmax(_rnd(g, b, n, t, dtype=torch.float32), -1).to(
+            torch.bfloat16), _rnd(g, b, t, c))
+    return (_rnd(g, b, n, c), msg, st,
+            _uniform(g, *lead, c, c, limit=(3 / c) ** 0.5),
+            _rnd(g, *lead, c, scale=0.1),
+            1 + _rnd(g, *lead, c, dtype=torch.float32, scale=0.1),
+            _rnd(g, *lead, c, dtype=torch.float32, scale=0.1))
+
+
+WORDS = [1, 33, 40, 64, 300]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["se_sum", "convlstm_gates"])
+@pytest.mark.parametrize("t", WORDS)
+@pytest.mark.parametrize("l2n,masked", [(False, True), (False, False),
+                                        (True, False), (True, True)])
+@pytest.mark.parametrize("groups", [0, 3])
+def test_affinity_takes_any_word_count(cuda, groups, l2n, masked, t):
+    """The wgmma affinity kernel in both forms and all four (l2n, masked)
+    forms at T = 1 and past one 32-word chunk (33, 40, 64, 300): 3 samples
+    of 100 rows (a 128-row tile past each sample), C = 72, A = 40."""
+    args = _affinity_args(cuda, 3, 100, 72, 40, t, groups)
+    name = "spa_affinity_grouped" if groups else "spa_affinity"
+    kw = {"scale": 72 ** 0.5, "l2n": l2n, "masked": masked}
+    wrapper = getattr(kernels, name)
+    got = wrapper(*args, **kw)
+    want = kernels.PLAIN[wrapper](*args, **kw)
+    torch.cuda.synchronize()
+    _close(name, got, want, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", WORDS)
+def test_graph_msg_takes_any_word_count(cuda, t):
+    """The message kernel sweeps the words in chunks of 32: T = 1 and past
+    one chunk, msg and its statistics against the plain version."""
+    w_aff = torch.softmax(_rnd(cuda, 2, 100, t, dtype=torch.float32),
+                          -1).to(torch.bfloat16)
+    args = (w_aff, _rnd(cuda, 2, t, 72))
+    got = kernels.graph_msg(*args)
+    want = kernels.graph_msg_plain(*args)
+    torch.cuda.synchronize()
+    _close("graph_msg", got, want, 100 * 72)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [0, 1, 3])
+@pytest.mark.parametrize("n", [100, 1600])
+@pytest.mark.parametrize("c", [72, 1000])
+def test_graph_update_wgmma_kernel_matches_plain_version(cuda, c, n, groups):
+    """The TMA + wgmma update kernel in both forms (G = 0: ungrouped): C =
+    72 is one block of 256 columns, C = 1000 a cluster of four whose last
+    block ends inside its fourth box and whose K runs 15 full stages and
+    40 columns; 100- and 1600-row samples leave the last 128-row tile part
+    empty; 3 samples."""
+    args = _update_args(cuda, 3, n, c, groups)
+    name = "graph_update_grouped" if groups else "graph_update"
+    wrapper = getattr(kernels, name)
+    got = wrapper(*args)
+    want = kernels.PLAIN[wrapper](*args)
+    torch.cuda.synchronize()
+    _close(name, got, want, n * c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["se_sum", "convlstm_gates",
+                                  "spa_affinity_grouped",
+                                  "graph_update_grouped"])
 def test_wgmma_kernel_repeats_bit_identically(cuda, name):
     """50 launches at the flagship's bs=1 shapes give the same bits: a
-    missing proxy fence between the cp.async copies and the wgmmas, or a
-    missing cluster barrier, shows as a result that changes now and then."""
+    missing proxy fence between the cp.async copies (or the on-chip
+    transform) and the wgmmas, or a missing cluster barrier, shows as a
+    result that changes now and then."""
+    kw = {}
     if name == "se_sum":
         args = _se_args(cuda, 1, 1600, 500, 2)
-    else:
+    elif name == "convlstm_gates":
         args = _gates_args(cuda, 1, 1600, 500)
+    elif name == "spa_affinity_grouped":
+        args = _affinity_args(cuda, 3, 1600, 1000, 1000, 20, 3)
+        kw = {"scale": 1000 ** 0.5, "l2n": False, "masked": True}
+    else:
+        args = _update_args(cuda, 3, 1600, 1000, 3)
     wrapper = getattr(kernels, name)
-    first = wrapper(*args)
+    first = wrapper(*args, **kw)
     first = first if isinstance(first, tuple) else (first,)
     for _ in range(49):
-        again = wrapper(*args)
+        again = wrapper(*args, **kw)
         again = again if isinstance(again, tuple) else (again,)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def _shifted(t):
+    """A copy of `t` whose data starts 2 bytes past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 8, dtype=t.dtype,
+                      device=t.device)[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+def test_graph_tma_wrappers_raise_on_misaligned_or_noncontiguous(cuda):
+    """The affinity and update kernels read x, the weights, wt and msg by
+    TMA: their wrappers raise on a misaligned base or a non-contiguous
+    tensor rather than launch."""
+    args = list(_affinity_args(cuda, 2, 100, 72, 40, 6, 0))
+    kw = {"scale": 8.0, "l2n": False, "masked": True}
+    for i in (0, 1, 3):
+        bad = list(args)
+        bad[i] = _shifted(args[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            kernels.spa_affinity(*bad, **kw)
+    bad = list(args)
+    bad[1] = args[1].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.spa_affinity(*bad, **kw)
+    args = list(_update_args(cuda, 2, 100, 72, 0))
+    for i in (0, 1, 3):
+        bad = list(args)
+        bad[i] = _shifted(args[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            kernels.graph_update(*bad)
+    bad = list(args)
+    bad[3] = args[3].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.graph_update(*bad)
 
 
 @pytest.mark.gpu

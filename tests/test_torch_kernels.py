@@ -117,7 +117,7 @@ def _aff_inputs(rng, b=2, n=64, c=32, a=24, t=6):
     wt = rng.standard_normal((b, t, a)).astype(np.float32)
     rel = rng.random((b, 1, t)).astype(np.float32)
     mask = np.zeros((b, 1, t), np.float32)
-    mask[:, :, :4] = 1
+    mask[:, :, :max(4, 3 * t // 4)] = 1
     mask[-1, :, :2] = 0
     return x, wg, bg, wt, rel, mask
 
@@ -140,11 +140,14 @@ def test_affinity_matches_jax_reference(rng, l2n, masked):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
-@pytest.mark.parametrize("l2n,masked,n", [f + (64,) for f in FLAGS]
-                         + [(False, True, 256)])
-def test_affinity_matches_pallas_interpret(rng, l2n, masked, n):
-    """n=256 spans several kernel tiles: the column-softmax statistics."""
-    args = _aff_inputs(rng, n=n)
+@pytest.mark.parametrize("l2n,masked,n,t", [
+    pytest.param(*f, 64, 6, id=f"{f[0]}-{f[1]}-64") for f in FLAGS] + [
+    pytest.param(False, True, 256, 6, id="False-True-256"),
+    pytest.param(False, True, 64, 40, id="False-True-64-T40")])
+def test_affinity_matches_pallas_interpret(rng, l2n, masked, n, t):
+    """n=256 spans several kernel tiles: the column-softmax statistics;
+    T = 40 is more words than one 32-word chunk of the CUDA kernel."""
+    args = _aff_inputs(rng, n=n, t=t)
     want = pk.spa_affinity_fused(*map(jnp.asarray, args), scale=32 ** 0.5,
                                  l2n=l2n, masked_softmax=masked,
                                  interpret=True)
@@ -186,9 +189,12 @@ def test_graph_conv_matches_jax_reference(rng, port_fn):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LN_TOL)
 
 
-@pytest.mark.parametrize("n", [64, 256])
-def test_graph_conv_matches_pallas_interpret(rng, n):
-    gp, tgp, x, wa, va = _graph_case(rng, n=n)
+@pytest.mark.parametrize("n,t", [pytest.param(64, 6, id="64"),
+                                 pytest.param(256, 6, id="256"),
+                                 pytest.param(64, 40, id="64-T40")])
+def test_graph_conv_matches_pallas_interpret(rng, n, t):
+    """T = 40: more words than one 32-word chunk of the message kernel."""
+    gp, tgp, x, wa, va = _graph_case(rng, n=n, t=t)
     want = pk.graph_conv_fused(gp, jnp.asarray(x), jnp.asarray(wa),
                                jnp.asarray(va), interpret=True)
     got = tcmpc.graph_conv(tcmpc.stack_gconv([tgp], torch.float32), _t(x),

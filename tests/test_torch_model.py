@@ -62,14 +62,26 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def _check_forward(monkeypatch, jax_mode, size):
+def _long_batch(size, steps):
+    """`size` expressions of up to `steps` words (the longest fills them)."""
+    rng = np.random.default_rng(4)
+    lens = np.array([steps, steps - 7, 9], np.int32)[-size:]
+    words = np.zeros((size, steps), np.int32)
+    for i, n in enumerate(lens):
+        words[i, :n] = rng.integers(3, 30, n)
+    return {"im": (20 * rng.standard_normal((size, 32, 32, 3))
+                   ).astype(np.float32), "words": words, "seq_len": lens}
+
+
+def _check_forward(monkeypatch, jax_mode, size, steps=TINY["num_steps"]):
     if jax_mode == "interpret":
         monkeypatch.setenv("CMPC_FUSED", "interpret")
     else:
         monkeypatch.delenv("CMPC_FUSED", raising=False)
-    geo = {**TINY, "batch_size": size}
+    geo = {**TINY, "batch_size": size, "num_steps": steps}
     jcfg, tcfg = jget("CMPC_model", **geo), tget("CMPC_model", **geo)
-    batch = _batch(size)
+    batch = _batch(size) if steps == TINY["num_steps"] else \
+        _long_batch(size, steps)
     jp, js = jinit(0, jcfg)
     want, _ = jax.jit(lambda p, s, b: japply(p, s, jcfg, b))(
         jp, js, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -113,6 +125,17 @@ def test_forward_batch1_matches_jax(monkeypatch, jax_mode):
     sides (the grouped kernels in JAX's interpret mode)."""
     assert tcmpc.pack_levels(1, 3)
     _check_forward(monkeypatch, jax_mode, 1)
+
+
+@pytest.mark.parametrize("size", [1, 3])
+def test_forward_long_expressions_match_jax(monkeypatch, size):
+    """num_steps = 40, more words than one 32-word chunk of the affinity
+    and message kernels: batch 1 with the levels packed, batch 3 level by
+    level (the port's form above the packing threshold)."""
+    if size == 3:
+        monkeypatch.setattr(tcmpc, "LEVEL_PACK_MAX_BATCH", 2)
+    assert tcmpc.pack_levels(size, 3) == (size == 1)
+    _check_forward(monkeypatch, "xla", size, steps=40)
 
 
 def _to_torch(tree):
