@@ -23,12 +23,17 @@ Phases, each fatal on failure:
     and cuBLAS's bf16 product alone (for dW, `torch.mm` computes the same
     function: its time is `library_ms`, and the kernel is held against it
     too, at 1e-3); the least time the card could take at those shapes.
-    Then the wgmma kernels at small ragged shapes ("edge" records: M, K,
-    C and W off their tiles, tiles that straddle samples, C = 1000 against
-    the per-head edge of W's tensor map; the ConvLSTM gates and SE sum at
-    an odd B*N = 75 with 25-row samples, and SE sum with 4 others; the
-    grouped affinity and update at 3 samples of 75 rows, C = 72, A = 40,
-    T = 40 words, G = 3, and graph_msg at T = 40);
+    The dz pass's record also splits its time between the dz kernel and
+    the slot finalize (torch.profiler), and the dz and raw records give
+    their grids.  Then the kernels at small ragged shapes ("edge" records:
+    M, K, C and W off their tiles, tiles that straddle samples, C = 1000
+    against the per-head edge of W's tensor map; the ConvLSTM gates and SE
+    sum at an odd B*N = 75 with 25-row samples, and SE sum with 4 others;
+    the grouped affinity and update at 3 samples of 75 rows, C = 72, A =
+    40, T = 40 words, G = 3, and graph_msg at T = 40; the dz pass at N =
+    1681, and at 3 samples of 25 rows (blocks' rows cross samples) with
+    C = 72 and a sample whose v rows are zero; the ConvLSTM raw kernel at
+    B*N = 75 with 25-row samples, C = 12 and 500);
  4. forward: build_model("CMPC_model") on CUDA at 320x320, bs=8, bf16,
     full depth.  Launch counts are reset just before the timed forwards and
     read just after (the counts the path needs per forward, see
@@ -86,6 +91,7 @@ SIGM_TOL = 2e-2
 KERNEL_TOL = {"mutan_dw": 1e-3}
 EDGE_ROWS, EDGE_N, EDGE_K = 300, 100, 136
 EDGE_C, EDGE_A, EDGE_T = 72, 40, 40   # the graph kernels' edge shapes
+EDGE_DZ_N = 1681             # 41 x 41 rows per sample: no 32-row blocks
 LONG_T = 40                  # num_steps of the long-expression forward
 N_REQ = 20
 N_TRAIN = 10
@@ -174,6 +180,27 @@ def gpu_ms(torch, fn, groups=5, reps=10):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_split_ms(torch, fn, reps=20):
+    """Mean device ms per call of each kernel `fn` launches, by name, from
+    torch.profiler's CUDA activity; {} where it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if total:
+            name = e.key.split("(")[0].replace("void ", "").replace(
+                "cmpc::", "")
+            out[name] = total / reps / 1e3
+    return out
 
 
 def bound(flops_mm, ops_f32, nbytes):
@@ -430,6 +457,7 @@ def check_kernels(torch, kernels, cmpc, dev):
                                   f"{what} against the library call")
                 stats.update(library_max_abs_err=lib_err[0],
                              library_norm_err=lib_err[1])
+            slots = got[2].shape[1] if name == "convlstm_raw" else None
             del got, want
             ms = gpu_ms(torch, lambda: wrapper(*args, **kw))
             plain_ms = gpu_ms(torch, lambda: plain(*args, **kw), groups=3,
@@ -438,6 +466,15 @@ def check_kernels(torch, kernels, cmpc, dev):
             product = library_product(torch, name, args)
             matmul_ms = gpu_ms(torch, product) if product else None
             bound_ms, bound_by = bound(*kernel_cost(name, bk, groups))
+            extra = {}
+            if name == "mutan_bwd_dz":
+                # dz kernel and finalize apart; the grid is one block per SM
+                extra["split_ms"] = device_split_ms(
+                    torch, lambda: wrapper(*args, **kw))
+                rows = kernels.mutan_bwd_dz_scratch(bk * N, N, C, HEADS)[0]
+                extra["grid"] = (rows - bk + 1) // 2
+            if name == "convlstm_raw":   # one statistics slot per block
+                extra["grid"] = slots * bk
             rec = {
                 "name": f"{name}@{path}", "kernel": name, "path": path,
                 "shape": {"batch": bk, "groups": groups, "rows": bk * N},
@@ -447,7 +484,7 @@ def check_kernels(torch, kernels, cmpc, dev):
                 "max_norm_err": max(n for _, n in errs),
                 "tolerance": tol, **stats, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "matmul_ms": matmul_ms,
+                "library_ms": library_ms, "matmul_ms": matmul_ms, **extra,
             }
             records.append(rec)
             stats_note = (f"; statistics: mean/variance error "
@@ -460,6 +497,8 @@ def check_kernels(torch, kernels, cmpc, dev):
                               f"library_ms {library_ms:.4f}")
             prod = (f"cuBLAS product alone {matmul_ms:.4f} ms"
                     if matmul_ms is not None else "no product")
+            if extra:
+                prod += f"; {json.dumps(extra)}"
             log(f"[kernels] {name} at {path} (batch {bk}, {groups} weight "
                 f"group(s)): max abs err {rec['max_abs_err']:.3e} (norm "
                 f"{rec['max_norm_err']:.3e} <= {tol:.0e}){stats_note}; "
@@ -499,7 +538,8 @@ def ptxas_report(text):
 
 
 def edge_inputs(torch, kernels, dev):
-    """The wgmma kernels at small ragged shapes: mutan at EDGE_ROWS rows of
+    """The kernels at small ragged shapes, as (wrapper name, record tag,
+    args, kwargs): mutan at EDGE_ROWS rows of
     EDGE_N per sample (tiles straddle samples; 300 is off both row tiles),
     K = EDGE_K (off the 64-deep stages), C = 1000 (off the 128-column tiles,
     so W's 3D tensor map must read zeros past each head); dW at M = 1000,
@@ -508,7 +548,12 @@ def edge_inputs(torch, kernels, dev):
     the fusion stack's C = CM; the grouped affinity (l2n, masked) and
     update and graph_msg at 3 samples of 25 * 3 = 75 rows (the last 128-row
     tile of each sample part empty), C = EDGE_C (one 256-column block),
-    A = EDGE_A != C, T = EDGE_T words (two 32-word chunks) and G = 3."""
+    A = EDGE_A != C, T = EDGE_T words (two 32-word chunks) and G = 3; the
+    dz pass at 2 samples of EDGE_DZ_N rows and C = 1000, and at 3 samples
+    of 25 rows (a block's rows cross samples), C = EDGE_C, and the same
+    with sample 1's v rows zero (sq <= 1e-12; its dz, ~1e6 times the
+    others', would hide their errors in one record); the ConvLSTM raw kernel at 3 samples of 25
+    rows (N * C % 8 != 0: 8-byte vectors), C = 12 and CM."""
     g = torch.Generator(device=dev).manual_seed(7)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -539,19 +584,48 @@ def edge_inputs(torch, kernels, dev):
               randn(G, EDGE_C, scale=0.1),
               1 + randn(G, EDGE_C, scale=0.1, dtype=f32),
               randn(G, EDGE_C, scale=0.1, dtype=f32))
-    return {"spa_affinity_grouped": affinity, "graph_msg": (msg_args, {}),
-            "graph_update_grouped": (update, {}),
-            "mutan_fused": mutan, "mutan_fwd_residual": mutan,
-            "mutan_dw": ((randn(1000, EDGE_K), randn(1000, 360, scale=0.1)),
-                         {}),
-            "convlstm_gates": ((*(randn(b, n, CM) for _ in range(3)),
+
+    def dz_args(b, n, c, zero_sample):
+        # the dz pass: v as the forward's residual; sample 1's v rows zero
+        v = torch.tanh(randn(b * n, HEADS * c, dtype=f32))
+        if zero_sample:
+            v[n:2 * n] = 0
+        return ((v.to(torch.bfloat16),
+                 torch.tanh(randn(b, HEADS * c, dtype=f32)),
+                 randn(b * n, c, scale=0.1)),
+                {"heads": HEADS, "rows_per_sample": n})
+
+    def raw_args(c):
+        gates, st = kernels.convlstm_gates_plain(
+            *(randn(b, n, c) for _ in range(3)),
+            randn(2 * c, 4 * c, scale=c ** -0.5), randn(n, c, scale=0.1),
+            randn(n, c, scale=0.1))
+        return ((gates, randn(b, n, c), randn(n, c, scale=0.1), st,
+                 1 + randn(5, c, scale=0.1, dtype=f32),
+                 randn(5, c, scale=0.1, dtype=f32)), {})
+
+    # (wrapper name, record tag, args, kwargs)
+    return [
+        ("spa_affinity_grouped", "", *affinity),
+        ("graph_msg", "", msg_args, {}),
+        ("graph_update_grouped", "", update, {}),
+        ("mutan_fused", "", *mutan), ("mutan_fwd_residual", "", *mutan),
+        ("mutan_dw", "", (randn(1000, EDGE_K), randn(1000, 360, scale=0.1)),
+         {}),
+        ("convlstm_gates", "", (*(randn(b, n, CM) for _ in range(3)),
                                 randn(2 * CM, 4 * CM, scale=CM ** -0.5),
                                 randn(n, CM, scale=0.1),
                                 randn(n, CM, scale=0.1)), {}),
-            "se_sum": ((randn(b, n, CM), [randn(b, n, CM) for _ in range(4)],
+        ("se_sum", "", (randn(b, n, CM), [randn(b, n, CM) for _ in range(4)],
                         sig, [randn(CM, CM, scale=CM ** -0.5)
                               for _ in range(4)],
-                        [randn(CM, scale=0.1) for _ in range(4)]), {})}
+                        [randn(CM, scale=0.1) for _ in range(4)]), {}),
+        ("mutan_bwd_dz", ":N1681", *dz_args(2, EDGE_DZ_N, C, False)),
+        ("mutan_bwd_dz", ":N25", *dz_args(b, n, EDGE_C, False)),
+        ("mutan_bwd_dz", ":zero", *dz_args(b, n, EDGE_C, True)),
+        ("convlstm_raw", ":C12", *raw_args(12)),
+        ("convlstm_raw", ":C500", *raw_args(CM)),
+    ]
 
 
 def check_edges(torch, kernels, dev):
@@ -559,7 +633,7 @@ def check_edges(torch, kernels, dev):
     dW against torch.mm), with the path records' tolerances (statistics
     partials as in phase 3)."""
     records = []
-    for name, (args, kw) in edge_inputs(torch, kernels, dev).items():
+    for name, tag, args, kw in edge_inputs(torch, kernels, dev):
         wrapper = getattr(kernels, name)
         tol = KERNEL_TOL.get(name, 1e-2)
         got = wrapper(*args, **kw)
@@ -581,11 +655,11 @@ def check_edges(torch, kernels, dev):
                                 f"{name} at the edge against torch.mm"))
         shapes = [list(a.shape) if hasattr(a, "shape") else
                   [list(t.shape) for t in a] for a in args]
-        rec = {"name": f"{name}@edge", "shapes": shapes, "tolerance": tol,
+        rec = {"name": f"{name}@edge{tag}", "shapes": shapes, "tolerance": tol,
                "max_abs_err": max(e for e, _ in errs),
                "max_norm_err": max(n for _, n in errs)}
         records.append(rec)
-        log(f"[kernels] {name} at the edge {rec['shapes']}: max abs err "
+        log(f"[kernels] {rec['name']} {rec['shapes']}: max abs err "
             f"{rec['max_abs_err']:.3e} (norm {rec['max_norm_err']:.3e} <= "
             f"{tol:.0e})")
     return records

@@ -42,10 +42,23 @@
 // empty (4% of the rows).
 //
 // raw replaces ::_convlstm_raw_call.  Bound on the card: bytes (reads 4
-// gates, c and W_co, writes 2 tensors, 91 MB at the flagship shapes).
-// Design: one block per 32 rows of one sample; each thread handles 4-
-// element vectors; the block first sums its sample's gate statistics in a
-// fixed order, then writes its own partials.
+// gates, c and W_co, writes 2 tensors: 91 MB, 0.027 ms at the flagship's
+// bs=8; 12.8 MB, 0.0038 ms at bs=1).  Design: a stream over each sample's
+// flat index.  A sample's c, each gate's slice, new_c_raw, o_raw and W_co
+// are contiguous runs of N*C elements, so each thread moves VEC-element
+// vectors along that index (16 bytes where N*C % 8 == 0, else 8), the
+// column of gamma / beta being idx mod C (a 4-element quad never crosses
+// a row, as C % 4 == 0) and W_co's index the sample-local one.  The grid
+// is sized to the card: (blocks per sample, B) with at most one wave of
+// blocks in all, each block a contiguous share of its sample's vectors, so
+// the statistic slots stay per sample.  A block first issues its first
+// vectors' loads, then sums its sample's gate statistics in parallel (warp
+// q sums statistic q over the slots, a fixed-order shuffle tree) and
+// stages gamma / beta of j, i, f in shared memory, so no serial chain
+// stands before the stream.  Its (sum, sum of squares) of new_c_raw and
+// o_raw go to its own slot, per warp and then over the warps in order.
+#include <algorithm>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -62,8 +75,8 @@ constexpr int kGateABytes = kGateBM * kSwizzleBytes;          // [128][64]
 constexpr int kGateBoxBytes = kTileK * kSwizzleBytes;         // [64][64]
 constexpr int kGateStageBytes = kGateABytes + 4 * kGateBoxBytes;
 constexpr int kGateSmem = 1024 + kGateStages * kGateStageBytes;
-constexpr int kRawRows = 32;
 constexpr int kRawThreads = 256;
+constexpr int kRawBlocksPerSM = 3;   // 85 registers a thread at most
 constexpr float kForgetBias = 1.f;   // the cell's fixed forget bias
 
 // TMA reads boxes from 16-byte aligned columns only: gate g's boxes start
@@ -232,27 +245,52 @@ convlstm_gates_kernel(const __grid_constant__ CUtensorMap wx_map,
 
 __device__ __forceinline__ float logistic(float v) { return 1.f / (1.f + expf(-v)); }
 
-__global__ void __launch_bounds__(kRawThreads)
+// blockIdx.y: the sample s, x: the block's share of its VEC-element
+// vectors [x per_block, (x + 1) per_block).  Dynamic shared memory: gamma
+// then beta of j, i, f, [6][C] f32.
+template <int VEC>
+__global__ void __launch_bounds__(kRawThreads, kRawBlocksPerSM)
 convlstm_raw_kernel(const bf16* __restrict__ gates, const bf16* __restrict__ c,
                     const bf16* __restrict__ co, const float* __restrict__ stats,
                     int parts, const float* __restrict__ gamma,
                     const float* __restrict__ beta, bf16* __restrict__ ncr,
-                    bf16* __restrict__ oraw, float* __restrict__ stats2, int N, int C,
-                    int M) {
+                    bf16* __restrict__ oraw, float* __restrict__ stats2, int L, int C,
+                    size_t ML, int per_block) {
+  extern __shared__ __align__(16) float gb[];
   __shared__ float tot[6];
-  __shared__ float red[kRawThreads / 32];
-  const int s = blockIdx.y, rb = blockIdx.x;
-  const int row0 = rb * kRawRows;
-  const int nrows = min(kRawRows, N - row0);
-  const size_t grow0 = static_cast<size_t>(s) * N + row0;
+  __shared__ float red[kRawThreads / 32][4];
+  const int s = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int v0 = blockIdx.x * per_block;
+  const int v1 = min(L / VEC, v0 + per_block);
+  const size_t base = static_cast<size_t>(s) * L;   // the sample's first element
 
-  if (threadIdx.x < 6) {
+  // gates j, i, f, o, then c and W_co, at vector idx
+  BfBitsT<VEC> in[6];
+  auto load = [&](int idx) {
+    const size_t e = static_cast<size_t>(idx) * VEC, o = base + e;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) in[g] = *reinterpret_cast<const BfBitsT<VEC>*>(gates + g * ML + o);
+    in[4] = *reinterpret_cast<const BfBitsT<VEC>*>(c + o);
+    in[5] = *reinterpret_cast<const BfBitsT<VEC>*>(co + e);
+  };
+  const int first = v0 + threadIdx.x;
+  if (first < v1) load(first);
+
+  // the sample's gate statistics, warp q < 6 on statistic q; gamma, beta
+  if (warp < 6) {
     float a = 0.f;
-    for (int p = 0; p < parts; ++p) a += stats[(static_cast<size_t>(s) * parts + p) * 6 + threadIdx.x];
-    tot[threadIdx.x] = a;
+    for (int p = lane; p < parts; p += 32)
+      a += stats[(static_cast<size_t>(s) * parts + p) * 6 + warp];
+    a = warp_sum(a);
+    if (lane == 0) tot[warp] = a;
+  }
+  for (int i = threadIdx.x; i < 3 * C; i += kRawThreads) {
+    gb[i] = gamma[i];
+    gb[3 * C + i] = beta[i];
   }
   __syncthreads();
-  const float cnt = static_cast<float>(N) * static_cast<float>(C);
+  const float cnt = static_cast<float>(L);
   float mean[3], inv[3];
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
@@ -261,51 +299,92 @@ convlstm_raw_kernel(const bf16* __restrict__ gates, const bf16* __restrict__ c,
     inv[q] = rsqrtf(var + 1e-12f);
   }
 
-  const int vecs = C / 4;
   float s_c = 0.f, q_c = 0.f, s_o = 0.f, q_o = 0.f;
-  for (int v = threadIdx.x; v < nrows * vecs; v += kRawThreads) {
-    const int r = v / vecs, col = (v % vecs) * 4;
-    const size_t o = (grow0 + r) * C + col;
-    const size_t gs = static_cast<size_t>(M) * C;
-    const Vec4 gj = as_vec4(load_vec4(gates + o));
-    const Vec4 gi = as_vec4(load_vec4(gates + gs + o));
-    const Vec4 gf = as_vec4(load_vec4(gates + 2 * gs + o));
-    const Vec4 go = as_vec4(load_vec4(gates + 3 * gs + o));
-    const Vec4 cv = as_vec4(load_vec4(c + o));
-    const Vec4 cov = as_vec4(load_vec4(co + static_cast<size_t>(row0 + r) * C + col));
-    Vec4 nc, orw;
+  for (int idx = first; idx < v1; idx += kRawThreads) {
+    if (idx != first) load(idx);
+    const int col0 = static_cast<int>((static_cast<size_t>(idx) * VEC) % C);
+    BfBitsT<VEC> nc_bits, ov_bits;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int cc = col + e;
-      const float lj = (bf2f(gj.v[e]) - mean[0]) * inv[0] * gamma[cc] + beta[cc];
-      const float li = (bf2f(gi.v[e]) - mean[1]) * inv[1] * gamma[C + cc] + beta[C + cc];
-      const float lf = (bf2f(gf.v[e]) - mean[2]) * inv[2] * gamma[2 * C + cc] + beta[2 * C + cc];
-      const float jn = round_bf(tanhf(lj));
-      const float is = round_bf(logistic(li));
-      const float fs = round_bf(logistic(lf + kForgetBias));
-      const float n = round_bf(round_bf(bf2f(cv.v[e]) * fs) + round_bf(is * jn));
-      const float ov = round_bf(bf2f(go.v[e]) + round_bf(bf2f(cov.v[e]) * n));
-      nc.v[e] = f2bf(n);
-      orw.v[e] = f2bf(ov);
-      s_c += n;
-      q_c += n * n;
-      s_o += ov;
-      q_o += ov * ov;
+    for (int q4 = 0; q4 < VEC / 4; ++q4) {
+      // quad q4: 4 elements of one row (C % 4 == 0), its columns from cq
+      const int cq = col0 + 4 * q4 < C ? col0 + 4 * q4 : col0 + 4 * q4 - C;
+      // the layer norms and gate activations of j, i, f in f32
+      float x[3][4];
+#pragma unroll
+      for (int t = 0; t < 3; ++t) unpack_bf<4>(reinterpret_cast<const uint2*>(&in[t])[q4], x[t]);
+      float ga[3][4], be[3][4];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        *reinterpret_cast<float4*>(ga[q]) = *reinterpret_cast<const float4*>(gb + q * C + cq);
+        *reinterpret_cast<float4*>(be[q]) = *reinterpret_cast<const float4*>(gb + (3 + q) * C + cq);
+      }
+      float jn[4], is[4], fs[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        jn[e] = tanhf((x[0][e] - mean[0]) * inv[0] * ga[0][e] + be[0][e]);
+        is[e] = logistic((x[1][e] - mean[1]) * inv[1] * ga[1][e] + be[1][e]);
+        fs[e] = logistic((x[2][e] - mean[2]) * inv[2] * ga[2][e] + be[2][e] + kForgetBias);
+      }
+      // the cell and output updates in bf16 pairs: a product or sum of two
+      // bf16 values rounded once to bf16 is the f32 result rounded to bf16
+      // (the _rn forms keep the compiler from fusing a product into an add)
+      const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&in[3]) + 2 * q4;
+      const uint32_t* c2 = reinterpret_cast<const uint32_t*>(&in[4]) + 2 * q4;
+      const uint32_t* co2 = reinterpret_cast<const uint32_t*>(&in[5]) + 2 * q4;
+      uint32_t nc2[2], ov2[2];
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        const int e = 2 * pr;
+        const __nv_bfloat162 n =
+            __hadd2_rn(__hmul2_rn(bits_bf2(c2[pr]), __floats2bfloat162_rn(fs[e], fs[e + 1])),
+                       __hmul2_rn(__floats2bfloat162_rn(is[e], is[e + 1]),
+                                  __floats2bfloat162_rn(jn[e], jn[e + 1])));
+        const __nv_bfloat162 ov = __hadd2_rn(bits_bf2(o2[pr]), __hmul2_rn(bits_bf2(co2[pr]), n));
+        nc2[pr] = bf2_bits(n);
+        ov2[pr] = bf2_bits(ov);
+        const float2 nf = __bfloat1622float2(n), of = __bfloat1622float2(ov);
+        s_c += nf.x + nf.y;
+        q_c += nf.x * nf.x + nf.y * nf.y;
+        s_o += of.x + of.y;
+        q_o += of.x * of.x + of.y * of.y;
+      }
+      reinterpret_cast<uint2*>(&nc_bits)[q4] = make_uint2(nc2[0], nc2[1]);
+      reinterpret_cast<uint2*>(&ov_bits)[q4] = make_uint2(ov2[0], ov2[1]);
     }
-    *reinterpret_cast<uint2*>(ncr + o) = as_uint2(nc);
-    *reinterpret_cast<uint2*>(oraw + o) = as_uint2(orw);
+    const size_t o = base + static_cast<size_t>(idx) * VEC;
+    *reinterpret_cast<BfBitsT<VEC>*>(ncr + o) = nc_bits;
+    *reinterpret_cast<BfBitsT<VEC>*>(oraw + o) = ov_bits;
   }
-  s_c = block_sum(s_c, red);
-  q_c = block_sum(q_c, red);
-  s_o = block_sum(s_o, red);
-  q_o = block_sum(q_o, red);
-  if (threadIdx.x == 0) {
-    float* st = stats2 + (static_cast<size_t>(s) * gridDim.x + rb) * 4;
-    st[0] = s_c;
-    st[1] = q_c;
-    st[2] = s_o;
-    st[3] = q_o;
+  // the block's statistics: per warp, then the warps in order
+  float part[4] = {warp_sum(s_c), warp_sum(q_c), warp_sum(s_o), warp_sum(q_o)};
+  if (lane == 0)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) red[warp][q] = part[q];
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    float t = 0.f;
+    for (int w = 0; w < kRawThreads / 32; ++w) t += red[w][threadIdx.x];
+    stats2[(static_cast<size_t>(s) * gridDim.x + blockIdx.x) * 4 + threadIdx.x] = t;
   }
+}
+
+using RawKernel = decltype(&convlstm_raw_kernel<8>);
+
+// Blocks per sample: at most one wave of blocks in all (the blocks of the
+// 16-byte form that fit on the card at once), at least one, and no more
+// than one 8-element vector per thread; the same for either vector width.
+inline int raw_parts(int B, int N, int C) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, convlstm_raw_kernel<8>, kRawThreads,
+          6 * static_cast<size_t>(C) * sizeof(float)) != cudaSuccess)
+    return 0;
+  const long long cap = (static_cast<long long>(N) * C + 8 * kRawThreads - 1) /
+                        (8 * kRawThreads);
+  const long long wave = static_cast<long long>(sms) * std::max(per_sm, 1);
+  return static_cast<int>(std::max(1LL, std::min(cap, wave / std::max(B, 1))));
 }
 
 }  // namespace cmpc
@@ -320,8 +399,10 @@ extern "C" int cmpc_convlstm_gates_parts(int N, int C) {
   return gate_row_tiles(N) * ((C + cmpc::kGateBN - 1) / cmpc::kGateBN);
 }
 
-extern "C" int cmpc_convlstm_raw_parts(int N) {
-  return (N + cmpc::kRawRows - 1) / cmpc::kRawRows;
+// Statistic slots per sample of the raw kernel (blocks per sample), 0 if
+// the card cannot be queried.
+extern "C" int cmpc_convlstm_raw_parts(int B, int N, int C) {
+  return cmpc::raw_parts(B, N, C);
 }
 
 // x, h, c [B*N, C] bf16; w [2C, 4C] bf16 (gate g in columns g*C..g*C+C-1,
@@ -359,18 +440,35 @@ extern "C" int cmpc_convlstm_gates(const void* x, const void* h, const void* c,
 // c [B*N, C], co [N, C] bf16; gamma, beta [5, C] f32 (layer norms j, i, f,
 // o, c; rows 0-2 used) -> new_c_raw, o_raw [B*N, C] bf16 and stats2
 // [B, raw_parts, 2, 2] f32 (sum, sum of squares of new_c_raw, then o_raw).
+// C must be a multiple of 4; the bf16 tensors 8-byte aligned.
 extern "C" int cmpc_convlstm_raw(const void* gates, const void* c, const void* co,
                                  const void* stats, int parts, const void* gamma,
                                  const void* beta, void* ncr, void* oraw, void* stats2,
                                  int B, int N, int C, void* stream) {
   using namespace cmpc;
   if (C % 4) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(cmpc_convlstm_raw_parts(N), B);
-  convlstm_raw_kernel<<<grid, kRawThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = raw_parts(B, N, C);
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(gates) | reinterpret_cast<uintptr_t>(c) |
+                         reinterpret_cast<uintptr_t>(co) | reinterpret_cast<uintptr_t>(ncr) |
+                         reinterpret_cast<uintptr_t>(oraw);
+  if (addr % 8) return static_cast<int>(cudaErrorMisalignedAddress);
+  const int L = N * C;
+  const int vec = (L % 8 == 0 && addr % 16 == 0) ? 8 : 4;
+  const RawKernel kernel = vec == 8 ? convlstm_raw_kernel<8> : convlstm_raw_kernel<4>;
+  const int smem = 6 * C * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int nvec = L / vec;
+  const dim3 grid(blocks, B);
+  kernel<<<grid, kRawThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(gates), static_cast<const bf16*>(c),
       static_cast<const bf16*>(co), static_cast<const float*>(stats), parts,
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<bf16*>(ncr), static_cast<bf16*>(oraw), static_cast<float*>(stats2), N, C,
-      B * N);
+      static_cast<bf16*>(ncr), static_cast<bf16*>(oraw), static_cast<float*>(stats2), L, C,
+      static_cast<size_t>(B) * L, (nvec + blocks - 1) / blocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // Hopper building blocks of the port's wgmma kernels (csrc/mutan.cu, the dW
 // product of csrc/mutan_bwd.cu, convlstm.cu's gates, se_sum.cu,
-// graph_conv.cu's update, spa_affinity.cu), as inline PTX for sm_90a:
+// graph_conv.cu's update, spa_affinity.cu) and of the dz pass's bulk-copy
+// ring (mutan_bwd.cu), as inline PTX for sm_90a:
 //
 // - mbarriers: init, arrive (plain or with an expected byte count), parity
 //   wait;
@@ -9,7 +10,8 @@
 //   is not a multiple of 16 bytes, such as C = 500 bf16);
 // - TMA (cp.async.bulk.tensor) 2D / 3D loads that complete on an mbarrier,
 //   into this block or multicast to the blocks of a cluster, and a 3D store from
-//   shared memory tracked by bulk groups;
+//   shared memory tracked by bulk groups; the 1-D bulk copy (cp.async.bulk)
+//   of a contiguous byte range, which needs no tensor map;
 // - cluster position, rank, masks and sync, arrivals on another block's
 //   mbarrier, and reads of another block's shared memory (DSMEM);
 // - the 64-bit wgmma shared-memory descriptor for 128-byte swizzled tiles;
@@ -246,6 +248,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes from global `src` into this
+// block's shared memory at `dst`, completing on `bar` (which must expect
+// the bytes).  src, dst and bytes must all be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

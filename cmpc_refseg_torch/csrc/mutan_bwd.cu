@@ -10,16 +10,27 @@
 //    dz_h = dacc * lang_h * (1 - v_h^2) in bf16.  It also reduces
 //    dlang[b] = sum over sample b's rows of dacc * v_h and db = sum over all
 //    rows of dz_h (f32, before the bf16 rounding of dz).
-//    Bound on the card: bytes (v in, dz out, 2 x 128 MB at the flagship's
-//    bs=8 train step).  Design: the row norm needs whole rows, so a block
-//    owns a few rows x all heads*C columns (as se_sum.cu owns whole rows);
-//    each thread owns the same column pairs in every row (bf16x2 loads and
-//    stores), so its dlang / db accumulators live in shared memory with no
-//    barrier and no atomics.  The rows of a block divide the rows per
-//    sample, so they never straddle two samples (the TPU kernel's _pick_tm
-//    guards the same).  Each block writes its column sums to its own slot;
-//    a second small pass adds the slots in a fixed order (per sample for
-//    dlang, over all blocks for db), so the result is deterministic.
+//    Bound on the card: bytes (v in, dz out, g in: 282 MB, 0.084 ms at the
+//    flagship's bs=8 train step).  Design: a stream in one wave.  The grid
+//    is one block per SM, and block b takes the contiguous rows
+//    [b M / grid, (b + 1) M / grid), which may cross samples: rows per
+//    block do not depend on the divisors of N, and the scratch is bounded
+//    by the grid, not by M.  A producer warp brings each stage (up to
+//    kDzRows rows of one sample) into a shared-memory ring by two 1-D bulk
+//    copies (v's rows, g's rows: contiguous byte ranges, rounded out to
+//    16-byte bounds) that complete on the stage's mbarrier, so every v row
+//    is read from memory once and both passes read shared memory.  Each
+//    consumer thread owns VEC columns in every head and every row (VEC the
+//    narrowest of 2, 4, 8 bf16 that C allows and that keeps a row within
+//    16 consumer warps: the most warps per SM), so its dlang / db sums stay
+//    in registers; the rows of a stage share one barrier for their norms
+//    (a transposed warp sum, then the same shuffle tree over the consumer
+//    warps in every warp).  dz leaves as VEC-wide stores.  At a sample
+//    boundary a block writes its dlang sums to slot b + sample, and at its
+//    end its db sums to slot b; a second small pass adds the slots in a
+//    fixed order, threads over columns and 8 or 32 lanes over slots (a
+//    two-level tree), so the result is deterministic.  Measured (PERF.md):
+//    two blocks per SM, deeper rings and 16-byte vectors were all slower.
 //
 // 2. The dW product dW[K, heads*C] = x^T @ dz, f32 accumulation over all M
 //    rows.  Replaces pallas_kernels.py::_mutan_dw_call.  Bound on the card:
@@ -42,6 +53,8 @@
 //    pass, so the result stays deterministic), which fills the 132 SMs'
 //    second wave of 128 x 256 tiles: the fastest of the tilings measured
 //    (PERF.md).
+#include <algorithm>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -51,117 +64,336 @@ namespace cmpc {
 // dz pass
 // ---------------------------------------------------------------------------
 
-constexpr int kDzThreads = 256;
-constexpr int kDzMaxRows = 32;        // rows per block, at most
+constexpr int kDzRows = 2;            // rows per stage, at most
+constexpr int kDzStages = 2;
+constexpr int kDzMaxWarps = 16;       // consumer warps, at most: C <= 512 VEC
+constexpr int kDzMaxVals = 40;        // heads * VEC, at most (registers)
 constexpr float kNormEps = 1e-12f;
 
-__device__ __forceinline__ float2 load_bf2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// Bytes of a stage buffer for `elems` bf16 of consecutive rows: a copy
+// rounded out to 16-byte bounds takes up to 30 more.
+__host__ __device__ __forceinline__ int dz_buf_bytes(int elems) {
+  return (elems * 2 + 15) / 16 * 16 + 32;
 }
 
-// Shared memory: dl, db [W] f32 accumulators, lang row [W] f32, then y and
-// g [C] f32 of the current row (W = heads * C).
-__global__ void __launch_bounds__(kDzThreads)
+// Byte offsets rounded down and up to 16-byte bounds.
+__device__ __forceinline__ size_t floor16(size_t b) { return b & ~static_cast<size_t>(15); }
+__device__ __forceinline__ size_t ceil16(size_t b) { return floor16(b + 15); }
+
+// The rows of the stage that starts at `row`: at most kDzRows, none past
+// `end` or the end of row's sample (a stage never straddles two samples).
+__device__ __forceinline__ int stage_rows(int row, int end, int N) {
+  return min(min(kDzRows, end - row), (row / N + 1) * N - row);
+}
+
+// Shared memory: kDzStages stages of [v rows | g rows], vbuf + gbuf bytes
+// each.  Warps 0 .. cw-1 consume, warp cw produces (blockDim = 32 (cw + 1)).
+template <int HEADS, int VEC>
+__global__ void __launch_bounds__(32 * (kDzMaxWarps + 1), 1)
 mutan_dz_kernel(const bf16* __restrict__ v, const float* __restrict__ lang,
                 const bf16* __restrict__ g, bf16* __restrict__ dz,
-                float* __restrict__ part_dl, float* __restrict__ part_db, int C,
-                int heads, int N, int rows_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float scratch[kDzThreads / 32];
-  const int W = heads * C;
-  float* dl = reinterpret_cast<float*>(smem);
-  float* db = dl + W;
-  float* ls = db + W;
-  float* ys = ls + W;
-  float* gs = ys + C;
-  const int row0 = blockIdx.x * rows_per_block;
-  const float* lrow = lang + static_cast<size_t>(row0 / N) * W;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    dl[j] = 0.f;
-    db[j] = 0.f;
-    ls[j] = lrow[j];
+                float* __restrict__ part_dl, float* __restrict__ part_db, int M, int C,
+                int N, int vbuf, int gbuf) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kDzStages], empty[kDzStages];
+  __shared__ __align__(16) float red[2][kDzMaxWarps][2 * kDzRows];
+  const int W = HEADS * C;
+  const int cw = blockDim.x / 32 - 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x;
+  const int row0 = static_cast<int>(static_cast<long long>(b) * M / gridDim.x);
+  const int row1 = static_cast<int>(static_cast<long long>(b + 1) * M / gridDim.x);
+  const int stage_bytes = vbuf + gbuf;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDzStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], cw);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  const int pairs = C / 2;
-  for (int r = 0; r < rows_per_block; ++r) {
-    const size_t row = static_cast<size_t>(row0 + r);
-    const bf16* vrow = v + row * W;
-    // pass 1: y = tanh(sum_h v_h lang_h), sum y^2 and sum g y
-    float sq = 0.f, gy = 0.f;
-    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-      const int c = 2 * p;
-      float2 acc = make_float2(0.f, 0.f);
-      for (int h = 0; h < heads; ++h) {
-        const float2 vv = load_bf2(vrow + h * C + c);
-        acc.x += vv.x * ls[h * C + c];
-        acc.y += vv.y * ls[h * C + c + 1];
-      }
-      const float2 y = make_float2(tanhf(acc.x), tanhf(acc.y));
-      const float2 gg = load_bf2(g + row * C + c);
-      ys[c] = y.x;
-      ys[c + 1] = y.y;
-      gs[c] = gg.x;
-      gs[c + 1] = gg.y;
-      sq += y.x * y.x + y.y * y.y;
-      gy += gg.x * y.x + gg.y * y.y;
-    }
-    sq = block_sum(sq, scratch);
-    gy = block_sum(gy, scratch);
-    const float rn = rsqrtf(fmaxf(sq, kNormEps));
-    gy *= rn;   // sum g * out, out = y * rn
-    const bool normed = sq > kNormEps;
-    // pass 2: dacc, dz and this block's dlang / db column sums
-    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-      const int c = 2 * p;
-      float dacc[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float y = ys[c + i], gg = gs[c + i];
-        const float out = y * rn;
-        const float dy = normed ? (gg - out * gy) * rn : gg * rn;
-        dacc[i] = dy * (1.f - y * y);
-      }
-      for (int h = 0; h < heads; ++h) {
-        const int j = h * C + c;
-        const float2 vv = load_bf2(vrow + j);
-        const float dz0 = dacc[0] * ls[j] * (1.f - vv.x * vv.x);
-        const float dz1 = dacc[1] * ls[j + 1] * (1.f - vv.y * vv.y);
-        *reinterpret_cast<__nv_bfloat162*>(dz + row * W + j) =
-            __floats2bfloat162_rn(dz0, dz1);
-        dl[j] += dacc[0] * vv.x;
-        dl[j + 1] += dacc[1] * vv.y;
-        db[j] += dz0;
-        db[j + 1] += dz1;
+  if (warp == cw) {
+    // producer: one thread copies each stage's v and g rows
+    if (lane == 0) {
+      int it = 0;
+      for (int r = row0; r < row1; ++it) {
+        const int n = stage_rows(r, row1, N);
+        const int s = it % kDzStages;
+        mbar_wait(&empty[s], ((it / kDzStages) & 1) ^ 1);
+        unsigned char* buf = smem + s * stage_bytes;
+        const size_t v_lo = floor16(static_cast<size_t>(r) * W * 2);
+        const size_t v_hi = ceil16(static_cast<size_t>(r + n) * W * 2);
+        const size_t g_lo = floor16(static_cast<size_t>(r) * C * 2);
+        const size_t g_hi = ceil16(static_cast<size_t>(r + n) * C * 2);
+        mbar_arrive_expect_tx(&full[s], static_cast<uint32_t>(v_hi - v_lo + g_hi - g_lo));
+        bulk_load(buf, reinterpret_cast<const unsigned char*>(v) + v_lo,
+                  static_cast<uint32_t>(v_hi - v_lo), &full[s]);
+        bulk_load(buf + vbuf, reinterpret_cast<const unsigned char*>(g) + g_lo,
+                  static_cast<uint32_t>(g_hi - g_lo), &full[s]);
+        r += n;
       }
     }
+    return;
   }
+
+  // consumers: thread t owns columns col ... col + VEC - 1 of every head
+  const int col = VEC * threadIdx.x;
+  const bool active = col < C;
+  float lng[HEADS][VEC], dl[HEADS][VEC], db[HEADS][VEC];
+#pragma unroll
+  for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      lng[h][e] = 0.f;
+      dl[h][e] = 0.f;
+      db[h][e] = 0.f;
+    }
+  int cur = row0 / N;   // the sample of dl and lng
+  if (active)
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        lng[h][e] = lang[static_cast<size_t>(cur) * W + h * C + col + e];
+
+  int it = 0;
+  for (int r = row0; r < row1; ++it) {
+    const int n = stage_rows(r, row1, N);
+    const int s = it % kDzStages;
+    if (r / N != cur) {
+      // a new sample: this block's dlang sums of the last one go to its slot
+      if (active)
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            part_dl[static_cast<size_t>(b + cur) * W + h * C + col + e] = dl[h][e];
+            dl[h][e] = 0.f;
+            lng[h][e] = lang[static_cast<size_t>(cur + 1) * W + h * C + col + e];
+          }
+      ++cur;
+    }
+    mbar_wait(&full[s], (it / kDzStages) & 1);
+    const unsigned char* buf = smem + s * stage_bytes;
+    const bf16* vs = reinterpret_cast<const bf16*>(buf + (static_cast<size_t>(r) * W * 2 & 15));
+    const bf16* gs =
+        reinterpret_cast<const bf16*>(buf + vbuf + (static_cast<size_t>(r) * C * 2 & 15));
+
+    // pass 1: y = tanh(sum_h v_h lang_h), and each row's sum y^2, sum g y
+    float y[kDzRows][VEC], part[2 * kDzRows];
+#pragma unroll
+    for (int j = 0; j < kDzRows; ++j) {
+      part[2 * j] = 0.f;
+      part[2 * j + 1] = 0.f;
+      if (j < n && active) {
+        float acc[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) {
+          float vv[VEC];
+          load_bf<VEC>(vs + j * W + h * C + col, vv);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[e] += vv[e] * lng[h][e];
+        }
+        float gg[VEC];
+        load_bf<VEC>(gs + j * C + col, gg);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          y[j][e] = tanhf(acc[e]);
+          part[2 * j] += y[j][e] * y[j][e];
+          part[2 * j + 1] += gg[e] * y[j][e];
+        }
+      }
+    }
+    // the rows' sums: per warp, then over the consumer warps by the same
+    // shuffle tree in every warp, so every thread gets the same sums (one
+    // barrier per stage; red alternates, so the next stage's writes never
+    // meet this stage's reads)
+    static_assert(2 * kDzRows == 4, "the sums go four at a time");
+    const float mine = warp_sum4_spread(part[0], part[1], part[2], part[3]);
+    if (lane % 8 == 0) red[it & 1][warp][lane / 8] = mine;
+    named_bar_sync(1, 32 * cw);
+    {
+      const float4 w4 = lane < cw ? *reinterpret_cast<const float4*>(red[it & 1][lane])
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float all = warp_sum4_spread(w4.x, w4.y, w4.z, w4.w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) part[k] = __shfl_sync(0xffffffffu, all, 8 * k);
+    }
+
+    // pass 2: dacc, dz and the dlang / db sums
+#pragma unroll
+    for (int j = 0; j < kDzRows; ++j) {
+      if (j >= n || !active) continue;
+      const float sq = part[2 * j];
+      float gy = part[2 * j + 1];
+      const float rn = rsqrtf(fmaxf(sq, kNormEps));
+      gy *= rn;   // sum g * out, out = y * rn
+      const bool normed = sq > kNormEps;
+      float gg[VEC], dacc[VEC];
+      load_bf<VEC>(gs + j * C + col, gg);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float out = y[j][e] * rn;
+        const float dy = normed ? (gg[e] - out * gy) * rn : gg[e] * rn;
+        dacc[e] = dy * (1.f - y[j][e] * y[j][e]);
+      }
+      bf16* dzrow = dz + static_cast<size_t>(r + j) * W + col;
+#pragma unroll
+      for (int h = 0; h < HEADS; ++h) {
+        float vv[VEC], d[VEC];
+        load_bf<VEC>(vs + j * W + h * C + col, vv);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          d[e] = dacc[e] * lng[h][e] * (1.f - vv[e] * vv[e]);
+          dl[h][e] += dacc[e] * vv[e];
+          db[h][e] += d[e];
+        }
+        store_bf<VEC>(dzrow + h * C, d);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    r += n;
+  }
+  if (active)
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        part_dl[static_cast<size_t>(b + cur) * W + h * C + col + e] = dl[h][e];
+        part_db[static_cast<size_t>(b) * W + h * C + col + e] = db[h][e];
+      }
+}
+
+// The dz block that holds row r (blocks take rows [b M / grid, (b+1) M / grid)).
+__device__ __forceinline__ int dz_block_of(int r, int M, int grid) {
+  return static_cast<int>((static_cast<long long>(r + 1) * grid - 1) / M);
+}
+
+constexpr int kFinThreads = 256;
+constexpr int kFinDlCols = 32;   // a dlang block: 32 columns x 8 lanes
+constexpr int kFinDbCols = 8;    // a db block: 8 columns x 32 lanes
+
+// Slot sums in a fixed order.  Blocks [0, tiles * samples) give dlang[y]
+// for 32 columns (tiles = ceil(W / 32)): the slots b + y of the dz blocks
+// b that hold sample y's rows; the blocks after them give db for 8
+// columns: slot b of every dz block.  Lane q of a column sums the slots q,
+// q + lanes, ... in order (their loads issued eight at a time), then lane
+// 0 adds the lanes' sums in order.
+__global__ void __launch_bounds__(kFinThreads)
+mutan_dz_finalize_kernel(const float* __restrict__ part_dl, const float* __restrict__ part_db,
+                         float* __restrict__ dlang, float* __restrict__ db, int W, int M,
+                         int N, int grid, int samples) {
+  __shared__ float red[kFinThreads];
+  const int tiles = (W + kFinDlCols - 1) / kFinDlCols;
+  const bool dl_block = blockIdx.x < tiles * samples;
+  const int cols = dl_block ? kFinDlCols : kFinDbCols;
+  const int lanes = kFinThreads / cols;
+  const int c = threadIdx.x % cols, q = threadIdx.x / cols;
+  int j, lo, hi;
+  const float* part;
+  float* out;
+  if (dl_block) {
+    const int y = blockIdx.x / tiles;
+    j = (blockIdx.x % tiles) * kFinDlCols + c;
+    lo = dz_block_of(y * N, M, grid) + y;
+    hi = dz_block_of((y + 1) * N - 1, M, grid) + y;
+    part = part_dl;
+    out = dlang + static_cast<size_t>(y) * W;
+  } else {
+    j = (blockIdx.x - tiles * samples) * kFinDbCols + c;
+    lo = 0;
+    hi = grid - 1;
+    part = part_db;
+    out = db;
+  }
+  float s = 0.f;
+  if (j < W)
+#pragma unroll 8
+    for (int k = lo + q; k <= hi; k += lanes) s += part[static_cast<size_t>(k) * W + j];
+  red[threadIdx.x] = s;
   __syncthreads();
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    part_dl[static_cast<size_t>(blockIdx.x) * W + j] = dl[j];
-    part_db[static_cast<size_t>(blockIdx.x) * W + j] = db[j];
+  if (q == 0 && j < W) {
+    float t = 0.f;
+    for (int i = 0; i < lanes; ++i) t += red[i * cols + c];
+    out[j] = t;
   }
 }
 
-// Slot sums in a fixed order: y < samples gives dlang[y], y == samples db.
-__global__ void mutan_dz_finalize_kernel(const float* __restrict__ part_dl,
-                                         const float* __restrict__ part_db,
-                                         float* __restrict__ dlang,
-                                         float* __restrict__ db, int W,
-                                         int blocks_per_sample, int samples) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= W) return;
-  const int b = blockIdx.y;
-  float s = 0.f;
-  if (b < samples) {
-    for (int k = 0; k < blocks_per_sample; ++k)
-      s += part_dl[static_cast<size_t>(b * blocks_per_sample + k) * W + j];
-    dlang[static_cast<size_t>(b) * W + j] = s;
-  } else {
-    for (int k = 0; k < samples * blocks_per_sample; ++k)
-      s += part_db[static_cast<size_t>(k) * W + j];
-    db[j] = s;
+using DzKernel = void (*)(const bf16*, const float*, const bf16*, bf16*, float*, float*, int,
+                          int, int, int, int);
+
+template <int HEADS, int VEC>
+DzKernel dz_kernel_if_fits() {
+  if constexpr (HEADS * VEC <= kDzMaxVals)
+    return mutan_dz_kernel<HEADS, VEC>;
+  else
+    return nullptr;
+}
+
+template <int HEADS>
+DzKernel dz_kernel_for(int vec) {
+  return vec == 8 ? dz_kernel_if_fits<HEADS, 8>()
+                  : vec == 4 ? dz_kernel_if_fits<HEADS, 4>() : dz_kernel_if_fits<HEADS, 2>();
+}
+
+// The vector (2, 4 or 8 bf16) that divides C: the narrowest that keeps a
+// row within 32 kDzMaxWarps threads, so the most warps share the work, and
+// within kDzMaxVals accumulators a thread; 0 if none does.
+inline int dz_vec(int C, int heads) {
+  for (int vec = 2; vec <= 8; vec *= 2)
+    if (C % vec == 0 && C / vec <= 32 * kDzMaxWarps && heads * vec <= kDzMaxVals) return vec;
+  return 0;
+}
+
+struct DzPlan {
+  DzKernel kernel;
+  int threads, vbuf, gbuf, smem, grid;
+};
+
+// The kernel, block, shared memory and grid for M rows, or kernel = null
+// where the shape is not supported (heads > 8, odd C, C / VEC above
+// 32 kDzMaxWarps, or the ring above the shared memory of a block).
+inline DzPlan dz_plan(int M, int C, int heads) {
+  DzPlan p{nullptr, 0, 0, 0, 0, 0};
+  if (C % 2 || heads < 1 || heads > 8 || M < 1) return p;
+  const int vec = dz_vec(C, heads);
+  if (vec == 0) return p;
+  const int warps = (C / vec + 31) / 32;
+  DzKernel k = nullptr;
+  switch (heads) {
+    case 1: k = dz_kernel_for<1>(vec); break;
+    case 2: k = dz_kernel_for<2>(vec); break;
+    case 3: k = dz_kernel_for<3>(vec); break;
+    case 4: k = dz_kernel_for<4>(vec); break;
+    case 5: k = dz_kernel_for<5>(vec); break;
+    case 6: k = dz_kernel_for<6>(vec); break;
+    case 7: k = dz_kernel_for<7>(vec); break;
+    default: k = dz_kernel_for<8>(vec); break;
   }
+  if (k == nullptr) return p;
+  p.threads = 32 * (warps + 1);
+  p.vbuf = dz_buf_bytes(kDzRows * heads * C);
+  p.gbuf = dz_buf_bytes(kDzRows * C);
+  p.smem = kDzStages * (p.vbuf + p.gbuf);
+  int dev = 0, sms = 0, smem_max = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      p.smem > smem_max ||
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, p.threads, p.smem) !=
+          cudaSuccess ||
+      per_sm < 1)
+    return p;
+  p.grid = std::min(M, sms);   // one block per SM
+  p.kernel = k;
+  return p;
 }
 
 // ---------------------------------------------------------------------------
@@ -295,41 +527,41 @@ __global__ void mutan_dw_sum_kernel(const float4* __restrict__ part,
 
 }  // namespace cmpc
 
-// Rows per block of the dz pass: the largest divisor of N (rows per sample)
-// up to kDzMaxRows, so a block never straddles two samples.
-extern "C" int cmpc_mutan_dz_rows_per_block(int N) {
-  for (int r = cmpc::kDzMaxRows; r > 1; --r)
-    if (N % r == 0) return r;
-  return 1;
+// Blocks of the dz pass for M rows of heads * C columns (the grid sized to
+// the card), or 0 where the kernel does not take the shape.  Its scratch
+// `part` is [2 grid + M / N - 1, heads * C] f32: the dlang slots, then the
+// db slots.
+extern "C" int cmpc_mutan_dz_blocks(int M, int C, int heads) {
+  return cmpc::dz_plan(M, C, heads).grid;
 }
 
 // v [M, heads*C] bf16, lang [M/N, heads*C] f32, g [M, C] bf16 ->
 // dz [M, heads*C] bf16, dlang [M/N, heads*C] f32, db [heads*C] f32.  part is
-// scratch [2, M / rows_per_block, heads*C] f32.  C must be even.
+// scratch (see cmpc_mutan_dz_blocks).  v, g and dz 16-byte aligned.
 extern "C" int cmpc_mutan_bwd_dz(const void* v, const void* lang, const void* g,
                                  void* dz, void* part, void* dlang, void* db,
                                  int M, int C, int N, int heads, void* stream) {
   using namespace cmpc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DzPlan p = dz_plan(M, C, heads);
+  if (p.kernel == nullptr || M % N) return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g) |
+       reinterpret_cast<uintptr_t>(dz)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int W = heads * C;
-  const int rpb = cmpc_mutan_dz_rows_per_block(N);
-  const int blocks = M / rpb;
-  const int smem = (3 * W + 2 * C) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      mutan_dz_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   float* part_dl = static_cast<float*>(part);
-  float* part_db = part_dl + static_cast<size_t>(blocks) * W;
-  mutan_dz_kernel<<<blocks, kDzThreads, smem, s>>>(
+  float* part_db = part_dl + static_cast<size_t>(p.grid + M / N - 1) * W;
+  p.kernel<<<p.grid, p.threads, p.smem, s>>>(
       static_cast<const bf16*>(v), static_cast<const float*>(lang),
-      static_cast<const bf16*>(g), static_cast<bf16*>(dz), part_dl, part_db, C,
-      heads, N, rpb);
-  err = cudaGetLastError();
+      static_cast<const bf16*>(g), static_cast<bf16*>(dz), part_dl, part_db, M, C, N,
+      p.vbuf, p.gbuf);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((W + 255) / 256, M / N + 1);
-  mutan_dz_finalize_kernel<<<grid, 256, 0, s>>>(
-      part_dl, part_db, static_cast<float*>(dlang), static_cast<float*>(db), W,
-      N / rpb, M / N);
+  const int fin_blocks = (W + kFinDlCols - 1) / kFinDlCols * (M / N) +
+                         (W + kFinDbCols - 1) / kFinDbCols;
+  mutan_dz_finalize_kernel<<<fin_blocks, kFinThreads, 0, s>>>(
+      part_dl, part_db, static_cast<float*>(dlang), static_cast<float*>(db), W, M, N, p.grid,
+      M / N);
   return static_cast<int>(cudaGetLastError());
 }
 

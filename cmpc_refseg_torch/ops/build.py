@@ -36,7 +36,7 @@ SIGNATURES = {
     },
     "mutan_bwd": {
         "cmpc_mutan_bwd_dz": ([_P] * 7 + [_I] * 4 + [_P], _I),
-        "cmpc_mutan_dz_rows_per_block": ([_I], _I),
+        "cmpc_mutan_dz_blocks": ([_I] * 3, _I),
         "cmpc_mutan_dw": ([_P] * 4 + [_I] * 3 + [_P], _I),
         "cmpc_mutan_dw_splits": ([_I], _I),
     },
@@ -57,7 +57,7 @@ SIGNATURES = {
         "cmpc_convlstm_gates": ([_P] * 8 + [_I] * 3 + [_P], _I),
         "cmpc_convlstm_gates_parts": ([_I, _I], _I),
         "cmpc_convlstm_raw": ([_P] * 4 + [_I] + [_P] * 5 + [_I] * 3 + [_P], _I),
-        "cmpc_convlstm_raw_parts": ([_I], _I),
+        "cmpc_convlstm_raw_parts": ([_I] * 3, _I),
     },
 }
 

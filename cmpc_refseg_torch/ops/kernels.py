@@ -202,6 +202,21 @@ def mutan_bwd_dz_plain(v, lang, g, *, heads: int, rows_per_sample: int):
     return dz.reshape(m, wd).to(v.dtype), dlang, db
 
 
+def mutan_bwd_dz_scratch(m: int, rows_per_sample: int, c: int,
+                         heads: int) -> tuple:
+    """Shape of the dz kernel's f32 scratch for m rows of heads * c columns:
+    one dlang slot per (block, sample) it holds and one db slot per block,
+    so it is bounded by the grid (sized to the card), not by m.  Needs the
+    card; raises where the kernel does not take the shape."""
+    blocks = build.library("mutan_bwd").cmpc_mutan_dz_blocks(m, c, heads)
+    if blocks < 1:
+        raise ValueError(f"mutan_bwd_dz: C={c}, heads={heads}: the dz kernel "
+                         "takes heads <= 8 and C <= 1024, or C <= 2048 where "
+                         "C % 4 == 0, or C <= 4096 where C % 8 == 0 and "
+                         "heads <= 5, with heads * C within its ring")
+    return (2 * blocks + m // rows_per_sample - 1, heads * c)
+
+
 def mutan_bwd_dz(v, lang, g, *, heads: int, rows_per_sample: int):
     """Wrapper of the dz kernel; same contract as `mutan_bwd_dz_plain`."""
     if _on_cpu(v, lang, g):
@@ -217,10 +232,11 @@ def mutan_bwd_dz(v, lang, g, *, heads: int, rows_per_sample: int):
     _expect("lang", lang, torch.float32, (bsz, heads * c))
     _expect("g", g, torch.bfloat16, (m, c))
     _multiple_of(2, C=c)
+    _aligned16(v=v, g=g)
     lib = build.library("mutan_bwd")
-    blocks = m // lib.cmpc_mutan_dz_rows_per_block(rows_per_sample)
+    part = torch.empty(mutan_bwd_dz_scratch(m, rows_per_sample, c, heads),
+                       dtype=torch.float32, device=v.device)
     dz = torch.empty((m, wd), dtype=torch.bfloat16, device=v.device)
-    part = torch.empty((2, blocks, wd), dtype=torch.float32, device=v.device)
     dlang = torch.empty((bsz, wd), dtype=torch.float32, device=v.device)
     db = torch.empty((wd,), dtype=torch.float32, device=v.device)
     rc = lib.cmpc_mutan_bwd_dz(v.data_ptr(), lang.data_ptr(), g.data_ptr(),
@@ -672,7 +688,10 @@ def convlstm_raw(gates, c, co, stats, gamma, beta):
     _expect("beta", beta, torch.float32, (5, cc))
     _multiple_of(4, C=cc)
     lib = build.library("convlstm")
-    parts = lib.cmpc_convlstm_raw_parts(n)
+    parts = lib.cmpc_convlstm_raw_parts(bsz, n, cc)
+    if parts < 1:
+        raise RuntimeError("convlstm_raw: the CUDA device could not be "
+                           "queried for the kernel's grid")
     new_c_raw = torch.empty((bsz, n, cc), dtype=torch.bfloat16,
                             device=c.device)
     o_raw = torch.empty_like(new_c_raw)

@@ -106,9 +106,20 @@ def test_convlstm_step_fused_matches_jax(rng, reference):
 
 def test_convlstm_kernels_match_pallas_calls(rng):
     """Each kernel-holding function against its own Pallas call: gates,
-    new_c_raw, o_raw and the whole-sample statistics."""
-    p, x, cell, h = _convlstm_case(rng)
-    b, n, c = 2, 64, 12
+    new_c_raw, o_raw and the whole-sample statistics; 64-row samples in
+    two of the Pallas calls' row tiles."""
+    _check_convlstm_kernels(rng, hw=8, tiles=2)
+
+
+def test_convlstm_kernels_match_pallas_calls_at_one_tile(rng):
+    """The same at 25-row samples (N * C = 300, not a multiple of 8: the
+    CUDA raw kernel's vectors narrow to 4 there), one Pallas row tile."""
+    _check_convlstm_kernels(rng, hw=5, tiles=1)
+
+
+def _check_convlstm_kernels(rng, hw, tiles):
+    p, x, cell, h = _convlstm_case(rng, hw=hw)
+    b, n, c = 2, hw * hw, 12
     w = p["kernel"][0, 0]
     ci, cf, co = (p[k].reshape(n, c) for k in ("W_ci", "W_cf", "W_co"))
     x2, c2, h2 = (v.reshape(b * n, c) for v in (x, cell, h))
@@ -116,7 +127,7 @@ def test_convlstm_kernels_match_pallas_calls(rng):
         *map(jnp.asarray, (x2, h2, c2)),
         jnp.asarray(w[:c].reshape(c, 4, c).transpose(1, 0, 2)),
         jnp.asarray(w[c:].reshape(c, 4, c).transpose(1, 0, 2)),
-        jnp.asarray(ci), jnp.asarray(cf), bsz=b, n=n, c=c, tiles=2,
+        jnp.asarray(ci), jnp.asarray(cf), bsz=b, n=n, c=c, tiles=tiles,
         interpret=True)
     gates, st = kernels.convlstm_gates(*(_t(v.reshape(b, n, c))
                                          for v in (x2, h2, c2)),
@@ -134,7 +145,8 @@ def test_convlstm_kernels_match_pallas_calls(rng):
     j_nc, j_or, j_st2 = pk._convlstm_raw_call(
         j_gates, jnp.asarray(c2), jnp.asarray(co), j_st,
         jnp.asarray(np.concatenate([gamma, pad])),
-        jnp.asarray(np.concatenate([beta, pad])), bsz=b, n=n, c=c, tiles=2,
+        jnp.asarray(np.concatenate([beta, pad])), bsz=b, n=n, c=c,
+        tiles=tiles,
         forget_bias=1.0, interpret=True)
     nc, orw, st2 = kernels.convlstm_raw(gates, _t(c2.reshape(b, n, c)),
                                         _t(co), st, _t(gamma), _t(beta))

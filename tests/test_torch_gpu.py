@@ -208,6 +208,85 @@ def test_mutan_dw_matches_torch_mm(cuda, m, k, w):
     assert torch.equal(got, kernels.mutan_dw(x, dz))
 
 
+def _dz_args(g, b, n, c, zero_sample=False):
+    """dz-pass inputs: v = tanh of a normal [b n, 5c] as the forward's
+    residual, lang = tanh of a normal, g at the scale of a loss's
+    cotangent; with `zero_sample` the v rows of sample 1 are zero, so their
+    sq = 0 <= 1e-12 (the l2norm vjp's g * r branch)."""
+    v = torch.tanh(_rnd(g, b * n, 5 * c, dtype=torch.float32))
+    if zero_sample:
+        v[n:2 * n] = 0
+    return ((v.to(torch.bfloat16),
+             torch.tanh(_rnd(g, b, 5 * c, dtype=torch.float32)),
+             _rnd(g, b * n, c, scale=0.1)),
+            {"heads": 5, "rows_per_sample": n})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c,zero_sample", [
+    (8, 1600, 1000, False), (3, 25, 72, False), (2, 1681, 72, False),
+    (1, 41, 12, False), (3, 25, 72, True), (1, 41, 2000, False),
+    (2, 25, 4000, False)])
+def test_mutan_bwd_dz_matches_plain_version(cuda, b, n, c, zero_sample):
+    """The bulk-copy dz kernel (dz, dlang, db) against its plain version:
+    the flagship's bs=8 train shapes; 25- and 41-row samples, where a
+    block's rows cross samples; N = 1681, which no row count up to 32
+    divides; C = 12, 72 and 1000 (4-byte vectors), 2000 (8-byte) and 4000
+    (16-byte), each ring stage's byte range rounded out to 16-byte bounds;
+    a sample whose v rows are zero."""
+    args, kw = _dz_args(cuda, b, n, c, zero_sample)
+    got = kernels.mutan_bwd_dz(*args, **kw)
+    want = kernels.mutan_bwd_dz_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _close("mutan_bwd_dz", got, want, None)
+
+
+@pytest.mark.gpu
+def test_mutan_bwd_dz_scratch_does_not_grow_with_rows_per_block(cuda):
+    """The dz kernel's scratch is bounded by its grid: at bs=8 and N = 1681
+    (prime factors 41 x 41, so 32-row blocks do not divide it) it is no
+    larger than at N = 1600, and a launch at N = 1681 allocates no more."""
+    at = {n: kernels.mutan_bwd_dz_scratch(8 * n, n, 1000, 5)
+          for n in (1600, 1681)}
+    assert at[1681][0] * at[1681][1] <= at[1600][0] * at[1600][1]
+    args, kw = _dz_args(cuda, 8, 1681, 1000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dz, dlang, db = kernels.mutan_bwd_dz(*args, **kw)
+    torch.cuda.synchronize()
+    outputs = sum(t.numel() * t.element_size() for t in (dz, dlang, db))
+    scratch = torch.cuda.max_memory_allocated() - before - outputs
+    # the caching allocator rounds each of the four blocks up to 512 bytes
+    assert scratch <= at[1600][0] * at[1600][1] * 4 + 4 * 512
+
+
+def _raw_args(g, b, n, c):
+    """convlstm_raw inputs: the gates and their statistics from the plain
+    gates step, c, W_co and the layer norms' affine at the model's scales."""
+    x, h, cell, w, ci, cf = _gates_args(g, b, n, c)
+    gates, stats = kernels.convlstm_gates_plain(x, h, cell, w, ci, cf)
+    return (gates, cell, _uniform(g, n, c, limit=0.1), stats,
+            1 + _rnd(g, 5, c, dtype=torch.float32, scale=0.1),
+            _rnd(g, 5, c, dtype=torch.float32, scale=0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c", [(1, 1600, 500), (3, 25, 12),
+                                   (64, 100, 500)])
+def test_convlstm_raw_matches_plain_version(cuda, b, n, c):
+    """The streaming raw kernel against its plain version: the flagship's
+    bs=1 shapes (16-byte vectors, the grid filling the card with one
+    sample), 25-row samples at C = 12 (N * C = 300: 8-byte vectors, odd
+    samples starting 8 bytes past a 16-byte bound) and 64 samples of 100
+    rows (one block per sample or a few)."""
+    args = _raw_args(cuda, b, n, c)
+    got = kernels.convlstm_raw(*args)
+    want = kernels.convlstm_raw_plain(*args)
+    torch.cuda.synchronize()
+    _close("convlstm_raw", got, want, n * c)
+
+
 def _uniform(g, *shape, limit):
     u = torch.rand(*shape, generator=g, device="cuda") * 2 - 1
     return (u * limit).to(torch.bfloat16)
@@ -365,14 +444,20 @@ def test_graph_update_wgmma_kernel_matches_plain_version(cuda, c, n, groups):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["se_sum", "convlstm_gates",
                                   "spa_affinity_grouped",
-                                  "graph_update_grouped"])
-def test_wgmma_kernel_repeats_bit_identically(cuda, name):
-    """50 launches at the flagship's bs=1 shapes give the same bits: a
-    missing proxy fence between the cp.async copies (or the on-chip
-    transform) and the wgmmas, or a missing cluster barrier, shows as a
-    result that changes now and then."""
+                                  "graph_update_grouped", "mutan_bwd_dz",
+                                  "convlstm_raw"])
+def test_kernel_repeats_bit_identically(cuda, name):
+    """50 launches at the flagship's bs=1 shapes (the dz pass at bs=8's)
+    give the same bits: a missing proxy fence between the cp.async copies
+    (or the on-chip transform) and the wgmmas, a missing cluster barrier or
+    a ring stage released too early shows as a result that changes now and
+    then; the statistics and the dz pass's slot sums are in fixed order."""
     kw = {}
-    if name == "se_sum":
+    if name == "mutan_bwd_dz":
+        args, kw = _dz_args(cuda, 8, 1600, 1000)
+    elif name == "convlstm_raw":
+        args = _raw_args(cuda, 1, 1600, 500)
+    elif name == "se_sum":
         args = _se_args(cuda, 1, 1600, 500, 2)
     elif name == "convlstm_gates":
         args = _gates_args(cuda, 1, 1600, 500)
@@ -429,9 +514,9 @@ def test_graph_tma_wrappers_raise_on_misaligned_or_noncontiguous(cuda):
 
 @pytest.mark.gpu
 def test_tma_wrappers_raise_on_misaligned_or_noncontiguous(cuda):
-    """TMA needs 16-byte-aligned bases and contiguous rows: the mutan, dW
-    and ConvLSTM gates wrappers raise on anything else rather than
-    launch."""
+    """TMA needs 16-byte-aligned bases and contiguous rows: the mutan, dW,
+    dz-pass (its bulk copies) and ConvLSTM gates wrappers raise on anything
+    else rather than launch."""
     (x, w, b, lang), kw = _mutan_args(cuda, 72, 200, samples=2)
     m, k = x.shape
     shifted = torch.empty(m * k + 8, dtype=torch.bfloat16,
@@ -446,6 +531,9 @@ def test_tma_wrappers_raise_on_misaligned_or_noncontiguous(cuda):
         kernels.mutan_dw(shifted, dz)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.mutan_dw(x, dz.t().contiguous().t())
+    (v, lang_dz, g), dz_kw = _dz_args(cuda, 2, 25, 72)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.mutan_bwd_dz(_shifted(v), lang_dz, g, **dz_kw)
     args = _gates_args(cuda, 1, 25, 12)
     w = args[3]
     shifted_w = torch.empty(w.numel() + 8, dtype=torch.bfloat16,

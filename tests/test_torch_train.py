@@ -97,12 +97,27 @@ def _jax_mutan(x, w, bias, lang, g, nh, res_dtype):
     return np.asarray(out), v, [np.asarray(a) for a in grads]
 
 
-@pytest.mark.parametrize("b,n", [(2, 64), (3, 128)])
+@pytest.mark.parametrize("b,n", [(2, 64), (3, 128), (3, 25), (1, 41)])
 def test_mutan_function_matches_jax_f32_residual(rng, b, n):
     """MutanFunction forward (out, the residual v) and backward (dx, dW, db,
     dlang) on the CPU, where v is f32, against the JAX kernels with an f32
-    residual; B=3/N=128 spans several of the JAX kernel's row tiles."""
-    x, w, bias, lang, g, nh = _mutan_case(rng, b, n)
+    residual; B=3/N=128 spans several of the JAX kernel's row tiles, and at
+    N = 25 and 41 (no multiple of 8 divides them) its tile is the whole
+    sample, as the CUDA dz kernel's rows cross samples there."""
+    _check_mutan_f32_residual(*_mutan_case(rng, b, n))
+
+
+def test_mutan_backward_zero_lang_sample_matches_jax(rng):
+    """A sample whose lang row is zero: its rows' y = tanh(0) = 0, so sq = 0
+    <= 1e-12 and the l2norm's vjp takes its g * r branch, in the port's
+    dz pass and in JAX's fused backward alike."""
+    x, w, bias, lang, g, nh = _mutan_case(rng, 3, 25)
+    lang[1] = 0.0
+    _check_mutan_f32_residual(x, w, bias, lang, g, nh)
+
+
+def _check_mutan_f32_residual(x, w, bias, lang, g, nh):
+    b, n = x.shape[:2]
     want_out, want_v, want = _jax_mutan(x, w, bias, lang, g, nh, jnp.float32)
     k, c = x.shape[2], g.shape[2]
     xt, wt, bt, lt = (_t(a).requires_grad_() for a in

@@ -1,0 +1,206 @@
+#!/usr/bin/env python3
+"""Time a port kernel against edited builds of its CUDA source, in turns.
+
+A variant is a list of (old, new) text edits to one csrc/*.cu source.  The
+tool compiles every variant of a group (one nvcc each, in parallel, with
+the flags of ops/build.py) into <out>/<group>/<variant>/, points the
+kernel's wrapper at each build in turn and times it with CUDA events
+(chip_smoke.gpu_ms) at the shapes of chip_smoke.kernel_inputs, with its
+largest error against the plain version (diagnostic variants compute
+something else, so theirs is large).  The first variant, the committed
+source, runs again at the end to show the drift.  Diagnostic variants
+(no compute, no stores, no transcendental math) show what holds a kernel;
+the others are the designs measured against it.
+
+    python3 tools/kernel_variants.py dz|raw [--out build/kernel_variants]
+
+Needs a CUDA GPU and nvcc; prints one line per shape and one JSON line.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from cmpc_refseg_torch.models import cmpc  # noqa: E402
+from cmpc_refseg_torch.ops import build, kernels  # noqa: E402
+
+
+def _const(name, old, new):
+    return [(f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")]
+
+
+_DZ_NO_COMPUTE = [
+    ("      if (j < n && active) {", "      if (j < n && active && C < 0) {"),
+    ("      if (j >= n || !active) continue;",
+     "      if (j >= n || !active || C > 0) continue;")]
+_DZ_NO_STORE = [("        store_bf<VEC>(dzrow + h * C, d);",
+                 "        if (C < 0) store_bf<VEC>(dzrow + h * C, d);")]
+_DZ_VEC4 = [("  for (int vec = 2; vec <= 8; vec *= 2)",
+             "  for (int vec = 4; vec <= 8; vec *= 2)")]
+_DZ_VEC8 = [("  for (int vec = 2; vec <= 8; vec *= 2)",
+             "  for (int vec = 8; vec <= 8; vec *= 2)"),
+            ("__launch_bounds__(32 * (kDzMaxWarps + 1), 1)",
+             "__launch_bounds__(160, 1)")]
+_DZ_TWO_PER_SM = [("  p.grid = std::min(M, sms);", "  p.grid = std::min(M, 2 * sms);")]
+# the producer warp's 32 lanes copy each stage by 16-byte cp.async and
+# arrive on its full barrier when their copies land
+_DZ_CP_ASYNC = [
+    ("      mbar_init(&full[s], 1);", "      mbar_init(&full[s], 32);"),
+    ("    if (lane == 0) {\n      int it = 0;", "    {\n      int it = 0;"),
+    ("""        mbar_arrive_expect_tx(&full[s], static_cast<uint32_t>(v_hi - v_lo + g_hi - g_lo));
+        bulk_load(buf, reinterpret_cast<const unsigned char*>(v) + v_lo,
+                  static_cast<uint32_t>(v_hi - v_lo), &full[s]);
+        bulk_load(buf + vbuf, reinterpret_cast<const unsigned char*>(g) + g_lo,
+                  static_cast<uint32_t>(g_hi - g_lo), &full[s]);""",
+     """        const unsigned char* vsrc = reinterpret_cast<const unsigned char*>(v) + v_lo;
+        for (size_t o = lane * 16; o < v_hi - v_lo; o += 512)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n"
+                       ::"r"(smem_u32(buf + o)), "l"(vsrc + o) : "memory");
+        const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(g) + g_lo;
+        for (size_t o = lane * 16; o < g_hi - g_lo; o += 512)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n"
+                       ::"r"(smem_u32(buf + vbuf + o)), "l"(gsrc + o) : "memory");
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\\n"
+                     ::"r"(smem_u32(&full[s])) : "memory");""")]
+
+_RAW_NO_MATH = [("        jn[e] = tanhf(", "        jn[e] = ("),
+                ("        is[e] = logistic(", "        is[e] = ("),
+                ("        fs[e] = logistic(", "        fs[e] = (")]
+# the cell and output updates in f32, each product and sum rounded to bf16
+_RAW_F32_UPDATE = [(
+    """      const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&in[3]) + 2 * q4;""",
+    """      float xo[4], xc[4], xco[4], nc[4], ov[4];
+      unpack_bf<4>(reinterpret_cast<const uint2*>(&in[3])[q4], xo);
+      unpack_bf<4>(reinterpret_cast<const uint2*>(&in[4])[q4], xc);
+      unpack_bf<4>(reinterpret_cast<const uint2*>(&in[5])[q4], xco);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        nc[e] = round_bf(round_bf(xc[e] * round_bf(fs[e])) + round_bf(round_bf(is[e]) * round_bf(jn[e])));
+        ov[e] = round_bf(xo[e] + round_bf(xco[e] * nc[e]));
+        s_c += nc[e];
+        q_c += nc[e] * nc[e];
+        s_o += ov[e];
+        q_o += ov[e] * ov[e];
+      }
+      reinterpret_cast<uint2*>(&nc_bits)[q4] = pack_bf<4>(nc);
+      reinterpret_cast<uint2*>(&ov_bits)[q4] = pack_bf<4>(ov);
+      if (C > 0) continue;
+      const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&in[3]) + 2 * q4;""")]
+
+# group -> (source, wrapper, [(batch, train)], {variant: edits})
+GROUPS = {
+    "dz": ("mutan_bwd", "mutan_bwd_dz", [(8, True)], {
+        "final": [],
+        "no compute (the ring's reads only)": _DZ_NO_COMPUTE,
+        "no dz stores": _DZ_NO_STORE,
+        "ring of 3 stages": _const("kDzStages", 2, 3),
+        "ring of 4 stages": _const("kDzStages", 2, 4),
+        "8-byte vectors, 8 consumer warps": _DZ_VEC4,
+        "8-byte vectors, two blocks per SM": _DZ_VEC4 + _DZ_TWO_PER_SM,
+        "16-byte vectors, 4 consumer warps": _DZ_VEC8,
+        "cp.async warp producer": _DZ_CP_ASYNC,
+    }),
+    "raw": ("convlstm", "convlstm_raw", [(8, False), (1, False), (64, False)], {
+        "final": [],
+        "no transcendental math": _RAW_NO_MATH,
+        "two blocks per SM": _const("kRawBlocksPerSM", 3, 2),
+        "four blocks per SM": _const("kRawBlocksPerSM", 3, 4),
+        "f32 cell update": _RAW_F32_UPDATE,
+    }),
+}
+
+
+def edited_source(src, edits):
+    text = (build.CSRC / f"{src}.cu").read_text()
+    for old, new in edits:
+        if old not in text:
+            raise SystemExit(f"kernel_variants: an edit no longer applies to "
+                             f"{src}.cu: {old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(out, src, variants):
+    """Compile each variant in parallel; returns {name: loaded library}."""
+    procs = {}
+    for i, (name, edits) in enumerate(variants.items()):
+        d = out / f"v{i}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for f in build.CSRC.glob("*.cuh"):
+            shutil.copy(f, d)
+        (d / f"{src}.cu").write_text(edited_source(src, edits))
+        log = open(d / "nvcc.log", "w")
+        procs[name] = (subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(d), "-o",
+             str(d / f"lib{src}.so"), str(d / f"{src}.cu")], stdout=log,
+            stderr=subprocess.STDOUT), d, log)
+    libs = {}
+    for name, (proc, d, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc:
+            raise SystemExit(f"kernel_variants: {name}: nvcc exit {rc}\n"
+                             + (d / "nvcc.log").read_text()[-4000:])
+        lib = ctypes.CDLL(str(d / f"lib{src}.so"))
+        for fn, (argtypes, restype) in build.SIGNATURES[src].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        lib.cmpc_error_string.argtypes = [ctypes.c_int]
+        lib.cmpc_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("group", choices=sorted(GROUPS))
+    ap.add_argument("--out", default="build/kernel_variants")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("kernel_variants: needs a CUDA GPU")
+    src, name, cases, variants = GROUPS[args.group]
+    libs = build_variants(Path(args.out) / args.group, src, variants)
+    card = chip_smoke.card_line()
+    wrapper = getattr(kernels, name)
+    dev = torch.device("cuda")
+    order = list(libs) + list(libs)[:1]
+    results = []
+    for batch, train in cases:
+        inputs = chip_smoke.kernel_inputs(torch, kernels, cmpc, dev, batch,
+                                          train)
+        fargs, kw, bk, groups = inputs[name]
+        del inputs
+        want = kernels.PLAIN[wrapper](*fargs, **kw)
+        bound_ms = chip_smoke.bound(*chip_smoke.kernel_cost(name, bk,
+                                                            groups))[0]
+        row = []
+        for variant in order:
+            build._loaded[src] = libs[variant]
+            got = wrapper(*fargs, **kw)
+            torch.cuda.synchronize()
+            err = max(((a.float() - b.float()).abs().max()
+                       / b.float().abs().max()).item()
+                      for a, b in zip(got[:2], want[:2]))
+            ms = chip_smoke.gpu_ms(torch, lambda: wrapper(*fargs, **kw))
+            row.append({"variant": variant, "ms": ms, "norm_err": err})
+        print(f"[{card}] {name} batch {batch} (bound {bound_ms:.4f} ms): "
+              + "; ".join(f"{r['variant']} {r['ms']:.4f} ms (err "
+                          f"{r['norm_err']:.1e})" for r in row), flush=True)
+        results.append({"batch": batch, "bound_ms": bound_ms, "runs": row})
+    build._loaded.pop(src, None)
+    print(json.dumps({"card": card, "kernel": name, "results": results}))
+
+
+if __name__ == "__main__":
+    main()
