@@ -30,10 +30,12 @@ Phases, each fatal on failure:
     against the per-head edge of W's tensor map; the ConvLSTM gates and SE
     sum at an odd B*N = 75 with 25-row samples, and SE sum with 4 others;
     the grouped affinity and update at 3 samples of 75 rows, C = 72, A =
-    40, T = 40 words, G = 3, and graph_msg at T = 40; the dz pass at N =
-    1681, and at 3 samples of 25 rows (blocks' rows cross samples) with
-    C = 72 and a sample whose v rows are zero; the ConvLSTM raw kernel at
-    B*N = 75 with 25-row samples, C = 12 and 500);
+    40, T = 40 words, G = 3, and graph_msg at T = 40, and at 3 samples of
+    N = 1681 rows (a last 32-row group of 17 rows), C = 1000 and an odd
+    T = 17; the dz pass at N = 1681, and at 3 samples of 25 rows (blocks'
+    rows cross samples) with C = 72 and a sample whose v rows are zero;
+    the ConvLSTM raw kernel at B*N = 75 with 25-row samples, C = 12 and
+    500);
  4. forward: build_model("CMPC_model") on CUDA at 320x320, bs=8, bf16,
     full depth.  Launch counts are reset just before the timed forwards and
     read just after (the counts the path needs per forward, see
@@ -42,7 +44,8 @@ Phases, each fatal on failure:
     forward at bs=64, above the packing threshold, where the spatial graph
     runs level by level through the ungrouped kernels, counted likewise;
     and one bs=1 forward with num_steps = 40 (more words than one 32-word
-    chunk of the affinity and message kernels) against the plain route;
+    chunk of the affinity kernel, a 48-word pooled box in the message
+    kernel) against the plain route;
  5. serving: build_service("CMPC_model") at 320x320, bf16, full depth,
     answers 20 requests (seeded images of several sizes and aspect ratios,
     3-20-word expressions) at batch 1.  Counts reset before the requests
@@ -92,6 +95,7 @@ KERNEL_TOL = {"mutan_dw": 1e-3}
 EDGE_ROWS, EDGE_N, EDGE_K = 300, 100, 136
 EDGE_C, EDGE_A, EDGE_T = 72, 40, 40   # the graph kernels' edge shapes
 EDGE_DZ_N = 1681             # 41 x 41 rows per sample: no 32-row blocks
+EDGE_MSG_T = 17              # odd: w_aff rows 2-byte aligned, K padded
 LONG_T = 40                  # num_steps of the long-expression forward
 N_REQ = 20
 N_TRAIN = 10
@@ -548,7 +552,10 @@ def edge_inputs(torch, kernels, dev):
     the fusion stack's C = CM; the grouped affinity (l2n, masked) and
     update and graph_msg at 3 samples of 25 * 3 = 75 rows (the last 128-row
     tile of each sample part empty), C = EDGE_C (one 256-column block),
-    A = EDGE_A != C, T = EDGE_T words (two 32-word chunks) and G = 3; the
+    A = EDGE_A != C, T = EDGE_T words (two 32-word chunks of the affinity;
+    a 48-word pooled box of graph_msg) and G = 3; graph_msg also at 3
+    samples of EDGE_DZ_N rows (its last 32-row group holds 17), C = 1000
+    (a 40-column last chunk) and T = EDGE_MSG_T; the
     dz pass at 2 samples of EDGE_DZ_N rows and C = 1000, and at 3 samples
     of 25 rows (a block's rows cross samples), C = EDGE_C, and the same
     with sample 1's v rows zero (sq <= 1e-12; its dz, ~1e6 times the
@@ -576,9 +583,13 @@ def edge_inputs(torch, kernels, dev):
                  randn(G, EDGE_A, scale=0.1), randn(b, EDGE_T, EDGE_A),
                  torch.rand(b, 1, EDGE_T, generator=g, device=dev), mask),
                 {"scale": EDGE_C ** 0.5, "l2n": True, "masked": True})
-    msg_args = (torch.softmax(randn(b, gn, EDGE_T, dtype=f32), -1).to(
-        torch.bfloat16), randn(b, EDGE_T, EDGE_C))
-    msg, st = kernels.graph_msg_plain(*msg_args)
+
+    def msg_args(n, t, c):
+        return (torch.softmax(randn(b, n, t, dtype=f32), -1).to(
+            torch.bfloat16), randn(b, t, c))
+
+    edge_msg = msg_args(gn, EDGE_T, EDGE_C)
+    msg, st = kernels.graph_msg_plain(*edge_msg)
     update = (randn(b, gn, EDGE_C), msg, st,
               randn(G, EDGE_C, EDGE_C, scale=EDGE_C ** -0.5),
               randn(G, EDGE_C, scale=0.1),
@@ -607,7 +618,8 @@ def edge_inputs(torch, kernels, dev):
     # (wrapper name, record tag, args, kwargs)
     return [
         ("spa_affinity_grouped", "", *affinity),
-        ("graph_msg", "", msg_args, {}),
+        ("graph_msg", "", edge_msg, {}),
+        ("graph_msg", ":N1681", msg_args(EDGE_DZ_N, EDGE_MSG_T, C), {}),
         ("graph_update_grouped", "", update, {}),
         ("mutan_fused", "", *mutan), ("mutan_fwd_residual", "", *mutan),
         ("mutan_dw", "", (randn(1000, EDGE_K), randn(1000, 360, scale=0.1)),
@@ -793,8 +805,9 @@ def run_forward(torch, kernels, cmpc, build_model, apply_model, card):
 
 def run_long_forward(torch, build_model, apply_model, card):
     """A bs=1 forward with num_steps = LONG_T and a LONG_T-word expression:
-    the affinity and message kernels take more words than one 32-word
-    chunk; sigm against the plain route's."""
+    the affinity kernel takes more words than one 32-word chunk, the
+    message kernel a 48-word pooled box; sigm against the plain
+    route's."""
     model = build_model("CMPC_model", device=DEV, dtype="bfloat16",
                         batch_size=1, num_steps=LONG_T)
     cfg = model.cfg

@@ -6,16 +6,30 @@
 // stay plain PyTorch, as the JAX package leaves them to XLA.
 //
 // graph_msg replaces cmpc_refseg_tpu/ops/pallas_kernels.py::_graph_msg_call.
-// Bound on the card: bytes (2*T = 40 FLOP per 2-byte output element; the
-// [B*N, C] bf16 store dominates, 77 MB at the flagship bs=8 packed shapes).
-// Design: a block takes 32 rows of one sample; each thread keeps the sums of
-// one column pair for all 32 rows in registers and sweeps the words in
-// chunks of 32 (any T): per chunk the rows' w_aff slice is staged in shared
-// memory (read as broadcasts) and the column pair of pooled [T, C] in
-// registers; the sums are rounded to bf16 once and written as coalesced
-// pairs.  The block's (sum, sum of squares) partial goes to its own slot,
-// so the statistics need no atomics and are summed in a fixed order by
-// graph_update.
+// Bound on the card: bytes (the [B*N, C] bf16 store, 77 MB at the flagship
+// bs=8 packed shapes).  At T = 20 each 2-byte output takes 40 FLOP, so on
+// the f32 pipes the product alone would need the card's whole 67 TFLOP/s
+// to keep up with 3.35 TB/s: it runs on the tensor cores, mma.sync
+// m16n8k16 (bf16 in, f32 sums; K is T rounded up to 16, zero past T in
+// both operands), whose register fragments suit the epilogue below.
+// Design: one persistent block per SM walks a contiguous range of (sample,
+// 32-row group) pairs.  Its producer thread loads pooled's boxes [32 words
+// x 64 columns] by TMA (zero past T and C; kept resident while the block
+// stays in one sample) and copies each row tile's w_aff rows (2T bytes:
+// too narrow for TMA) by one 1-D bulk copy into a 4-stage ring.  8
+// consumer warps take two 64-column chunks each: a warp gathers its A
+// fragments (two m16 tiles) from the w_aff stage once per tile, reads B
+// by ldmatrix.trans and stages each rounded [32 x 64] result in msg's own
+// row layout; the block then stores the tile's 32 whole rows (64 KB) by one
+// 1-D bulk copy, double-buffered.  Whole rows because rows of 2000 bytes
+// start off the 128-byte lines: stores cut at 64-column boundaries (2D
+// TMA boxes) measured 1.7x slower.  The statistics come from the rounded
+// fragments: row sums by a product with ones on the tensor cores, sums of
+// squares by one fma a value; per warp by shuffles, then over the warps
+// in order into the group's own slot (no atomics: two launches agree bit
+// for bit).  Tried and slower (PERF.md): 2D box stores from per-warp
+// tiles, 16 consumer warps, 16-row tiles, one block per group, pooled
+// streamed per tile, squares on the tensor cores, sums on the f32 pipes.
 //
 // graph_update replaces ::_graph_update_call, in both forms: one weight set,
 // or G groups (w [G, C, C], bias, g1, b1 [G, C]; sample s uses group
@@ -49,77 +63,376 @@
 
 namespace cmpc {
 
-constexpr int kMsgRows = 32;
-constexpr int kMsgThreads = 256;
-constexpr int kMsgChunk = 32;   // words staged at a time
+constexpr int kMsgWarps = 8;                  // consumer warps
+constexpr int kMsgThreads = 32 * (kMsgWarps + 1);   // + the producer warp
+constexpr int kMsgGroupRows = 32;             // rows of one statistics slot
+constexpr int kMsgMaxK = 64;                  // words of one pooled box at most
+constexpr int kMsgMaxSlots = 64;              // pooled boxes in shared memory at most
+constexpr int kMsgAStages = 4;                // tiles of w_aff rows in flight
+constexpr int kMsgMaxC = 4096;
+constexpr int kMsgSmemMax = 230400;           // dynamic shared memory (227 KB less static)
 
-__global__ void __launch_bounds__(kMsgThreads)
-graph_msg_kernel(const bf16* __restrict__ w_aff, const bf16* __restrict__ pooled,
-                 bf16* __restrict__ msg, float* __restrict__ stats, int N, int C,
-                 int T) {
-  __shared__ float ws[kMsgRows * kMsgChunk];
-  __shared__ float red[kMsgThreads / 32];
-  const int s = blockIdx.y, rb = blockIdx.x;
-  const int row0 = rb * kMsgRows;
-  const int nrows = min(kMsgRows, N - row0);
-  const size_t grow0 = static_cast<size_t>(s) * N + row0;
-  const int pairs = C / 2;
+// How a launch lays out shared memory.  A row tile is mt m16 tiles: 32
+// rows (one statistics group) or, where two [32 x C] staging buffers do
+// not fit, 16.  pooled: boxes of [kbox words x 64 columns] (128-byte
+// swizzled), kchunks of them down T for each chunk of 64 columns;
+// consumer warp w uses the boxes of chunks w, w + 8, ....  When all
+// `boxes` fit, they stay resident, each in its own slot, and are loaded
+// once per sample a block visits; else each warp streams its boxes
+// through a ring of `ring` slots of its own for every row tile.  Either
+// way a slot serves one warp only, so a warp never waits on a slot two
+// loads ahead of it (an mbarrier's parity tells only one phase from the
+// next).  a_bytes: one stage of a tile's w_aff rows (16 mt T bf16, from
+// the 16-byte bound below them).  nbuf: msg staging buffers of [16 mt x
+// C] (two, so a tile's store drains while the next is formed, when they
+// fit).  smem = 0: C and T do not fit.
+struct MsgPlan {
+  int mt, kbox, kchunks, chunks, boxes, ring, a_bytes, nbuf, smem;
+};
 
-  // Each thread keeps one column pair's sums for all the block's rows in
-  // registers and sweeps the words in chunks: the rows' w_aff chunk is
-  // staged in shared memory (read as broadcasts), the column pair's pooled
-  // chunk in registers.  The sums are rounded to bf16 once, at the end.
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(
-      pooled + static_cast<size_t>(s) * T * C);
-  __nv_bfloat162* m2 = reinterpret_cast<__nv_bfloat162*>(msg + grow0 * C);
-  float sum = 0.f, sumsq = 0.f;
-  for (int cp0 = 0; cp0 < pairs; cp0 += kMsgThreads) {   // the same trip count in every thread
-    const int cp = cp0 + threadIdx.x;
-    const bool active = cp < pairs;
-    float a0[kMsgRows], a1[kMsgRows];
-#pragma unroll
-    for (int r = 0; r < kMsgRows; ++r) a0[r] = a1[r] = 0.f;
-    for (int t0 = 0; t0 < T; t0 += kMsgChunk) {
-      const int tn = min(kMsgChunk, T - t0);
-      __syncthreads();   // the previous chunk's reads are done
-      for (int i = threadIdx.x; i < kMsgRows * kMsgChunk; i += kMsgThreads) {
-        const int r = i / kMsgChunk, t = i % kMsgChunk;
-        ws[i] = r < nrows && t < tn ? bf2f(w_aff[(grow0 + r) * T + t0 + t]) : 0.f;
-      }
-      __syncthreads();
-      float2 p[kMsgChunk];
-#pragma unroll
-      for (int t = 0; t < kMsgChunk; ++t)
-        p[t] = active && t < tn ? __bfloat1622float2(p2[static_cast<size_t>(t0 + t) * pairs + cp])
-                                : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int r = 0; r < kMsgRows; ++r) {
-#pragma unroll
-        for (int t = 0; t < kMsgChunk; ++t) {
-          const float wv = ws[r * kMsgChunk + t];
-          a0[r] += wv * p[t].x;
-          a1[r] += wv * p[t].y;
+inline MsgPlan msg_plan(int C, int T) {
+  MsgPlan p;
+  p.kbox = T < kMsgMaxK ? (T + 15) / 16 * 16 : kMsgMaxK;
+  p.kchunks = (T + p.kbox - 1) / p.kbox;
+  p.chunks = (C + kChunk - 1) / kChunk;
+  p.boxes = p.chunks * p.kchunks;
+  const int box_bytes = p.kbox * kSwizzleBytes;
+  const int row = C * static_cast<int>(sizeof(bf16));
+  auto a_bytes = [&](int mt) {
+    return (16 * mt * T * static_cast<int>(sizeof(bf16)) + 31) / 16 * 16;
+  };
+  p.mt = 1024 + kMsgAStages * a_bytes(2) + 2 * 32 * row + kMsgWarps * box_bytes <= kMsgSmemMax
+             ? 2 : 1;
+  p.a_bytes = a_bytes(p.mt);
+  const int stage = 16 * p.mt * row;
+  const int fixed = 1024 + kMsgAStages * p.a_bytes;
+  p.nbuf = fixed + 2 * stage + kMsgWarps * box_bytes <= kMsgSmemMax ? 2 : 1;
+  int fit = (kMsgSmemMax - fixed - p.nbuf * stage) / box_bytes;
+  fit = fit < kMsgMaxSlots ? fit : kMsgMaxSlots;
+  p.ring = p.boxes <= fit ? 0 : fit / kMsgWarps;   // 0: resident
+  const int slots = p.ring ? kMsgWarps * p.ring : p.boxes;
+  p.smem = p.boxes <= fit || p.ring > 0 ? fixed + slots * box_bytes + p.nbuf * stage : 0;
+  return p;
+}
+
+// The row tiles of a block in order: tile i of group grp of sample s
+// holds rows grp * 32 + 16 mt i ... of sample s, if it starts below N.
+struct MsgTile {
+  int g, s, grp, i;   // g = s * parts + grp
+  __device__ void next(int parts, int N, int tile_rows) {
+    if (++i < kMsgGroupRows / tile_rows && grp * kMsgGroupRows + i * tile_rows < N) return;
+    i = 0;
+    ++g;
+    if (++grp == parts) {
+      grp = 0;
+      ++s;
+    }
+  }
+};
+
+// One persistent block per SM walks a contiguous range of the (sample,
+// 32-row group) pairs.  Lane 0 of warp kMsgWarps is the producer.  For
+// each row tile it copies the tile's w_aff rows into a ring of kMsgAStages
+// stages (one 1-D bulk copy: w_aff rows are 2T bytes, too narrow for TMA
+// and not even 4-byte aligned at odd T), and it loads pooled's boxes by
+// TMA (once per sample while they stay resident, else for every tile).
+// The consumers release a box after its last use before the next load, a
+// w_aff stage after the tile.
+__global__ void __launch_bounds__(kMsgThreads, 1)
+graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restrict__ w_aff,
+                 bf16* __restrict__ msg, float* __restrict__ stats, int B, int N, int C,
+                 int T, MsgPlan plan) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMsgMaxSlots], empty[kMsgMaxSlots];
+  __shared__ __align__(8) uint64_t a_full[kMsgAStages], a_empty[kMsgAStages];
+  __shared__ float red[2][kMsgWarps][2];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int parts = (N + kMsgGroupRows - 1) / kMsgGroupRows;
+  const long long groups = static_cast<long long>(B) * parts;
+  const int g0 = static_cast<int>(groups * blockIdx.x / gridDim.x);
+  const int g1 = static_cast<int>(groups * (blockIdx.x + 1) / gridDim.x);
+  const int tile_rows = 16 * plan.mt;
+  const int box_bytes = plan.kbox * kSwizzleBytes;
+  const bool stream = plan.ring > 0;   // reload the boxes every tile
+
+  // warp w's boxes per tile, and its first slot
+  auto boxes_of = [&](int w) {
+    return (plan.chunks > w ? (plan.chunks - w + kMsgWarps - 1) / kMsgWarps : 0) *
+           plan.kchunks;
+  };
+  auto first_slot = [&](int w) {   // the chunks j < chunks with j % kMsgWarps < w
+    const int rem = plan.chunks % kMsgWarps;
+    return stream ? w * plan.ring
+                  : ((plan.chunks / kMsgWarps) * w + (rem < w ? rem : w)) * plan.kchunks;
+  };
+  const int slots = first_slot(kMsgWarps);
+  // slot q of warp w's box lr (its index among the warp's boxes of a
+  // round) at load round r, and the load's phase ph on the slot's barriers
+  auto slot_of = [&](int w, int lr, int r, int& q, int& ph) {
+    if (!stream) {   // a slot per box, loaded once a round
+      q = first_slot(w) + lr;
+      ph = r;
+    } else {
+      const int l = r * boxes_of(w) + lr;
+      q = first_slot(w) + l % plan.ring;
+      ph = l / plan.ring;
+    }
+  };
+  unsigned char* a_ring = smem + slots * box_bytes;
+  bf16* staging = reinterpret_cast<bf16*>(a_ring + kMsgAStages * plan.a_bytes);
+
+  // A tile's w_aff rows are elements [e0, e0 + 16 mt T) of w_aff; its stage
+  // holds the bytes from the 16-byte bound below e0 up to the next 16-byte
+  // bound, short of the last bound below w_aff's end (w_tail), so nothing
+  // past w_aff is read.  A tile that reaches past w_tail reads its rows
+  // from device memory instead.
+  const unsigned char* wbytes = reinterpret_cast<const unsigned char*>(w_aff);
+  const size_t w_tail = static_cast<size_t>(B) * N * T * sizeof(bf16) / 16 * 16;
+  const size_t tile_bytes = static_cast<size_t>(tile_rows) * T * sizeof(bf16);
+  auto a_span = [&](const MsgTile& x, size_t& lo, uint32_t& bytes) {
+    const size_t e0 = (static_cast<size_t>(x.s) * N + x.grp * kMsgGroupRows +
+                       x.i * tile_rows) * T * sizeof(bf16);
+    lo = e0 / 16 * 16;
+    size_t hi = (e0 + tile_bytes + 15) / 16 * 16;
+    hi = hi < w_tail ? hi : w_tail;
+    bytes = hi > lo ? static_cast<uint32_t>(hi - lo) : 0u;
+    return e0;
+  };
+  const MsgTile start{g0, g0 / parts, g0 % parts, 0};
+
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < slots; ++q) {
+      mbar_init(&full[q], 1);
+      mbar_init(&empty[q], 1);
+    }
+    for (int q = 0; q < kMsgAStages; ++q) {
+      mbar_init(&a_full[q], 1);
+      mbar_init(&a_empty[q], kMsgWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kMsgWarps) {   // the producer
+    if (lane == 0) {
+      tma_prefetch(&p_map);
+      int cur = -1, t = 0, round = -1;
+      for (MsgTile x = start; x.g < g1; x.next(parts, N, tile_rows), ++t) {
+        const int aq = t % kMsgAStages;
+        if (t >= kMsgAStages) mbar_wait(&a_empty[aq], ((t / kMsgAStages) - 1) & 1);
+        size_t lo;
+        uint32_t bytes;
+        a_span(x, lo, bytes);
+        mbar_arrive_expect_tx(&a_full[aq], bytes);
+        if (bytes) bulk_load(a_ring + aq * plan.a_bytes, wbytes + lo, bytes, &a_full[aq]);
+
+        if (!stream && x.s == cur) continue;
+        cur = x.s;
+        ++round;
+        // in each warp's order of use: chunk j is warp j % 8's chunk j / 8
+        for (int j = 0, w = 0, pj = 0; j < plan.chunks; ++j) {
+          for (int kc = 0; kc < plan.kchunks; ++kc) {
+            int q, ph;
+            slot_of(w, pj * plan.kchunks + kc, round, q, ph);
+            if (ph > 0) mbar_wait(&empty[q], (ph - 1) & 1);
+            mbar_arrive_expect_tx(&full[q], box_bytes);
+            tma_load_3d(smem + q * box_bytes, &p_map, &full[q], j * kChunk, kc * plan.kbox,
+                        x.s);
+          }
+          if (++w == kMsgWarps) {
+            w = 0;
+            ++pj;
+          }
         }
       }
     }
-    if (!active) continue;
-#pragma unroll
-    for (int r = 0; r < kMsgRows; ++r) {
-      if (r >= nrows) break;
-      const __nv_bfloat162 o = __floats2bfloat162_rn(a0[r], a1[r]);
-      m2[static_cast<size_t>(r) * pairs + cp] = o;
-      const float2 q = __bfloat1622float2(o);
-      sum += q.x + q.y;
-      sumsq += q.x * q.x + q.y * q.y;
+    return;
+  }
+
+  // The consumers.  Lane (gq, c) = (l / 4, l % 4) gathers its m16n8k16 A
+  // fragments from the tile's w_aff stage: for m16 tile mi and k16 step v,
+  // rows 16 mi + gq and + 8, words 16 v + 2c, + 1 and + 8, + 9, zero past
+  // T and past the sample's last row, so the product's K padding is zero
+  // in A as TMA makes it zero in B.  ldmatrix addresses: lane l gives row
+  // l % 8 of matrix m = l / 8, which is (k half, n8 tile of the pair) =
+  // (m % 2, m / 2) of a k16 step.
+  const int gq = lane / 4, c = lane % 4;
+  const int ksteps = plan.kbox / 16;
+  const int m = lane / 8;
+  const uint32_t lrow = smem_u32(smem) + ((m % 2) * 8 + lane % 8) * kSwizzleBytes;
+  const int stage = tile_rows * C;   // bf16 of one staging buffer
+  const int row_bytes = T * static_cast<int>(sizeof(bf16));
+  constexpr uint32_t kOnes = 0x3f803f80u;   // two bf16 ones
+  int round = -1, cur = -1, buf = 0, parity = 0, t = 0;
+  // The statistics of the rounded msg x over the group.  The row sums on
+  // the tensor cores: the accumulator layout of an n8 tile pair is the A
+  // layout of an m16n8k16 product, so sx = x * ones sums 16 columns of each
+  // row exactly (two sets, used in turns, so the chains interleave).  The
+  // sums of squares on the f32 pipes, one fma a value into sq.  (The
+  // squares as the diagonals of x * x^T too measured 3% slower; PERF.md.)
+  float sx[2][4] = {}, sq[4] = {};
+  for (MsgTile x = start; x.g < g1; ++t) {
+    const int r0 = x.grp * kMsgGroupRows + x.i * tile_rows;
+    if (stream || x.s != cur) {   // this tile's boxes are a new load round
+      ++round;
+      cur = x.s;
     }
+    MsgTile xn = x;
+    xn.next(parts, N, tile_rows);
+    const bool last = xn.g != x.g;   // the group's last tile
+    const bool release = stream || xn.g == g1 || xn.s != x.s;
+    const int aq = t % kMsgAStages;
+    size_t lo;
+    uint32_t bytes;
+    const size_t e0 = a_span(x, lo, bytes);
+    // rows 16 mi + gq of the tile, in the stage or, past w_tail, in device
+    // memory; the rows 8 further are row_bytes * 8 on
+    const unsigned char* rows = e0 + tile_bytes <= w_tail
+                                    ? a_ring + aq * plan.a_bytes + (e0 - lo) + gq * row_bytes
+                                    : wbytes + e0 + gq * row_bytes;
+    auto a_pair = [&](int r, int k) {   // words k, k + 1 of row gq + r of the tile
+      const unsigned short* w =
+          reinterpret_cast<const unsigned short*>(rows + r * row_bytes) + k;
+      const bool ok = r0 + gq + r < N;
+      const uint32_t x0 = ok && k < T ? static_cast<uint32_t>(w[0]) : 0u;
+      const uint32_t x1 = ok && k + 1 < T ? static_cast<uint32_t>(w[1]) : 0u;
+      return x0 | (x1 << 16);
+    };
+    mbar_wait(&a_full[aq], (t / kMsgAStages) & 1);
+    // the tile's A fragments, [k16 step][m16 tile]: gathered once per tile
+    // when K is one chunk, else for each chunk and K chunk
+    uint32_t a[kMsgMaxK / 16][2][4];
+    auto gather = [&](int kc) {
+#pragma unroll
+      for (int ks = 0; ks < kMsgMaxK / 16; ++ks) {
+        if (ks >= ksteps) break;
+        const int k = kc * plan.kbox + ks * 16 + 2 * c;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          a[ks][mi][0] = mi < plan.mt ? a_pair(16 * mi, k) : 0u;
+          a[ks][mi][1] = mi < plan.mt ? a_pair(16 * mi + 8, k) : 0u;
+          a[ks][mi][2] = mi < plan.mt ? a_pair(16 * mi, k + 8) : 0u;
+          a[ks][mi][3] = mi < plan.mt ? a_pair(16 * mi + 8, k + 8) : 0u;
+        }
+      }
+    };
+    if (plan.kchunks == 1) gather(0);
+
+    bf16* out = staging + buf * stage;
+    bf16* out_row = out + gq * C + 2 * c;   // this lane's row gq, column 2c
+    for (int j = warp, lr = 0; j < plan.chunks; j += kMsgWarps) {
+      float acc[2][8][4];   // [m16 tile][n8 tile]
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          acc[mi][n][0] = acc[mi][n][1] = acc[mi][n][2] = acc[mi][n][3] = 0.f;
+      for (int kc = 0; kc < plan.kchunks; ++kc, ++lr) {
+        if (plan.kchunks > 1) gather(kc);
+        int q, ph;
+        slot_of(warp, lr, round, q, ph);
+        mbar_wait(&full[q], ph & 1);
+        const uint32_t st = lrow + q * box_bytes;
+#pragma unroll
+        for (int ks = 0; ks < kMsgMaxK / 16; ++ks) {
+          if (ks >= ksteps) break;
+#pragma unroll
+          for (int pr = 0; pr < 4; ++pr) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, st + ks * 16 * kSwizzleBytes +
+                                     (((2 * pr + m / 2) ^ (lane % 8)) << 4));
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              if (mi >= plan.mt) break;
+              mma_m16n8k16(acc[mi][2 * pr], a[ks][mi], b[0], b[1]);
+              mma_m16n8k16(acc[mi][2 * pr + 1], a[ks][mi], b[2], b[3]);
+            }
+          }
+        }
+        if (release) {   // the box's last use before it is loaded again
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[q]);
+        }
+      }
+
+      // Epilogue: round to bf16 and stage the tile's rows in msg's own
+      // layout, [16 mt x C], so one bulk copy of whole rows stores them:
+      // rows of 2C = 2000 bytes start 16 bytes into a 32-byte sector at
+      // every other row, and stores cut at 64-column boundaries split
+      // those sectors between two stores (measured 1.7x slower, PERF.md).
+      // Rows past N and columns past C are zero: they add nothing to the
+      // sums.
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (mi >= plan.mt) break;
+#pragma unroll
+        for (int pr = 0; pr < 4; ++pr) {
+          uint32_t xf[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            xf[e] = bf2_bits(__floats2bfloat162_rn(acc[mi][2 * pr + e / 2][2 * (e % 2)],
+                                                   acc[mi][2 * pr + e / 2][2 * (e % 2) + 1]));
+          mma_m16n8k16(sx[(mi + pr) & 1], xf, kOnes, kOnes);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lo = __uint_as_float(xf[e] << 16);
+            const float hi = __uint_as_float(xf[e] & 0xffff0000u);
+            sq[e] = fmaf(lo, lo, fmaf(hi, hi, sq[e]));
+          }
+          const int col = j * kChunk + 16 * pr;   // of this lane: + 2c
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + 8 * (e / 2) < C)
+              *reinterpret_cast<uint32_t*>(out_row + (16 * mi + 8 * (e % 2)) * C + col +
+                                           8 * (e / 2)) = xf[e];
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&a_empty[aq]);   // this warp is done with the w_aff stage
+
+    // The tile is staged: every thread fences its writes to the async
+    // proxy; thread 0 waits until the previous tile's store has read the
+    // buffer the next tile writes; after the barrier it stores the tile's
+    // rows below N.  At a group's last tile each warp sums its row sums
+    // and squares, the warps' sums go to `red` (alternating by group)
+    // and warp 1 adds them in order into the group's slot: no atomics, so
+    // two launches agree bit for bit.
+    fence_proxy_async();
+    if (last) {
+      // every column of sx holds the row sums: rows gq and gq + 8 in
+      // lanes c = 0
+      const float s1 = warp_sum(c == 0 ? sx[0][0] + sx[0][2] + sx[1][0] + sx[1][2] : 0.f);
+      const float s2 = warp_sum(sq[0] + sq[1] + sq[2] + sq[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sx[0][e] = sx[1][e] = sq[e] = 0.f;
+      if (lane == 0) {
+        red[parity][warp][0] = s1;
+        red[parity][warp][1] = s2;
+      }
+    }
+    if (threadIdx.x == 0) bulk_wait_read();
+    named_bar_sync(1, 32 * kMsgWarps);
+    if (threadIdx.x == 0) {
+      const int n_rows = N - r0 < tile_rows ? N - r0 : tile_rows;
+      bulk_store(msg + (static_cast<size_t>(x.s) * N + r0) * C, out,
+                 static_cast<uint32_t>(n_rows) * C * sizeof(bf16));
+      bulk_commit();
+      if (plan.nbuf == 1) bulk_wait_read();
+    }
+    if (plan.nbuf == 1) named_bar_sync(1, 32 * kMsgWarps);
+    if (last && warp == 1 && lane < 2) {
+      float v = 0.f;
+      for (int w = 0; w < kMsgWarps; ++w) v += red[parity][w][lane];
+      stats[static_cast<size_t>(x.g) * 2 + lane] = v;
+    }
+    if (last) parity ^= 1;
+    buf = plan.nbuf == 2 ? buf ^ 1 : 0;
+    x = xn;
   }
-  sum = block_sum(sum, red);
-  sumsq = block_sum(sumsq, red);
-  if (threadIdx.x == 0) {
-    float* st = stats + (static_cast<size_t>(s) * gridDim.x + rb) * 2;
-    st[0] = sum;
-    st[1] = sumsq;
-  }
+  if (threadIdx.x == 0) bulk_wait_read();   // the stores have read shared memory
 }
 
 // graph_update.  blockIdx.x: the 256-column block, y: the 128-row tile of
@@ -334,7 +647,13 @@ graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
 }  // namespace cmpc
 
 extern "C" int cmpc_graph_msg_parts(int N) {
-  return (N + cmpc::kMsgRows - 1) / cmpc::kMsgRows;
+  return (N + cmpc::kMsgGroupRows - 1) / cmpc::kMsgGroupRows;
+}
+
+// Shared memory of a launch at C columns and T words, 0 where they do not
+// fit (C past kMsgMaxC, or C * T too large for the staging and pooled).
+extern "C" int cmpc_graph_msg_smem(int C, int T) {
+  return C < 8 || C > cmpc::kMsgMaxC || T < 1 ? 0 : cmpc::msg_plan(C, T).smem;
 }
 
 extern "C" int cmpc_graph_update_parts(int N, int C) {
@@ -342,15 +661,40 @@ extern "C" int cmpc_graph_update_parts(int N, int C) {
 }
 
 // w_aff [B*N, T] bf16, pooled [B, T, C] bf16 -> msg [B*N, C] bf16 and
-// stats [B, parts, 2] f32 (per-block sum, sum of squares of the bf16 msg).
-// C even.
+// stats [B, parts, 2] f32 (per 32-row group: sum, sum of squares of the
+// bf16 msg).  T >= 1; w_aff, pooled and msg 16-byte aligned (bulk copies,
+// TMA), C a multiple of 8 (TMA strides, 16-byte bulk copies of whole rows)
+// and at most kMsgMaxC (a [16 x C] staging buffer), and the plan must fit
+// in shared memory (C = 4096 takes T up to ~250).  One block per SM, at
+// most one per group.
 extern "C" int cmpc_graph_msg(const void* w_aff, const void* pooled, void* msg,
                               void* stats, int B, int N, int C, int T, void* stream) {
   using namespace cmpc;
-  const dim3 grid(cmpc_graph_msg_parts(N), B);
-  graph_msg_kernel<<<grid, kMsgThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(w_aff), static_cast<const bf16*>(pooled),
-      static_cast<bf16*>(msg), static_cast<float*>(stats), N, C, T);
+  if (B < 1 || N < 1 || C % 8 || cmpc_graph_msg_smem(C, T) == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MsgPlan plan = msg_plan(C, T);
+  CUtensorMap p_map;
+  // [B][T][C] innermost first: the boxes read zero past T and past C
+  const uint64_t bf = sizeof(bf16);
+  const uint64_t p_dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(T),
+                              static_cast<uint64_t>(B)};
+  const uint64_t p_strides[2] = {C * bf, static_cast<uint64_t>(T) * C * bf};
+  const uint32_t p_box[3] = {kChunk, static_cast<uint32_t>(plan.kbox), 1};
+  int rc = encode_tmap(&p_map, pooled, 3, p_dims, p_strides, p_box);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      graph_msg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  const long long groups = static_cast<long long>(B) * cmpc_graph_msg_parts(N);
+  const int grid = groups < sms ? static_cast<int>(groups) : sms;
+  graph_msg_kernel<<<grid, kMsgThreads, plan.smem, static_cast<cudaStream_t>(stream)>>>(
+      p_map, static_cast<const bf16*>(w_aff), static_cast<bf16*>(msg),
+      static_cast<float*>(stats), B, N, C, T, plan);
   return static_cast<int>(cudaGetLastError());
 }
 

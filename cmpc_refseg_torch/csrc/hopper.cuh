@@ -1,7 +1,8 @@
 // Hopper building blocks of the port's wgmma kernels (csrc/mutan.cu, the dW
 // product of csrc/mutan_bwd.cu, convlstm.cu's gates, se_sum.cu,
-// graph_conv.cu's update, spa_affinity.cu) and of the dz pass's bulk-copy
-// ring (mutan_bwd.cu), as inline PTX for sm_90a:
+// graph_conv.cu's update, spa_affinity.cu), of the dz pass's bulk-copy
+// ring (mutan_bwd.cu) and of graph_conv.cu's message kernel, as inline PTX
+// for sm_90a:
 //
 // - mbarriers: init, arrive (plain or with an expected byte count), parity
 //   wait;
@@ -10,8 +11,9 @@
 //   is not a multiple of 16 bytes, such as C = 500 bf16);
 // - TMA (cp.async.bulk.tensor) 2D / 3D loads that complete on an mbarrier,
 //   into this block or multicast to the blocks of a cluster, and a 3D store from
-//   shared memory tracked by bulk groups; the 1-D bulk copy (cp.async.bulk)
-//   of a contiguous byte range, which needs no tensor map;
+//   shared memory tracked by bulk groups; the 1-D bulk copies (cp.async.bulk)
+//   of a contiguous byte range to and from shared memory, which need no
+//   tensor map;
 // - cluster position, rank, masks and sync, arrivals on another block's
 //   mbarrier, and reads of another block's shared memory (DSMEM);
 // - the 64-bit wgmma shared-memory descriptor for 128-byte swizzled tiles;
@@ -19,6 +21,8 @@
 //   m64n256k16 bf16 products with f32 accumulators, trans-a / trans-b as
 //   immediates, and m64n32k16 with A from registers;
 // - setmaxnreg, to move registers from a producer to consumer warpgroups;
+// - the warp-level bf16 product mma.sync m16n8k16 and its transposed
+//   ldmatrix feed (graph_conv.cu's message kernel);
 // - a host helper that encodes a CUtensorMap (cuTensorMapEncodeTiled, a
 //   driver-API symbol fetched through the runtime, so no -lcuda).
 //
@@ -272,6 +276,15 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       "r"(c2) : "memory");
 }
 
+// A 1-D bulk copy of `bytes` contiguous bytes from this block's shared
+// memory at `src` to global `dst`, tracked by bulk groups; src, dst and
+// bytes must all be multiples of 16.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -439,6 +452,30 @@ __device__ __forceinline__ void mma_stage(float (&d)[N / 2], uint64_t desc_a,
       wgmma_m64n256k16<kTransA, kTransB>(d, desc_a + kk * a_step, desc_b + kk * b_step,
                                          scale_d);
   }
+}
+
+// ---- mma.sync --------------------------------------------------------------
+
+// Four 8x8 b16 matrices from shared memory, transposed: lanes 8m .. 8m + 7
+// give the addresses of matrix m's 8 rows (16 bytes each), and register m
+// of lane l receives rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4.  A
+// [k][n] tile so loaded is the B operand of mma_m16n8k16.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// d[4] += A[16x16] * B[16x8] in bf16 with f32 sums (g = lane / 4, c =
+// lane % 4): a[0] holds A row g, columns 2c, 2c + 1 (the lower column in the
+// low half), a[1] row g + 8, a[2] and a[3] the same at columns + 8; b0 holds
+// B rows 2c, 2c + 1 of column g, b1 rows + 8; d[0], d[1] are row g, columns
+// 2c, 2c + 1 of the result, d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- host: tensor maps -----------------------------------------------------

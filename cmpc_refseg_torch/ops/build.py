@@ -47,6 +47,7 @@ SIGNATURES = {
     "graph_conv": {
         "cmpc_graph_msg": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "cmpc_graph_msg_parts": ([_I], _I),
+        "cmpc_graph_msg_smem": ([_I, _I], _I),
         "cmpc_graph_update": ([_P] * 3 + [_I] + [_P] * 6 + [_I] * 4 + [_P], _I),
         "cmpc_graph_update_parts": ([_I, _I], _I),
     },

@@ -442,8 +442,16 @@ def graph_msg(w_aff, pooled):
     c = pooled.shape[2]
     _expect("w_aff", w_aff, torch.bfloat16, (bsz, n, t))
     _expect("pooled", pooled, torch.bfloat16, (bsz, t, c))
+    if min(bsz, n, t, c) < 1:
+        raise ValueError(f"graph_msg: empty shape B={bsz}, N={n}, T={t}, "
+                         f"C={c}")
     _multiple_of(8, C=c)
+    _aligned16(w_aff=w_aff, pooled=pooled)
     lib = build.library("graph_conv")
+    if not lib.cmpc_graph_msg_smem(c, t):
+        raise ValueError(f"graph_msg: C={c}, T={t} do not fit the message "
+                         "kernel's shared memory (rows of msg staged whole: "
+                         "C <= 4096, and C * T bounded)")
     parts = lib.cmpc_graph_msg_parts(n)
     msg = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=w_aff.device)
     stats = torch.empty((bsz, parts, 2), dtype=torch.float32,

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from cmpc_refseg_torch.ops import kernels
+from cmpc_refseg_torch.ops import build, kernels
 
 TOL = 1e-2
 STATS_TOL = 1e-3
@@ -411,8 +411,9 @@ def test_affinity_takes_any_word_count(cuda, groups, l2n, masked, t):
 @pytest.mark.gpu
 @pytest.mark.parametrize("t", WORDS)
 def test_graph_msg_takes_any_word_count(cuda, t):
-    """The message kernel sweeps the words in chunks of 32: T = 1 and past
-    one chunk, msg and its statistics against the plain version."""
+    """The message kernel takes the words in pooled boxes of up to 64 (T =
+    1, 33 and 40: one box of 16, 48, 48; 64: one; 300: five K chunks):
+    msg and its statistics against the plain version."""
     w_aff = torch.softmax(_rnd(cuda, 2, 100, t, dtype=torch.float32),
                           -1).to(torch.bfloat16)
     args = (w_aff, _rnd(cuda, 2, t, 72))
@@ -420,6 +421,89 @@ def test_graph_msg_takes_any_word_count(cuda, t):
     want = kernels.graph_msg_plain(*args)
     torch.cuda.synchronize()
     _close("graph_msg", got, want, 100 * 72)
+
+
+def _msg_args(g, b, n, t, c):
+    """graph_msg inputs at the model's scales: w_aff a softmax over the
+    words, pooled [b, t, c] standard normal."""
+    return (torch.softmax(_rnd(g, b, n, t, dtype=torch.float32), -1).to(
+        torch.bfloat16), _rnd(g, b, t, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("c", [8, 72, 1000, 1024])
+@pytest.mark.parametrize("n", [75, 1600, 1681])
+@pytest.mark.parametrize("t", [1, 16, 17, 20, 33, 300])
+def test_graph_msg_tensor_core_kernel_matches_plain_version(cuda, t, n, c, b):
+    """The mma + bulk-store message kernel: T = 16 is one k16 step, odd T
+    leaves w_aff rows 2-byte aligned, 33 and 300 take 48- and 64-word
+    pooled boxes (300 and C >= 1000: five K chunks streamed through a ring
+    instead of resident); N = 75 and 1681 end in a ragged 16-row tile and
+    32-row statistics group; C = 8, 72 and 1000 end in a partial
+    64-column chunk, and C = 1000 rows are not 32-byte multiples."""
+    args = _msg_args(cuda, b, n, t, c)
+    got = kernels.graph_msg(*args)
+    want = kernels.graph_msg_plain(*args)
+    torch.cuda.synchronize()
+    _close("graph_msg", got, want, n * c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,t", [(2048, 20), (4096, 20), (2048, 300)])
+def test_graph_msg_takes_wide_rows(cuda, c, t):
+    """Rows too wide for two [32 x C] staging buffers: 16-row tiles, pooled
+    streamed through per-warp rings instead of resident, and at C = 4096
+    one staging buffer; N = 75 ends in a ragged tile."""
+    args = _msg_args(cuda, 2, 75, t, c)
+    got = kernels.graph_msg(*args)
+    want = kernels.graph_msg_plain(*args)
+    torch.cuda.synchronize()
+    _close("graph_msg", got, want, 75 * c)
+
+
+@pytest.mark.gpu
+def test_graph_msg_raises_where_the_plan_does_not_fit(cuda):
+    """C = 4096 with T = 300 (or C past 4096) does not fit in shared
+    memory: the wrapper raises rather than launch."""
+    lib = build.library("graph_conv")
+    assert lib.cmpc_graph_msg_smem(1000, 20) > 0
+    assert lib.cmpc_graph_msg_smem(4096, 300) == 0
+    assert lib.cmpc_graph_msg_smem(4104, 1) == 0
+    with pytest.raises(ValueError, match="do not fit"):
+        kernels.graph_msg(*_msg_args(cuda, 1, 16, 300, 4096))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1600, 1681])
+def test_graph_msg_repeats_bit_identically(cuda, n):
+    """Two launches at the packed bs=1 shapes (3 samples, C = 1000, T =
+    20) give the same msg and statistics bits (the statistics are summed
+    in a fixed order, one slot per 32-row group), and the slots per
+    sample are `cmpc_graph_msg_parts(N)`."""
+    args = _msg_args(cuda, 3, n, 20, 1000)
+    first = kernels.graph_msg(*args)
+    again = kernels.graph_msg(*args)
+    parts = build.library("graph_conv").cmpc_graph_msg_parts(n)
+    assert parts == (n + 31) // 32
+    assert first[1].shape == (3, parts, 2)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_graph_msg_raises_on_misaligned_or_noncontiguous(cuda):
+    """pooled is read by TMA and w_aff by 1-D bulk copies: the wrapper
+    raises on a base that is not 16-byte aligned or a non-contiguous
+    tensor rather than launch."""
+    w_aff, pooled = _msg_args(cuda, 2, 100, 17, 72)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.graph_msg(w_aff, _shifted(pooled))
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.graph_msg(_shifted(w_aff), pooled)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.graph_msg(w_aff, pooled.transpose(1, 2).contiguous()
+                          .transpose(1, 2))
 
 
 @pytest.mark.gpu

@@ -191,9 +191,14 @@ def test_graph_conv_matches_jax_reference(rng, port_fn):
 
 @pytest.mark.parametrize("n,t", [pytest.param(64, 6, id="64"),
                                  pytest.param(256, 6, id="256"),
-                                 pytest.param(64, 40, id="64-T40")])
+                                 pytest.param(64, 40, id="64-T40"),
+                                 pytest.param(75, 17, id="75-T17"),
+                                 pytest.param(75, 33, id="75-T33")])
 def test_graph_conv_matches_pallas_interpret(rng, n, t):
-    """T = 40: more words than one 32-word chunk of the message kernel."""
+    """T = 40: more words than one 32-word chunk of the message kernel;
+    T = 17 and 33: odd word counts (the kernel's w_aff rows are 2-byte
+    aligned, its K padded to 32 and 48); N = 75: no multiple of the
+    kernel's 16-row tiles (the Pallas call takes one whole-sample tile)."""
     gp, tgp, x, wa, va = _graph_case(rng, n=n, t=t)
     want = pk.graph_conv_fused(gp, jnp.asarray(x), jnp.asarray(wa),
                                jnp.asarray(va), interpret=True)
@@ -233,6 +238,25 @@ def test_graph_msg_and_update_match_pallas_calls(rng):
     np.testing.assert_allclose(st2.sum(1).numpy(),
                                np.asarray(j_st2)[:, :2, 0], rtol=2e-5,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("b,n,t", [(3, 75, 17), (2, 75, 33), (1, 64, 1)])
+def test_graph_msg_matches_pallas_call_at_ragged_shapes(rng, b, n, t):
+    """graph_msg against `_graph_msg_call` (interpret mode, one
+    whole-sample tile) where the CUDA kernel's edges lie: odd T (17), T
+    past one 32-word box (33), T = 1, and N = 75 rows (a ragged last
+    16-row tile and 32-row group); msg and the summed statistics."""
+    c = 40
+    wa = np.abs(rng.standard_normal((b, n, t))).astype(np.float32)
+    pooled = rng.standard_normal((b, t, c)).astype(np.float32)
+    j_msg, j_st = pk._graph_msg_call(jnp.asarray(wa.reshape(b * n, t)),
+                                     jnp.asarray(pooled), bsz=b, n=n, c=c,
+                                     t=t, tiles=1, interpret=True)
+    msg, st = kernels.graph_msg(_t(wa), _t(pooled))
+    np.testing.assert_allclose(msg.numpy().reshape(b * n, c),
+                               np.asarray(j_msg), **TOL)
+    np.testing.assert_allclose(st.sum(1).numpy(),
+                               np.asarray(j_st)[:, :2, 0], **TOL)
 
 
 @pytest.mark.parametrize("graph_norm", ["masked", "unmasked",

@@ -7,12 +7,15 @@ the flags of ops/build.py) into <out>/<group>/<variant>/, points the
 kernel's wrapper at each build in turn and times it with CUDA events
 (chip_smoke.gpu_ms) at the shapes of chip_smoke.kernel_inputs, with its
 largest error against the plain version (diagnostic variants compute
-something else, so theirs is large).  The first variant, the committed
-source, runs again at the end to show the drift.  Diagnostic variants
-(no compute, no stores, no transcendental math) show what holds a kernel;
-the others are the designs measured against it.
+something else, so theirs is large; statistics partials are compared
+summed over their slots).  The first variant, the committed source, runs
+again at the end to show the drift.  Diagnostic variants (no compute, no
+stores, no transcendental math) show what holds a kernel; the others are
+the designs measured against it.  For the groups in SASS_KERNEL the tool
+also counts the kernel's SASS opcodes in each build (cuobjdump): the
+tensor-core products (HMMA), TMA loads and stores (UTMALDG, UTMASTG).
 
-    python3 tools/kernel_variants.py dz|raw [--out build/kernel_variants]
+    python3 tools/kernel_variants.py dz|raw|msg [--out build/kernel_variants]
 
 Needs a CUDA GPU and nvcc; prints one line per shape and one JSON line.
 """
@@ -21,6 +24,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -97,6 +101,71 @@ _RAW_F32_UPDATE = [(
       if (C > 0) continue;
       const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&in[3]) + 2 * q4;""")]
 
+# graph_msg: the committed source without the bulk stores of msg, without
+# the product (pooled is still loaded and waited for), without both,
+# without the A fragments' gather from the w_aff stage, without the
+# statistics, without the staging writes; the sums of squares on the
+# tensor cores instead of the f32 pipes; one block per
+# 32-row group instead of one block per SM walking a range of them; 16-row
+# tiles instead of 32; pooled streamed through a ring of one box a warp
+# for every tile instead of resident; 16 consumer warps; and each tile's rows stored in 64-column pieces (the 2D-box
+# stores' sector split) by one 1-D bulk copy per row and chunk, from the
+# same staging
+_MSG_NO_STORE = [("      bulk_store(msg + (static_cast<size_t>(x.s) * N + r0) * C, out,",
+                  "      if (C < 0) bulk_store(msg + (static_cast<size_t>(x.s) * N + r0) * C, out,")]
+_MSG_NO_PRODUCT = [("          if (ks >= ksteps) break;",
+                    "          if (ks >= ksteps || C > 0) break;")]
+_MSG_NO_A_GATHER = [("      const uint32_t x0 = ok && k < T ? static_cast<uint32_t>(w[0]) : 0u;\n"
+                     "      const uint32_t x1 = ok && k + 1 < T ? static_cast<uint32_t>(w[1]) : 0u;",
+                     "      const uint32_t x0 = ok && k < T ? 0x3c00u + k : 0u;\n"
+                     "      const uint32_t x1 = ok && k + 1 < T ? 0x3c00u + r : 0u;")]
+_MSG_NO_STATS = [
+    ("          mma_m16n8k16(sx[(mi + pr) & 1], xf, kOnes, kOnes);\n", ""),
+    ("            sq[e] = fmaf(lo, lo, fmaf(hi, hi, sq[e]));", "")]
+_MSG_NO_STAGING = [("            if (col + 8 * (e / 2) < C)\n"
+                    "              *reinterpret_cast<uint32_t*>(out_row",
+                    "            if (col + 8 * (e / 2) < C && C < 0)\n"
+                    "              *reinterpret_cast<uint32_t*>(out_row")]
+# the sums of squares on the tensor cores too, as the diagonals of x * x^T
+# (rows 0-7 and 8-15 of each m16 tile apart)
+_MSG_SQ_MMA = [
+    ("  float sx[2][4] = {}, sq[4] = {};",
+     "  float sx[2][4] = {}, sq[4] = {}, sq0[4] = {}, sq1[4] = {};"),
+    ("""#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lo = __uint_as_float(xf[e] << 16);
+            const float hi = __uint_as_float(xf[e] & 0xffff0000u);
+            sq[e] = fmaf(lo, lo, fmaf(hi, hi, sq[e]));
+          }
+""", """          mma_m16n8k16(sq0, xf, xf[0], xf[2]);
+          mma_m16n8k16(sq1, xf, xf[1], xf[3]);
+"""),
+    ("      const float s2 = warp_sum(sq[0] + sq[1] + sq[2] + sq[3]);",
+     "      const float s2 = warp_sum(2 * c == gq ? sq0[0] + sq1[2]\n"
+     "                                : 2 * c + 1 == gq ? sq0[1] + sq1[3] : 0.f);\n"
+     "#pragma unroll\n"
+     "      for (int e = 0; e < 4; ++e) sq0[e] = sq1[e] = 0.f;")]
+_MSG_GRID_PER_GROUP = [
+    ("  const int grid = groups < sms ? static_cast<int>(groups) : sms;",
+     "  const int grid = static_cast<int>(groups);")]
+_MSG_16_ROW_TILES = [("  p.mt = 1024 + kMsgAStages", "  p.mt = C < 0 && 1024 + kMsgAStages")]
+_MSG_SPLIT_STORES = [
+    ("    if (threadIdx.x == 0) bulk_wait_read();\n    named_bar_sync(1, 32 * kMsgWarps);",
+     "    bulk_wait_read();\n    named_bar_sync(1, 32 * kMsgWarps);"),
+    ("""    if (threadIdx.x == 0) {
+      const int n_rows = N - r0 < tile_rows ? N - r0 : tile_rows;""",
+     """    for (int e = threadIdx.x; e < tile_rows * plan.chunks; e += 32 * kMsgWarps) {
+      const int r = e / plan.chunks, col = (e % plan.chunks) * kChunk;
+      if (r0 + r < N)
+        bulk_store(msg + (static_cast<size_t>(x.s) * N + r0 + r) * C + col, out + r * C + col,
+                   (C - col < kChunk ? C - col : kChunk) * 2);
+    }
+    bulk_commit();
+    if (C < 0) {
+      const int n_rows = N - r0 < tile_rows ? N - r0 : tile_rows;"""),
+    ("  if (threadIdx.x == 0) bulk_wait_read();   // the stores have read shared memory",
+     "  bulk_wait_read();")]
+
 # group -> (source, wrapper, [(batch, train)], {variant: edits})
 GROUPS = {
     "dz": ("mutan_bwd", "mutan_bwd_dz", [(8, True)], {
@@ -117,7 +186,27 @@ GROUPS = {
         "four blocks per SM": _const("kRawBlocksPerSM", 3, 4),
         "f32 cell update": _RAW_F32_UPDATE,
     }),
+    "msg": ("graph_conv", "graph_msg", [(8, False), (1, False), (64, False)], {
+        "final": [],
+        "no msg stores": _MSG_NO_STORE,
+        "no product": _MSG_NO_PRODUCT,
+        "no product, no stores (pooled loads alone)": _MSG_NO_PRODUCT + _MSG_NO_STORE,
+        "no A gather (a constant A)": _MSG_NO_A_GATHER,
+        "no statistics": _MSG_NO_STATS,
+        "no staging writes": _MSG_NO_STAGING,
+        "sums of squares on the tensor cores": _MSG_SQ_MMA,
+        "one block per group": _MSG_GRID_PER_GROUP,
+        "16-row tiles": _MSG_16_ROW_TILES,
+        "pooled streamed every tile (8 slots)": _const("kMsgMaxSlots", 64, 8),
+        "16 consumer warps": _const("kMsgWarps", 8, 16),
+        "rows stored in 64-column pieces": _MSG_SPLIT_STORES,
+    }),
 }
+# the kernel whose SASS opcodes (tensor-core products, TMA, shared-memory
+# traffic) the tool counts in each variant's build
+SASS_KERNEL = {"msg": "graph_msg_kernel"}
+SASS_OPS = ("HMMA", "LDSM", "UTMALDG", "UTMASTG", "UBLKCP", "STS", "LDG", "BAR",
+            "SYNCS")
 
 
 def edited_source(src, edits):
@@ -162,6 +251,30 @@ def build_variants(out, src, variants):
     return libs
 
 
+def sass_counts(lib_path, kernel):
+    """Counts of SASS_OPS in the compiled `kernel` of a library (cuobjdump
+    from the CUDA toolkit), or None where cuobjdump is missing."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True).stdout
+    counts, inside = dict.fromkeys(SASS_OPS, 0), False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(.*?);", line)
+        if inside and m:
+            words = m.group(1).split()
+            op = words[1] if words[0].startswith("@") and len(words) > 1 \
+                else words[0]
+            base = op.split(".")[0]
+            if base in counts:
+                counts[base] += 1
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("group", choices=sorted(GROUPS))
@@ -172,6 +285,14 @@ def main():
     src, name, cases, variants = GROUPS[args.group]
     libs = build_variants(Path(args.out) / args.group, src, variants)
     card = chip_smoke.card_line()
+    sass = {}
+    if args.group in SASS_KERNEL:
+        for i, variant in enumerate(libs):
+            sass[variant] = sass_counts(
+                Path(args.out) / args.group / f"v{i}" / f"lib{src}.so",
+                SASS_KERNEL[args.group])
+            print(f"[{card}] SASS of {SASS_KERNEL[args.group]}, {variant}: "
+                  f"{sass[variant]}", flush=True)
     wrapper = getattr(kernels, name)
     dev = torch.device("cuda")
     order = list(libs) + list(libs)[:1]
@@ -189,7 +310,11 @@ def main():
             build._loaded[src] = libs[variant]
             got = wrapper(*fargs, **kw)
             torch.cuda.synchronize()
-            err = max(((a.float() - b.float()).abs().max()
+            # statistics partials are held summed over their slots
+            err = max(((a.float().sum(1) - b.float().sum(1)).abs().max()
+                       / b.float().sum(1).abs().max()).item()
+                      if a.shape != b.shape else
+                      ((a.float() - b.float()).abs().max()
                        / b.float().abs().max()).item()
                       for a, b in zip(got[:2], want[:2]))
             ms = chip_smoke.gpu_ms(torch, lambda: wrapper(*fargs, **kw))
@@ -199,7 +324,8 @@ def main():
                           f"{r['norm_err']:.1e})" for r in row), flush=True)
         results.append({"batch": batch, "bound_ms": bound_ms, "runs": row})
     build._loaded.pop(src, None)
-    print(json.dumps({"card": card, "kernel": name, "results": results}))
+    print(json.dumps({"card": card, "kernel": name, "results": results,
+                      "sass": sass}))
 
 
 if __name__ == "__main__":
