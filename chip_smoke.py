@@ -60,7 +60,22 @@ Phases, each fatal on failure:
     one warm-up step and 10 timed steps on seeded uint8 batches (3-20
     words, box masks), launch counts reset just before them and read just
     after; losses and gradients finite; ms/step, steps/s, peak memory;
- 7. the kernels' share of each path's run, the `kernels` JSON line (each
+ 7. variants: build_model of CMPC_model_origin, CMPCv2_model,
+    CMPCv3_model, CMPCv4_model, CMPCv5_model, CMPCv6_model and
+    CMPCv4_model with graph_norm="double_softmax" at 320x320, bs=8, bf16,
+    full depth (two levels for all but origin: the packed graph at G=2,
+    one "other" level in the SE sum; no SE sum for the self-gated v6; the
+    per-level graph for the double softmax; the ASPP + v3+ decoder with
+    its BN moving statistics for v4-v6; front-padded tokens with
+    `valid_idx` for origin and v3).  Each: counts reset before 5 timed
+    forwards and read after, sigm against the plain route, the device
+    split of a forward (port kernels, convolutions, GEMMs, the rest) and,
+    for the decoder configs, of the ASPP + decoder alone.  Then 20
+    batch-1 requests to build_service("CMPCv6_model") as in phase 5, and
+    CMPCv4_model's bs=8 train step as in phase 6 (its BN batch statistics
+    of both routes held against each other too).  Phase 3 holds every
+    kernel at each of these paths' shapes;
+ 8. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -86,6 +101,16 @@ B, H_IMG, N, C, K, A, T, HEADS = 8, 320, 1600, 1000, 1008, 1000, 20, 5
 RES4 = 23                    # full depth: ResNet-101
 CM, G = 500, 3               # mlp width (fusion stack); levels packed at bs=1
 B_LARGE = 64                 # above the packing threshold: per-level graph
+# phase 7: (path tag, config name, overrides)
+VARIANTS = (("origin", "CMPC_model_origin", {}), ("v2", "CMPCv2_model", {}),
+            ("v3", "CMPCv3_model", {}), ("v4", "CMPCv4_model", {}),
+            ("v5", "CMPCv5_model", {}), ("v6", "CMPCv6_model", {}),
+            ("v4ds", "CMPCv4_model", {"graph_norm": "double_softmax"}))
+PORT_KERNELS = ("convlstm_gates_kernel", "convlstm_raw_kernel",
+                "graph_msg_kernel", "graph_update_kernel",
+                "mutan_heads_kernel", "mutan_norm_kernel", "mutan_dz_kernel",
+                "mutan_dz_finalize_kernel", "mutan_dw_kernel",
+                "mutan_dw_sum_kernel", "se_sum_kernel", "spa_affinity_kernel")
 N_FWD = 5
 SIGM_TOL = 2e-2
 # kernel outputs against the plain version, as a share of the largest entry
@@ -186,9 +211,10 @@ def gpu_ms(torch, fn, groups=5, reps=10):
     return statistics.median(times)
 
 
-def device_split_ms(torch, fn, reps=20):
+def device_split_ms(torch, fn, reps=20, launches=False):
     """Mean device ms per call of each kernel `fn` launches, by name, from
-    torch.profiler's CUDA activity; {} where it records no device time."""
+    torch.profiler's CUDA activity; {} where it records no device time.
+    With `launches`, also the device kernels a call launches."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -196,7 +222,7 @@ def device_split_ms(torch, fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, count = {}, 0
     for e in prof.key_averages():
         total = getattr(e, "device_time_total", 0) or getattr(
             e, "cuda_time_total", 0)
@@ -204,7 +230,8 @@ def device_split_ms(torch, fn, reps=20):
             name = e.key.split("(")[0].replace("void ", "").replace(
                 "cmpc::", "")
             out[name] = total / reps / 1e3
-    return out
+            count += e.count
+    return (out, count / reps) if launches else out
 
 
 def bound(flops_mm, ops_f32, nbytes):
@@ -255,26 +282,48 @@ def compare_stats(torch, got, want, count, tol, what):
     return (gs - ws).abs().max().item(), norm
 
 
-def path_batches():
-    """The paths phases 4 to 6 drive, each with its batch and whether it
-    trains: the bs=8 forward, the batch-1 request, the bs=64 forward
-    (above the packing threshold: the per-level spatial graph) and the
-    bs=8 train step."""
-    return {"forward_bs8": (B, False), "serving_bs1": (1, False),
-            f"forward_bs{B_LARGE}": (B_LARGE, False), "train_bs8": (B, True)}
+def path_spec(cfg, batch, train=False):
+    """What phase 3 needs to know of a path: its batch, whether it trains,
+    and its config's levels, graph norm and exchange layout."""
+    return {"batch": batch, "train": train, "levels": len(cfg.levels),
+            "graph_norm": cfg.graph_norm, "self_gate": cfg.exchange_self_gate}
 
 
-def kernel_inputs(torch, kernels, cmpc, dev, batch, train=False):
-    """The inputs of each kernel the forward at `batch` launches, at the
-    shapes it gives them, made from a seed and scaled so the logits and
-    products are O(1) as in the model; graph_update takes graph_msg's
-    (msg, stats) and convlstm_raw takes convlstm_gates' (gates, stats), as
-    the path does.  Where the rule packs the levels, the graph kernels see
-    the packed batch G*batch and the affinity and update take G weight
-    groups.  With `train`, the mutan kernel's training form takes the
-    inference form's place, and the dz pass takes the residual v it makes
-    and a cotangent, the dW product x and the dz pass's dz.
+def path_specs(get_config):
+    """The paths phases 4 to 7 drive: the flagship's bs=8 forward, batch-1
+    request, bs=64 forward (above the packing threshold: the per-level
+    spatial graph) and bs=8 train step; each variant's bs=8 forward, the
+    CMPCv6_model batch-1 request and the CMPCv4_model bs=8 train step."""
+    flag = get_config("CMPC_model")
+    specs = {"forward_bs8": path_spec(flag, B),
+             "serving_bs1": path_spec(flag, 1),
+             f"forward_bs{B_LARGE}": path_spec(flag, B_LARGE),
+             "train_bs8": path_spec(flag, B, train=True)}
+    for tag, name, overrides in VARIANTS:
+        specs[f"{tag}_bs8"] = path_spec(get_config(name, **overrides), B)
+    specs["v6_serving_bs1"] = path_spec(get_config("CMPCv6_model"), 1)
+    specs["v4_train_bs8"] = path_spec(get_config("CMPCv4_model"), B,
+                                      train=True)
+    return specs
+
+
+def kernel_inputs(torch, kernels, cmpc, dev, spec):
+    """The inputs of each kernel the path `spec` launches, at the shapes it
+    gives them, made from a seed and scaled so the logits and products are
+    O(1) as in the model; graph_update takes graph_msg's (msg, stats) and
+    convlstm_raw takes convlstm_gates' (gates, stats), as the path does.
+    Where the rule packs the levels, the graph kernels see the packed batch
+    G*batch (G = the config's levels) and the affinity and update take G
+    weight groups.  The affinity's `masked` form follows the graph norm;
+    under the double softmax no affinity kernel runs and graph_msg takes
+    that affinity (a softmax over the nodes times a relation probability
+    per word).  The SE sum takes G - 1 others; the self-gated exchange
+    launches none.  With `train`, the mutan kernel's training form takes
+    the inference form's place, and the dz pass takes the residual v it
+    makes and a cotangent, the dW product x and the dz pass's dz.
     Returns {wrapper name: (args, kwargs, kernel batch, groups)}."""
+    batch, train, levels = spec["batch"], spec["train"], spec["levels"]
+    norm = spec["graph_norm"]
     g = torch.Generator(device=dev).manual_seed(batch)
     f32 = torch.float32
 
@@ -291,17 +340,24 @@ def kernel_inputs(torch, kernels, cmpc, dev, batch, train=False):
             :, None].contiguous()
 
     def msg_args(b):
-        return (torch.softmax(randn(b, N, T, dtype=f32), -1).to(
-            torch.bfloat16), randn(b, T, C))
+        logits = randn(b, N, T, dtype=f32)
+        if norm == "double_softmax":
+            w_aff = torch.softmax(logits, 1) * torch.rand(
+                b, 1, T, generator=g, device=dev)
+        else:
+            w_aff = torch.softmax(logits, -1)
+        return w_aff.to(torch.bfloat16), randn(b, T, C)
 
-    packed = cmpc.pack_levels(batch, G)
-    bg, lead, groups = (G * batch, (G,), G) if packed else (batch, (), 1)
+    packed = cmpc.pack_levels(batch, levels, norm)
+    bg, lead, groups = ((levels * batch, (levels,), levels) if packed
+                        else (batch, (), 1))
     sfx = "_grouped" if packed else ""
     affinity = ((randn(bg, N, C), randn(*lead, C, A, scale=0.05),
                  randn(*lead, A, scale=0.1), randn(bg, T, A),
                  torch.rand(bg, 1, T, generator=g, device=dev),
                  word_mask(bg)),
-                {"scale": math.sqrt(C), "l2n": False, "masked": True})
+                {"scale": math.sqrt(C), "l2n": False,
+                 "masked": norm in ("masked", "unmasked")})
     msg, stats1 = kernels.graph_msg_plain(*msg_args(bg))
     update = (randn(bg, N, C), msg, stats1,
               uniform(*lead, C, C, limit=math.sqrt(3 / C)),
@@ -322,34 +378,37 @@ def kernel_inputs(torch, kernels, cmpc, dev, batch, train=False):
         _, v = kernels.mutan_fwd_residual_plain(*mutan_args, **mutan_kw)
         dz_args = (v, mutan_args[3], randn(batch * N, C, scale=1e-3))
         dz, _, _ = kernels.mutan_bwd_dz_plain(*dz_args, **mutan_kw)
-        mutan = {"mutan_fwd_residual": (mutan_args, mutan_kw, batch, 1),
-                 "mutan_bwd_dz": (dz_args, mutan_kw, batch, 1),
-                 "mutan_dw": ((mutan_args[0], dz), {}, batch, 1)}
+        out = {"mutan_fwd_residual": (mutan_args, mutan_kw, batch, 1),
+               "mutan_bwd_dz": (dz_args, mutan_kw, batch, 1),
+               "mutan_dw": ((mutan_args[0], dz), {}, batch, 1)}
     else:
-        mutan = {"mutan_fused": (mutan_args, mutan_kw, batch, 1)}
-    return {
-        **mutan,
-        "spa_affinity" + sfx: (*affinity, bg, groups),
-        "graph_msg": (msg_args(bg), {}, bg, 1),
-        "graph_update" + sfx: (update, {}, bg, groups),
-        "se_sum": ((randn(batch, N, CM), [randn(batch, N, CM)
-                                          for _ in range(2)],
-                    [torch.sigmoid(randn(batch, CM, dtype=f32)).to(
-                        torch.bfloat16) for _ in range(2)],
-                    [uniform(CM, CM, limit=math.sqrt(3 / CM))
-                     for _ in range(2)],
-                    [randn(CM, scale=0.1) for _ in range(2)]), {}, batch, 1),
-        "convlstm_gates": (gates_args, {}, batch, 1),
-        "convlstm_raw": ((gates, cell, uniform(N, CM, limit=0.1), gstats,
-                          1 + randn(5, CM, scale=0.1, dtype=f32),
-                          randn(5, CM, scale=0.1, dtype=f32)), {}, batch, 1),
-    }
+        out = {"mutan_fused": (mutan_args, mutan_kw, batch, 1)}
+    if norm != "double_softmax":
+        out["spa_affinity" + sfx] = (*affinity, bg, groups)
+    out["graph_msg"] = (msg_args(bg), {}, bg, 1)
+    out["graph_update" + sfx] = (update, {}, bg, groups)
+    if not spec["self_gate"]:
+        k = levels - 1
+        out["se_sum"] = ((randn(batch, N, CM),
+                          [randn(batch, N, CM) for _ in range(k)],
+                          [torch.sigmoid(randn(batch, CM, dtype=f32)).to(
+                              torch.bfloat16) for _ in range(k)],
+                          [uniform(CM, CM, limit=math.sqrt(3 / CM))
+                           for _ in range(k)],
+                          [randn(CM, scale=0.1) for _ in range(k)]), {},
+                         batch, 1)
+    out["convlstm_gates"] = (gates_args, {}, batch, 1)
+    out["convlstm_raw"] = ((gates, cell, uniform(N, CM, limit=0.1), gstats,
+                            1 + randn(5, CM, scale=0.1, dtype=f32),
+                            randn(5, CM, scale=0.1, dtype=f32)), {}, batch, 1)
+    return out
 
 
-def kernel_cost(name, bk, groups):
+def kernel_cost(name, bk, groups, others=2):
     """(bf16 product FLOPs, other f32 operations, bytes) of a kernel's
     function on a batch of `bk` samples of N rows with `groups` weight
-    groups: each input read once, each output written once."""
+    groups (the SE sum with `others` other levels): each input read once,
+    each output written once."""
     m, cm = bk * N, CM
     if name in ("mutan_fused", "mutan_fwd_residual"):
         v_out = m * HEADS * C * 2 if name == "mutan_fwd_residual" else 0
@@ -375,9 +434,10 @@ def kernel_cost(name, bk, groups):
     if name.startswith("graph_update"):
         return (2 * m * C * C, 10 * m * C,
                 3 * m * C * 2 + groups * (C * C * 2 + C * 2 + 2 * C * 4))
-    if name == "se_sum":     # 2 others: product, bias, relu, gate, add; norm
-        return (2 * 2 * m * cm * cm, 2 * 5 * m * cm + 3 * m * cm,
-                4 * m * cm * 2 + 2 * (cm * cm + cm + bk * cm) * 2)
+    if name == "se_sum":     # per other: product, bias, relu, gate, add; norm
+        k = others
+        return (2 * k * m * cm * cm, k * 5 * m * cm + 3 * m * cm,
+                (2 + k) * m * cm * 2 + k * (cm * cm + cm + bk * cm) * 2)
     if name == "convlstm_gates":
         return (2 * m * 2 * cm * 4 * cm, 8 * m * cm,
                 3 * m * cm * 2 + 2 * cm * 4 * cm * 2 + 2 * N * cm * 2
@@ -419,9 +479,10 @@ def library_product(torch, name, args):
     return lambda: torch.matmul(x, w)
 
 
-def check_kernels(torch, kernels, cmpc, dev):
-    """Phase 3: each kernel of each path at the shapes that path gives it,
-    against its plain version; returns one record per (kernel, path)."""
+def check_kernels(torch, kernels, cmpc, dev, specs):
+    """Phase 3: each kernel of each path of `specs` at the shapes that path
+    gives it, against its plain version; returns one record per (kernel,
+    path)."""
     # bf16 outputs: the kernel and its plain version round at the same
     # places but sum in other orders, so a rounding may land one bf16 ulp
     # apart; 1e-2 of the largest entry admits one ulp there (at most 2^-7)
@@ -432,9 +493,10 @@ def check_kernels(torch, kernels, cmpc, dev):
     # wrong or missing column moves them by its whole size
     stats_tol = 1e-3
     records = []
-    for path, (batch, train) in path_batches().items():
-        inputs = kernel_inputs(torch, kernels, cmpc, dev, batch, train)
+    for path, spec in specs.items():
+        inputs = kernel_inputs(torch, kernels, cmpc, dev, spec)
         for name, (args, kw, bk, groups) in inputs.items():
+            others = len(args[1]) if name == "se_sum" else None
             wrapper = getattr(kernels, name)
             plain = kernels.PLAIN[wrapper]
             what = f"{name} at {path}"
@@ -469,7 +531,8 @@ def check_kernels(torch, kernels, cmpc, dev):
             library_ms = gpu_ms(torch, library) if library else None
             product = library_product(torch, name, args)
             matmul_ms = gpu_ms(torch, product) if product else None
-            bound_ms, bound_by = bound(*kernel_cost(name, bk, groups))
+            bound_ms, bound_by = bound(*kernel_cost(name, bk, groups,
+                                                    others or 2))
             extra = {}
             if name == "mutan_bwd_dz":
                 # dz kernel and finalize apart; the grid is one block per SM
@@ -481,7 +544,10 @@ def check_kernels(torch, kernels, cmpc, dev):
                 extra["grid"] = slots * bk
             rec = {
                 "name": f"{name}@{path}", "kernel": name, "path": path,
-                "shape": {"batch": bk, "groups": groups, "rows": bk * N},
+                "shape": {"batch": bk, "groups": groups, "rows": bk * N,
+                          **({"others": others} if others else {}),
+                          **({"masked": kw["masked"]} if "masked" in kw
+                             else {})},
                 "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": None,
                 "max_abs_err": max(e for e, _ in errs),
@@ -503,8 +569,10 @@ def check_kernels(torch, kernels, cmpc, dev):
                     if matmul_ms is not None else "no product")
             if extra:
                 prod += f"; {json.dumps(extra)}"
+            form = (f", {others} other(s)" if others else "") + (
+                "" if kw.get("masked", True) else ", unmasked")
             log(f"[kernels] {name} at {path} (batch {bk}, {groups} weight "
-                f"group(s)): max abs err {rec['max_abs_err']:.3e} (norm "
+                f"group(s){form}): max abs err {rec['max_abs_err']:.3e} (norm "
                 f"{rec['max_norm_err']:.3e} <= {tol:.0e}){stats_note}; "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {prod}, bound "
                 f"{bound_ms:.4f} ms ({bound_by})")
@@ -677,24 +745,34 @@ def check_edges(torch, kernels, dev):
     return records
 
 
-def expected_launches(cmpc, batch, levels=3, train=False):
-    """Kernel launches of one flagship forward (or train step) at `batch`:
-    one mutan per level (a train step: the training form, the dz pass and
-    the dW product, each once per level), one graph per level (or one
-    packed set of launches), one SE sum per level in each of the two
-    exchange rounds, and one ConvLSTM step per level.  The backward
-    launches no other kernel: it recomputes the other ops' plain routes."""
-    packed = cmpc.pack_levels(batch, levels)
+def expected_launches(cmpc, batch, levels=3, train=False,
+                      graph_norm="masked", self_gate=False):
+    """Kernel launches of one forward (or train step) at `batch` of a config
+    with `levels` levels: one mutan per level (a train step: the training
+    form, the dz pass and the dW product, each once per level), one graph
+    per level (or one packed set of launches; under the double softmax no
+    affinity kernel), one SE sum per level in each of the two exchange
+    rounds (none for the self-gated exchange), and one ConvLSTM step per
+    level.  The backward launches no other kernel: it recomputes the other
+    ops' plain routes."""
+    packed = cmpc.pack_levels(batch, levels, graph_norm)
     per_level = 0 if packed else levels
+    affinity = graph_norm != "double_softmax"
     mutan = dict.fromkeys(("mutan_fwd_residual", "mutan_bwd_dz", "mutan_dw"),
                           levels if train else 0)
     return {"mutan_fused": 0 if train else levels, **mutan,
-            "spa_affinity": per_level,
-            "spa_affinity_grouped": int(packed),
+            "spa_affinity": per_level if affinity else 0,
+            "spa_affinity_grouped": int(packed and affinity),
             "graph_msg": 1 if packed else levels, "graph_update": per_level,
             "graph_update_grouped": int(packed),
-            "se_sum": 2 * levels, "convlstm_gates": levels,
-            "convlstm_raw": levels}
+            "se_sum": 0 if self_gate else 2 * levels,
+            "convlstm_gates": levels, "convlstm_raw": levels}
+
+
+def config_launches(cmpc, cfg, batch, train=False):
+    """`expected_launches` of config `cfg`."""
+    return expected_launches(cmpc, batch, len(cfg.levels), train,
+                             cfg.graph_norm, cfg.exchange_self_gate)
 
 
 def check_counts(counts, expected, runs, what):
@@ -705,21 +783,33 @@ def check_counts(counts, expected, runs, what):
 
 
 def make_batch(cfg, batch, seed=0):
+    """Seeded images and 3-20-word expressions: back-padded with 'seq_len',
+    or, for the 'lstm_frontpad' encoder, front-padded with 'valid_idx' (the
+    number of pads)."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(3, cfg.num_steps + 1, batch)
     words = np.zeros((batch, cfg.num_steps), np.int64)
+    front = cfg.text_encoder == "lstm_frontpad"
     for i, n in enumerate(lens):
-        words[i, :n] = rng.integers(3, cfg.vocab_size, n)
+        ids = rng.integers(3, cfg.vocab_size, n)
+        if front:
+            words[i, cfg.num_steps - n:] = ids
+        else:
+            words[i, :n] = ids
+    text = {"valid_idx": cfg.num_steps - lens} if front else \
+        {"seq_len": lens.astype(np.int64)}
     return {"im": (50 * rng.standard_normal(
                 (batch, cfg.H, cfg.W, 3))).astype(np.float32),
-            "words": words, "seq_len": lens.astype(np.int64)}
+            "words": words, **text}
 
 
 def check_forward(torch, cfg, out, ref, batch, what):
     """Outputs finite and shaped, and sigm within the bf16 tolerance of the
     plain route's; returns the sigm error."""
+    # the multiscore logits at the levels' 1/8, the v3+ decoder's at c2's 1/4
+    stride = 4 if cfg.decoder == "aspp_v3plus" else 8
     shapes = {"up": (batch, cfg.H, cfg.W, 1), "sigm": (batch, cfg.H, cfg.W, 1),
-              "pred": (batch, cfg.vf_h, cfg.vf_w, 1),
+              "pred": (batch, cfg.H // stride, cfg.W // stride, 1),
               "words_parse": (batch, 1, cfg.num_steps, cfg.parse_classes)}
     for key, shape in shapes.items():
         v = getattr(out, key)
@@ -916,9 +1006,12 @@ def time_packing(torch, cmpc, svc, card):
     return rows
 
 
-def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card):
-    """Phase 5: the batch-1 serving path through PredictService.predict."""
-    svc = build_service("CMPC_model", dtype="bfloat16", device=DEV)
+def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card,
+                name="CMPC_model", path="serving_bs1"):
+    """Phase 5 (and phase 7's CMPCv6_model requests): the batch-1 serving
+    path of config `name` through PredictService.predict; the flagship's
+    also times the packed against the per-level spatial graph."""
+    svc = build_service(name, dtype="bfloat16", device=DEV)
     cfg = svc.cfg
     if (cfg.H, cfg.res4_blocks, cfg.batch_size, cfg.v_emb_dim) != \
             (H_IMG, RES4, 1, C):
@@ -934,7 +1027,7 @@ def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card):
         results.append(svc.predict(img, expr))
         latency.append((time.perf_counter() - t0) * 1e3)
     counts = kernels.launch_counts()
-    check_counts(counts, expected_launches(cmpc, 1), N_REQ, "serving")
+    check_counts(counts, config_launches(cmpc, cfg, 1), N_REQ, path)
 
     # the stages of the same requests: host preprocessing, the forward
     # (ending in the copy of sigm to the host), host postprocessing
@@ -957,16 +1050,17 @@ def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card):
     for (img, expr), (prob, mask) in zip(requests, results):
         if prob.shape != img.shape[:2] or mask.shape != img.shape[:2] \
                 or not np.isfinite(prob).all():
-            fail(f"serving: prob {prob.shape} / mask {mask.shape} for an "
+            fail(f"{path}: prob {prob.shape} / mask {mask.shape} for an "
                  f"image of {img.shape[:2]}, or non-finite prob")
         with torch.inference_mode():
             ref = apply_model(svc.params, cfg, svc.preprocess(img, expr),
+                              model_state=svc.model_state,
                               use_kernels=False).sigm
         ref_prob, _ = svc.postprocess(ref[0, :, :, 0].float().cpu().numpy(),
                                       img.shape[:2])
         worst = max(worst, float(np.abs(prob - ref_prob).max()))
     if not worst <= SIGM_TOL:
-        fail(f"serving: prob of the kernels vs the plain route differs by "
+        fail(f"{path}: prob of the kernels vs the plain route differs by "
              f"{worst:.3e} > {SIGM_TOL}")
 
     def pct(v, q):
@@ -976,7 +1070,7 @@ def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card):
                "p90_ms": pct(latency, 90),
                **{f"{k}_median_ms": pct(v, 50) for k, v in stages.items()},
                "prob_vs_plain_max_abs": worst}
-    log(f"[serving] {card}: CMPC_model 320x320 bf16 res4_blocks=23 batch 1: "
+    log(f"[{path}] {card}: {name} 320x320 bf16 res4_blocks=23 batch 1: "
         f"{N_REQ} requests, latency median {summary['median_ms']:.3f} ms, "
         f"p90 {summary['p90_ms']:.3f} ms (after a warm-up; all "
         f"{[round(v, 3) for v in latency]}); stages median: pre "
@@ -984,11 +1078,11 @@ def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card):
         f"{summary['forward_median_ms']:.3f}, post "
         f"{summary['post_median_ms']:.3f} ms; prob vs plain route max abs "
         f"{worst:.3e} <= {SIGM_TOL}")
-    log(f"[serving] launches per request: "
+    log(f"[{path}] launches per request: "
         f"{ {k: v / N_REQ for k, v in counts.items()} }")
-    summary["packing"] = time_packing(torch, cmpc, svc, card)
-    return {"serving_bs1": (counts, N_REQ, summary["forward_median_ms"])}, \
-        summary
+    if name == "CMPC_model":
+        summary["packing"] = time_packing(torch, cmpc, svc, card)
+    return {path: (counts, N_REQ, summary["forward_median_ms"])}, summary
 
 
 def train_batch(cfg, batch, seed):
@@ -1026,33 +1120,49 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
     ||g_k - g_p|| <= TRAIN_GRAD_TOL ||g_p||.  An unresolved one is held to
     the plain route's own noise: ||g_k - g_32|| <= 2 ||g_p - g_32||, both
     gradients nonzero and ||g_p|| / 2 <= ||g_k|| <= 2 ||g_p||, so that a
-    gradient dropped, zeroed or blown up fails.  Returns a summary; fails
-    past the tolerances or on a non-finite gradient."""
+    gradient dropped, zeroed or blown up fails.  The ASPP decoder's BN
+    batch statistics (mean and variance of each unit, read back from the
+    moving statistics each route leaves) are held like resolved gradients:
+    ||s_k - s_p|| <= TRAIN_GRAD_TOL ||s_p|| per leaf; the state is restored
+    after each route.  Returns a summary; fails past the tolerances or on
+    a non-finite gradient."""
+    from cmpc_refseg_torch.models.aspp import BN_DECAY
     state, cfg = trainer.state, trainer.cfg
     paths = ["/".join(map(str, p)) for p, _ in named_leaves(state.trainable)]
 
     def grads(st, c, use_kernels):
+        before = st.model_state
         loss, _ = compute_gradients(st, c, batch, use_kernels=use_kernels)
         out = [leaf.grad.double() for _, leaf in named_leaves(st.trainable)]
         st.optimizer.zero_grad(set_to_none=True)
         for path, g in zip(paths, out):
             if not torch.isfinite(g).all():
-                fail(f"train: non-finite gradient of {path}")
-        return loss.item(), out
+                fail(f"{label}: non-finite gradient of {path}")
+        stats = {"/".join(p): (a.double() - BN_DECAY * b.double())
+                 / (1 - BN_DECAY) for (p, a), (_, b) in
+                 zip(named_leaves(st.model_state), named_leaves(before))}
+        st.model_state = before
+        return loss.item(), out, stats
 
-    loss_k, gk = grads(state, cfg, True)
-    loss_p, gp = grads(state, cfg, False)
-    loss_32, g32 = grads(reference.state, reference.cfg, False)
+    label = f"train {cfg.variant}"
+    loss_k, gk, sk = grads(state, cfg, True)
+    loss_p, gp, sp = grads(state, cfg, False)
+    loss_32, g32, _ = grads(reference.state, reference.cfg, False)
+    bn_rel = {leaf: ((sk[leaf] - sp[leaf]).norm() / sp[leaf].norm()).item()
+              for leaf in sp}
+    if any(not v <= TRAIN_GRAD_TOL for v in bn_rel.values()):
+        fail(f"{label}: BN batch statistics of the kernel route vs the plain "
+             f"route beyond {TRAIN_GRAD_TOL}: {bn_rel}")
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     if not loss_err <= TRAIN_LOSS_TOL:
-        fail(f"train: loss of the kernel route {loss_k:.6g} vs the plain "
+        fail(f"{label}: loss of the kernel route {loss_k:.6g} vs the plain "
              f"route {loss_p:.6g}: relative error {loss_err:.3e} > "
              f"{TRAIN_LOSS_TOL}")
     rows = []
     for path, a, b, c in zip(paths, gk, gp, g32):
         norm = b.norm().item()
         if norm == 0 or a.norm().item() == 0:
-            fail(f"train: zero gradient of {path}: kernel route "
+            fail(f"{label}: zero gradient of {path}: kernel route "
                  f"{a.norm().item():.3e}, plain route {norm:.3e}")
         rows.append({"leaf": path, "rel": (a - b).norm().item() / norm,
                      "plain_vs_f32": (b - c).norm().item() / norm,
@@ -1063,7 +1173,7 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
     unresolved = [r for r in rows if r["plain_vs_f32"] > TRAIN_GRAD_TOL]
     resolved = [r for r in rows if r not in unresolved]
     for r in rows[:6]:
-        log(f"[train] gradient of {r['leaf']}: ||g_k - g_p|| / ||g_p|| = "
+        log(f"[{label}] gradient of {r['leaf']}: ||g_k - g_p|| / ||g_p|| = "
             f"{r['rel']:.3e}; over ||g_p|| = {r['norm']:.3e}: ||g_k|| "
             f"{r['kernel_norm']:.3e}, ||g_32|| {r['f32_norm']:.3e}, "
             f"||g_p - g_32|| {r['plain_vs_f32']:.3e}, ||g_k - g_32|| "
@@ -1072,7 +1182,7 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
         r for r in unresolved if r["kernel_vs_f32"] > 2 * r["plain_vs_f32"]
         or not 0.5 <= r["kernel_norm"] <= 2]
     if bad:
-        fail(f"train: kernel vs plain route gradients of {len(bad)} leaves "
+        fail(f"{label}: kernel vs plain route gradients of {len(bad)} leaves "
              f"beyond the tolerance, first {bad[0]}")
     return {"loss_rel_err": loss_err, "loss_f32_rel_err":
             abs(loss_k - loss_32) / abs(loss_32),
@@ -1080,6 +1190,8 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
             "worst_grad_leaf": rows[0]["leaf"],
             "worst_resolved_grad_rel_err": resolved[0]["rel"],
             "worst_resolved_grad_leaf": resolved[0]["leaf"],
+            "bn_stats_rel_err_max": max(bn_rel.values(), default=None),
+            "bn_stats_leaves": len(bn_rel),
             "leaves": len(rows), "unresolved_leaves": [
                 {k: r[k] for k in ("leaf", "rel", "kernel_norm", "f32_norm",
                                    "plain_vs_f32", "kernel_vs_f32")}
@@ -1115,16 +1227,18 @@ def recompute_ms(torch, autograd, step):
 
 
 def run_train(torch, kernels, autograd, cmpc, build_trainer,
-              compute_gradients, named_leaves, card):
-    """Phase 6: the bs=8 train step through build_trainer / Trainer.step."""
-    trainer = build_trainer("CMPC_model", device=DEV, dtype="bfloat16",
+              compute_gradients, named_leaves, card, name="CMPC_model",
+              path="train_bs8"):
+    """Phase 6 (and phase 7's CMPCv4_model steps): the bs=8 train step of
+    config `name` through build_trainer / Trainer.step."""
+    trainer = build_trainer(name, device=DEV, dtype="bfloat16",
                             batch_size=B)
     cfg = trainer.cfg
     if (cfg.H, cfg.res4_blocks, cfg.v_emb_dim, cfg.conv5, cfg.grad_accum) \
             != (H_IMG, RES4, C, False, 1):
         fail(f"unexpected train config {cfg}")
     batches = [train_batch(cfg, B, i) for i in range(N_TRAIN + 1)]
-    reference = build_trainer("CMPC_model", device=DEV, dtype="float32",
+    reference = build_trainer(name, device=DEV, dtype="float32",
                               batch_size=B)
     routes = check_train_routes(torch, trainer, reference, compute_gradients,
                                 named_leaves, batches[0])
@@ -1142,17 +1256,21 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
         times.append((time.perf_counter() - t0) * 1e3)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    check_counts(counts, expected_launches(cmpc, B, train=True), N_TRAIN,
-                 "train")
+    check_counts(counts, config_launches(cmpc, cfg, B, train=True), N_TRAIN,
+                 path)
     losses = [float(m["loss_total"]) for m in metrics]
     if not all(math.isfinite(v) for v in losses):
-        fail(f"train: non-finite loss in {losses}")
-    for path, leaf in named_leaves(trainer.state.trainable):
+        fail(f"{path}: non-finite loss in {losses}")
+    for where, leaf in named_leaves(trainer.state.trainable):
         if leaf.grad is None or not torch.isfinite(leaf.grad).all() \
                 or not torch.isfinite(leaf).all():
-            fail(f"train: missing or non-finite gradient or weight at {path}")
+            fail(f"{path}: missing or non-finite gradient or weight at "
+                 f"{where}")
+    for where, stat in named_leaves(trainer.state.model_state):
+        if not torch.isfinite(stat).all():
+            fail(f"{path}: non-finite BN moving statistics at {where}")
     if trainer.state.step != N_TRAIN + 1:
-        fail(f"train: state.step {trainer.state.step}, expected "
+        fail(f"{path}: state.step {trainer.state.step}, expected "
              f"{N_TRAIN + 1}")
     rec_ms, rec_step_ms = recompute_ms(
         torch, autograd, lambda: trainer.step(batches[-1]))
@@ -1162,7 +1280,7 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
                "max_ms": max(times), "steps_per_s": 1e3 / ms,
                "peak_gb": peak, **routes, "losses": losses,
                "learning_rate": float(metrics[-1]["learning_rate"])}
-    log(f"[train] {card}: CMPC_model 320x320 bs={B} bf16 res4_blocks=23, "
+    log(f"[{path}] {card}: {name} 320x320 bs={B} bf16 res4_blocks=23, "
         f"frozen backbone: {ms:.3f} ms/step (median of {N_TRAIN}; range "
         f"{min(times):.3f}-{max(times):.3f}; all "
         f"{[round(t, 3) for t in times]}), {1e3 / ms:.2f} steps/s, "
@@ -1170,7 +1288,7 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
     unresolved = [(r["leaf"], *(round(r[k], 4) for k in (
         "kernel_norm", "f32_norm", "plain_vs_f32", "kernel_vs_f32")))
         for r in routes["unresolved_leaves"]]
-    log(f"[train] kernel vs plain route on one batch: loss relative error "
+    log(f"[{path}] kernel vs plain route on one batch: loss relative error "
         f"{routes['loss_rel_err']:.3e} <= {TRAIN_LOSS_TOL} (vs the f32 "
         f"plain route {routes['loss_f32_rel_err']:.3e}); worst gradient "
         f"||g_k - g_p|| / ||g_p|| {routes['worst_resolved_grad_rel_err']:.3e}"
@@ -1181,11 +1299,119 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
         f"f32 gradient and within 2x of its norm: {unresolved} (leaf, then "
         f"over ||g_p||: ||g_k||, ||g_32||, ||g_p - g_32||, ||g_k - g_32||); "
         f"losses {[round(v, 2) for v in losses]}")
-    log(f"[train] launches in {N_TRAIN} steps: {counts}")
-    log(f"[train] backward recompute of the plain routes: {rec_ms:.3f} ms "
+    if routes["bn_stats_leaves"]:
+        log(f"[{path}] BN batch statistics of the kernel vs the plain route: "
+            f"worst ||s_k - s_p|| / ||s_p|| "
+            f"{routes['bn_stats_rel_err_max']:.3e} <= {TRAIN_GRAD_TOL} over "
+            f"{routes['bn_stats_leaves']} leaves")
+    log(f"[{path}] launches in {N_TRAIN} steps: {counts}")
+    log(f"[{path}] backward recompute of the plain routes: {rec_ms:.3f} ms "
         f"of a {rec_step_ms:.3f} ms step ({rec_ms / rec_step_ms:.1%}; one "
         "extra step, each recompute bracketed by synchronizes)")
-    return {"train_bs8": (counts, N_TRAIN, ms)}, summary
+    return {path: (counts, N_TRAIN, ms)}, summary
+
+
+def device_categories(split):
+    """device_split_ms's {kernel: ms} summed by category: the port's
+    kernels, cuDNN's convolutions, cuBLAS's GEMMs and the rest
+    (elementwise work such as BN and the layer norms, reductions,
+    copies)."""
+    cats = dict.fromkeys(("port_kernels", "convolutions", "gemms", "other"),
+                         0.0)
+    for name, ms in split.items():
+        low = name.lower()
+        if name.split("<")[0] in PORT_KERNELS:
+            cats["port_kernels"] += ms
+        elif any(w in low for w in ("fprop", "dgrad", "wgrad", "conv",
+                                    "cudnn")):
+            cats["convolutions"] += ms
+        elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma")):
+            cats["gemms"] += ms
+        else:
+            cats["other"] += ms
+    return cats
+
+
+def run_variants(torch, kernels, cmpc, aspp, build_model, apply_model,
+                 card):
+    """Phase 7: the bs=8 forward of each of VARIANTS through build_model,
+    counted, timed and held against the plain route as phase 4 holds the
+    flagship's; the device split of a forward and, for the ASPP decoder,
+    of the ASPP + decoder alone on inputs of its shapes (the fused
+    features [B, 40, 40, 500] and the c2 tap [B, 80, 80, 256])."""
+    paths, summary = {}, {}
+    for tag, name, overrides in VARIANTS:
+        path = f"{tag}_bs8"
+        model = build_model(name, device=DEV, dtype="bfloat16", batch_size=B,
+                            **overrides)
+        cfg = model.cfg
+        if (cfg.H, cfg.res4_blocks, cfg.v_emb_dim, cfg.mlp_dim) != \
+                (H_IMG, RES4, C, CM):
+            fail(f"unexpected {path} config {cfg}")
+        batch = make_batch(cfg, B, seed=3)
+        if ("valid_idx" in batch) != (cfg.text_encoder == "lstm_frontpad"):
+            fail(f"{path}: the batch's padding does not fit "
+                 f"{cfg.text_encoder}")
+        feed = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+        model.forward(feed)                   # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(N_FWD):
+            t0 = time.perf_counter()
+            out = model.forward(feed)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_counts(counts, config_launches(cmpc, cfg, B), N_FWD, path)
+        with torch.inference_mode():
+            ref = apply_model(model.params, cfg, feed,
+                              model_state=model.model_state, use_kernels=False)
+        err = check_forward(torch, cfg, out, ref, B, path)
+        ms = statistics.median(times)
+        split, per_fwd = device_split_ms(
+            torch, lambda: model.forward(feed), reps=5, launches=True)
+        split = device_categories(split)
+        rec = {"config": name, **overrides, "median_ms": ms,
+               "runs_ms": times, "masks_per_s": B * 1e3 / ms,
+               "peak_gb": peak, "sigm_vs_plain_max_abs": err,
+               "device_ms": split, "device_kernels_per_forward": per_fwd,
+               "launches": counts}
+        if cfg.decoder == "aspp_v3plus":
+            gen = torch.Generator(device=DEV).manual_seed(3)
+            fused = torch.randn(B, cfg.vf_h, cfg.vf_w, CM, generator=gen,
+                                device=DEV).to(torch.bfloat16)
+            c2 = torch.relu(torch.randn(B, cfg.H // 4, cfg.W // 4, 256,
+                                        generator=gen, device=DEV)).to(
+                torch.bfloat16)
+            state = model.model_state
+
+            def decode():
+                with torch.inference_mode():
+                    enc, _ = aspp.apply_aspp(model.params["aspp"],
+                                             state["aspp"], fused)
+                    return aspp.apply_v3plus_decoder(
+                        model.params["decoder"], state["decoder"], enc, c2)
+            rec["decoder_wall_ms"] = wall_ms(torch, decode)
+            rec["decoder_device_ms"] = device_categories(
+                device_split_ms(torch, decode, reps=5))
+        summary[path] = rec
+        paths[path] = (counts, N_FWD, ms)
+        dec = (f"; ASPP + decoder alone {rec['decoder_wall_ms']:.3f} ms "
+               f"(host clock), device {json.dumps(rec['decoder_device_ms'])}"
+               if "decoder_wall_ms" in rec else "")
+        log(f"[{path}] {card}: {name}{overrides or ''} 320x320 bs={B} bf16 "
+            f"res4_blocks=23: {ms:.3f} ms/batch (median of {N_FWD}; all "
+            f"{[round(t, 3) for t in times]}), {B * 1e3 / ms:.1f} masks/s; "
+            f"peak memory {peak:.2f} GB; sigm vs plain max abs {err:.3e} <= "
+            f"{SIGM_TOL}; device ms per forward {json.dumps(split)} over "
+            f"{per_fwd:.0f} device kernels{dec}")
+        log(f"[{path}] launches in {N_FWD} forwards: {counts}")
+        del model, feed, out, ref
+        torch.cuda.empty_cache()
+    return paths, summary
 
 
 def main():
@@ -1194,7 +1420,8 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "CUDA GPU")
     from cmpc_refseg_torch.api import build_model, build_service, build_trainer
-    from cmpc_refseg_torch.models import cmpc
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.models import aspp, cmpc
     from cmpc_refseg_torch.models.model import apply_model
     from cmpc_refseg_torch.ops import autograd, build, kernels
     from cmpc_refseg_torch.train.optimizer import named_leaves
@@ -1220,7 +1447,8 @@ def main():
     if cmpc.pack_levels(B_LARGE, G) or not cmpc.pack_levels(B, G):
         fail(f"the packing rule no longer packs bs={B} and not bs={B_LARGE}:"
              " phase 3's paths need new batches")
-    records = check_kernels(torch, kernels, cmpc, torch.device(DEV))
+    records = check_kernels(torch, kernels, cmpc, torch.device(DEV),
+                            path_specs(get_config))
     edges = check_edges(torch, kernels, torch.device(DEV))
     torch.cuda.empty_cache()
     # path -> (launch counts of its runs, runs, ms per run)
@@ -1234,6 +1462,19 @@ def main():
     train_paths, train = run_train(torch, kernels, autograd, cmpc,
                                    build_trainer, compute_gradients,
                                    named_leaves, card)
+    paths.update(train_paths)
+    torch.cuda.empty_cache()
+    var_paths, variants = run_variants(torch, kernels, cmpc, aspp,
+                                       build_model, apply_model, card)
+    paths.update(var_paths)
+    srv_paths, v6_serving = run_serving(
+        torch, np, kernels, cmpc, build_service, apply_model, card,
+        name="CMPCv6_model", path="v6_serving_bs1")
+    paths.update(srv_paths)
+    torch.cuda.empty_cache()
+    train_paths, v4_train = run_train(
+        torch, kernels, autograd, cmpc, build_trainer, compute_gradients,
+        named_leaves, card, name="CMPCv4_model", path="v4_train_bs8")
     paths.update(train_paths)
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
@@ -1253,6 +1494,9 @@ def main():
     log(f"[kernels] edge records: {json.dumps(edges)}")
     log(f"[serving] {json.dumps(serving)}")
     log(f"[train] {json.dumps(train)}")
+    log(f"[variants] {json.dumps(variants)}")
+    log(f"[v6_serving_bs1] {json.dumps(v6_serving)}")
+    log(f"[v4_train_bs8] {json.dumps(v4_train)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,10 @@ reference name.
 
 All run on CUDA unless the caller passes ``device="cpu"``; with no CUDA
 device and no explicit device, they raise.  The weights come from `seed`
-(no trained checkpoint ships with the repository).
+(no trained checkpoint ships with the repository); the model state (the
+ASPP decoder's BN moving statistics, {} for the multiscore decoder) is
+built with them at its initial values and passed along: `Model`
+and `PredictService` hold it, `Trainer.state.model_state` updates it.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from cmpc_refseg_torch.config import ModelConfig, get_config
 from cmpc_refseg_torch.convert import resolve_device
 from cmpc_refseg_torch.data.text import synthetic_vocab
 from cmpc_refseg_torch.models.model import (ModelOutputs, apply_model,
-                                            init_model, prepare_params)
+                                            init_model, init_model_state,
+                                            prepare_params)
 from cmpc_refseg_torch.serving.server import PredictService
 from cmpc_refseg_torch.train.trainer import (TrainState, create_train_state,
                                              make_train_step, train_loop)
@@ -35,15 +39,18 @@ from cmpc_refseg_torch.train.trainer import (TrainState, create_train_state,
 class Model:
     cfg: ModelConfig
     params: dict
+    model_state: dict
     device: torch.device
 
     def forward(self, batch: dict) -> ModelOutputs:
-        """batch: 'im' [B,H,W,3], 'words' [B,T], 'seq_len' [B] (numpy or
-        tensors); moved to the model's device."""
+        """batch: 'im' [B,H,W,3], 'words' [B,T] and 'seq_len' [B]
+        (back-padded) or 'valid_idx' [B] (front-padded), numpy or tensors;
+        moved to the model's device."""
         feed = {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
         with torch.inference_mode():
-            return apply_model(self.params, self.cfg, feed)
+            return apply_model(self.params, self.cfg, feed,
+                               model_state=self.model_state)
 
 
 @dataclasses.dataclass
@@ -81,7 +88,8 @@ def build_model(name: str, *, seed: int = 0, device=None, dtype=None,
     dev = resolve_device(device)
     cfg = _config(name, dtype, overrides)
     params = prepare_params(init_model(seed, cfg, device=dev), cfg)
-    return Model(cfg=cfg, params=params, device=dev)
+    return Model(cfg=cfg, params=params,
+                 model_state=init_model_state(cfg, device=dev), device=dev)
 
 
 def build_service(name: str, *, seed: int = 0, device=None, dtype=None,
@@ -94,6 +102,7 @@ def build_service(name: str, *, seed: int = 0, device=None, dtype=None,
     cfg = _config(name, dtype, {**overrides, "batch_size": 1})
     return PredictService(cfg, init_model(seed, cfg, device=dev),
                           vocab or synthetic_vocab(cfg.vocab_size),
+                          model_state=init_model_state(cfg, device=dev),
                           device=dev)
 
 

@@ -1,5 +1,6 @@
-"""Bridge from the JAX package's parameter pytree (and train state) to the
-port's parameters (and TrainState).
+"""Bridge from the JAX package's parameter pytree, model state (the BN
+moving statistics) and train state to the port's parameters, model state
+and TrainState.
 
 The port keeps the JAX pytree's structure and names.  Leaves become float32
 tensors; the backbone's conv kernels go from HWIO to PyTorch's OIHW (the
@@ -66,20 +67,31 @@ def _convert(tree: dict, device) -> dict:
             for k, v in tree.items()}
 
 
+def model_state_from_jax(tree: dict, *, device=None) -> dict:
+    """JAX model state (the BN moving statistics init_model returns beside
+    the params, or a train state's `model_state`; numpy leaves) -> the
+    same tree of float32 tensors on `device` (CUDA when None)."""
+    return _tree(tree, resolve_device(device))
+
+
 def train_state_from_jax(trainable: dict, frozen: dict, mu: dict, nu: dict,
-                         count, cfg: ModelConfig, *, device=None):
+                         count, cfg: ModelConfig, *, model_state=None,
+                         device=None):
     """The port's TrainState from a JAX train state: the trainable and
     frozen trees and Adam's first and second moments `mu`, `nu` (trees of
-    the trainable's structure) and `count`, all as numpy (the JAX package's
-    ``state.unravel(...)`` of its flat vectors).  The port's Adam then holds
-    the same exp_avg, exp_avg_sq and step, and the state's step is
-    `count`."""
+    the trainable's structure), `count` and the BN moving statistics
+    `model_state` ({} or None for the multiscore decoder; required by the
+    ASPP decoder), all as numpy (the JAX package's ``state.unravel(...)``
+    of its flat vectors).  The port's Adam then holds the same exp_avg,
+    exp_avg_sq and step, and the state's step is `count`."""
     from cmpc_refseg_torch.train.optimizer import merge_params, named_leaves
     from cmpc_refseg_torch.train.trainer import train_state_from_params
     device = resolve_device(device)
+    if model_state is None and cfg.decoder != "multiscore":
+        raise ValueError("the ASPP decoder's train state needs model_state")
     state = train_state_from_params(
         params_from_jax(merge_params(trainable, frozen), cfg, device=device),
-        cfg)
+        cfg, model_state_from_jax(model_state or {}, device=device))
     moments = [dict(named_leaves(_convert(m, device))) for m in (mu, nu)]
     for path, p in named_leaves(state.trainable):
         state.optimizer.state[p] = {

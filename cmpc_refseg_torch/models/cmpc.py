@@ -1,13 +1,17 @@
 """CMPC head: language parser, mutan fusion, relation-aware spatial graph,
 gated multi-level exchange and ConvLSTM fusion (CMPC_model.py:144-410).
 
-The port of the JAX package's models/cmpc.py for the flagship configuration.
-Mutan, the spatial-graph affinity, the graph convolution, the exchange's
-SE sum and the ConvLSTM step run through the hand-written kernels of
-``ops/kernels.py`` (their plain versions when the tensors lie on the CPU,
-or everywhere with ``use_kernels=False``).  The spatial graph runs level
-by level, or level-packed (one set of launches for all levels, grouped
-weights) at small batch: `pack_levels` holds the rule.
+The port of the JAX package's models/cmpc.py: the flagship's head, the
+graph norms 'masked', 'unmasked', 'softmax_mask' and 'double_softmax', and
+the self-gated exchange of CMPCv6.  Mutan, the spatial-graph affinity, the
+graph convolution, the exchange's SE sum and the ConvLSTM step run through
+the hand-written kernels of ``ops/kernels.py`` (their plain versions when
+the tensors lie on the CPU, or everywhere with ``use_kernels=False``).
+The JAX package leaves the double-softmax affinity and the self-gated
+exchange to XLA; they are plain PyTorch here (the graph convolution after
+the double softmax still runs through its kernels).  The spatial graph
+runs level by level, or level-packed (one set of launches for all levels,
+grouped weights) at small batch: `pack_levels` holds the rule.
 
 Where autograd records (``torch.is_grad_enabled()``, as in the train
 step), the kernels run through the autograd functions of
@@ -258,25 +262,52 @@ def graph_conv(gs, x_nodes, w_aff, v_aff):
                                             gs["b2"])).to(dt)
 
 
+GRAPH_NORMS = ("masked", "unmasked", "softmax_mask", "double_softmax")
+
+
+def _double_softmax_affinity(p, cfg, x, words_trans, words_parse):
+    """The 'double_softmax' affinity (CMPCv4_BiLSTM_T2_model.py; cmpc.py:
+    440-455 of the JAX package): node projections x @ Wg + bg in the node
+    dtype, their product with the word projections in f32 over sqrt(C),
+    a softmax over the nodes (axis 1, not the words), scaled by each
+    word's relation probability.  Returns the [B,N,T] f32 affinity, which
+    is both w_aff and v_aff."""
+    graph_trans = conv2d(p["spa_graph_trans2"], x)              # [B,N,A]
+    if cfg.l2norm_affinity:
+        graph_trans = l2_normalize(graph_trans, -1)
+    affi = _matmul_f32(graph_trans,
+                       words_trans.to(x.dtype).transpose(1, 2)) \
+        / math.sqrt(cfg.v_emb_dim)
+    return words_parse[:, :, :, 2].float() * torch.softmax(affi, dim=1)
+
+
 def apply_spa_graph_grouped(params_list, cfg, spa_graphs, words_feat,
                             words_parse, seq_mask, *, stack=None,
                             use_kernels: bool = True):
     """Spatial graph reasoning (CMPC_model.py:376-410) of G levels in one
-    set of launches, for the graph norms 'masked', 'unmasked' and
-    'softmax_mask': the levels' nodes are concatenated along the batch axis
-    (level packing, cmpc.py:368-425 of the JAX package) and the affinity
-    and graph update take the levels' weights as groups.  G = 1 is one
-    level alone, through the kernels' ungrouped forms.
+    set of launches: the levels' nodes are concatenated along the batch
+    axis (level packing, cmpc.py:368-425 of the JAX package) and the
+    affinity and graph update take the levels' weights as groups.  G = 1
+    is one level alone, through the kernels' ungrouped forms.  The
+    'double_softmax' norm always runs level by level, as in the JAX
+    package: its affinity is plain PyTorch, its graph convolution one
+    level's kernel launches.
 
     spa_graphs: G of [B,H,W,C]; words_feat [B,1,T,Cl]; seq_mask [B,1,T,1];
     `stack`: `stack_graph_params(params_list, ...)`, built here when None
     (the autograd route takes the weights from `params_list` instead,
     through the autograd functions).
     Returns (list of [B,H,W,C] outputs, list of (w_aff, v_aff))."""
-    if cfg.graph_norm not in ("masked", "unmasked", "softmax_mask"):
-        raise NotImplementedError(f"graph_norm {cfg.graph_norm!r} is not "
-                                  "ported yet")
+    if cfg.graph_norm not in GRAPH_NORMS:
+        raise ValueError(f"unknown graph_norm {cfg.graph_norm!r}")
     g_n = len(params_list)
+    if cfg.graph_norm == "double_softmax" and g_n > 1:
+        outs = [apply_spa_graph(p, cfg, sg, words_feat, words_parse,
+                                seq_mask, stack=None if stack is None
+                                else level_of(stack, i),
+                                use_kernels=use_kernels)
+                for i, (p, sg) in enumerate(zip(params_list, spa_graphs))]
+        return [o[0] for o in outs], [o[1] for o in outs]
     b, h, w, c = spa_graphs[0].shape
     dt = spa_graphs[0].dtype
     grad_route = _differentiable(use_kernels)
@@ -295,7 +326,10 @@ def apply_spa_graph_grouped(params_list, cfg, spa_graphs, words_feat,
             seq_mask[:, :, :, 0].float().repeat(g_n, 1, 1))
     kw = dict(scale=math.sqrt(cfg.v_emb_dim), l2n=bool(cfg.l2norm_affinity),
               masked=cfg.graph_norm in ("masked", "unmasked"))
-    if grad_route:
+    if cfg.graph_norm == "double_softmax":
+        w_aff = v_aff = _double_softmax_affinity(params_list[0], cfg, x,
+                                                 wts[0], words_parse)
+    elif grad_route:
         projs = [p["spa_graph_trans2"] for p in params_list]
         w_aff, v_aff = autograd.spa_affinity_grouped(
             x, [q["DW"][0, 0] for q in projs], [q["biases"] for q in projs],
@@ -370,9 +404,12 @@ def init_lang2vis(key, cfg):
 LEVEL_PACK_MAX_BATCH = 32
 
 
-def pack_levels(batch: int, num_levels: int) -> bool:
-    """Whether the spatial graph runs level-packed at this batch."""
-    return num_levels > 1 and batch <= LEVEL_PACK_MAX_BATCH
+def pack_levels(batch: int, num_levels: int,
+                graph_norm: str = "masked") -> bool:
+    """Whether the spatial graph runs level-packed at this batch (never
+    under the 'double_softmax' norm, which runs level by level)."""
+    return num_levels > 1 and batch <= LEVEL_PACK_MAX_BATCH \
+        and graph_norm != "double_softmax"
 
 
 def apply_lang2vis_multi(params_list, cfg, visuals, words_feat, words_parse,
@@ -391,7 +428,7 @@ def apply_lang2vis_multi(params_list, cfg, visuals, words_feat, words_parse,
     if graph_stack is None and not _differentiable(use_kernels):
         graph_stack = stack_graph_params(graphs, vis_list[0].dtype)
     lang = (words_feat, words_parse, seq_mask)
-    if pack_levels(vis_list[0].shape[0], len(vis_list)):
+    if pack_levels(vis_list[0].shape[0], len(vis_list), cfg.graph_norm):
         feats, gws = apply_spa_graph_grouped(graphs, cfg, vis_list, *lang,
                                              stack=graph_stack, **route)
     else:
@@ -467,13 +504,20 @@ def _apply_se(p, feat, gv_lang):
 
 
 def init_exchange(key, cfg, num_others: int):
-    """One gated_exchange_module's params: one gv on the target feat + one
-    se per other level (CMPC_model.py:245-259)."""
-    if cfg.exchange_self_gate:
-        raise NotImplementedError("the self-gate exchange is not ported yet")
+    """One gated_exchange_module's params: one se per other level and one
+    gv on the target feat (CMPC_model.py:245-259), or, self-gated (v6,
+    CMPCv6_model.py:323-339), a gv per other level, a gv and an se on the
+    target feat."""
     ks = split_stream(key, 2 + 2 * num_others)
-    return {"se": [_init_se(ks[i], cfg) for i in range(num_others)],
-            "gv": _init_gv(ks[-1], cfg)}
+    p = {"se": [_init_se(ks[i], cfg) for i in range(num_others)]}
+    if cfg.exchange_self_gate:
+        p["gv_each"] = [_init_gv(ks[num_others + i], cfg)
+                        for i in range(num_others)]
+        p["gv_self"] = _init_gv(ks[-2], cfg)
+        p["se_self"] = _init_se(ks[-1], cfg)
+    else:
+        p["gv"] = _init_gv(ks[-1], cfg)
+    return p
 
 
 def se_tables(pex, dtype):
@@ -490,7 +534,12 @@ def exchange_step_normed(pex, cfg, feat, others, lang_feat, *,
     the gv and gates are [B,1,1,C]-small plain PyTorch; the SE sum and
     the row l2norm are one se_sum kernel launch (where autograd records,
     through `autograd.se_sum`).  The SE weights are `pex['se_tables']` when
-    model.prepare_params built them."""
+    model.prepare_params built them.  The self-gated exchange keeps the
+    module loop (`apply_exchange`) and its l2norm in plain PyTorch, as the
+    JAX package leaves that layout to XLA: no SE-sum launch."""
+    if cfg.exchange_self_gate:
+        return l2_normalize(apply_exchange(pex, cfg, feat, others,
+                                           lang_feat), -1)
     b, h, w, c = feat.shape
     dt = feat.dtype
     gv = _apply_gv(pex["gv"], cfg, feat, lang_feat)
@@ -509,7 +558,17 @@ def exchange_step_normed(pex, cfg, feat, others, lang_feat, *,
 
 
 def apply_exchange(p, cfg, feat, others, lang_feat):
-    """The reference-shaped exchange module (without the l2norm)."""
+    """The reference-shaped exchange module (without the l2norm): feat plus
+    each other level's gated SE; self-gated, the target's own gated SE
+    (its gv from feat) plus each other level's SE gated by that level's gv
+    (no feat term)."""
+    if cfg.exchange_self_gate:
+        out = _apply_se(p["se_self"], feat,
+                        _apply_gv(p["gv_self"], cfg, feat, lang_feat))
+        for se, gv_p, other in zip(p["se"], p["gv_each"], others):
+            out = out + _apply_se(se, other,
+                                  _apply_gv(gv_p, cfg, other, lang_feat))
+        return out
     gv = _apply_gv(p["gv"], cfg, feat, lang_feat)
     out = feat
     for se, other in zip(p["se"], others):

@@ -5,6 +5,11 @@ an LSTM over back-padded tokens with the true `seq_len`, outputs zeroed and
 state frozen past it, l2-normalized word features, the sentence feature as
 the sum of word features and the sequence mask from the zero rows.
 
+The origin-style 'lstm_frontpad' encoder (CMPC_model_origin.py:130-141)
+takes front-padded tokens with `valid_idx`, the number of pads: they are
+rolled to the back-padded form and run through the same LSTM; its sentence
+feature is the l2-normalized final hidden state.
+
 TF's LSTMCell gate order is (i, j, f, o) with forget_bias=1.0 added to f
 before the sigmoid; ``nn.LSTM`` orders (i, f, g, o) with no forget bias, so
 the cell is written out as a Python loop over T.
@@ -37,12 +42,20 @@ def init_lstm_cell(key, input_dim: int, hidden: int) -> dict:
     }
 
 
-def init_text_encoder(key, cfg) -> dict:
-    """Numpy params of the 'lstm' encoder with a random embedding, draw for
-    draw the JAX package's (the stream is split 4 ways there too)."""
-    if cfg.text_encoder != "lstm":
+ENCODERS = ("lstm", "lstm_frontpad")
+
+
+def _check_encoder(cfg) -> None:
+    if cfg.text_encoder not in ENCODERS:
         raise NotImplementedError(
             f"text encoder {cfg.text_encoder!r} is not ported yet")
+
+
+def init_text_encoder(key, cfg) -> dict:
+    """Numpy params of the 'lstm' / 'lstm_frontpad' encoder with a random
+    embedding, draw for draw the JAX package's (the stream is split 4 ways
+    there too)."""
+    _check_encoder(cfg)
     k1, k2, _, _ = split_stream(key, 4)
     return {"embedding": normal_init(k1, (cfg.vocab_size, cfg.glove_dim)),
             "lstm": init_lstm_cell(k2, cfg.glove_dim, cfg.rnn_size)}
@@ -74,14 +87,34 @@ def lstm_scan(cell_params: dict, inputs, seq_len):
     return torch.stack(outs, dim=1), h
 
 
-def encode_text(params: dict, cfg, words, seq_len) -> TextFeatures:
-    """Encode back-padded tokens [B, T] with lengths [B] into TextFeatures."""
-    if cfg.text_encoder != "lstm":
-        raise NotImplementedError(
-            f"text encoder {cfg.text_encoder!r} is not ported yet")
+def normalize_tokens(words, seq_len=None, valid_idx=None):
+    """(back-padded tokens [B, T], lengths [B]).  Back-padded input with
+    `seq_len` passes as it is; front-padded input (pads first, `valid_idx`
+    [B] or [B, 1] = the number of pads) is rolled to the back-padded form:
+    position p reads token min(p + valid_idx, T - 1), length T - valid_idx."""
+    if seq_len is not None:
+        return words, seq_len
+    if valid_idx is None:
+        raise ValueError("need seq_len (back-pad) or valid_idx (front-pad)")
+    t = words.shape[1]
+    valid_idx = valid_idx.reshape(-1).long()
+    pos = torch.arange(t, device=words.device)[None]
+    src = torch.clamp(pos + valid_idx[:, None], max=t - 1)
+    return torch.gather(words, 1, src), t - valid_idx
+
+
+def encode_text(params: dict, cfg, words, seq_len=None, *,
+                valid_idx=None) -> TextFeatures:
+    """Encode tokens [B, T] into TextFeatures: back-padded with lengths
+    `seq_len` [B], or front-padded with `valid_idx` (`normalize_tokens`)."""
+    _check_encoder(cfg)
+    words, seq_len = normalize_tokens(words, seq_len, valid_idx)
     emb = params["embedding"][words.long()]                # [B,T,glove]
-    outs, _ = lstm_scan(params["lstm"], emb, seq_len)
+    outs, final_h = lstm_scan(params["lstm"], emb, seq_len)
     wf = l2_normalize(outs, -1)[:, None]                   # [B,1,T,C]
-    lang = torch.sum(wf, dim=-2, keepdim=True)             # CMPC_model.py:161
+    if cfg.text_encoder == "lstm":
+        lang = torch.sum(wf, dim=-2, keepdim=True)         # CMPC_model.py:161
+    else:   # the final hidden state (CMPC_model_origin.py:140-141)
+        lang = l2_normalize(final_h, -1)[:, None, None]
     mask = (torch.sum(torch.abs(wf), -1, keepdim=True) != 0).float()
     return TextFeatures(wf, lang, mask, wf)

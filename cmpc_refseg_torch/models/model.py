@@ -1,26 +1,34 @@
-"""CMPC model assembly for the flagship configuration (multiscore decoder).
+"""CMPC model assembly: the flagship's multiscore decoder and the ASPP +
+DeepLabv3+ decoder of the v4-v6 configs.
 
-Forward pipeline (CMPC_model.py:89-142): backbone taps -> text encoder ->
-laterals (+l2norm) -> spatial grid -> language parser -> per-level lang2vis
-(mutan + spatial graph) -> aux score heads -> nec_lang -> 2x gated exchange
-+ ConvLSTM fusion -> multiscore 3x3 score conv -> TF1 resize -> sigmoid.
+Forward pipeline (CMPC_model.py:89-142 and the variants' deltas):
+backbone taps -> text encoder -> laterals (+l2norm) -> spatial grid ->
+language parser -> per-level lang2vis (mutan + spatial graph) -> aux score
+heads -> nec_lang -> 2x gated exchange + ConvLSTM fusion -> decoder
+(multiscore 3x3 score conv, or ASPP + v3+ decoder on the c2 tap) -> TF1
+resize -> sigmoid.
+
+The ASPP and the decoder hold live BatchNorm: their moving statistics are
+the model state (`init_model_state`), passed to `apply_model` and returned
+on its outputs, updated in train mode (``models/aspp.py``).  The
+multiscore configs' state is {}.
 
 Precision (docs/DESIGN.md §2): with compute_dtype 'bfloat16' the backbone
-and the head run their products in bf16; norm statistics, softmaxes, the
-score convs, logits and the sigmoid stay in float32.
+and the head run their products in bf16; norm statistics (BN's too),
+softmaxes, the score convs, logits and the sigmoid stay in float32.
 
 Losses follow train_op (CMPC_model.py:426-492): `compute_loss`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from cmpc_refseg_torch.config import ModelConfig
-from cmpc_refseg_torch.convert import params_from_jax
-from cmpc_refseg_torch.models import cmpc
+from cmpc_refseg_torch.convert import model_state_from_jax, params_from_jax
+from cmpc_refseg_torch.models import aspp, cmpc
 from cmpc_refseg_torch.models.backbone import apply_backbone, init_backbone
 from cmpc_refseg_torch.models.language import encode_text, init_text_encoder
 from cmpc_refseg_torch.ops import losses
@@ -39,14 +47,20 @@ class ModelOutputs(NamedTuple):
     up_levels: dict                   # {level: [B,H,W,1]} aux logits
     words_parse: torch.Tensor         # [B,1,T,K]
     gw: dict                          # {level: (w_aff, v_aff)} graph attn
+    # BN moving statistics after the forward: the new ones in train mode,
+    # the given ones in eval mode ({} for the multiscore decoder)
+    model_state: dict
+
+
+DECODERS = ("multiscore", "aspp_v3plus")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.decoder != "multiscore" or cfg.hsv or cfg.tanh_lateral \
+    if cfg.decoder not in DECODERS or cfg.hsv or cfg.tanh_lateral \
             or cfg.bbox_head or cfg.video:
         raise NotImplementedError(
-            f"variant {cfg.variant or cfg!r}: only the flagship CMPC_model "
-            "configuration is ported")
+            f"variant {cfg.variant or cfg!r}: HSV, tanh laterals, the bbox "
+            "head and video are not ported yet")
 
 
 def init_numpy(seed, cfg: ModelConfig) -> dict:
@@ -70,7 +84,11 @@ def init_numpy(seed, cfg: ModelConfig) -> dict:
         params["levels"][lv] = cmpc.init_lang2vis(lkeys[3 * i + 1], cfg)
         params["scores"][f"score_{lv}"] = init_conv(
             lkeys[3 * i + 2], 3, cfg.mlp_dim, 1)
-    params["scores"]["score"] = init_conv(keys[5], 3, cfg.mlp_dim, 1)
+    if cfg.decoder == "multiscore":
+        params["scores"]["score"] = init_conv(keys[5], 3, cfg.mlp_dim, 1)
+    else:
+        params["aspp"], _ = aspp.init_aspp(keys[6], cfg, cfg.mlp_dim)
+        params["decoder"], _ = aspp.init_v3plus_decoder(keys[7], cfg)
     return params
 
 
@@ -78,6 +96,16 @@ def init_model(seed, cfg: ModelConfig, *, device=None) -> dict:
     """Port parameters (float32 tensors on `device`, CUDA when None) from an
     int seed."""
     return params_from_jax(init_numpy(seed, cfg), cfg, device=device)
+
+
+def init_model_state(cfg: ModelConfig, *, device=None) -> dict:
+    """The initial BN moving statistics (mean 0, variance 1; the second
+    value of the JAX package's init_model) as float32 tensors on `device`
+    (CUDA when None): {'aspp': ..., 'decoder': ...}, or {} for the
+    multiscore decoder."""
+    _check_supported(cfg)
+    tree = aspp.init_state() if cfg.decoder == "aspp_v3plus" else {}
+    return model_state_from_jax(tree, device=device)
 
 
 def prepare_backbone(backbone: dict, cfg: ModelConfig) -> dict:
@@ -99,31 +127,49 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     """Inference view of the parameters, built once: the weights the head's
     kernels take, in the compute dtype (each level's mutan weight [K, 5C],
     the spatial graph's weights stacked over the levels, the exchanges' SE
-    weights and the ConvLSTM's tables) and `prepare_backbone`.  The f32
-    originals stay."""
+    weights where the SE sum runs and the ConvLSTM's tables), the ASPP's
+    and decoder's conv kernels in the compute dtype (BN's gamma and beta
+    and the decoder's float32 logits conv stay f32) and
+    `prepare_backbone`.  The f32 originals stay."""
     dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     levels = {}
     for lv, level in params["levels"].items():
         w_wide = level["mutan"]["vis_trans"]["DW"][0, 0].to(dt).contiguous()
         levels[lv] = {**level, "mutan": {**level["mutan"], "w_wide": w_wide}}
     fs = params["fusion_stack"]
+    exchange = fs["exchange"] if cfg.exchange_self_gate else {
+        k: {**pex, "se_tables": cmpc.se_tables(pex, dt)}
+        for k, pex in fs["exchange"].items()}
     fusion_stack = {
-        **fs,
-        "exchange": {k: {**pex, "se_tables": cmpc.se_tables(pex, dt)}
-                     for k, pex in fs["exchange"].items()},
+        **fs, "exchange": exchange,
         "convlstm": {**fs["convlstm"],
                      "tables": cmpc.convlstm_tables(fs["convlstm"], dt)}}
     graph_stack = cmpc.stack_graph_params(
         [params["levels"][lv]["graph"] for lv in cfg.levels], dt)
-    return {**params, "levels": levels, "fusion_stack": fusion_stack,
-            "graph_stack": graph_stack,
-            "backbone": prepare_backbone(params["backbone"], cfg)}
+    out = {**params, "levels": levels, "fusion_stack": fusion_stack,
+           "graph_stack": graph_stack,
+           "backbone": prepare_backbone(params["backbone"], cfg)}
+    if cfg.decoder == "aspp_v3plus":
+        out["aspp"] = {k: {**u, "DW": u["DW"].to(dt)}
+                       for k, u in params["aspp"].items()}
+        out["decoder"] = {k: u if k == "conv_1x1" else {**u, "DW":
+                                                        u["DW"].to(dt)}
+                          for k, u in params["decoder"].items()}
+    return out
 
 
 def apply_model(params, cfg: ModelConfig, batch: dict, *,
+                model_state: Optional[dict] = None, train: bool = False,
                 use_kernels: bool = True) -> ModelOutputs:
     """Forward.  batch: 'im' [B,H,W,3] float32 (BGR, mean-subtracted),
-    'words' [B,T] back-padded token ids, 'seq_len' [B].
+    'words' [B,T] token ids with 'seq_len' [B] (back-padded) or
+    'valid_idx' [B] (front-padded: the number of pads).
+
+    `model_state`: the BN moving statistics (`init_model_state`), required
+    by the ASPP decoder (a missing state raises: it is never replaced by
+    initial statistics).  `train=True` normalizes the decoder's BN with the
+    batch statistics; the outputs' `model_state` holds the updated moving
+    statistics (no gradient).
 
     `use_kernels=False` runs the plain PyTorch versions of the kernels on
     any device (the reference the kernels are held against).  Where
@@ -133,16 +179,22 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     backbone's weights need no gradient, so autograd records nothing
     there."""
     _check_supported(cfg)
+    decoder = cfg.decoder == "aspp_v3plus"
+    if decoder and model_state is None:
+        raise ValueError(f"{cfg.variant or 'this config'}: the ASPP decoder "
+                         "needs model_state (the BN moving statistics)")
     im = batch["im"]
     dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     route = dict(use_kernels=use_kernels)
 
+    taps = tuple(cfg.levels) + (("c2",) if decoder else ())
     vis = apply_backbone(params["backbone"], im, compute_dtype=dt,
-                         taps=tuple(cfg.levels), res4_blocks=cfg.res4_blocks)
+                         taps=taps, res4_blocks=cfg.res4_blocks)
     if dt is not None:
         vis = {k: v.to(dt) for k, v in vis.items()}
 
-    text = encode_text(params["text"], cfg, batch["words"], batch["seq_len"])
+    text = encode_text(params["text"], cfg, batch["words"],
+                       batch.get("seq_len"), valid_idx=batch.get("valid_idx"))
     words_parse = cmpc.apply_lang_parser(params["parser"], text.parse_feat,
                                          text.seq_mask)
 
@@ -171,10 +223,19 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     fused = cmpc.apply_fusion_stack(params["fusion_stack"], cfg, fusions, nec,
                                     **route)
 
-    pred = conv2d(params["scores"]["score"], fused.float())
+    if decoder:
+        enc, st_aspp = aspp.apply_aspp(params["aspp"], model_state["aspp"],
+                                       fused, train=train)
+        pred, st_dec = aspp.apply_v3plus_decoder(
+            params["decoder"], model_state["decoder"], enc, vis["c2"],
+            train=train)
+        if train:
+            model_state = {"aspp": st_aspp, "decoder": st_dec}
+    else:
+        pred = conv2d(params["scores"]["score"], fused.float())
     up = resize_bilinear(pred, cfg.H, cfg.W)
     return ModelOutputs(pred, up, torch.sigmoid(up), up_levels, words_parse,
-                        gw)
+                        gw, {} if model_state is None else model_state)
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +243,9 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
 # ---------------------------------------------------------------------------
 
 def _collect_reg_leaves(params) -> list:
-    """Regularized leaves: every 'DW' conv kernel of the head (the
-    reference filters trainable names for 'DW', CMPC_model.py:433).  The
+    """Regularized leaves: every 'DW' conv kernel of the head, the ASPP's
+    and decoder's included (the reference filters trainable names for
+    'DW', CMPC_model.py:433; BN's gamma and beta are not matched).  The
     backbone is frozen: training res3-5 (conv5=True) is not ported."""
     leaves = []
 

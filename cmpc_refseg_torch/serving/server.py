@@ -48,19 +48,26 @@ class PredictService:
     """The batch-1 forward and its pre- and post-processing.
 
     `params` are the port's parameters (``init_model`` or
-    ``params_from_jax``); they are moved to `device` (CUDA when None; raises
-    without it) and prepared for inference once."""
+    ``params_from_jax``) and `model_state` the BN moving statistics
+    (``init_model_state`` or ``model_state_from_jax``; required by the
+    ASPP decoder, whose missing state raises); they are moved to `device`
+    (CUDA when None; raises without it), the params prepared for inference
+    once."""
 
-    def __init__(self, cfg, params, vocab_dict, *, device=None,
-                 quantize: bool = False):
+    def __init__(self, cfg, params, vocab_dict, *, model_state=None,
+                 device=None, quantize: bool = False):
         if quantize:
             raise NotImplementedError("the int8 backbone serving path is not "
                                       "ported yet")
+        if model_state is None and cfg.decoder != "multiscore":
+            raise ValueError(f"{cfg.variant or 'this config'}: the ASPP "
+                             "decoder needs model_state")
         self.device = resolve_device(device)
         self.cfg = dataclasses.replace(cfg, batch_size=1)
         self.vocab = vocab_dict
         self.params = prepare_params(_to_device(params, self.device),
                                      self.cfg)
+        self.model_state = _to_device(model_state or {}, self.device)
         self.n_requests = 0
         self._lock = threading.Lock()
 
@@ -82,7 +89,8 @@ class PredictService:
     def forward(self, batch: dict) -> np.ndarray:
         """sigm [H, W] of a batch-1 feed, on the host."""
         with self._lock, torch.inference_mode():
-            sigm = apply_model(self.params, self.cfg, batch).sigm
+            sigm = apply_model(self.params, self.cfg, batch,
+                               model_state=self.model_state).sigm
             self.n_requests += 1
             return sigm[0, :, :, 0].float().cpu().numpy()
 

@@ -1,12 +1,13 @@
-"""The train step of the flagship and its loop (reference:
-trainval_model.py:19-147).
+"""The train step and its loop (reference: trainval_model.py:19-147).
 
-A step is the differentiable forward (`models.model.apply_model` where
-autograd records: the head's kernels through ``ops/autograd.py``, the
-frozen backbone outside the graph), the loss, autograd's backward, the
+A step is the differentiable forward (`models.model.apply_model` in train
+mode where autograd records: the head's kernels through
+``ops/autograd.py``, the frozen backbone outside the graph, the ASPP
+decoder's BN on the batch statistics), the loss, autograd's backward, the
 conv-bias gradient x2 and one Adam update whose lr comes from the
-polynomial schedule at the step count.  Batches arrive as uint8 images and
-masks (`prepare_image_batch_u8`) and are expanded on the device.
+polynomial schedule at the step count; the decoder's BN moving statistics
+are carried in the state.  Batches arrive as uint8 images and masks
+(`prepare_image_batch_u8`) and are expanded on the device.
 
 Not ported: the JAX step's layout knobs (the flat master vector, the grad
 modes, the fused Adam, the XLA dW switch), which are TPU launch-count
@@ -27,7 +28,8 @@ import torch
 from cmpc_refseg_torch.config import ModelConfig
 from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR
 from cmpc_refseg_torch.models.model import (apply_model, compute_loss,
-                                            init_model, prepare_backbone)
+                                            init_model, init_model_state,
+                                            prepare_backbone)
 from cmpc_refseg_torch.train.optimizer import (check_trainable,
                                                make_optimizer, merge_params,
                                                named_leaves, partition_params,
@@ -39,10 +41,13 @@ from cmpc_refseg_torch.utils.moving_average import MovingAverage
 class TrainState:
     """`trainable`: the f32 parameter tensors that train (requires_grad);
     `frozen`: the frozen backbone, in `prepare_backbone`'s view;
-    `optimizer`: Adam over the trainable tensors; `step`: updates done."""
+    `optimizer`: Adam over the trainable tensors; `model_state`: the BN
+    moving statistics (`models.model.init_model_state`; {} for the
+    multiscore decoder); `step`: updates done."""
     trainable: dict
     frozen: dict
     optimizer: torch.optim.Optimizer
+    model_state: dict
     step: int = 0
 
     @property
@@ -54,22 +59,26 @@ class TrainState:
         return merge_params(self.trainable, self.frozen)
 
 
-def train_state_from_params(params: dict, cfg: ModelConfig) -> TrainState:
+def train_state_from_params(params: dict, cfg: ModelConfig,
+                            model_state: dict) -> TrainState:
     """A fresh TrainState (step 0, empty Adam moments) from port
-    parameters; the trainable tensors are switched to requires_grad in
-    place."""
+    parameters and BN moving statistics; the trainable tensors are switched
+    to requires_grad in place."""
     trainable, frozen = partition_params(params, cfg)
     leaves = [leaf.requires_grad_() for _, leaf in named_leaves(trainable)]
     return TrainState(trainable=trainable,
                       frozen={"backbone": prepare_backbone(
                           frozen["backbone"], cfg)},
-                      optimizer=make_optimizer(cfg, leaves))
+                      optimizer=make_optimizer(cfg, leaves),
+                      model_state=model_state)
 
 
 def create_train_state(seed, cfg: ModelConfig, device=None) -> TrainState:
-    """TrainState from an int seed (the JAX package's init_model draws), on
-    `device` (CUDA when None; raises without it)."""
-    return train_state_from_params(init_model(seed, cfg, device=device), cfg)
+    """TrainState from an int seed (the JAX package's init_model draws and
+    initial BN statistics), on `device` (CUDA when None; raises without
+    it)."""
+    return train_state_from_params(init_model(seed, cfg, device=device), cfg,
+                                   init_model_state(cfg, device=device))
 
 
 def aug_generator(step: int) -> torch.Generator:
@@ -128,16 +137,19 @@ def device_image_prologue(batch: dict, device) -> dict:
 
 def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
                       use_kernels: bool = True):
-    """Forward, loss and backward of one batch: leaves every trainable
-    tensor's gradient in .grad (the conv biases' doubled) and returns
-    (loss_total, metrics), detached.  `use_kernels=False` runs the plain
-    PyTorch versions of the kernels under autograd (the reference the
-    kernel route is held against)."""
+    """Forward (train mode), loss and backward of one batch: leaves every
+    trainable tensor's gradient in .grad (the conv biases' doubled) and the
+    new BN moving statistics in `state.model_state` (no gradient), and
+    returns (loss_total, metrics), detached.  `use_kernels=False` runs the
+    plain PyTorch versions of the kernels under autograd (the reference
+    the kernel route is held against)."""
     b = device_image_prologue(batch, state.device)
     if cfg.is_aug:
         b["im"] = brightness_aug(aug_generator(state.step), b["im"])
     params = state.params()
-    outputs = apply_model(params, cfg, b, use_kernels=use_kernels)
+    outputs = apply_model(params, cfg, b, model_state=state.model_state,
+                          train=True, use_kernels=use_kernels)
+    state.model_state = outputs.model_state
     total, metrics = compute_loss(outputs, b["target"], cfg, params)
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()

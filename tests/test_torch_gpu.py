@@ -309,8 +309,10 @@ def _gates_args(g, b, n, c):
 
 
 # (B, N, others): B*N = 75 is odd and 25- and 100-row samples straddle the
-# 64- and 128-row tiles; 1600 rows per sample is the flagship's
-SHAPES = [(1, 25, 1), (3, 25, 4), (3, 100, 2), (1, 1600, 3), (3, 1600, 2)]
+# 64- and 128-row tiles; 1600 rows per sample is the flagship's, and 8
+# samples with one other level the two-level configs' bs=8 forward
+SHAPES = [(1, 25, 1), (3, 25, 4), (3, 100, 2), (1, 1600, 3), (3, 1600, 2),
+          (8, 1600, 1)]
 
 
 @pytest.mark.gpu
@@ -393,12 +395,13 @@ WORDS = [1, 33, 40, 64, 300]
 @pytest.mark.parametrize("t", WORDS)
 @pytest.mark.parametrize("l2n,masked", [(False, True), (False, False),
                                         (True, False), (True, True)])
-@pytest.mark.parametrize("groups", [0, 3])
+@pytest.mark.parametrize("groups", [0, 2, 3])
 def test_affinity_takes_any_word_count(cuda, groups, l2n, masked, t):
-    """The wgmma affinity kernel in both forms and all four (l2n, masked)
-    forms at T = 1 and past one 32-word chunk (33, 40, 64, 300): 3 samples
-    of 100 rows (a 128-row tile past each sample), C = 72, A = 40."""
-    args = _affinity_args(cuda, 3, 100, 72, 40, t, groups)
+    """The wgmma affinity kernel in both forms (G = 2: the two-level
+    configs' packed graph) and all four (l2n, masked) forms at T = 1 and
+    past one 32-word chunk (33, 40, 64, 300): 6 samples of 100 rows (a
+    128-row tile past each sample), C = 72, A = 40."""
+    args = _affinity_args(cuda, 6, 100, 72, 40, t, groups)
     name = "spa_affinity_grouped" if groups else "spa_affinity"
     kw = {"scale": 72 ** 0.5, "l2n": l2n, "masked": masked}
     wrapper = getattr(kernels, name)
@@ -507,16 +510,16 @@ def test_graph_msg_raises_on_misaligned_or_noncontiguous(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("groups", [0, 1, 3])
+@pytest.mark.parametrize("groups", [0, 1, 2, 3])
 @pytest.mark.parametrize("n", [100, 1600])
 @pytest.mark.parametrize("c", [72, 1000])
 def test_graph_update_wgmma_kernel_matches_plain_version(cuda, c, n, groups):
-    """The TMA + wgmma update kernel in both forms (G = 0: ungrouped): C =
-    72 is one block of 256 columns, C = 1000 a cluster of four whose last
-    block ends inside its fourth box and whose K runs 15 full stages and
-    40 columns; 100- and 1600-row samples leave the last 128-row tile part
-    empty; 3 samples."""
-    args = _update_args(cuda, 3, n, c, groups)
+    """The TMA + wgmma update kernel in both forms (G = 0: ungrouped; G =
+    2: the two-level configs' packed graph): C = 72 is one block of 256
+    columns, C = 1000 a cluster of four whose last block ends inside its
+    fourth box and whose K runs 15 full stages and 40 columns; 100- and
+    1600-row samples leave the last 128-row tile part empty; 6 samples."""
+    args = _update_args(cuda, 6, n, c, groups)
     name = "graph_update_grouped" if groups else "graph_update"
     wrapper = getattr(kernels, name)
     got = wrapper(*args)
@@ -633,19 +636,45 @@ def test_wrapper_raises_on_wrong_dtype(cuda):
         kernels.graph_msg(args[0].float(), args[1])
 
 
-@pytest.mark.gpu
-def test_small_forward_kernel_route_matches_plain_route(cuda):
-    """A TINY bf16 forward on the card at batch 3: each kernel launches as
-    often as the path needs (3 times per level-wise kernel, 6 SE sums, or
-    once per grouped kernel where the levels are packed) and sigm agrees
-    with the plain route."""
-    from cmpc_refseg_torch.api import build_model
+TINY = dict(H=32, W=32, num_steps=6, vocab_size=30, glove_dim=8,
+            rnn_size=16, v_emb_dim=16, mlp_dim=12, batch_size=3,
+            res4_blocks=2)
+
+
+def _expected_launches(cfg, batch, train=False):
+    """The launches of one forward (or train step) of `cfg` at `batch`:
+    per level one mutan (the training form, the dz pass and dW when
+    training), one ConvLSTM step and two SE sums (none for the self-gated
+    exchange); the graph packed (one launch of each grouped kernel) or
+    level by level (no affinity kernel under the double softmax)."""
     from cmpc_refseg_torch.models.cmpc import pack_levels
+    levels = len(cfg.levels)
+    packed = pack_levels(batch, levels, cfg.graph_norm)
+    per_level = 0 if packed else levels
+    affinity = cfg.graph_norm != "double_softmax"
+    return {"mutan_fused": 0 if train else levels,
+            **dict.fromkeys(("mutan_fwd_residual", "mutan_bwd_dz",
+                             "mutan_dw"), levels if train else 0),
+            "spa_affinity": per_level if affinity else 0,
+            "spa_affinity_grouped": int(packed and affinity),
+            "graph_msg": 1 if packed else levels, "graph_update": per_level,
+            "graph_update_grouped": int(packed),
+            "se_sum": 0 if cfg.exchange_self_gate else 2 * levels,
+            "convlstm_gates": levels, "convlstm_raw": levels}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["CMPC_model", "CMPCv5_model",
+                                  "CMPCv6_model"])
+def test_small_forward_kernel_route_matches_plain_route(cuda, name):
+    """A TINY bf16 forward on the card at batch 3: each kernel launches as
+    often as the path needs (per level, or once per grouped kernel where
+    the levels are packed: G = 3 for the flagship, 2 for CMPCv5_model's
+    ASPP decoder config and for CMPCv6_model, whose self-gated exchange
+    launches no SE sum) and sigm agrees with the plain route."""
+    from cmpc_refseg_torch.api import build_model
     from cmpc_refseg_torch.models.model import apply_model
-    model = build_model("CMPC_model", dtype="bfloat16", H=32, W=32,
-                        num_steps=6, vocab_size=30, glove_dim=8, rnn_size=16,
-                        v_emb_dim=16, mlp_dim=12, batch_size=3,
-                        res4_blocks=2)
+    model = build_model(name, dtype="bfloat16", **TINY)
     rng = np.random.default_rng(1)
     words = np.zeros((3, 6), np.int64)
     words[:, :4] = rng.integers(3, 30, (3, 4))
@@ -654,18 +683,12 @@ def test_small_forward_kernel_route_matches_plain_route(cuda):
              "words": words, "seq_len": np.array([4, 2, 6])}
     kernels.reset_launch_counts()
     out = model.forward(batch)
-    packed = pack_levels(3, 3)
-    assert kernels.launch_counts() == {
-        "mutan_fused": 3, "mutan_fwd_residual": 0, "mutan_bwd_dz": 0,
-        "mutan_dw": 0, "spa_affinity": 0 if packed else 3,
-        "spa_affinity_grouped": 1 if packed else 0,
-        "graph_msg": 1 if packed else 3, "graph_update": 0 if packed else 3,
-        "graph_update_grouped": 1 if packed else 0, "se_sum": 6,
-        "convlstm_gates": 3, "convlstm_raw": 3}
+    assert kernels.launch_counts() == _expected_launches(model.cfg, 3)
     with torch.inference_mode():
         ref = apply_model(model.params, model.cfg,
                           {k: torch.as_tensor(v, device="cuda")
-                           for k, v in batch.items()}, use_kernels=False)
+                           for k, v in batch.items()},
+                          model_state=model.model_state, use_kernels=False)
     assert torch.isfinite(out.sigm).all()
     assert (out.sigm - ref.sigm).abs().max().item() <= 2e-2
 
@@ -681,10 +704,7 @@ def test_small_train_step_kernel_route_matches_plain_route(cuda):
     from cmpc_refseg_torch.api import build_trainer
     from cmpc_refseg_torch.train.optimizer import named_leaves
     from cmpc_refseg_torch.train.trainer import compute_gradients
-    trainer = build_trainer("CMPC_model", dtype="bfloat16", H=32, W=32,
-                            num_steps=6, vocab_size=30, glove_dim=8,
-                            rnn_size=16, v_emb_dim=16, mlp_dim=12,
-                            batch_size=3, res4_blocks=2)
+    trainer = build_trainer("CMPC_model", dtype="bfloat16", **TINY)
     rng = np.random.default_rng(2)
     words = np.zeros((3, 6), np.int64)
     words[:, :4] = rng.integers(3, 30, (3, 4))
@@ -705,8 +725,4 @@ def test_small_train_step_kernel_route_matches_plain_route(cuda):
     metrics = trainer.step(batch)
     torch.cuda.synchronize()
     assert np.isfinite(float(metrics["loss_total"]))
-    assert kernels.launch_counts() == {
-        "mutan_fused": 0, "mutan_fwd_residual": 3, "mutan_bwd_dz": 3,
-        "mutan_dw": 3, "spa_affinity": 0, "spa_affinity_grouped": 1,
-        "graph_msg": 1, "graph_update": 0, "graph_update_grouped": 1,
-        "se_sum": 6, "convlstm_gates": 3, "convlstm_raw": 3}
+    assert kernels.launch_counts() == _expected_launches(cfg, 3, train=True)
