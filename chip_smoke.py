@@ -9,7 +9,7 @@ Phases, each fatal on failure:
     ptxas's report per kernel: registers, spills, static shared memory and
     any waits it injected into a wgmma pipeline);
  3. kernels: each kernel's wrapper at the shapes each path of phases 4
-    to 6 gives it, against its plain PyTorch version on the same CUDA
+    to 8 gives it, against its plain PyTorch version on the same CUDA
     tensors: the flagship bs=8 forward (320x320 -> N=1600 nodes, C=1000,
     K=1008, A=1000, T=20, mlp C=500), the batch-1 request, the bs=64
     forward and the bs=8 train step (the mutan kernel's training form
@@ -75,7 +75,18 @@ Phases, each fatal on failure:
     CMPCv4_model's bs=8 train step as in phase 6 (its BN batch statistics
     of both routes held against each other too).  Phase 3 holds every
     kernel at each of these paths' shapes;
- 8. the kernels' share of each path's run, the `kernels` JSON line (each
+ 8. eval and checkpoints: `evaluator.evaluate` (the reference protocol:
+    native-resolution masks, overall and mean IoU, prec@X) on the
+    flagship at bs=8 over 61 seeded samples of 8 native sizes (the last
+    batch padded), counted; per batch the kernel route's `up` and sigm
+    against the plain route's, and the on-device (I, U) sums at model
+    resolution against the host accumulator's, exactly; both routes'
+    results and `evaluate_sharded`'s printed.  Then CMPCv4_model's bs=8
+    trainer takes two steps and saves a checkpoint, a trainer from
+    another seed restores it bit-equal, both take one more step (losses
+    within 1e-4 relative), and services from both answer a request
+    (prob within 2e-2); save and restore ms, bytes on disk;
+ 9. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -127,6 +138,12 @@ N_TRAIN = 10
 TRAIN_LOSS_TOL = 1e-2        # kernel vs plain route, relative
 TRAIN_GRAD_TOL = 5e-2        # per leaf, ||g_k - g_p|| / ||g_p||
 PACK_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
+# phase 8: 61 samples, so the last bs=8 batch of the evaluation is padded;
+# native sizes (h, w) between 240x320 and 640x480
+N_EVAL = 61
+EVAL_SIZES = ((240, 320), (333, 500), (375, 500), (427, 640), (480, 640),
+              (500, 375), (512, 512), (640, 480))
+CKPT_LOSS_TOL = 1e-4         # next-step loss, restored vs original, relative
 REPLACES = {
     "mutan_fused": "cmpc_refseg_tpu/ops/pallas_kernels.py:98",
     "mutan_fwd_residual": "cmpc_refseg_tpu/ops/pallas_kernels.py:332",
@@ -290,10 +307,12 @@ def path_spec(cfg, batch, train=False):
 
 
 def path_specs(get_config):
-    """The paths phases 4 to 7 drive: the flagship's bs=8 forward, batch-1
+    """The paths phases 4 to 8 drive: the flagship's bs=8 forward, batch-1
     request, bs=64 forward (above the packing threshold: the per-level
     spatial graph) and bs=8 train step; each variant's bs=8 forward, the
-    CMPCv6_model batch-1 request and the CMPCv4_model bs=8 train step."""
+    CMPCv6_model batch-1 request and the CMPCv4_model bs=8 train step;
+    the flagship's bs=8 evaluation, and the CMPCv4_model train steps
+    around a checkpoint and the requests to services from it."""
     flag = get_config("CMPC_model")
     specs = {"forward_bs8": path_spec(flag, B),
              "serving_bs1": path_spec(flag, 1),
@@ -302,8 +321,11 @@ def path_specs(get_config):
     for tag, name, overrides in VARIANTS:
         specs[f"{tag}_bs8"] = path_spec(get_config(name, **overrides), B)
     specs["v6_serving_bs1"] = path_spec(get_config("CMPCv6_model"), 1)
-    specs["v4_train_bs8"] = path_spec(get_config("CMPCv4_model"), B,
-                                      train=True)
+    v4 = get_config("CMPCv4_model")
+    specs["v4_train_bs8"] = path_spec(v4, B, train=True)
+    specs["eval_bs8"] = path_spec(flag, B)
+    specs["ckpt_v4_train_bs8"] = path_spec(v4, B, train=True)
+    specs["ckpt_v4_serving_bs1"] = path_spec(v4, 1)
     return specs
 
 
@@ -1414,6 +1436,279 @@ def run_variants(torch, kernels, cmpc, aspp, build_model, apply_model,
     return paths, summary
 
 
+def eval_samples(cfg):
+    """N_EVAL seeded evaluation samples as `evaluator.evaluate` takes them:
+    a uint8 RGB image of one of EVAL_SIZES resized and padded to the
+    model's size (BGR - mean), 3-20 words, a native mask (an ellipse whose
+    boundary the model's grid does not align with) and its model-resolution
+    copy 'target' for the on-device path."""
+    from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR, resize_and_pad
+    rng = np.random.default_rng(8)
+    out = []
+    for i in range(N_EVAL):
+        h, w = EVAL_SIZES[i % len(EVAL_SIZES)]
+        image = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        cy, cx = rng.uniform(0.2, 0.8, 2) * (h, w)
+        ry, rx = rng.uniform(0.1, 0.5, 2) * (h, w)
+        yy, xx = np.mgrid[:h, :w]
+        mask = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+        n = int(rng.integers(3, 21))
+        words = np.zeros((1, cfg.num_steps), np.int64)
+        words[0, :n] = rng.integers(3, cfg.vocab_size, n)
+        im = resize_and_pad(image.astype(np.float32), cfg.H, cfg.W)
+        target = resize_and_pad(mask.astype(np.float32), cfg.H, cfg.W) > 0
+        out.append({"im": (im[..., ::-1] - IMAGE_MEAN_BGR)[None].astype(
+                        np.float32),
+                    "words": words, "seq_len": np.asarray([n]),
+                    "orig_size": (h, w), "target_native": mask,
+                    "target": target.astype(np.float32)[None, ..., None]})
+    return out
+
+
+def run_eval(torch, kernels, cmpc, card):
+    """Phase 8a: the reference protocol (`evaluator.evaluate`) on the
+    flagship at bs=8, bf16, full depth, over N_EVAL samples (the last
+    batch padded).  Gates, per batch: the kernel route's `up` against the
+    plain route's (max abs over max(1, max |up|) within SIGM_TOL, and sigm
+    within SIGM_TOL absolute, as phase 4 holds it), and on the kernel
+    route's own `up` the on-device (I, U) at model resolution
+    (`model_res_iu`, `batched_mask_iu`: what `evaluate_sharded` sums)
+    against the host `SegEvalAccumulator`'s, exactly.  Timed: the forward
+    per batch, the host's native mapping per sample, and `evaluate`'s
+    samples/s, its launches counted."""
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.models.model import (init_model, init_model_state,
+                                                prepare_params)
+    from cmpc_refseg_torch.ops.metrics import SegEvalAccumulator
+    from cmpc_refseg_torch.train import evaluator as ev
+
+    cfg = get_config("CMPC_model", compute_dtype="bfloat16", batch_size=B)
+    params = init_model(0, cfg, device=DEV)
+    state = init_model_state(cfg, device=DEV)
+    samples = eval_samples(cfg)
+    prepared = prepare_params(params, cfg)
+    step_k = ev.make_eval_step(cfg)
+    step_p = ev.make_eval_step(cfg, use_kernels=False)
+    host = SegEvalAccumulator()
+    dev_i = dev_u = 0
+    worst_up = worst_sigm = 0.0
+    small, pixels = 0, 0
+    fwd_ms, map_ms = [], []
+    step_k(prepared, state, next(ev.eval_batches(iter(samples), B))[1])
+    for group, batch in ev.eval_batches(iter(samples), B):
+        if len(batch["words"]) != B:
+            fail(f"eval: a batch of {len(batch['words'])} rows, not {B}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up_k, sigm_k = step_k(prepared, state, batch)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        up_p, sigm_p = step_p(prepared, state, batch)
+        if not (torch.isfinite(up_k).all() and up_k.shape == (B, cfg.H,
+                                                              cfg.W, 1)):
+            fail(f"eval: up {tuple(up_k.shape)} or non-finite values")
+        scale = max(1.0, up_p.abs().max().item())
+        worst_up = max(worst_up, (up_k - up_p).abs().max().item() / scale)
+        worst_sigm = max(worst_sigm, (sigm_k - sigm_p).abs().max().item())
+        n = len(group)
+        small += (up_k[:n].abs() < SIGM_TOL).sum().item()
+        pixels += up_k[:n].numel()
+        target = torch.as_tensor(np.concatenate([s["target"] for s in group]),
+                                 device=DEV)
+        i, u = ev.model_res_iu(up_k[:n], target)
+        dev_i += int(i.sum())
+        dev_u += int(u.sum())
+        up_host = up_k[:n, :, :, 0].float().cpu().numpy()
+        for j, sample in enumerate(group):
+            pred = up_host[j] >= ev.SCORE_THRESHOLD
+            tgt = sample["target"][0, :, :, 0] > 0.5
+            host.update(np.sum(pred & tgt), np.sum(pred | tgt))
+            t0 = time.perf_counter()
+            native = ev.native_prediction(up_host[j], *sample["orig_size"])
+            gt = sample["target_native"]
+            _ = np.sum(native & gt), np.sum(native | gt)  # as `evaluate`
+            map_ms.append((time.perf_counter() - t0) * 1e3)
+    if not (worst_up <= SIGM_TOL and worst_sigm <= SIGM_TOL):
+        fail(f"eval: kernel vs plain route: up {worst_up:.3e} of "
+             f"max(1, max |up|), sigm {worst_sigm:.3e} > {SIGM_TOL}")
+    if (dev_i, dev_u) != (host.cum_i, host.cum_u) or host.seg_total != N_EVAL:
+        fail(f"eval: on-device (I, U) sums {(dev_i, dev_u)} vs the host "
+             f"accumulator's {(host.cum_i, host.cum_u)} over "
+             f"{host.seg_total} samples")
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = ev.evaluate(cfg, params, state, iter(samples), batch_size=B,
+                          device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    forwards = -(-N_EVAL // B)
+    check_counts(counts, expected_launches(cmpc, B), forwards, "eval_bs8")
+    plain = ev.evaluate(cfg, params, state, iter(samples), batch_size=B,
+                        device=DEV, use_kernels=False)
+    batches = [{k: np.concatenate([s[k] for s in samples[i:i + B]])
+                for k in ("im", "words", "seq_len", "target")}
+               for i in range(0, N_EVAL - B + 1, B)]
+    sharded = ev.evaluate_sharded(cfg, params, state, iter(batches),
+                                  device=DEV)
+    for r in (results["no_crf"], plain["no_crf"], sharded):
+        if not all(math.isfinite(v) for v in r.values()):
+            fail(f"eval: non-finite result {r}")
+    summary = {
+        "samples": N_EVAL, "batches": forwards,
+        "forward_ms_per_batch": statistics.median(fwd_ms),
+        "forward_ms_runs": fwd_ms,
+        "host_map_ms_per_sample": statistics.median(map_ms),
+        "samples_per_s": N_EVAL / wall, "evaluate_s": wall,
+        "up_vs_plain_max_norm": worst_up, "sigm_vs_plain_max_abs": worst_sigm,
+        "model_res_i": dev_i, "model_res_u": dev_u,
+        "share_abs_up_below_2e-2": small / pixels,
+        "results_kernels": results, "results_plain": plain,
+        "sharded_56_samples": sharded}
+    log(f"[eval_bs8] {card}: CMPC_model 320x320 bs={B} bf16 res4_blocks=23, "
+        f"{N_EVAL} samples of {len(EVAL_SIZES)} native sizes: forward "
+        f"{summary['forward_ms_per_batch']:.3f} ms per batch (median of "
+        f"{forwards}, host clock around the step and a synchronize), native "
+        f"mapping {summary['host_map_ms_per_sample']:.3f} host ms per "
+        f"sample, evaluate {summary['samples_per_s']:.1f} samples/s "
+        f"({wall:.3f} s); kernel vs plain route: up {worst_up:.3e} of "
+        f"max(1, max |up|), sigm {worst_sigm:.3e} <= {SIGM_TOL}; on-device "
+        f"(I, U) = ({dev_i}, {dev_u}) = the host accumulator's; "
+        f"|up| < 2e-2 on {small / pixels:.3%} of the pixels")
+    log(f"[eval_bs8] results, kernel route: {json.dumps(results)}; plain "
+        f"route: {json.dumps(plain)}; evaluate_sharded over "
+        f"{len(batches) * B} samples: {json.dumps(sharded)}")
+    log(f"[eval_bs8] launches in {forwards} forwards: {counts}")
+    return {"eval_bs8": (counts, forwards,
+                         wall * 1e3 / forwards)}, summary
+
+
+def run_checkpoint(torch, kernels, cmpc, build_trainer, named_leaves, card):
+    """Phase 8b: CMPCv4_model's bs=8 trainer (bf16, full depth) takes two
+    steps and saves a checkpoint; a trainer from another seed restores it
+    (every leaf bit-equal: weights, the f32 frozen backbone, Adam's
+    moments and count, the BN moving statistics, the step); each takes
+    one more step on the same batch (losses within CKPT_LOSS_TOL
+    relative); then a PredictService from the restored state and one from
+    the original answer a request each (prob within SIGM_TOL).  Times
+    save and restore, and the bytes on disk.  Launches of the four steps
+    and of the two requests are counted."""
+    import os
+    import tempfile
+
+    from cmpc_refseg_torch.data.text import synthetic_vocab
+    from cmpc_refseg_torch.serving.server import PredictService
+    from cmpc_refseg_torch.train.checkpoint import (FILE, restore_checkpoint,
+                                                    save_checkpoint)
+
+    trainer = build_trainer("CMPCv4_model", device=DEV, dtype="bfloat16",
+                            batch_size=B)
+    cfg = trainer.cfg
+    batches = [train_batch(cfg, B, 200 + i) for i in range(3)]
+
+    def saved(state):
+        adam = state.optimizer.state
+        out = {("step",): torch.tensor(state.step)}
+        for path, p in named_leaves(state.trainable):
+            out[("trainable",) + path] = p.detach()
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                out[(key,) + path] = adam[p][key]
+        for name in ("frozen_f32", "model_state"):
+            out.update({(name,) + path: leaf for path, leaf in
+                        named_leaves(getattr(state, name))})
+        return out
+
+    def timed_step(t, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = t.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return metrics
+
+    step_ms = []
+    kernels.reset_launch_counts()
+    for batch in batches[:2]:
+        timed_step(trainer, batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, trainer.state, trainer.state.step)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(os.path.join(tmp, str(trainer.state.step),
+                                              FILE))
+        restored = build_trainer("CMPCv4_model", seed=1, device=DEV,
+                                 dtype="bfloat16", batch_size=B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(tmp, restored.state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    want, got = saved(trainer.state), saved(restored.state)
+    bad = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+           or got[k].device != want[k].device
+           or not torch.equal(got[k], want[k])]
+    if bad or set(got) != set(want):
+        fail(f"checkpoint: {len(bad)} leaves differ after the restore, "
+             f"first {bad[:3]}")
+    leaves = len(want)
+    del want, got
+    loss = [float(timed_step(t, batches[2])["loss_total"])
+            for t in (trainer, restored)]
+    counts = kernels.launch_counts()
+    check_counts(counts, config_launches(cmpc, cfg, B, train=True), 4,
+                 "ckpt_v4_train_bs8")
+    loss_err = abs(loss[1] - loss[0]) / abs(loss[0])
+    if not loss_err <= CKPT_LOSS_TOL:
+        fail(f"checkpoint: next-step loss {loss[1]!r} after the restore vs "
+             f"{loss[0]!r}: relative error {loss_err:.3e} > {CKPT_LOSS_TOL}")
+    param_diff = max((a.detach().float() - b.detach().float()).abs().max()
+                     .item() for (_, a), (_, b) in zip(
+                         named_leaves(trainer.state.trainable),
+                         named_leaves(restored.state.trainable)))
+
+    vocab = synthetic_vocab(cfg.vocab_size)
+    image, expr = request_set(np, cfg.vocab_size)[1]
+    services = [PredictService(cfg, t.state.params(), vocab,
+                               model_state=t.state.model_state, device=DEV)
+                for t in (trainer, restored)]
+    for svc in services:
+        svc.warmup()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    probs, req_ms = [], []
+    for svc in services:
+        t0 = time.perf_counter()
+        probs.append(svc.predict(image, expr)[0])
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+    srv_counts = kernels.launch_counts()
+    check_counts(srv_counts, config_launches(cmpc, cfg, 1), 2,
+                 "ckpt_v4_serving_bs1")
+    prob_err = float(np.abs(probs[0] - probs[1]).max())
+    if probs[1].shape != image.shape[:2] or not prob_err <= SIGM_TOL:
+        fail(f"checkpoint: the restored service's prob {probs[1].shape} "
+             f"differs from the original's by {prob_err:.3e} > {SIGM_TOL}")
+    summary = {"save_ms": save_ms, "restore_ms": restore_ms,
+               "bytes": nbytes, "leaves_bit_equal": leaves,
+               "step_ms": step_ms, "request_ms": req_ms,
+               "next_step_losses": loss, "loss_rel_err": loss_err,
+               "param_max_abs_diff_after_step": param_diff,
+               "prob_vs_original_max_abs": prob_err}
+    log(f"[ckpt_v4] {card}: CMPCv4_model bs={B} bf16 res4_blocks=23: save "
+        f"{save_ms:.1f} ms, restore {restore_ms:.1f} ms, {nbytes} bytes on "
+        f"disk; {leaves} leaves bit-equal after the restore; next-step loss "
+        f"{loss[0]!r} vs restored {loss[1]!r} (relative {loss_err:.3e} <= "
+        f"{CKPT_LOSS_TOL}); largest weight difference after that step "
+        f"{param_diff:.3e}; the restored service's prob vs the original's "
+        f"max abs {prob_err:.3e} <= {SIGM_TOL}")
+    log(f"[ckpt_v4] launches in 4 steps: {counts}; in 2 requests: "
+        f"{srv_counts}")
+    return {"ckpt_v4_train_bs8": (counts, 4, statistics.median(step_ms)),
+            "ckpt_v4_serving_bs1": (srv_counts, 2,
+                                    statistics.median(req_ms))}, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1476,6 +1771,13 @@ def main():
         torch, kernels, autograd, cmpc, build_trainer, compute_gradients,
         named_leaves, card, name="CMPCv4_model", path="v4_train_bs8")
     paths.update(train_paths)
+    torch.cuda.empty_cache()
+    eval_paths, evaluation = run_eval(torch, kernels, cmpc, card)
+    paths.update(eval_paths)
+    torch.cuda.empty_cache()
+    ckpt_paths, ckpt = run_checkpoint(torch, kernels, cmpc, build_trainer,
+                                      named_leaves, card)
+    paths.update(ckpt_paths)
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
@@ -1497,6 +1799,8 @@ def main():
     log(f"[variants] {json.dumps(variants)}")
     log(f"[v6_serving_bs1] {json.dumps(v6_serving)}")
     log(f"[v4_train_bs8] {json.dumps(v4_train)}")
+    log(f"[eval_bs8] {json.dumps(evaluation)}")
+    log(f"[ckpt_v4] {json.dumps(ckpt)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

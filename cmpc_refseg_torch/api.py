@@ -12,7 +12,10 @@ reference name.
 
 All run on CUDA unless the caller passes ``device="cpu"``; with no CUDA
 device and no explicit device, they raise.  The weights come from `seed`
-(no trained checkpoint ships with the repository); the model state (the
+(no trained checkpoint ships with the repository: ``train.checkpoint.
+restore_checkpoint`` loads one into ``trainer.state``, and
+tools/jax_checkpoint_to_torch.py and tools/tf_checkpoint_to_torch.py
+turn a JAX package or TF checkpoint into one); the model state (the
 ASPP decoder's BN moving statistics, {} for the multiscore decoder) is
 built with them at its initial values and passed along: `Model`
 and `PredictService` hold it, `Trainer.state.model_state` updates it.

@@ -10,6 +10,8 @@ backbone runs through ``F.conv2d``).  Head kernels stay HWIO, as the port's
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -25,6 +27,16 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port's plain versions on the CPU")
     return dev
+
+
+def to_device(tree, device):
+    """A tree of dicts and lists of tensors with every tensor moved to
+    `device` (the same tensor where it is there already)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
 
 
 def _tensor(leaf, device):
@@ -60,6 +72,41 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
         raise ValueError(f"levels {tuple(tree['levels'])} do not match the "
                          f"config's {tuple(cfg.levels)}")
     return _convert(tree, device)
+
+
+_KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def params_from_npz(path, cfg: ModelConfig, *, device=None) -> dict:
+    """The port's parameters from the .npz that
+    tools/convert_tf_checkpoint.py writes: one array per leaf of the JAX
+    parameter pytree, keyed by its path as ``jax.tree_util.keystr`` prints
+    it (``['backbone']['conv1']['w']``, a list index as ``[0]``).  The file
+    holds the parameters only: the ASPP decoder's BN moving statistics are
+    not in it (tools/tf_checkpoint_to_torch.py keeps them)."""
+    tree: dict = {}
+    with np.load(path) as npz:
+        for name in npz.files:
+            keys = [k if k else int(i) for k, i in _KEY.findall(name)]
+            if not keys or "".join(
+                    f"['{k}']" if isinstance(k, str) else f"[{k}]"
+                    for k in keys) != name:
+                raise ValueError(f"{path}: {name!r} is not a tree path")
+            node = tree
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = npz[name]
+    return params_from_jax(_lists(tree), cfg, device=device)
+
+
+def _lists(node):
+    """Nested dicts whose keys are all ints (list indices) become lists."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
 
 
 def _convert(tree: dict, device) -> dict:

@@ -29,19 +29,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from cmpc_refseg_torch.convert import resolve_device
+from cmpc_refseg_torch.convert import resolve_device, to_device
 from cmpc_refseg_torch.data.image import (IMAGE_MEAN_BGR, resize_and_crop,
                                           resize_and_pad)
 from cmpc_refseg_torch.data.text import preprocess_sentence_lstm
 from cmpc_refseg_torch.models.model import apply_model, prepare_params
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
 
 
 class PredictService:
@@ -65,9 +57,9 @@ class PredictService:
         self.device = resolve_device(device)
         self.cfg = dataclasses.replace(cfg, batch_size=1)
         self.vocab = vocab_dict
-        self.params = prepare_params(_to_device(params, self.device),
+        self.params = prepare_params(to_device(params, self.device),
                                      self.cfg)
-        self.model_state = _to_device(model_state or {}, self.device)
+        self.model_state = to_device(model_state or {}, self.device)
         self.n_requests = 0
         self._lock = threading.Lock()
 

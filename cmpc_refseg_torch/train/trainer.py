@@ -9,10 +9,13 @@ polynomial schedule at the step count; the decoder's BN moving statistics
 are carried in the state.  Batches arrive as uint8 images and masks
 (`prepare_image_batch_u8`) and are expanded on the device.
 
+The loop saves snapshots and a checkpoint at preemption
+(``train/checkpoint.py``), resumes from `start_iter` and runs a `val_fn`.
+
 Not ported: the JAX step's layout knobs (the flat master vector, the grad
 modes, the fused Adam, the XLA dW switch), which are TPU launch-count
-workarounds with the same math; mesh sharding; checkpoints (ROADMAP queue
-1, item 7); grad_accum > 1 and conv5=True (item 6).
+workarounds with the same math; mesh sharding and the multi-host loop
+(ROADMAP queue 1, item 11); grad_accum > 1 and conv5=True (item 6).
 """
 
 from __future__ import annotations
@@ -26,10 +29,12 @@ import numpy as np
 import torch
 
 from cmpc_refseg_torch.config import ModelConfig
+from cmpc_refseg_torch.convert import to_device
 from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR
 from cmpc_refseg_torch.models.model import (apply_model, compute_loss,
                                             init_model, init_model_state,
                                             prepare_backbone)
+from cmpc_refseg_torch.train.checkpoint import save_checkpoint
 from cmpc_refseg_torch.train.optimizer import (check_trainable,
                                                make_optimizer, merge_params,
                                                named_leaves, partition_params,
@@ -39,13 +44,18 @@ from cmpc_refseg_torch.utils.moving_average import MovingAverage
 
 @dataclasses.dataclass
 class TrainState:
-    """`trainable`: the f32 parameter tensors that train (requires_grad);
-    `frozen`: the frozen backbone, in `prepare_backbone`'s view;
+    """`cfg`: the config the state trains; `trainable`: the f32 parameter
+    tensors that train (requires_grad); `frozen`: the frozen backbone, in
+    `prepare_backbone`'s view (bf16 kernels under a bf16 compute dtype);
+    `frozen_f32`: the same tree in float32 on the host, bit-equal to the
+    weights the state was built from (what a checkpoint saves);
     `optimizer`: Adam over the trainable tensors; `model_state`: the BN
     moving statistics (`models.model.init_model_state`; {} for the
     multiscore decoder); `step`: updates done."""
+    cfg: ModelConfig
     trainable: dict
     frozen: dict
+    frozen_f32: dict
     optimizer: torch.optim.Optimizer
     model_state: dict
     step: int = 0
@@ -66,9 +76,10 @@ def train_state_from_params(params: dict, cfg: ModelConfig,
     to requires_grad in place."""
     trainable, frozen = partition_params(params, cfg)
     leaves = [leaf.requires_grad_() for _, leaf in named_leaves(trainable)]
-    return TrainState(trainable=trainable,
+    return TrainState(cfg=cfg, trainable=trainable,
                       frozen={"backbone": prepare_backbone(
                           frozen["backbone"], cfg)},
+                      frozen_f32=to_device(frozen, "cpu"),
                       optimizer=make_optimizer(cfg, leaves),
                       model_state=model_state)
 
@@ -221,34 +232,48 @@ class PreemptionGuard:
 
 def train_loop(cfg: ModelConfig, reader, *, max_iter: int,
                state: Optional[TrainState] = None, seed: int = 0,
-               device=None, log_every: int = 100,
-               checkpoint_dir: Optional[str] = None,
-               logger=None) -> TrainState:
-    """`max_iter` train steps over `reader.read_collated(batch_size)` (dicts
-    of stacked arrays: 'im_batch', 'mask_batch', 'text_batch',
-    'seq_length').  Logs every `log_every` iterations (console, and
-    `logger.log(it, metrics)` when given).  `state` defaults to
-    `create_train_state(seed, cfg, device)`.  SIGTERM or SIGINT stops the
-    loop at the next step boundary (`PreemptionGuard`)."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
-                                  "queue 1, item 7)")
+               device=None, log_every: int = 100, snapshot_every: int = 0,
+               checkpoint_dir: Optional[str] = None, logger=None,
+               start_iter: int = 0, val_fn: Optional[Callable] = None,
+               val_every: int = 0) -> TrainState:
+    """Train steps `start_iter` to `max_iter` - 1 over
+    `reader.read_collated(batch_size)` (dicts of stacked arrays:
+    'im_batch', 'mask_batch', 'text_batch', 'seq_length').  `state`
+    defaults to `create_train_state(seed, cfg, device)`.
+
+    Logs every `log_every` iterations (console, and `logger.log(it,
+    metrics)` when given).  `val_fn(state) -> dict` runs every `val_every`
+    iterations, its metrics logged as 'val_*' at `it + 1`.  With
+    `checkpoint_dir`, a snapshot is saved as step `it + 1` every
+    `snapshot_every` iterations, and SIGTERM or SIGINT saves step `it` at
+    the next step boundary and stops the loop there (`PreemptionGuard`;
+    without `checkpoint_dir` it only stops).  Resume with
+    `checkpoint.restore_checkpoint` into `state` and `start_iter` =
+    the restored step."""
     if state is None:
         state = create_train_state(seed, cfg, device=device)
     step_fn = make_train_step(cfg)
     with PreemptionGuard() as guard:
         return _train_iters(cfg, reader, state, step_fn, guard,
                             max_iter=max_iter, log_every=log_every,
-                            logger=logger)
+                            snapshot_every=snapshot_every,
+                            checkpoint_dir=checkpoint_dir, logger=logger,
+                            start_iter=start_iter, val_fn=val_fn,
+                            val_every=val_every)
 
 
 def _train_iters(cfg, reader, state, step_fn, guard, *, max_iter, log_every,
-                 logger):
+                 snapshot_every, checkpoint_dir, logger, start_iter, val_fn,
+                 val_every):
     time_avg = MovingAverage(100)
     last = time.time()
-    for it in range(max_iter):
+    for it in range(start_iter, max_iter):
         if guard.fired:
-            print(f"preempted at iter {it}: stopping cleanly", flush=True)
+            if checkpoint_dir:
+                save_checkpoint(checkpoint_dir, state, it)
+            print(f"preempted at iter {it}: "
+                  f"{'checkpoint saved, ' if checkpoint_dir else ''}"
+                  "stopping cleanly", flush=True)
             return state
         batch = prepare_image_batch_u8(reader.read_collated(cfg.batch_size))
         metrics = step_fn(state, batch)
@@ -264,4 +289,12 @@ def _train_iters(cfg, reader, state, step_fn, guard, *, max_iter, log_every,
                   f"({time_avg.get():.3f}s/it)", flush=True)
             if logger is not None:
                 logger.log(it, metrics)
+        if val_fn is not None and val_every and (it + 1) % val_every == 0:
+            val_metrics = val_fn(state)
+            if logger is not None:
+                logger.log(it + 1, {f"val_{k}": float(v)
+                                    for k, v in val_metrics.items()})
+        if checkpoint_dir and snapshot_every \
+                and (it + 1) % snapshot_every == 0:
+            save_checkpoint(checkpoint_dir, state, it + 1)
     return state

@@ -44,6 +44,7 @@ from cmpc_refseg_torch.ops import autograd, kernels
 from cmpc_refseg_torch.ops import losses as tlosses
 from cmpc_refseg_torch.train import optimizer as topt
 from cmpc_refseg_torch.train import trainer as ttrain
+from cmpc_refseg_torch.train.checkpoint import latest_step
 from cmpc_refseg_tpu.config import get_config as jget
 from cmpc_refseg_tpu.models.model import init_model as jinit
 from cmpc_refseg_tpu.ops import losses as jlosses
@@ -525,7 +526,7 @@ class _Reader:
                 "text_batch": text, "seq_length": np.full((bs,), 3)}
 
 
-def test_train_loop_on_cpu():
+def test_train_loop_on_cpu(tmp_path):
     cfg = tget("CMPC_model", **TINY)
 
     class Logger:
@@ -541,9 +542,12 @@ def test_train_loop_on_cpu():
     assert [it for it, _ in logger.rows] == [0, 1, 2]
     assert all(np.isfinite(m["loss_total"]) and m["step_time_s"] > 0
                for _, m in logger.rows)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttrain.train_loop(cfg, reader, max_iter=1, state=state,
-                          checkpoint_dir="ckpt")
+    # the loop saves snapshots into checkpoint_dir (train/checkpoint.py)
+    state = ttrain.train_loop(cfg, reader, max_iter=4, state=state,
+                              start_iter=3, checkpoint_dir=str(tmp_path),
+                              snapshot_every=1)
+    assert state.step == 4 and reader.reads == 4
+    assert latest_step(str(tmp_path)) == 4
 
 
 def test_prepare_image_batch_matches_jax():
