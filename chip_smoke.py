@@ -9,7 +9,7 @@ Phases, each fatal on failure:
     ptxas's report per kernel: registers, spills, static shared memory and
     any waits it injected into a wgmma pipeline);
  3. kernels: each kernel's wrapper at the shapes each path of phases 4
-    to 8 gives it, against its plain PyTorch version on the same CUDA
+    to 9 gives it, against its plain PyTorch version on the same CUDA
     tensors: the flagship bs=8 forward (320x320 -> N=1600 nodes, C=1000,
     K=1008, A=1000, T=20, mlp C=500), the batch-1 request, the bs=64
     forward and the bs=8 train step (the mutan kernel's training form
@@ -35,7 +35,11 @@ Phases, each fatal on failure:
     T = 17; the dz pass at N = 1681, and at 3 samples of 25 rows (blocks'
     rows cross samples) with C = 72 and a sample whose v rows are zero;
     the ConvLSTM raw kernel at B*N = 75 with 25-row samples, C = 12 and
-    500);
+    500; and `cmpc.apply_mutan` at the HSV configs' K = 1011, which it
+    pads to 1016, against its plain route).  Each path's record carries
+    its widths: C = v_emb_dim, K, A = the affinity width, CM = mlp_dim
+    (1000 / 1008 / 1000 / 500 for most configs; the HSV configs' K 1016;
+    BERT's 1024 / 1032 / 512 / 512);
  4. forward: build_model("CMPC_model") on CUDA at 320x320, bs=8, bf16,
     full depth.  Launch counts are reset just before the timed forwards and
     read just after (the counts the path needs per forward, see
@@ -86,7 +90,20 @@ Phases, each fatal on failure:
     another seed restores it bit-equal, both take one more step (losses
     within 1e-4 relative), and services from both answer a request
     (prob within 2e-2); save and restore ms, bytes on disk;
- 9. the kernels' share of each path's run, the `kernels` JSON line (each
+ 9. options: the six configs of the text-encoder and lateral options
+    (OPTIONS: CMPCv4_BiLSTM_T_model, CMPCv4_BiLSTM_T2_model,
+    CMPCv5_HSV_model, CMPCv5_BiLSTM_model, CMPCv5_BiLSTM_HSV_model,
+    CMPCv4_BERT_model) through build_model at 320x320, bs=8, bf16, full
+    depth, as phase 7 drives its configs (BERT with seeded N(0, 1)
+    features [8, 20, 768] and 3-20-word masks); 20 batch-1 requests to
+    build_service("CMPCv5_BiLSTM_HSV_model") as in phase 5; and the bs=8
+    train steps of CMPCv5_BiLSTM_HSV_model, both trainers built from a
+    seeded synthetic [12112, 300] GloVe table that must arrive on the card
+    bit for bit, and of CMPCv4_BERT_model, each as phase 6 holds its
+    step (losses, gradients, BN statistics of both routes; the HSV step's
+    one bias whose bf16 gradient is a cancellation residue against the
+    plain route's noise over 6 draws of its weights, `NOISE_DRAWN`);
+10. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -117,6 +134,15 @@ VARIANTS = (("origin", "CMPC_model_origin", {}), ("v2", "CMPCv2_model", {}),
             ("v3", "CMPCv3_model", {}), ("v4", "CMPCv4_model", {}),
             ("v5", "CMPCv5_model", {}), ("v6", "CMPCv6_model", {}),
             ("v4ds", "CMPCv4_model", {"graph_norm": "double_softmax"}))
+# phase 9, the text-encoder and lateral options: (path tag, config name,
+# overrides)
+OPTIONS = (("bilstm_t", "CMPCv4_BiLSTM_T_model", {}),
+           ("bilstm_t2", "CMPCv4_BiLSTM_T2_model", {}),
+           ("hsv", "CMPCv5_HSV_model", {}),
+           ("v5_bilstm", "CMPCv5_BiLSTM_model", {}),
+           ("v5_bilstm_hsv", "CMPCv5_BiLSTM_HSV_model", {}),
+           ("bert", "CMPCv4_BERT_model", {}))
+GLOVE_SEED = 11              # the synthetic GloVe table of phase 9
 PORT_KERNELS = ("convlstm_gates_kernel", "convlstm_raw_kernel",
                 "graph_msg_kernel", "graph_update_kernel",
                 "mutan_heads_kernel", "mutan_norm_kernel", "mutan_dz_kernel",
@@ -137,6 +163,14 @@ N_REQ = 20
 N_TRAIN = 10
 TRAIN_LOSS_TOL = 1e-2        # kernel vs plain route, relative
 TRAIN_GRAD_TOL = 5e-2        # per leaf, ||g_k - g_p|| / ||g_p||
+# leaves whose bf16 gradient is cancellation noise (the f32 gradient is
+# 4e-4 of it) that moves by 1-3.4x under a 1e-5 relative change of the
+# weights (PERF.md, section 6): on that path each is held against the
+# largest of the plain route's own readings over NOISE_DRAWS such draws
+# (check_train_routes)
+NOISE_DRAWN = {"v5_bilstm_hsv_train_bs8":
+               ("levels/c4/graph/spa_graph_trans2/biases",)}
+NOISE_DRAWS, NOISE_EPS = 6, 1e-5
 PACK_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
 # phase 8: 61 samples, so the last bs=8 batch of the evaluation is padded;
 # native sizes (h, w) between 240x320 and 640x480
@@ -301,9 +335,15 @@ def compare_stats(torch, got, want, count, tol, what):
 
 def path_spec(cfg, batch, train=False):
     """What phase 3 needs to know of a path: its batch, whether it trains,
-    and its config's levels, graph norm and exchange layout."""
+    its config's levels, graph norm and exchange layout, and its widths:
+    c = v_emb_dim, k = the mutan's K (v_emb_dim + spatial_dim, padded to a
+    multiple of 8 as `cmpc.apply_mutan` pads it), a = the affinity width
+    (vw_emb_dim, else v_emb_dim) and cm = mlp_dim (the fusion stack)."""
     return {"batch": batch, "train": train, "levels": len(cfg.levels),
-            "graph_norm": cfg.graph_norm, "self_gate": cfg.exchange_self_gate}
+            "graph_norm": cfg.graph_norm, "self_gate": cfg.exchange_self_gate,
+            "c": cfg.v_emb_dim, "k": -(-(cfg.v_emb_dim + cfg.spatial_dim)
+                                        // 8) * 8,
+            "a": cfg.vw_emb_dim or cfg.v_emb_dim, "cm": cfg.mlp_dim}
 
 
 def path_specs(get_config):
@@ -312,7 +352,10 @@ def path_specs(get_config):
     spatial graph) and bs=8 train step; each variant's bs=8 forward, the
     CMPCv6_model batch-1 request and the CMPCv4_model bs=8 train step;
     the flagship's bs=8 evaluation, and the CMPCv4_model train steps
-    around a checkpoint and the requests to services from it."""
+    around a checkpoint and the requests to services from it; each
+    OPTIONS config's bs=8 forward, the CMPCv5_BiLSTM_HSV_model batch-1
+    request and its bs=8 train step, and CMPCv4_BERT_model's bs=8 train
+    step."""
     flag = get_config("CMPC_model")
     specs = {"forward_bs8": path_spec(flag, B),
              "serving_bs1": path_spec(flag, 1),
@@ -326,6 +369,13 @@ def path_specs(get_config):
     specs["eval_bs8"] = path_spec(flag, B)
     specs["ckpt_v4_train_bs8"] = path_spec(v4, B, train=True)
     specs["ckpt_v4_serving_bs1"] = path_spec(v4, 1)
+    for tag, name, overrides in OPTIONS:
+        specs[f"{tag}_bs8"] = path_spec(get_config(name, **overrides), B)
+    hsv = get_config("CMPCv5_BiLSTM_HSV_model")
+    specs["v5_bilstm_hsv_serving_bs1"] = path_spec(hsv, 1)
+    specs["v5_bilstm_hsv_train_bs8"] = path_spec(hsv, B, train=True)
+    specs["bert_train_bs8"] = path_spec(get_config("CMPCv4_BERT_model"), B,
+                                        train=True)
     return specs
 
 
@@ -346,6 +396,7 @@ def kernel_inputs(torch, kernels, cmpc, dev, spec):
     Returns {wrapper name: (args, kwargs, kernel batch, groups)}."""
     batch, train, levels = spec["batch"], spec["train"], spec["levels"]
     norm = spec["graph_norm"]
+    c, k, a, cm = spec["c"], spec["k"], spec["a"], spec["cm"]
     g = torch.Generator(device=dev).manual_seed(batch)
     f32 = torch.float32
 
@@ -368,37 +419,37 @@ def kernel_inputs(torch, kernels, cmpc, dev, spec):
                 b, 1, T, generator=g, device=dev)
         else:
             w_aff = torch.softmax(logits, -1)
-        return w_aff.to(torch.bfloat16), randn(b, T, C)
+        return w_aff.to(torch.bfloat16), randn(b, T, c)
 
     packed = cmpc.pack_levels(batch, levels, norm)
     bg, lead, groups = ((levels * batch, (levels,), levels) if packed
                         else (batch, (), 1))
     sfx = "_grouped" if packed else ""
-    affinity = ((randn(bg, N, C), randn(*lead, C, A, scale=0.05),
-                 randn(*lead, A, scale=0.1), randn(bg, T, A),
+    affinity = ((randn(bg, N, c), randn(*lead, c, a, scale=0.05),
+                 randn(*lead, a, scale=0.1), randn(bg, T, a),
                  torch.rand(bg, 1, T, generator=g, device=dev),
                  word_mask(bg)),
-                {"scale": math.sqrt(C), "l2n": False,
+                {"scale": math.sqrt(c), "l2n": False,
                  "masked": norm in ("masked", "unmasked")})
     msg, stats1 = kernels.graph_msg_plain(*msg_args(bg))
-    update = (randn(bg, N, C), msg, stats1,
-              uniform(*lead, C, C, limit=math.sqrt(3 / C)),
-              randn(*lead, C, scale=0.1),
-              1 + randn(*lead, C, scale=0.1, dtype=f32),
-              randn(*lead, C, scale=0.1, dtype=f32))
-    x, h, cell = (randn(batch, N, CM) for _ in range(3))
-    gates_args = (x, h, cell, uniform(2 * CM, 4 * CM,
-                                      limit=math.sqrt(6 / (6 * CM))),
-                  uniform(N, CM, limit=0.1), uniform(N, CM, limit=0.1))
+    update = (randn(bg, N, c), msg, stats1,
+              uniform(*lead, c, c, limit=math.sqrt(3 / c)),
+              randn(*lead, c, scale=0.1),
+              1 + randn(*lead, c, scale=0.1, dtype=f32),
+              randn(*lead, c, scale=0.1, dtype=f32))
+    x, h, cell = (randn(batch, N, cm) for _ in range(3))
+    gates_args = (x, h, cell, uniform(2 * cm, 4 * cm,
+                                      limit=math.sqrt(6 / (6 * cm))),
+                  uniform(N, cm, limit=0.1), uniform(N, cm, limit=0.1))
     gates, gstats = kernels.convlstm_gates_plain(*gates_args)
-    mutan_args = (randn(batch * N, K),
-                  uniform(K, HEADS * C, limit=math.sqrt(6 / (K + HEADS * C))),
-                  randn(HEADS * C, scale=0.1, dtype=f32),
-                  torch.tanh(randn(batch, HEADS * C, dtype=f32)))
+    mutan_args = (randn(batch * N, k),
+                  uniform(k, HEADS * c, limit=math.sqrt(6 / (k + HEADS * c))),
+                  randn(HEADS * c, scale=0.1, dtype=f32),
+                  torch.tanh(randn(batch, HEADS * c, dtype=f32)))
     mutan_kw = {"heads": HEADS, "rows_per_sample": N}
     if train:
         _, v = kernels.mutan_fwd_residual_plain(*mutan_args, **mutan_kw)
-        dz_args = (v, mutan_args[3], randn(batch * N, C, scale=1e-3))
+        dz_args = (v, mutan_args[3], randn(batch * N, c, scale=1e-3))
         dz, _, _ = kernels.mutan_bwd_dz_plain(*dz_args, **mutan_kw)
         out = {"mutan_fwd_residual": (mutan_args, mutan_kw, batch, 1),
                "mutan_bwd_dz": (dz_args, mutan_kw, batch, 1),
@@ -410,56 +461,57 @@ def kernel_inputs(torch, kernels, cmpc, dev, spec):
     out["graph_msg"] = (msg_args(bg), {}, bg, 1)
     out["graph_update" + sfx] = (update, {}, bg, groups)
     if not spec["self_gate"]:
-        k = levels - 1
-        out["se_sum"] = ((randn(batch, N, CM),
-                          [randn(batch, N, CM) for _ in range(k)],
-                          [torch.sigmoid(randn(batch, CM, dtype=f32)).to(
-                              torch.bfloat16) for _ in range(k)],
-                          [uniform(CM, CM, limit=math.sqrt(3 / CM))
-                           for _ in range(k)],
-                          [randn(CM, scale=0.1) for _ in range(k)]), {},
+        n_other = levels - 1
+        out["se_sum"] = ((randn(batch, N, cm),
+                          [randn(batch, N, cm) for _ in range(n_other)],
+                          [torch.sigmoid(randn(batch, cm, dtype=f32)).to(
+                              torch.bfloat16) for _ in range(n_other)],
+                          [uniform(cm, cm, limit=math.sqrt(3 / cm))
+                           for _ in range(n_other)],
+                          [randn(cm, scale=0.1) for _ in range(n_other)]), {},
                          batch, 1)
     out["convlstm_gates"] = (gates_args, {}, batch, 1)
-    out["convlstm_raw"] = ((gates, cell, uniform(N, CM, limit=0.1), gstats,
-                            1 + randn(5, CM, scale=0.1, dtype=f32),
-                            randn(5, CM, scale=0.1, dtype=f32)), {}, batch, 1)
+    out["convlstm_raw"] = ((gates, cell, uniform(N, cm, limit=0.1), gstats,
+                            1 + randn(5, cm, scale=0.1, dtype=f32),
+                            randn(5, cm, scale=0.1, dtype=f32)), {}, batch, 1)
     return out
 
 
-def kernel_cost(name, bk, groups, others=2):
+def kernel_cost(name, bk, groups, spec, others=2):
     """(bf16 product FLOPs, other f32 operations, bytes) of a kernel's
     function on a batch of `bk` samples of N rows with `groups` weight
-    groups (the SE sum with `others` other levels): each input read once,
-    each output written once."""
-    m, cm = bk * N, CM
+    groups (the SE sum with `others` other levels), at the path `spec`'s
+    widths: each input read once, each output written once."""
+    c, k, a, cm = spec["c"], spec["k"], spec["a"], spec["cm"]
+    m = bk * N
     if name in ("mutan_fused", "mutan_fwd_residual"):
-        v_out = m * HEADS * C * 2 if name == "mutan_fwd_residual" else 0
-        return (2 * m * K * HEADS * C, 4 * m * HEADS * C + 4 * m * C,
-                m * K * 2 + K * HEADS * C * 2 + HEADS * C * 4
-                + bk * HEADS * C * 4 + m * C * 2 + v_out)
+        v_out = m * HEADS * c * 2 if name == "mutan_fwd_residual" else 0
+        return (2 * m * k * HEADS * c, 4 * m * HEADS * c + 4 * m * c,
+                m * k * 2 + k * HEADS * c * 2 + HEADS * c * 4
+                + bk * HEADS * c * 4 + m * c * 2 + v_out)
     if name == "mutan_bwd_dz":
         # per v entry: the head sum, dz, dlang and db (~9 operations); per
         # output column: tanh, the norm and the l2norm's vjp (~12)
-        return (0, 9 * m * HEADS * C + 12 * m * C,
-                2 * m * HEADS * C * 2 + m * C * 2 + 2 * bk * HEADS * C * 4
-                + HEADS * C * 4)
+        return (0, 9 * m * HEADS * c + 12 * m * c,
+                2 * m * HEADS * c * 2 + m * c * 2 + 2 * bk * HEADS * c * 4
+                + HEADS * c * 4)
     if name == "mutan_dw":
-        return (2 * m * K * HEADS * C, 0,
-                m * K * 2 + m * HEADS * C * 2 + K * HEADS * C * 4)
+        return (2 * m * k * HEADS * c, 0,
+                m * k * 2 + m * HEADS * c * 2 + k * HEADS * c * 4)
     if name.startswith("spa_affinity"):
-        return (2 * m * C * A + 2 * m * A * T, 2 * m * A + 12 * m * T,
-                m * C * 2 + groups * (C * A + A) * 2 + bk * T * A * 2
+        return (2 * m * c * a + 2 * m * a * T, 2 * m * a + 12 * m * T,
+                m * c * 2 + groups * (c * a + a) * 2 + bk * T * a * 2
                 + 2 * bk * T * 4 + 2 * m * T * 4)
     if name == "graph_msg":
-        return (2 * m * T * C, 3 * m * C, m * T * 2 + bk * T * C * 2
-                + m * C * 2)
+        return (2 * m * T * c, 3 * m * c, m * T * 2 + bk * T * c * 2
+                + m * c * 2)
     if name.startswith("graph_update"):
-        return (2 * m * C * C, 10 * m * C,
-                3 * m * C * 2 + groups * (C * C * 2 + C * 2 + 2 * C * 4))
+        return (2 * m * c * c, 10 * m * c,
+                3 * m * c * 2 + groups * (c * c * 2 + c * 2 + 2 * c * 4))
     if name == "se_sum":     # per other: product, bias, relu, gate, add; norm
-        k = others
-        return (2 * k * m * cm * cm, k * 5 * m * cm + 3 * m * cm,
-                (2 + k) * m * cm * 2 + k * (cm * cm + cm + bk * cm) * 2)
+        o = others
+        return (2 * o * m * cm * cm, o * 5 * m * cm + 3 * m * cm,
+                (2 + o) * m * cm * 2 + o * (cm * cm + cm + bk * cm) * 2)
     if name == "convlstm_gates":
         return (2 * m * 2 * cm * 4 * cm, 8 * m * cm,
                 3 * m * cm * 2 + 2 * cm * 4 * cm * 2 + 2 * N * cm * 2
@@ -553,20 +605,22 @@ def check_kernels(torch, kernels, cmpc, dev, specs):
             library_ms = gpu_ms(torch, library) if library else None
             product = library_product(torch, name, args)
             matmul_ms = gpu_ms(torch, product) if product else None
-            bound_ms, bound_by = bound(*kernel_cost(name, bk, groups,
+            bound_ms, bound_by = bound(*kernel_cost(name, bk, groups, spec,
                                                     others or 2))
             extra = {}
             if name == "mutan_bwd_dz":
                 # dz kernel and finalize apart; the grid is one block per SM
                 extra["split_ms"] = device_split_ms(
                     torch, lambda: wrapper(*args, **kw))
-                rows = kernels.mutan_bwd_dz_scratch(bk * N, N, C, HEADS)[0]
+                rows = kernels.mutan_bwd_dz_scratch(bk * N, N, spec["c"],
+                                                    HEADS)[0]
                 extra["grid"] = (rows - bk + 1) // 2
             if name == "convlstm_raw":   # one statistics slot per block
                 extra["grid"] = slots * bk
             rec = {
                 "name": f"{name}@{path}", "kernel": name, "path": path,
                 "shape": {"batch": bk, "groups": groups, "rows": bk * N,
+                          **{w: spec[w] for w in ("c", "k", "a", "cm")},
                           **({"others": others} if others else {}),
                           **({"masked": kw["masked"]} if "masked" in kw
                              else {})},
@@ -594,7 +648,8 @@ def check_kernels(torch, kernels, cmpc, dev, specs):
             form = (f", {others} other(s)" if others else "") + (
                 "" if kw.get("masked", True) else ", unmasked")
             log(f"[kernels] {name} at {path} (batch {bk}, {groups} weight "
-                f"group(s){form}): max abs err {rec['max_abs_err']:.3e} (norm "
+                f"group(s){form}, C={spec['c']} K={spec['k']} "
+                f"A={spec['a']} CM={spec['cm']}): max abs err {rec['max_abs_err']:.3e} (norm "
                 f"{rec['max_norm_err']:.3e} <= {tol:.0e}){stats_note}; "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {prod}, bound "
                 f"{bound_ms:.4f} ms ({bound_by})")
@@ -730,10 +785,49 @@ def edge_inputs(torch, kernels, dev):
     ]
 
 
-def check_edges(torch, kernels, dev):
+def mutan_k_edge(torch, cmpc, dev):
+    """`cmpc.apply_mutan` at the HSV configs' K = 1000 + 11 = 1011, which
+    it pads to 1016 for the kernel, on a bs=8 40x40 level against its plain
+    route: seeded weights at their init scales, l2-normalized visual
+    features and text feature, and the spatial channels at their ranges
+    (the grid in [-1, 1], hue and saturation in [0, 1], value in [0,
+    255])."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    c, side = C, H_IMG // 8
+
+    def uniform(*shape, lo=-1.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g, device=dev)
+
+    k = c + 11
+    params = {"vis_trans": {"DW": uniform(1, 1, k, HEADS * c) * math.sqrt(
+                  6 / (k + HEADS * c)),
+                  "biases": 0.1 * uniform(HEADS * c)},
+              "lang_trans": {"DW": uniform(1, 1, c, HEADS * c) * math.sqrt(
+                  6 / (c + HEADS * c)),
+                  "biases": 0.1 * uniform(HEADS * c)}}
+    vis = torch.nn.functional.normalize(
+        torch.randn(B, side, side, c, generator=g, device=dev), dim=-1)
+    lang = torch.nn.functional.normalize(
+        torch.randn(B, 1, 1, c, generator=g, device=dev), dim=-1)
+    spatial = torch.cat([uniform(B, side, side, 8),
+                         uniform(B, side, side, 2, lo=0.0),
+                         uniform(B, side, side, 1, lo=0.0, hi=255.0)], -1)
+    vis = vis.to(torch.bfloat16)
+    with torch.inference_mode():
+        got = cmpc.apply_mutan(params, lang, spatial, vis)
+        want = cmpc.apply_mutan(params, lang, spatial, vis, use_kernels=False)
+    torch.cuda.synchronize()
+    err, norm = compare(torch, got, want, 1e-2, "apply_mutan at K = 1011")
+    return {"name": "apply_mutan@edge:K1011",
+            "shapes": [list(vis.shape), list(spatial.shape),
+                       [k, HEADS * c]], "tolerance": 1e-2,
+            "max_abs_err": err, "max_norm_err": norm}
+
+
+def check_edges(torch, kernels, cmpc, dev):
     """Each wgmma kernel at its edge shapes against its plain version (and
     dW against torch.mm), with the path records' tolerances (statistics
-    partials as in phase 3)."""
+    partials as in phase 3); and `mutan_k_edge`."""
     records = []
     for name, tag, args, kw in edge_inputs(torch, kernels, dev):
         wrapper = getattr(kernels, name)
@@ -764,6 +858,11 @@ def check_edges(torch, kernels, dev):
         log(f"[kernels] {rec['name']} {rec['shapes']}: max abs err "
             f"{rec['max_abs_err']:.3e} (norm {rec['max_norm_err']:.3e} <= "
             f"{tol:.0e})")
+    rec = mutan_k_edge(torch, cmpc, dev)
+    records.append(rec)
+    log(f"[kernels] {rec['name']} {rec['shapes']} (K padded to 1016 inside):"
+        f" max abs err {rec['max_abs_err']:.3e} (norm "
+        f"{rec['max_norm_err']:.3e} <= 1e-02)")
     return records
 
 
@@ -804,12 +903,26 @@ def check_counts(counts, expected, runs, what):
                  f"expected {expected[name] * runs}")
 
 
+def bert_text(cfg, rng, lens):
+    """The 'bert' encoder's text: seeded N(0, 1) features [B, T, bert_dim]
+    (no BERT model ships with the repository) and the masks of
+    expressions of `lens` words."""
+    return {"words_feat": rng.standard_normal(
+                (len(lens), cfg.num_steps, cfg.bert_dim)).astype(np.float32),
+            "sequence_mask": (np.arange(cfg.num_steps)[None]
+                              < lens[:, None]).astype(np.float32)}
+
+
 def make_batch(cfg, batch, seed=0):
     """Seeded images and 3-20-word expressions: back-padded with 'seq_len',
     or, for the 'lstm_frontpad' encoder, front-padded with 'valid_idx' (the
-    number of pads)."""
+    number of pads); for the 'bert' encoder, `bert_text`."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(3, cfg.num_steps + 1, batch)
+    if cfg.text_encoder == "bert":
+        return {"im": (50 * rng.standard_normal(
+                    (batch, cfg.H, cfg.W, 3))).astype(np.float32),
+                **bert_text(cfg, rng, lens)}
     words = np.zeros((batch, cfg.num_steps), np.int64)
     front = cfg.text_encoder == "lstm_frontpad"
     for i, n in enumerate(lens):
@@ -823,6 +936,17 @@ def make_batch(cfg, batch, seed=0):
     return {"im": (50 * rng.standard_normal(
                 (batch, cfg.H, cfg.W, 3))).astype(np.float32),
             "words": words, **text}
+
+
+def check_config(cfg, name, what, **want):
+    """Fails unless `cfg` is the registry's `name` at full size (H_IMG,
+    ResNet-101, its own widths) with the fields `want`."""
+    from cmpc_refseg_torch.config import get_config
+    ref = get_config(name)
+    if (cfg.H, cfg.res4_blocks, cfg.v_emb_dim, cfg.mlp_dim) != \
+            (H_IMG, RES4, ref.v_emb_dim, ref.mlp_dim) \
+            or any(getattr(cfg, k) != v for k, v in want.items()):
+        fail(f"unexpected {what} config {cfg}")
 
 
 def check_forward(torch, cfg, out, ref, batch, what):
@@ -1035,9 +1159,7 @@ def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card,
     also times the packed against the per-level spatial graph."""
     svc = build_service(name, dtype="bfloat16", device=DEV)
     cfg = svc.cfg
-    if (cfg.H, cfg.res4_blocks, cfg.batch_size, cfg.v_emb_dim) != \
-            (H_IMG, RES4, 1, C):
-        fail(f"unexpected serving config {cfg}")
+    check_config(cfg, name, path, batch_size=1)
     requests = request_set(np, cfg.vocab_size)
     svc.warmup()
     svc.predict(*requests[0])                 # warm-up request
@@ -1109,7 +1231,8 @@ def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card,
 
 def train_batch(cfg, batch, seed):
     """A seeded uint8 train batch: RGB images, a box mask per sample (a
-    quarter to all of each side), 3-20-word expressions."""
+    quarter to all of each side), 3-20-word expressions (`bert_text` for
+    the 'bert' encoder)."""
     rng = np.random.default_rng(100 + seed)
     target = np.zeros((batch, cfg.H, cfg.W, 1), np.uint8)
     for t in target:
@@ -1118,16 +1241,20 @@ def train_batch(cfg, batch, seed):
         y, x = rng.integers(0, cfg.H - h + 1), rng.integers(0, cfg.W - w + 1)
         t[y:y + h, x:x + w] = 1
     lens = rng.integers(3, cfg.num_steps + 1, batch)
-    words = np.zeros((batch, cfg.num_steps), np.int64)
-    for i, n in enumerate(lens):
-        words[i, :n] = rng.integers(3, cfg.vocab_size, n)
+    if cfg.text_encoder == "bert":
+        text = bert_text(cfg, rng, lens)
+    else:
+        words = np.zeros((batch, cfg.num_steps), np.int64)
+        for i, n in enumerate(lens):
+            words[i, :n] = rng.integers(3, cfg.vocab_size, n)
+        text = {"words": words, "seq_len": lens}
     return {"im_u8": rng.integers(0, 256, (batch, cfg.H, cfg.W, 3),
                                   dtype=np.uint8),
-            "target_u8": target, "words": words, "seq_len": lens}
+            "target_u8": target, **text}
 
 
 def check_train_routes(torch, trainer, reference, compute_gradients,
-                       named_leaves, batch):
+                       named_leaves, batch, drawn=()):
     """The loss and every trainable gradient of the kernel route (g_k)
     against the plain route (g_p) on one batch from the trainer's current
     weights.
@@ -1142,7 +1269,12 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
     ||g_k - g_p|| <= TRAIN_GRAD_TOL ||g_p||.  An unresolved one is held to
     the plain route's own noise: ||g_k - g_32|| <= 2 ||g_p - g_32||, both
     gradients nonzero and ||g_p|| / 2 <= ||g_k|| <= 2 ||g_p||, so that a
-    gradient dropped, zeroed or blown up fails.  The ASPP decoder's BN
+    gradient dropped, zeroed or blown up fails.  An unresolved leaf in
+    `drawn` is held the same way against the largest of the plain route's
+    readings (and the range of its norms) over NOISE_DRAWS draws of the
+    weights times (1 + NOISE_EPS N(0, 1)) besides the unperturbed one; the
+    kernel route's readings at those draws are reported.  The ASPP
+    decoder's BN
     batch statistics (mean and variance of each unit, read back from the
     moving statistics each route leaves) are held like resolved gradients:
     ||s_k - s_p|| <= TRAIN_GRAD_TOL ||s_p|| per leaf; the state is restored
@@ -1166,10 +1298,37 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
         st.model_state = before
         return loss.item(), out, stats
 
+    def drawn_grads(use_kernels, seed):
+        leaves = [leaf for _, leaf in named_leaves(state.trainable)]
+        saved = [leaf.detach().clone() for leaf in leaves]
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        with torch.no_grad():
+            for leaf in leaves:
+                leaf.mul_(1 + NOISE_EPS * torch.randn(
+                    leaf.shape, generator=gen, device=DEV))
+        try:
+            return grads(state, cfg, use_kernels)[1]
+        finally:
+            with torch.no_grad():
+                for leaf, old in zip(leaves, saved):
+                    leaf.copy_(old)
+
     label = f"train {cfg.variant}"
     loss_k, gk, sk = grads(state, cfg, True)
     loss_p, gp, sp = grads(state, cfg, False)
     loss_32, g32, _ = grads(reference.state, reference.cfg, False)
+    missing = set(drawn) - set(paths)
+    if missing:
+        fail(f"{label}: no leaf {sorted(missing)}")
+    # leaf -> route -> [(||g - g_32||, ||g||) per draw]
+    draws = {leaf: {"plain": [], "kernel": []} for leaf in drawn}
+    for seed in range(1, NOISE_DRAWS + 1) if drawn else ():
+        for route, use_kernels in (("plain", False), ("kernel", True)):
+            g = drawn_grads(use_kernels, seed)
+            for leaf in drawn:
+                i = paths.index(leaf)
+                draws[leaf][route].append(
+                    ((g[i] - g32[i]).norm().item(), g[i].norm().item()))
     bn_rel = {leaf: ((sk[leaf] - sp[leaf]).norm() / sp[leaf].norm()).item()
               for leaf in sp}
     if any(not v <= TRAIN_GRAD_TOL for v in bn_rel.values()):
@@ -1200,9 +1359,23 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
             f"{r['kernel_norm']:.3e}, ||g_32|| {r['f32_norm']:.3e}, "
             f"||g_p - g_32|| {r['plain_vs_f32']:.3e}, ||g_k - g_32|| "
             f"{r['kernel_vs_f32']:.3e}")
+    for r in unresolved:
+        # the plain route's noise and norm: its one reading, or its range
+        # over the draws (in units of ||g_p||)
+        plain = [(r["plain_vs_f32"], 1.0)] + [
+            (a / r["norm"], b / r["norm"])
+            for a, b in draws.get(r["leaf"], {}).get("plain", ())]
+        r["plain_noise"] = max(a for a, _ in plain)
+        r["plain_norms"] = (min(b for _, b in plain),
+                            max(b for _, b in plain))
+        if r["leaf"] in draws:
+            r["draws"] = {route: [round(a / r["norm"], 4) for a, _ in d]
+                          for route, d in draws[r["leaf"]].items()}
     bad = [r for r in resolved if r["rel"] > TRAIN_GRAD_TOL] + [
-        r for r in unresolved if r["kernel_vs_f32"] > 2 * r["plain_vs_f32"]
-        or not 0.5 <= r["kernel_norm"] <= 2]
+        r for r in unresolved
+        if r["kernel_vs_f32"] > 2 * r["plain_noise"]
+        or not r["plain_norms"][0] / 2 <= r["kernel_norm"]
+        <= 2 * r["plain_norms"][1]]
     if bad:
         fail(f"{label}: kernel vs plain route gradients of {len(bad)} leaves "
              f"beyond the tolerance, first {bad[0]}")
@@ -1216,7 +1389,9 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
             "bn_stats_leaves": len(bn_rel),
             "leaves": len(rows), "unresolved_leaves": [
                 {k: r[k] for k in ("leaf", "rel", "kernel_norm", "f32_norm",
-                                   "plain_vs_f32", "kernel_vs_f32")}
+                                   "plain_vs_f32", "kernel_vs_f32",
+                                   "plain_noise", "plain_norms", "draws")
+                 if k in r}
                 for r in unresolved]}
 
 
@@ -1250,20 +1425,26 @@ def recompute_ms(torch, autograd, step):
 
 def run_train(torch, kernels, autograd, cmpc, build_trainer,
               compute_gradients, named_leaves, card, name="CMPC_model",
-              path="train_bs8"):
-    """Phase 6 (and phase 7's CMPCv4_model steps): the bs=8 train step of
-    config `name` through build_trainer / Trainer.step."""
-    trainer = build_trainer(name, device=DEV, dtype="bfloat16",
+              path="train_bs8", glove=None):
+    """Phase 6 (and the CMPCv4_model steps of phase 7, the
+    CMPCv5_BiLSTM_HSV_model and CMPCv4_BERT_model steps of phase 9): the
+    bs=8 train step of config `name` through build_trainer / Trainer.step;
+    with `glove`, both trainers start from that embedding table, which
+    must arrive on the card bit for bit."""
+    trainer = build_trainer(name, glove=glove, device=DEV, dtype="bfloat16",
                             batch_size=B)
     cfg = trainer.cfg
-    if (cfg.H, cfg.res4_blocks, cfg.v_emb_dim, cfg.conv5, cfg.grad_accum) \
-            != (H_IMG, RES4, C, False, 1):
-        fail(f"unexpected train config {cfg}")
+    check_config(cfg, name, path, conv5=False, grad_accum=1)
+    if glove is not None and not torch.equal(
+            trainer.state.trainable["text"]["embedding"].cpu(),
+            torch.from_numpy(glove)):
+        fail(f"{path}: the embedding on the card is not the GloVe table")
     batches = [train_batch(cfg, B, i) for i in range(N_TRAIN + 1)]
-    reference = build_trainer(name, device=DEV, dtype="float32",
-                              batch_size=B)
+    reference = build_trainer(name, glove=glove, device=DEV,
+                              dtype="float32", batch_size=B)
     routes = check_train_routes(torch, trainer, reference, compute_gradients,
-                                named_leaves, batches[0])
+                                named_leaves, batches[0],
+                                drawn=NOISE_DRAWN.get(path, ()))
     del reference
     torch.cuda.empty_cache()
     trainer.step(batches[0])                  # warm-up
@@ -1297,7 +1478,8 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
     rec_ms, rec_step_ms = recompute_ms(
         torch, autograd, lambda: trainer.step(batches[-1]))
     ms = statistics.median(times)
-    summary = {"steps": N_TRAIN, "median_ms": ms, "min_ms": min(times),
+    summary = {"steps": N_TRAIN, "glove_start": glove is not None,
+               "median_ms": ms, "min_ms": min(times),
                "recompute_ms": rec_ms, "recompute_step_ms": rec_step_ms,
                "max_ms": max(times), "steps_per_s": 1e3 / ms,
                "peak_gb": peak, **routes, "losses": losses,
@@ -1317,10 +1499,19 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
         f" <= {TRAIN_GRAD_TOL} ({routes['worst_resolved_grad_leaf']}) over "
         f"the {routes['leaves'] - len(unresolved)} leaves the bf16 plain "
         f"route resolves; {len(unresolved)} leaves below its bf16 noise, "
-        f"each kernel route within twice the plain route's distance to the "
-        f"f32 gradient and within 2x of its norm: {unresolved} (leaf, then "
-        f"over ||g_p||: ||g_k||, ||g_32||, ||g_p - g_32||, ||g_k - g_32||); "
-        f"losses {[round(v, 2) for v in losses]}")
+        f"each kernel route within twice the plain route's distance to "
+        f"the f32 gradient and within 2x of its norm: {unresolved} (leaf, "
+        f"then over ||g_p||: ||g_k||, ||g_32||, ||g_p - g_32||, ||g_k - "
+        f"g_32||); losses {[round(v, 2) for v in losses]}")
+    for r in routes["unresolved_leaves"]:
+        if "draws" in r:
+            log(f"[{path}] {r['leaf']}: held against the plain route's "
+                f"largest noise over {NOISE_DRAWS} draws of the weights x "
+                f"(1 + {NOISE_EPS:g} N(0, 1)) and the unperturbed one, "
+                f"{r['plain_noise']:.4f} (norms {r['plain_norms'][0]:.4f}-"
+                f"{r['plain_norms'][1]:.4f}); kernel route "
+                f"{r['kernel_vs_f32']:.4f} <= {2 * r['plain_noise']:.4f}; "
+                f"||g - g_32|| / ||g_p|| per draw: {r['draws']}")
     if routes["bn_stats_leaves"]:
         log(f"[{path}] BN batch statistics of the kernel vs the plain route: "
             f"worst ||s_k - s_p|| / ||s_p|| "
@@ -1355,21 +1546,20 @@ def device_categories(split):
 
 
 def run_variants(torch, kernels, cmpc, aspp, build_model, apply_model,
-                 card):
-    """Phase 7: the bs=8 forward of each of VARIANTS through build_model,
-    counted, timed and held against the plain route as phase 4 holds the
-    flagship's; the device split of a forward and, for the ASPP decoder,
-    of the ASPP + decoder alone on inputs of its shapes (the fused
-    features [B, 40, 40, 500] and the c2 tap [B, 80, 80, 256])."""
+                 card, variants=VARIANTS):
+    """Phase 7 (and phase 9 with OPTIONS): the bs=8 forward of each of
+    `variants` through build_model, counted, timed and held against the
+    plain route as phase 4 holds the flagship's; the device split of a
+    forward and, for the ASPP decoder, of the ASPP + decoder alone on
+    inputs of its shapes (the fused features [B, 40, 40, mlp_dim] and the
+    c2 tap [B, 80, 80, 256])."""
     paths, summary = {}, {}
-    for tag, name, overrides in VARIANTS:
+    for tag, name, overrides in variants:
         path = f"{tag}_bs8"
         model = build_model(name, device=DEV, dtype="bfloat16", batch_size=B,
                             **overrides)
         cfg = model.cfg
-        if (cfg.H, cfg.res4_blocks, cfg.v_emb_dim, cfg.mlp_dim) != \
-                (H_IMG, RES4, C, CM):
-            fail(f"unexpected {path} config {cfg}")
+        check_config(cfg, name, path)
         batch = make_batch(cfg, B, seed=3)
         if ("valid_idx" in batch) != (cfg.text_encoder == "lstm_frontpad"):
             fail(f"{path}: the batch's padding does not fit "
@@ -1403,8 +1593,8 @@ def run_variants(torch, kernels, cmpc, aspp, build_model, apply_model,
                "launches": counts}
         if cfg.decoder == "aspp_v3plus":
             gen = torch.Generator(device=DEV).manual_seed(3)
-            fused = torch.randn(B, cfg.vf_h, cfg.vf_w, CM, generator=gen,
-                                device=DEV).to(torch.bfloat16)
+            fused = torch.randn(B, cfg.vf_h, cfg.vf_w, cfg.mlp_dim,
+                                generator=gen, device=DEV).to(torch.bfloat16)
             c2 = torch.relu(torch.randn(B, cfg.H // 4, cfg.W // 4, 256,
                                         generator=gen, device=DEV)).to(
                 torch.bfloat16)
@@ -1744,7 +1934,7 @@ def main():
              " phase 3's paths need new batches")
     records = check_kernels(torch, kernels, cmpc, torch.device(DEV),
                             path_specs(get_config))
-    edges = check_edges(torch, kernels, torch.device(DEV))
+    edges = check_edges(torch, kernels, cmpc, torch.device(DEV))
     torch.cuda.empty_cache()
     # path -> (launch counts of its runs, runs, ms per run)
     paths = run_forward(torch, kernels, cmpc, build_model, apply_model, card)
@@ -1778,6 +1968,30 @@ def main():
     ckpt_paths, ckpt = run_checkpoint(torch, kernels, cmpc, build_trainer,
                                       named_leaves, card)
     paths.update(ckpt_paths)
+    torch.cuda.empty_cache()
+    # phase 9: the text-encoder and lateral options
+    opt_paths, options = run_variants(torch, kernels, cmpc, aspp,
+                                      build_model, apply_model, card,
+                                      variants=OPTIONS)
+    paths.update(opt_paths)
+    srv_paths, hsv_serving = run_serving(
+        torch, np, kernels, cmpc, build_service, apply_model, card,
+        name="CMPCv5_BiLSTM_HSV_model", path="v5_bilstm_hsv_serving_bs1")
+    paths.update(srv_paths)
+    torch.cuda.empty_cache()
+    hsv_cfg = get_config("CMPCv5_BiLSTM_HSV_model")
+    glove = (0.4 * np.random.default_rng(GLOVE_SEED).standard_normal(
+        (hsv_cfg.vocab_size, hsv_cfg.glove_dim))).astype(np.float32)
+    train_paths, hsv_train = run_train(
+        torch, kernels, autograd, cmpc, build_trainer, compute_gradients,
+        named_leaves, card, name="CMPCv5_BiLSTM_HSV_model",
+        path="v5_bilstm_hsv_train_bs8", glove=glove)
+    paths.update(train_paths)
+    torch.cuda.empty_cache()
+    train_paths, bert_train = run_train(
+        torch, kernels, autograd, cmpc, build_trainer, compute_gradients,
+        named_leaves, card, name="CMPCv4_BERT_model", path="bert_train_bs8")
+    paths.update(train_paths)
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
@@ -1801,6 +2015,10 @@ def main():
     log(f"[v4_train_bs8] {json.dumps(v4_train)}")
     log(f"[eval_bs8] {json.dumps(evaluation)}")
     log(f"[ckpt_v4] {json.dumps(ckpt)}")
+    log(f"[options] {json.dumps(options)}")
+    log(f"[v5_bilstm_hsv_serving_bs1] {json.dumps(hsv_serving)}")
+    log(f"[v5_bilstm_hsv_train_bs8] {json.dumps(hsv_train)}")
+    log(f"[bert_train_bs8] {json.dumps(bert_train)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,8 @@ reference name.
 
 All run on CUDA unless the caller passes ``device="cpu"``; with no CUDA
 device and no explicit device, they raise.  The weights come from `seed`
+(and the embedding from `glove` [vocab_size, glove_dim] when given, as the
+reference starts from GloVe)
 (no trained checkpoint ships with the repository: ``train.checkpoint.
 restore_checkpoint`` loads one into ``trainer.state``, and
 tools/jax_checkpoint_to_torch.py and tools/tf_checkpoint_to_torch.py
@@ -47,8 +49,9 @@ class Model:
 
     def forward(self, batch: dict) -> ModelOutputs:
         """batch: 'im' [B,H,W,3], 'words' [B,T] and 'seq_len' [B]
-        (back-padded) or 'valid_idx' [B] (front-padded), numpy or tensors;
-        moved to the model's device."""
+        (back-padded) or 'valid_idx' [B] (front-padded), or for the 'bert'
+        encoder 'words_feat' [B,T,768] and 'sequence_mask' [B,T]; numpy or
+        tensors, moved to the model's device."""
         feed = {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
         with torch.inference_mode():
@@ -82,38 +85,42 @@ def _config(name: str, dtype, overrides: dict) -> ModelConfig:
     return get_config(name, **overrides)
 
 
-def build_model(name: str, *, seed: int = 0, device=None, dtype=None,
-                **overrides) -> Model:
-    """Construct a variant by reference name with parameters from `seed`,
-    on `device` (CUDA when None: the port never falls back to the CPU by
-    itself).  `dtype` ('bfloat16' / 'float32' or a torch dtype) sets the
-    compute dtype."""
+def build_model(name: str, *, seed: int = 0, glove=None, device=None,
+                dtype=None, **overrides) -> Model:
+    """Construct a variant by reference name with parameters from `seed`
+    (the embedding from `glove` when given), on `device` (CUDA when None:
+    the port never falls back to the CPU by itself).  `dtype` ('bfloat16' /
+    'float32' or a torch dtype) sets the compute dtype."""
     dev = resolve_device(device)
     cfg = _config(name, dtype, overrides)
-    params = prepare_params(init_model(seed, cfg, device=dev), cfg)
+    params = prepare_params(init_model(seed, cfg, glove, device=dev), cfg)
     return Model(cfg=cfg, params=params,
                  model_state=init_model_state(cfg, device=dev), device=dev)
 
 
-def build_service(name: str, *, seed: int = 0, device=None, dtype=None,
-                  vocab=None, **overrides) -> PredictService:
+def build_service(name: str, *, seed: int = 0, glove=None, device=None,
+                  dtype=None, vocab=None, **overrides) -> PredictService:
     """A batch-1 `PredictService` for variant `name` with parameters from
-    `seed`, on `device` (CUDA when None).  `vocab` is a word -> index map;
-    when None, a synthetic vocabulary of the config's size stands in for
-    the reference's vocabulary file."""
+    `seed` (the embedding from `glove` when given), on `device` (CUDA when
+    None).  `vocab` is a word -> index map; when None, a synthetic
+    vocabulary of the config's size stands in for the reference's
+    vocabulary file.  A 'bert' config raises: the service tokenizes an
+    expression, and BERT features come from a model outside the
+    repository."""
     dev = resolve_device(device)
     cfg = _config(name, dtype, {**overrides, "batch_size": 1})
-    return PredictService(cfg, init_model(seed, cfg, device=dev),
+    return PredictService(cfg, init_model(seed, cfg, glove, device=dev),
                           vocab or synthetic_vocab(cfg.vocab_size),
                           model_state=init_model_state(cfg, device=dev),
                           device=dev)
 
 
-def build_trainer(name: str, *, seed: int = 0, device=None, dtype=None,
-                  **overrides) -> Trainer:
-    """A `Trainer` for variant `name` from parameters drawn from `seed`, on
-    `device` (CUDA when None; raises without it).  `dtype` sets the compute
-    dtype; the trainable weights and Adam's moments stay float32."""
+def build_trainer(name: str, *, seed: int = 0, glove=None, device=None,
+                  dtype=None, **overrides) -> Trainer:
+    """A `Trainer` for variant `name` from parameters drawn from `seed` (the
+    embedding from `glove` when given), on `device` (CUDA when None; raises
+    without it).  `dtype` sets the compute dtype; the trainable weights and
+    Adam's moments stay float32."""
     cfg = _config(name, dtype, overrides)
     return Trainer(cfg=cfg, state=create_train_state(
-        seed, cfg, device=resolve_device(device)))
+        seed, cfg, glove, device=resolve_device(device)))

@@ -35,6 +35,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from cmpc_refseg_torch.ops import autograd, kernels
 from cmpc_refseg_torch.ops.layers import (conv2d, glorot_uniform, init_conv,
@@ -128,30 +129,44 @@ def init_mutan(key, cfg, num_heads: int = 5):
     }
 
 
+def pad_mutan_weight(w):
+    """The visual weight [K, heads*C] with zero rows appended up to the next
+    multiple of 8 rows, the K that `apply_mutan` pads its input to (the
+    kernel's TMA boxes need 16-byte rows).  Differentiable: the gradient of
+    the padded rows is sliced off."""
+    pad = -w.shape[0] % 8
+    return F.pad(w, (0, 0, 0, pad)) if pad else w
+
+
 def apply_mutan(params, lang_feat, spatial_feat, visual_feat,
                 num_heads: int = 5, *, use_kernels: bool = True):
     """sum_h tanh(conv_h([vis, spatial])) * tanh(conv_h(lang)), tanh, l2norm
     (CMPC_model.py:311-328), as one mutan kernel launch (where autograd
-    records, the training form through `autograd.mutan`).  The visual
-    weight in the compute dtype is `params['w_wide']` when
-    model.prepare_params built it, else cast here."""
+    records, the training form through `autograd.mutan`).  K = v_emb_dim +
+    spatial_dim is padded with zero columns of the input and zero rows of
+    the weight to a multiple of 8 on every route (the JAX package pads it
+    at parameter prep, pallas_kernels.py:41-76); zeros add exact zeros.
+    The padded visual weight in the compute dtype is `params['w_wide']`
+    when model.prepare_params built it, else padded and cast here."""
     b, h, w, c = visual_feat.shape
     dt = visual_feat.dtype
-    vis_in = torch.cat([visual_feat, spatial_feat.to(dt)], dim=-1)
+    parts = [visual_feat, spatial_feat.to(dt)]
+    pad = -(c + spatial_feat.shape[-1]) % 8
+    if pad:
+        parts.append(visual_feat.new_zeros(b, h, w, pad))
+    vis_in = torch.cat(parts, dim=-1)
     lang = torch.tanh(conv2d(params["lang_trans"], lang_feat))  # [B,1,1,5C]
-    args = (vis_in.reshape(b * h * w, vis_in.shape[-1]),
-            params["vis_trans"]["DW"][0, 0],
-            params["vis_trans"]["biases"].float(),
-            lang.reshape(b, -1).float())
+    x = vis_in.reshape(b * h * w, vis_in.shape[-1])
+    rest = (params["vis_trans"]["biases"].float(), lang.reshape(b, -1).float())
     kw = dict(heads=num_heads, rows_per_sample=h * w)
     if _differentiable(use_kernels):
-        return autograd.mutan(*args, **kw).reshape(b, h, w, c)
+        w_pad = pad_mutan_weight(params["vis_trans"]["DW"][0, 0])
+        return autograd.mutan(x, w_pad, *rest, **kw).reshape(b, h, w, c)
     w_wide = params.get("w_wide")
     if w_wide is None:
-        w_wide = args[1].to(dt)
+        w_wide = pad_mutan_weight(params["vis_trans"]["DW"][0, 0]).to(dt)
     fn = kernels.mutan_fused if use_kernels else kernels.mutan_plain
-    out = fn(args[0], w_wide, *args[2:], **kw)
-    return out.reshape(b, h, w, c)
+    return fn(x, w_wide, *rest, **kw).reshape(b, h, w, c)
 
 
 # ---------------------------------------------------------------------------

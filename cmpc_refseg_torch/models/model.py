@@ -2,7 +2,8 @@
 DeepLabv3+ decoder of the v4-v6 configs.
 
 Forward pipeline (CMPC_model.py:89-142 and the variants' deltas):
-backbone taps -> text encoder -> laterals (+l2norm) -> spatial grid ->
+backbone taps -> text encoder -> laterals (+tanh, l2norm) -> spatial grid
+(+HSV) ->
 language parser -> per-level lang2vis (mutan + spatial graph) -> aux score
 heads -> nec_lang -> 2x gated exchange + ConvLSTM fusion -> decoder
 (multiscore 3x3 score conv, or ASPP + v3+ decoder on the c2 tap) -> TF1
@@ -28,6 +29,7 @@ import torch
 
 from cmpc_refseg_torch.config import ModelConfig
 from cmpc_refseg_torch.convert import model_state_from_jax, params_from_jax
+from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR
 from cmpc_refseg_torch.models import aspp, cmpc
 from cmpc_refseg_torch.models.backbone import apply_backbone, init_backbone
 from cmpc_refseg_torch.models.language import encode_text, init_text_encoder
@@ -56,21 +58,49 @@ DECODERS = ("multiscore", "aspp_v3plus")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.decoder not in DECODERS or cfg.hsv or cfg.tanh_lateral \
-            or cfg.bbox_head or cfg.video:
+    if cfg.decoder not in DECODERS or cfg.bbox_head or cfg.video:
         raise NotImplementedError(
-            f"variant {cfg.variant or cfg!r}: HSV, tanh laterals, the bbox "
-            "head and video are not ported yet")
+            f"variant {cfg.variant or cfg!r}: the bbox head and video are "
+            "not ported yet")
 
 
-def init_numpy(seed, cfg: ModelConfig) -> dict:
+def rgb_to_hsv(rgb):
+    """`tf.image.rgb_to_hsv` on any value range (H and S in [0, 1], V the
+    largest channel as it is), the HSV variants' conversion
+    (CMPCv5_HSV_model.py:118-126).  Ties take red, then green, then blue;
+    a gray pixel has hue 0 and a black one saturation 0."""
+    r, g, b = rgb.unbind(-1)
+    mx = torch.maximum(torch.maximum(r, g), b)
+    rng = mx - torch.minimum(torch.minimum(r, g), b)
+    safe_rng = torch.where(rng == 0, torch.ones_like(rng), rng)
+    h_r = torch.remainder((g - b) / safe_rng, 6.0)
+    h_g = (b - r) / safe_rng + 2.0
+    h_b = (r - g) / safe_rng + 4.0
+    h = torch.where(mx == r, h_r, torch.where(mx == g, h_g, h_b)) / 6.0
+    h = torch.where(rng == 0, torch.zeros_like(h), h)
+    s = torch.where(mx == 0, torch.zeros_like(rng),
+                    rng / torch.where(mx == 0, torch.ones_like(mx), mx))
+    return torch.stack([h, s, mx], dim=-1)
+
+
+def hsv_channels(im, h: int, w: int):
+    """The HSV variants' 3 spatial channels [B, h, w, 3]: the image's mean
+    added back, BGR flipped to RGB, converted and resized to the feature
+    map with TF1 `resize_bilinear` (CMPCv5_HSV_model.py:118-126)."""
+    mean = torch.as_tensor(IMAGE_MEAN_BGR, dtype=im.dtype, device=im.device)
+    return resize_bilinear(rgb_to_hsv((im + mean).flip(-1)), h, w)
+
+
+def init_numpy(seed, cfg: ModelConfig, glove=None) -> dict:
     """The parameter tree as numpy arrays in the JAX package's layout, draw
-    for draw what the JAX package's init_model makes from the same seed."""
+    for draw what the JAX package's init_model makes from the same seed;
+    `glove` [vocab_size, glove_dim] is the embedding's initial value (the
+    reference starts from GloVe, CMPC_model.py:79-81)."""
     _check_supported(cfg)
     keys = split_stream(seed, 12)
     params = {
         "backbone": init_backbone(keys[0], cfg.res4_blocks),
-        "text": init_text_encoder(keys[1], cfg),
+        "text": init_text_encoder(keys[1], cfg, glove),
         "parser": cmpc.init_lang_parser(keys[2], cfg),
         "levels": {},
         "fusion_stack": cmpc.init_fusion_stack(keys[3], cfg),
@@ -92,10 +122,10 @@ def init_numpy(seed, cfg: ModelConfig) -> dict:
     return params
 
 
-def init_model(seed, cfg: ModelConfig, *, device=None) -> dict:
+def init_model(seed, cfg: ModelConfig, glove=None, *, device=None) -> dict:
     """Port parameters (float32 tensors on `device`, CUDA when None) from an
-    int seed."""
-    return params_from_jax(init_numpy(seed, cfg), cfg, device=device)
+    int seed, the embedding from `glove` when given (`init_numpy`)."""
+    return params_from_jax(init_numpy(seed, cfg, glove), cfg, device=device)
 
 
 def init_model_state(cfg: ModelConfig, *, device=None) -> dict:
@@ -125,7 +155,8 @@ def prepare_backbone(backbone: dict, cfg: ModelConfig) -> dict:
 
 def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     """Inference view of the parameters, built once: the weights the head's
-    kernels take, in the compute dtype (each level's mutan weight [K, 5C],
+    kernels take, in the compute dtype (each level's mutan weight [K, 5C]
+    with K padded to a multiple of 8, `cmpc.pad_mutan_weight`,
     the spatial graph's weights stacked over the levels, the exchanges' SE
     weights where the SE sum runs and the ConvLSTM's tables), the ASPP's
     and decoder's conv kernels in the compute dtype (BN's gamma and beta
@@ -134,7 +165,8 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     levels = {}
     for lv, level in params["levels"].items():
-        w_wide = level["mutan"]["vis_trans"]["DW"][0, 0].to(dt).contiguous()
+        w_wide = cmpc.pad_mutan_weight(
+            level["mutan"]["vis_trans"]["DW"][0, 0]).to(dt).contiguous()
         levels[lv] = {**level, "mutan": {**level["mutan"], "w_wide": w_wide}}
     fs = params["fusion_stack"]
     exchange = fs["exchange"] if cfg.exchange_self_gate else {
@@ -163,7 +195,9 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
                 use_kernels: bool = True) -> ModelOutputs:
     """Forward.  batch: 'im' [B,H,W,3] float32 (BGR, mean-subtracted),
     'words' [B,T] token ids with 'seq_len' [B] (back-padded) or
-    'valid_idx' [B] (front-padded: the number of pads).
+    'valid_idx' [B] (front-padded: the number of pads); for the 'bert'
+    encoder, 'words_feat' [B,T,768] float32 and 'sequence_mask' [B,T]
+    instead of tokens.
 
     `model_state`: the BN moving statistics (`init_model_state`), required
     by the ASPP decoder (a missing state raises: it is never replaced by
@@ -193,18 +227,26 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     if dt is not None:
         vis = {k: v.to(dt) for k, v in vis.items()}
 
-    text = encode_text(params["text"], cfg, batch["words"],
-                       batch.get("seq_len"), valid_idx=batch.get("valid_idx"))
+    text = encode_text(params["text"], cfg, batch.get("words"),
+                       batch.get("seq_len"), valid_idx=batch.get("valid_idx"),
+                       words_feat=batch.get("words_feat"),
+                       sequence_mask=batch.get("sequence_mask"))
     words_parse = cmpc.apply_lang_parser(params["parser"], text.parse_feat,
                                          text.seq_mask)
 
-    laterals = {lv: l2_normalize(conv2d(params["laterals"][lv], vis[lv]), -1)
-                for lv in cfg.levels}
+    laterals = {}
+    for lv in cfg.levels:
+        x = conv2d(params["laterals"][lv], vis[lv])
+        if cfg.tanh_lateral:   # CMPCv5_BiLSTM_model.py:121-125
+            x = torch.tanh(x)
+        laterals[lv] = l2_normalize(x, -1)
 
     b = im.shape[0]
     h, w = laterals[cfg.levels[0]].shape[1:3]
     spatial = spatial_coordinate_grid(h, w, device=im.device)[None].expand(
         b, h, w, 8)
+    if cfg.hsv:
+        spatial = torch.cat([spatial, hsv_channels(im, h, w)], dim=-1)
 
     fusion_list, gw_list = cmpc.apply_lang2vis_multi(
         [params["levels"][lv] for lv in cfg.levels], cfg,

@@ -51,6 +51,13 @@ class PredictService:
         if quantize:
             raise NotImplementedError("the int8 backbone serving path is not "
                                       "ported yet")
+        if cfg.text_encoder == "bert":
+            # as the JAX package's service: it tokenizes an expression
+            # (serving/server.py:83-97 there), and BERT features come from a
+            # model outside the repository
+            raise ValueError(f"{cfg.variant or 'this config'}: the 'bert' "
+                             "encoder takes precomputed features, which a "
+                             "PredictService (text in) cannot make")
         if model_state is None and cfg.decoder != "multiscore":
             raise ValueError(f"{cfg.variant or 'this config'}: the ASPP "
                              "decoder needs model_state")

@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import shutil
+import sys
 from typing import Optional
 
 import torch
@@ -62,8 +63,17 @@ def _config_record(cfg) -> dict:
     return {"name": cfg.variant, "fields": dataclasses.asdict(cfg)}
 
 
+def _key(path) -> tuple:
+    """A tree path with its strings interned: pickle writes a string once
+    per object and refers back to it after, so keys that are equal but
+    distinct objects (a restored tree's, a tree built by another code
+    path) would give the same state other bytes."""
+    return tuple(sys.intern(k) if isinstance(k, str) else k for k in path)
+
+
 def _flat(tree) -> dict:
-    return {path: leaf.detach().cpu() for path, leaf in named_leaves(tree)}
+    return {_key(path): leaf.detach().cpu()
+            for path, leaf in named_leaves(tree)}
 
 
 def save_checkpoint(directory: str, state, step: int,
@@ -72,7 +82,8 @@ def save_checkpoint(directory: str, state, step: int,
     remove all but the newest `max_to_keep` steps."""
     leaves = list(named_leaves(state.trainable))
     adam = [state.optimizer.state.get(p, {}) for _, p in leaves]
-    moments = {key: {path: (st[key] if st else torch.zeros_like(p)).cpu()
+    moments = {key: {_key(path): (st[key] if st else torch.zeros_like(p))
+                     .cpu()
                      for (path, p), st in zip(leaves, adam)}
                for key in ("exp_avg", "exp_avg_sq")}
     counts = [float(st["step"]) for st in adam if st]

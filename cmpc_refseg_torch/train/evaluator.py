@@ -33,7 +33,8 @@ from cmpc_refseg_torch.train.trainer import device_image_prologue
 
 SCORE_THRESHOLD = 1e-9   # trainval_model.py:160,244
 
-_BATCH_KEYS = ("im", "words", "seq_len", "valid_idx")
+_BATCH_KEYS = ("im", "words", "seq_len", "valid_idx", "words_feat",
+               "sequence_mask")
 
 
 def native_prediction(up: np.ndarray, oh: int, ow: int) -> np.ndarray:
@@ -101,7 +102,8 @@ def evaluate(cfg: ModelConfig, params, model_state, sample_iter, *,
              use_kernels: bool = True) -> dict:
     """The reference protocol over `sample_iter`, whose samples hold the
     model inputs (batched [1, ...]: 'im', 'words' with 'seq_len' or
-    'valid_idx') plus 'orig_size' (h, w) and 'target_native' (the
+    'valid_idx', or BERT's 'words_feat' and 'sequence_mask') plus
+    'orig_size' (h, w) and 'target_native' (the
     native-resolution ground truth).
 
     Forwards run on `device` (CUDA when None; raises without it) in

@@ -84,12 +84,15 @@ def train_state_from_params(params: dict, cfg: ModelConfig,
                       model_state=model_state)
 
 
-def create_train_state(seed, cfg: ModelConfig, device=None) -> TrainState:
+def create_train_state(seed, cfg: ModelConfig, glove=None, *,
+                       device=None) -> TrainState:
     """TrainState from an int seed (the JAX package's init_model draws and
-    initial BN statistics), on `device` (CUDA when None; raises without
+    initial BN statistics; the embedding from `glove` [vocab_size,
+    glove_dim] when given), on `device` (CUDA when None; raises without
     it)."""
-    return train_state_from_params(init_model(seed, cfg, device=device), cfg,
-                                   init_model_state(cfg, device=device))
+    return train_state_from_params(
+        init_model(seed, cfg, glove, device=device), cfg,
+        init_model_state(cfg, device=device))
 
 
 def aug_generator(step: int) -> torch.Generator:
@@ -178,8 +181,10 @@ def make_train_step(cfg: ModelConfig) -> Callable:
     """(state, batch) -> metrics: one update of `state` in place.
 
     batch: 'im_u8' [B,H,W,3] uint8 RGB and 'target_u8' [B,H,W,1] uint8 (or
-    'im' f32 BGR - mean and 'target' f32), 'words' [B,T], 'seq_len' [B];
-    numpy or tensors.  Metrics: the losses of `compute_loss`, 'train_mIoU'
+    'im' f32 BGR - mean and 'target' f32), 'words' [B,T], 'seq_len' [B]
+    (the 'bert' encoder: 'words_feat' [B,T,768] f32 and 'sequence_mask'
+    [B,T] instead, moved by `device_image_prologue` as they are); numpy
+    or tensors.  Metrics: the losses of `compute_loss`, 'train_mIoU'
     (0-d tensors on the device) and 'learning_rate' (the lr of this
     update)."""
     check_trainable(cfg)
@@ -232,14 +237,14 @@ class PreemptionGuard:
 
 def train_loop(cfg: ModelConfig, reader, *, max_iter: int,
                state: Optional[TrainState] = None, seed: int = 0,
-               device=None, log_every: int = 100, snapshot_every: int = 0,
+               glove=None, device=None, log_every: int = 100, snapshot_every: int = 0,
                checkpoint_dir: Optional[str] = None, logger=None,
                start_iter: int = 0, val_fn: Optional[Callable] = None,
                val_every: int = 0) -> TrainState:
     """Train steps `start_iter` to `max_iter` - 1 over
     `reader.read_collated(batch_size)` (dicts of stacked arrays:
     'im_batch', 'mask_batch', 'text_batch', 'seq_length').  `state`
-    defaults to `create_train_state(seed, cfg, device)`.
+    defaults to `create_train_state(seed, cfg, glove, device=device)`.
 
     Logs every `log_every` iterations (console, and `logger.log(it,
     metrics)` when given).  `val_fn(state) -> dict` runs every `val_every`
@@ -251,7 +256,7 @@ def train_loop(cfg: ModelConfig, reader, *, max_iter: int,
     `checkpoint.restore_checkpoint` into `state` and `start_iter` =
     the restored step."""
     if state is None:
-        state = create_train_state(seed, cfg, device=device)
+        state = create_train_state(seed, cfg, glove, device=device)
     step_fn = make_train_step(cfg)
     with PreemptionGuard() as guard:
         return _train_iters(cfg, reader, state, step_fn, guard,

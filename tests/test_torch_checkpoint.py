@@ -17,8 +17,11 @@ JAX package and TF checkpoints, on the CPU at the TINY geometry.
   against JAX's third step; the gated exchanges' key biases, whose exact
   gradient is 0, as tests/test_torch_variants_train.py holds them (each
   side's at most 1e-10 of the largest gradient).
+- The BiLSTM and BERT text trees go through `params_from_jax` and a
+  checkpoint round trip.
 - A synthetic TF checkpoint (written by the helpers of
-  tests/test_converter.py) goes through tools/tf_checkpoint_to_torch.py
+  tests/test_converter.py; CMPC_model, CMPCv4_model and the BiLSTM's
+  CMPCv4_BiLSTM_T_model) goes through tools/tf_checkpoint_to_torch.py
   and through `convert.params_from_npz`; the port's forward from each
   matches JAX's from the converter's trees within 1e-4.
 """
@@ -32,7 +35,8 @@ import pytest
 import torch
 
 from cmpc_refseg_torch.config import get_config as tget
-from cmpc_refseg_torch.convert import model_state_from_jax, params_from_npz
+from cmpc_refseg_torch.convert import (model_state_from_jax, params_from_jax,
+                                       params_from_npz)
 from cmpc_refseg_torch.models.model import apply_model as tapply
 from cmpc_refseg_torch.models.model import init_model as tinit
 from cmpc_refseg_torch.train import checkpoint as tck
@@ -40,6 +44,7 @@ from cmpc_refseg_torch.train import trainer as ttrain
 from cmpc_refseg_torch.train.optimizer import named_leaves
 from cmpc_refseg_tpu.config import get_config as jget
 from cmpc_refseg_tpu.models.model import apply_model as japply
+from cmpc_refseg_tpu.models.model import init_model as jinit
 from cmpc_refseg_tpu.train import trainer as jtrain
 from tools import jax_checkpoint_to_torch, tf_checkpoint_to_torch
 
@@ -141,6 +146,63 @@ def test_round_trip_is_bit_equal(stepped, tmp_path, name, dtype):
             named_leaves(state.model_state),
             named_leaves(ttrain.create_train_state(
                 0, state.cfg, device="cpu").model_state)))
+
+
+def test_restored_state_saves_the_same_bytes(stepped, tmp_path):
+    """A state and the state restored from its checkpoint save to the same
+    bytes: the tree paths' strings are interned, so pickle writes the
+    same index whichever code path built the trees (their key strings
+    were equal but distinct objects in a restored tree, and data.pkl came
+    out 45 bytes longer here)."""
+    state = stepped["CMPCv4_model", "float32"]
+    tck.save_checkpoint(str(tmp_path / "a"), state, 1)
+    restored = tck.restore_checkpoint(str(tmp_path / "a"),
+                                      ttrain.create_train_state(
+                                          1, state.cfg, device="cpu"))
+    tck.save_checkpoint(str(tmp_path / "b"), restored, 1)
+    a, b = (open(tmp_path / d / "1" / tck.FILE, "rb").read()
+            for d in ("a", "b"))
+    assert len(a) == len(b) and a == b
+
+
+@pytest.mark.parametrize("name", ["CMPCv5_BiLSTM_HSV_model",
+                                  "CMPCv4_BERT_model"])
+def test_text_encoder_trees_round_trip(tmp_path, name):
+    """The BiLSTM tree (lstm_fw, lstm_bw and the words_feat merge conv,
+    kept HWIO) and BERT's empty text tree: JAX's init through
+    params_from_jax is the port's init, and a state after one step (BERT's
+    from a batch of 'words_feat' and 'sequence_mask') restores
+    bit-equal."""
+    geo = {**TINY, "bert_dim": 16, "vw_emb_dim": 8}
+    cfg = tget(name, **geo)
+    jp, _ = jinit(0, jget(name, **geo))
+    want = dict(named_leaves(tinit(0, cfg, device="cpu")))
+    got = dict(named_leaves(params_from_jax(jp, cfg, device="cpu")))
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    text = {k[1:] for k in got if k[0] == "text"}
+    if cfg.text_encoder == "bert":
+        assert text == set() and jp["text"] == {}
+    else:
+        assert {k[0] for k in text} == {"embedding", "lstm_fw", "lstm_bw",
+                                        "words_feat"}
+        assert got[("text", "words_feat", "DW")].shape == (1, 1, 32, 16)
+    batch = _batches(cfg, 1)[0]
+    if cfg.text_encoder == "bert":
+        rng = np.random.default_rng(2)
+        del batch["words"], batch["seq_len"]
+        batch.update(words_feat=rng.standard_normal(
+                         (cfg.batch_size, cfg.num_steps, 16)).astype(
+                             np.float32),
+                     sequence_mask=(np.arange(cfg.num_steps)[None]
+                                    < np.array([[3], [6]])).astype(
+                                        np.float32))
+    state = ttrain.create_train_state(0, cfg, device="cpu")
+    ttrain.make_train_step(cfg)(state, batch)
+    tck.save_checkpoint(str(tmp_path), state, 1)
+    restored = tck.restore_checkpoint(str(tmp_path), ttrain.create_train_state(
+        1, cfg, device="cpu"))
+    _assert_bit_equal(restored, state)
 
 
 def test_frozen_backbone_saved_in_float32(stepped, tmp_path):
@@ -344,7 +406,7 @@ def tf_checkpoints(tmp_path_factory):
 
     from tools.convert_tf_checkpoint import convert
     out = {}
-    for name in ("CMPC_model", "CMPCv4_model"):
+    for name in ("CMPC_model", "CMPCv4_model", "CMPCv4_BiLSTM_T_model"):
         d, jcfg = tmp_path_factory.mktemp(name), jget(name, **TINY)
         ckpt = _write_ckpt(_ckpt_tensors(jcfg), str(d / "model.ckpt"))
         _, params, state = convert(ckpt, name, overrides=TINY)
@@ -355,7 +417,8 @@ def tf_checkpoints(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("name", ["CMPC_model", "CMPCv4_model"])
+@pytest.mark.parametrize("name", ["CMPC_model", "CMPCv4_model",
+                                  "CMPCv4_BiLSTM_T_model"])
 @pytest.mark.parametrize("route", ["tool", "npz"])
 def test_tf_checkpoint_forward_matches_jax(tf_checkpoints, tmp_path, name,
                                            route):

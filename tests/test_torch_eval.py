@@ -222,6 +222,39 @@ def test_evaluate_matches_jax(model):
         max_samples=5)["no_crf"]["n"]
 
 
+def test_evaluate_bert_matches_jax():
+    """`evaluate` of CMPCv4_BERT_model (bert_dim=16, vw_emb_dim=8) on
+    samples that carry 'words_feat' [1, T, 16] and 'sequence_mask' [1, T]
+    instead of tokens: the padded last batch pads them too, as JAX's
+    evaluator does; IoUs within 1e-5, the results as above."""
+    geo = {**TINY, "bert_dim": 16, "vw_emb_dim": 8}
+    jcfg, tcfg = jget("CMPCv4_BERT_model", **geo), tget("CMPCv4_BERT_model",
+                                                       **geo)
+    params, state = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0),
+                                                   jcfg))
+    rng = np.random.default_rng(5)
+    samples = []
+    for s in _samples(tcfg):
+        n = int(s["seq_len"][0])
+        samples.append({
+            "im": s["im"], "orig_size": s["orig_size"],
+            "target_native": s["target_native"],
+            "words_feat": rng.standard_normal(
+                (1, tcfg.num_steps, 16)).astype(np.float32),
+            "sequence_mask": (np.arange(tcfg.num_steps)[None] < n
+                              ).astype(np.float32)})
+    want, ious = _ious(lambda vis: jev.evaluate(
+        jcfg, params, state, iter(samples), batch_size=4,
+        visualize_fn=vis), samples)
+    got, tious = _ious(lambda vis: tev.evaluate(
+        tcfg, params_from_jax(params, tcfg, device="cpu"),
+        model_state_from_jax(state, device="cpu"), iter(samples),
+        batch_size=4, device="cpu", visualize_fn=vis), samples)
+    assert got["no_crf"]["n"] == N_SAMPLES
+    np.testing.assert_allclose(tious, ious, rtol=0, atol=1e-5)
+    _check_results(got["no_crf"], want["no_crf"], ious)
+
+
 def test_evaluate_sharded_matches_jax(flagship):
     m, samples = flagship, flagship["samples"]
     # samples 0-3 and 3-6: two whole batches of 4

@@ -726,3 +726,157 @@ def test_small_train_step_kernel_route_matches_plain_route(cuda):
     torch.cuda.synchronize()
     assert np.isfinite(float(metrics["loss_total"]))
     assert kernels.launch_counts() == _expected_launches(cfg, 3, train=True)
+
+
+# ---------------------------------------------------------------------------
+# the HSV mutan's K = 1011 and the BERT widths
+# ---------------------------------------------------------------------------
+
+def _hsv_mutan(g, b=2, side=10, c=1000, k_spatial=11):
+    """A level's mutan at the HSV configs' widths: C = 1000 and K = C + 11
+    = 1011, which apply_mutan pads to 1016 (params f32, the visual input
+    bf16, the text feature f32)."""
+    f32 = torch.float32
+    k = c + k_spatial
+    params = {"vis_trans": {"DW": _rnd(g, 1, 1, k, 5 * c, dtype=f32,
+                                       scale=(6 / (k + 5 * c)) ** 0.5),
+                            "biases": _rnd(g, 5 * c, dtype=f32, scale=0.1)},
+              "lang_trans": {"DW": _rnd(g, 1, 1, c, 5 * c, dtype=f32,
+                                        scale=0.03),
+                             "biases": _rnd(g, 5 * c, dtype=f32,
+                                            scale=0.1)}}
+    return (params, _rnd(g, b, 1, 1, c, dtype=f32),
+            _rnd(g, b, side, side, k_spatial), _rnd(g, b, side, side, c))
+
+
+@pytest.mark.gpu
+def test_apply_mutan_pads_k_on_the_card(cuda):
+    """K = 1011 through the mutan kernel: apply_mutan's kernel route, from
+    the weight padded on the fly and from prepare_params' padded w_wide,
+    against its plain route (one launch each, no ValueError)."""
+    from cmpc_refseg_torch.models import cmpc
+    params, lang, spatial, vis = _hsv_mutan(cuda)
+    wide = cmpc.pad_mutan_weight(params["vis_trans"]["DW"][0, 0]).to(
+        torch.bfloat16).contiguous()
+    assert wide.shape == (1016, 5000)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = cmpc.apply_mutan(params, lang, spatial, vis)
+        again = cmpc.apply_mutan({**params, "w_wide": wide}, lang, spatial,
+                                 vis)
+        want = cmpc.apply_mutan(params, lang, spatial, vis,
+                                use_kernels=False)
+    torch.cuda.synchronize()
+    assert kernels.mutan_fused.launches == 2
+    assert torch.equal(got, again)
+    _close("mutan_fused", got, want, None)
+
+
+@pytest.mark.gpu
+def test_mutan_training_form_pads_k_on_the_card(cuda):
+    """The training form at K = 1011: the residual forward, the dz pass and
+    the dW kernel (at K = 1016) each launch once; the output and the
+    gradients of the visual input, the weight (its leaf keeps [1, 1, 1011,
+    5000]), the bias and the text feature against autograd of the plain
+    route, each within 5e-2 in norm (the bf16 residual v is the known
+    approximation)."""
+    from cmpc_refseg_torch.models import cmpc
+    params, lang, spatial, vis = _hsv_mutan(cuda)
+    leaves = [params["vis_trans"]["DW"], params["vis_trans"]["biases"],
+              lang, vis]
+    cot = _rnd(cuda, *vis.shape, scale=1e-2)
+    outs, grads = [], []
+    for use_kernels in (True, False):
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_()
+        kernels.reset_launch_counts()
+        out = cmpc.apply_mutan(params, lang, spatial, vis,
+                               use_kernels=use_kernels)
+        out.backward(cot)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert all(counts[k] == int(use_kernels) for k in (
+            "mutan_fwd_residual", "mutan_bwd_dz", "mutan_dw"))
+        outs.append(out.detach())
+        grads.append([t.grad.double() for t in leaves])
+    _close("mutan_fwd_residual", outs[0], outs[1], None)
+    assert grads[0][0].shape == (1, 1, 1011, 5000)
+    for gk, gp in zip(*grads):
+        assert torch.isfinite(gk).all()
+        assert (gk - gp).norm() <= 5e-2 * gp.norm()
+
+
+def _bert_inputs(g, name, n=100, t=20):
+    """A kernel's inputs at CMPCv4_BERT_model's widths (`config.py`:
+    v_emb_dim 1024, mlp_dim 512, vw_emb_dim 512; the mutan's K = 1032 and
+    its lang 5 x 1024 = 5120 wide; two levels, so the grouped kernels take
+    G = 2 and the SE sum one other), 2 samples of n rows:
+    (args, kwargs, entries per sample behind its statistics)."""
+    b, c, a, cm, f32 = 2, 1024, 512, 512, torch.float32
+    mutan = ((_rnd(g, b * n, c + 8), _rnd(g, c + 8, 5 * c, scale=0.03),
+              _rnd(g, 5 * c, dtype=f32, scale=0.1),
+              torch.tanh(_rnd(g, b, 5 * c, dtype=f32))),
+             {"heads": 5, "rows_per_sample": n})
+    if name in ("mutan_fused", "mutan_fwd_residual"):
+        return (*mutan, None)
+    if name in ("mutan_bwd_dz", "mutan_dw"):
+        _, v = kernels.mutan_fwd_residual_plain(*mutan[0], **mutan[1])
+        dz_args = (v, mutan[0][3], _rnd(g, b * n, c, scale=0.1))
+        if name == "mutan_bwd_dz":
+            return (dz_args, mutan[1], None)
+        dz, _, _ = kernels.mutan_bwd_dz_plain(*dz_args, **mutan[1])
+        return (mutan[0][0], dz), {}, None
+    mask = torch.ones(2 * b, 1, t, device="cuda")
+    mask[:, :, 9:] = 0
+    w_aff = torch.softmax(_rnd(g, 2 * b, n, t, dtype=f32), -1).to(
+        torch.bfloat16)
+    if name == "spa_affinity_grouped":
+        return ((_rnd(g, 2 * b, n, c), _rnd(g, 2, c, a, scale=c ** -0.5),
+                 _rnd(g, 2, a, scale=0.1), _rnd(g, 2 * b, t, a),
+                 torch.rand(2 * b, 1, t, generator=g, device="cuda"), mask),
+                {"scale": c ** 0.5, "l2n": False, "masked": False}, None)
+    if name == "graph_msg":
+        return (w_aff, _rnd(g, 2 * b, t, c)), {}, n * c
+    if name == "graph_update_grouped":
+        msg, st = kernels.graph_msg_plain(w_aff, _rnd(g, 2 * b, t, c))
+        return ((_rnd(g, 2 * b, n, c), msg, st,
+                 _rnd(g, 2, c, c, scale=c ** -0.5), _rnd(g, 2, c, scale=0.1),
+                 1 + _rnd(g, 2, c, dtype=f32, scale=0.1),
+                 _rnd(g, 2, c, dtype=f32, scale=0.1)), {}, n * c)
+    if name == "se_sum":
+        return ((_rnd(g, b, n, cm), [_rnd(g, b, n, cm)],
+                 [torch.sigmoid(_rnd(g, b, cm))],
+                 [_rnd(g, cm, cm, scale=cm ** -0.5)],
+                 [_rnd(g, cm, scale=0.1)]), {}, None)
+    x, h, cell = (_rnd(g, b, n, cm) for _ in range(3))
+    w = _rnd(g, 2 * cm, 4 * cm, scale=(2 * cm) ** -0.5)
+    ci, cf, co = (_rnd(g, n, cm, scale=0.2) for _ in range(3))
+    if name == "convlstm_gates":
+        return (x, h, cell, w, ci, cf), {}, n * cm
+    gates, st = kernels.convlstm_gates_plain(x, h, cell, w, ci, cf)
+    return ((gates, cell, co, st, 1 + _rnd(g, 5, cm, dtype=f32, scale=0.1),
+             _rnd(g, 5, cm, dtype=f32, scale=0.1)), {}, n * cm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "mutan_fused", "mutan_fwd_residual", "mutan_bwd_dz", "mutan_dw",
+    "spa_affinity_grouped", "graph_msg", "graph_update_grouped", "se_sum",
+    "convlstm_gates", "convlstm_raw"])
+def test_kernel_at_bert_widths_matches_plain_version(cuda, name):
+    """Each kernel at the BERT config's widths, where C = 512 and 1024 fill
+    the kernels' column tiles exactly and the dz pass sits at its
+    `heads <= 8, C <= 1024` edge, against its plain version (dW also
+    against torch.mm, within 1e-3)."""
+    args, kw, count = _bert_inputs(cuda, name)
+    wrapper = getattr(kernels, name)
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    want = kernels.PLAIN[wrapper](*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _close(name, got, want, count)
+    if name == "mutan_dw":
+        ref = torch.mm(args[0].t(), args[1], out_dtype=torch.float32)
+        assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()

@@ -280,10 +280,9 @@ def test_build_model_on_cpu_runs_without_kernel_launches():
 
 
 def test_unported_variant_raises():
-    """Each option not ported yet refuses at init: HSV, the BiLSTM and BERT
-    encoders, the sentence-conditioned fusion, video."""
-    for name in ("CMPCv5_HSV_model", "CMPCv4_BiLSTM_T_model",
-                 "CMPCv4_BERT_model", "CMPCv6_plus_model",
+    """Each option not ported yet refuses at init: the sentence-conditioned
+    fusion, the detection head, video."""
+    for name in ("CMPCv6_plus_model", "CMPCv5_plus_model",
                  "CMPC_video_mm_tgraph_allvec"):
         with pytest.raises(NotImplementedError):
             tinit(0, tget(name, **TINY))

@@ -126,6 +126,39 @@ def test_predict_matches_jax_service(services, rng, expression):
     assert set(kernels.launch_counts().values()) == {0}
 
 
+@pytest.mark.parametrize("name", ["CMPCv5_HSV_model",
+                                  "CMPCv5_BiLSTM_HSV_model"])
+def test_hsv_predict_matches_jax_service(rng, name):
+    """The HSV configs' services (the image's HSV channels beside the
+    spatial grid, K = v_emb_dim + 11 padded for the mutan; the second with
+    the BiLSTM encoder and tanh laterals) against JAX's, at batch 1."""
+    from cmpc_refseg_torch.convert import model_state_from_jax
+    jcfg, tcfg = jget(name, **TINY), tget(name, **TINY)
+    jp, js = jinit(0, jcfg)
+    jsvc = jserver.PredictService(jcfg, jp, js, VOCAB)
+    tsvc = tserver.PredictService(tcfg, tinit(0, tcfg, device="cpu"), VOCAB,
+                                  model_state=model_state_from_jax(
+                                      js, device="cpu"), device="cpu")
+    img = rng.integers(0, 256, (40, 56, 3), dtype=np.uint8)
+    want_prob, _ = jsvc.predict(img, "the red man on the left")
+    prob, mask = tsvc.predict(img, "the red man on the left")
+    assert prob.shape == mask.shape == (40, 56)
+    np.testing.assert_allclose(prob, want_prob, rtol=0, atol=1e-4)
+
+
+def test_bert_service_is_refused():
+    """A service tokenizes an expression; BERT features come from a model
+    outside the repository, so a 'bert' config raises a clear ValueError
+    (the JAX package's service has no BERT route either)."""
+    cfg = tget("CMPCv4_BERT_model", **TINY)
+    params = tinit(0, cfg, device="cpu")
+    with pytest.raises(ValueError, match="bert"):
+        tserver.PredictService(cfg, params, VOCAB, model_state={},
+                               device="cpu")
+    with pytest.raises(ValueError, match="bert"):
+        build_service("CMPCv4_BERT_model", device="cpu", **TINY)
+
+
 def test_service_rules(monkeypatch):
     cfg = tget("CMPC_model", **TINY)
     params = tinit(0, cfg, device="cpu")

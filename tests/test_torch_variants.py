@@ -1,10 +1,17 @@
-"""The port's six more configs against the JAX package, in float32 on the CPU.
+"""The port's configs beyond the flagship against the JAX package, in
+float32 on the CPU.
 
 CMPC_model_origin and CMPCv3_model (the front-padded 'lstm_frontpad'
 encoder), CMPCv2_model (two levels), CMPCv4_model and CMPCv5_model (the
 ASPP + DeepLabv3+ decoder with its BN moving statistics) and CMPCv6_model
 (the self-gated exchange), plus CMPCv4_model with the 'double_softmax'
-graph norm, at the TINY geometry of tests/test_torch_model.py.
+graph norm; and the six text-encoder and lateral options' configs
+(`NEW`: the BiLSTM encoder of CMPCv4_BiLSTM_T/T2 and CMPCv5_BiLSTM, the
+HSV spatial channels and tanh laterals of CMPCv5_HSV / CMPCv5_BiLSTM /
+CMPCv5_BiLSTM_HSV, and CMPCv4_BERT_model's BERT features, with
+bert_dim=16 and vw_emb_dim=8), at the TINY geometry of
+tests/test_torch_model.py.  The modules of the new options are held in
+tests/test_torch_text.py.
 
 Tolerances: the text encoder atol 1e-5; the ASPP and the decoder, run on
 their own at a feature map where the rate-6/12/18 taps reach data, atol
@@ -43,12 +50,17 @@ torch.set_num_threads(2)
 
 TINY = dict(H=32, W=32, num_steps=6, vocab_size=30, glove_dim=8,
             rnn_size=16, v_emb_dim=16, mlp_dim=12, batch_size=3,
-            res4_blocks=2)
+            res4_blocks=2, bert_dim=16)
 VARIANTS = ("CMPC_model_origin", "CMPCv2_model", "CMPCv3_model",
             "CMPCv4_model", "CMPCv5_model", "CMPCv6_model")
-# (config, overrides): the six configs and CMPCv4_model's double softmax
+NEW = ("CMPCv4_BiLSTM_T_model", "CMPCv4_BiLSTM_T2_model", "CMPCv5_HSV_model",
+       "CMPCv5_BiLSTM_model", "CMPCv5_BiLSTM_HSV_model", "CMPCv4_BERT_model")
+# (config, overrides): the configs, CMPCv4_model's double softmax, and the
+# BERT config with a small affinity width
 CASES = [(name, {}) for name in VARIANTS] + [
-    ("CMPCv4_model", {"graph_norm": "double_softmax"})]
+    ("CMPCv4_model", {"graph_norm": "double_softmax"})] + [
+    (name, {"vw_emb_dim": 8} if name == "CMPCv4_BERT_model" else {})
+    for name in NEW]
 VOCAB = {"<pad>": 0, "<go>": 1, "<eos>": 2, "the": 3, "dog": 4, "<unk>": 5,
          "man": 6, "left": 7, "on": 8, "red": 9}
 
@@ -326,12 +338,19 @@ def test_double_softmax_graph_matches_jax(monkeypatch, b):
 
 def _batch(cfg, size):
     """The test_torch_model batch; front-padded with `valid_idx` for the
-    'lstm_frontpad' configs."""
+    'lstm_frontpad' configs; seeded N(0, 1) features [3, T, bert_dim]
+    with the expressions' masks for the 'bert' config."""
     rng = np.random.default_rng(1)
     back, front, valid_idx = _tokens(cfg.num_steps)
     batch = {"im": (20 * rng.standard_normal((3, cfg.H, cfg.W, 3))
                     ).astype(np.float32)}
-    if cfg.text_encoder == "lstm_frontpad":
+    if cfg.text_encoder == "bert":
+        batch.update(
+            words_feat=rng.standard_normal(
+                (3, cfg.num_steps, cfg.bert_dim)).astype(np.float32),
+            sequence_mask=(np.arange(cfg.num_steps)[None] < LENS[:, None]
+                           ).astype(np.float32))
+    elif cfg.text_encoder == "lstm_frontpad":
         batch.update(words=front, valid_idx=valid_idx.astype(np.int32))
     else:
         batch.update(words=back, seq_len=LENS)
@@ -339,7 +358,7 @@ def _batch(cfg, size):
 
 
 @pytest.mark.parametrize("init_seed", [0, 3])
-@pytest.mark.parametrize("name", VARIANTS)
+@pytest.mark.parametrize("name", VARIANTS + NEW)
 def test_init_matches_jax(name, init_seed):
     """The port's numpy init gives JAX's init_model params draw for draw
     (no multiscore 'score' conv for the ASPP decoder; a gv per other level
@@ -361,7 +380,7 @@ def test_init_matches_jax(name, init_seed):
 
 @pytest.mark.parametrize("size", [1, 3])
 @pytest.mark.parametrize("name,overrides", CASES,
-                         ids=[n + ("-" + "-".join(o.values()) if o else "")
+                         ids=[n + "".join(f"-{v}" for v in o.values())
                               for n, o in CASES])
 def test_forward_matches_jax(monkeypatch, name, overrides, size):
     """`sigm` of the port's forward against JAX apply_model(train=False)
