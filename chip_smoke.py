@@ -77,8 +77,9 @@ Phases, each fatal on failure:
     for the decoder configs, of the ASPP + decoder alone.  Then 20
     batch-1 requests to build_service("CMPCv6_model") as in phase 5, and
     CMPCv4_model's bs=8 train step as in phase 6 (its BN batch statistics
-    of both routes held against each other too).  Phase 3 holds every
-    kernel at each of these paths' shapes;
+    of both routes held against each other too, and the rule must fail
+    the faults `mutan_faults` plants).  Phase 3 holds every kernel at each
+    of these paths' shapes;
  8. eval and checkpoints: `evaluator.evaluate` (the reference protocol:
     native-resolution masks, overall and mean IoU, prec@X) on the
     flagship at bs=8 over 61 seeded samples of 8 native sizes (the last
@@ -100,10 +101,31 @@ Phases, each fatal on failure:
     train steps of CMPCv5_BiLSTM_HSV_model, both trainers built from a
     seeded synthetic [12112, 300] GloVe table that must arrive on the card
     bit for bit, and of CMPCv4_BERT_model, each as phase 6 holds its
-    step (losses, gradients, BN statistics of both routes; the HSV step's
-    one bias whose bf16 gradient is a cancellation residue against the
-    plain route's noise over 6 draws of its weights, `NOISE_DRAWN`);
-10. the kernels' share of each path's run, the `kernels` JSON line (each
+    step (losses, gradients, BN statistics of both routes);
+10. plus: CMPCv6_plus_model (the sentence fusion: a second mutan per level;
+    two graph convolutions per level on the l2-normalized affinity) and
+    CMPCv5_plus_model (the detection head) at 320x320, bs=8, bf16, full
+    depth: each one's bs=8 forward as phase 7 drives its configs (v5+'s
+    boxes finite and shaped, their confidence against the plain route's),
+    20 batch-1 requests as in phase 5, and its bs=8 train step as phase 6
+    holds it (v5+ with `preprocess_true_boxes` labels of the batch's seeded
+    box masks, and the rule must fail faults planted in the mutan kernels'
+    wrappers on v5+'s step, `mutan_faults`); CMPCv4_model with conv5=True,
+    its res3-5 conv kernels training: the bs=8 step as phase 6 holds it
+    (the res3-5 leaves among the gradients), its peak memory and step time,
+    and proof that the forward after the steps reads the trained kernels
+    (moved, the very tensors the state trains, and a forward from them
+    differs from one from the initial kernels); CMPC_model with
+    grad_accum=2: two bs=4 micro-steps (no update after the first, one
+    after the second, counted) whose mean gradient is held against the bs=8
+    step's gradients by phase 6's rule.  Phase 3 holds each of these paths'
+    kernels at their shapes (the l2-normalized affinity at C = A = 1000,
+    two update rounds and two mutans per level counted in the launches),
+    and the edge records add the padding functions of `models/cmpc.py` at
+    odd widths (C 1001, A 1003, CM 502: mutan and its training kernels, the
+    affinity, the graph convolution, the SE sum and the ConvLSTM step, each
+    against the unpadded plain function);
+11. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -111,6 +133,7 @@ Phases, each fatal on failure:
 Exits non-zero, printing no result, without CUDA or without the package.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -143,6 +166,10 @@ OPTIONS = (("bilstm_t", "CMPCv4_BiLSTM_T_model", {}),
            ("v5_bilstm_hsv", "CMPCv5_BiLSTM_HSV_model", {}),
            ("bert", "CMPCv4_BERT_model", {}))
 GLOVE_SEED = 11              # the synthetic GloVe table of phase 9
+# phase 10: (path tag, config name, overrides)
+PLUS = (("v6plus", "CMPCv6_plus_model", {}), ("v5plus", "CMPCv5_plus_model",
+                                              {}))
+ODD_C, ODD_A, ODD_CM = 1001, 1003, 502   # phase 10's odd widths
 PORT_KERNELS = ("convlstm_gates_kernel", "convlstm_raw_kernel",
                 "graph_msg_kernel", "graph_update_kernel",
                 "mutan_heads_kernel", "mutan_norm_kernel", "mutan_dz_kernel",
@@ -163,13 +190,10 @@ N_REQ = 20
 N_TRAIN = 10
 TRAIN_LOSS_TOL = 1e-2        # kernel vs plain route, relative
 TRAIN_GRAD_TOL = 5e-2        # per leaf, ||g_k - g_p|| / ||g_p||
-# leaves whose bf16 gradient is cancellation noise (the f32 gradient is
-# 4e-4 of it) that moves by 1-3.4x under a 1e-5 relative change of the
-# weights (PERF.md, section 6): on that path each is held against the
-# largest of the plain route's own readings over NOISE_DRAWS such draws
-# (check_train_routes)
-NOISE_DRAWN = {"v5_bilstm_hsv_train_bs8":
-               ("levels/c4/graph/spa_graph_trans2/biases",)}
+# the plain bf16 route's own noise in a gradient leaf moves under a 1e-5
+# relative change of the weights (2.2-8.3% of the leaf's norm for some
+# leaves of the v5 configs, 1-3.4x for an HSV bias; PERF.md, section 6):
+# check_train_routes reads it at the weights and at NOISE_DRAWS such draws
 NOISE_DRAWS, NOISE_EPS = 6, 1e-5
 PACK_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
 # phase 8: 61 samples, so the last bs=8 batch of the evaluation is padded;
@@ -338,9 +362,13 @@ def path_spec(cfg, batch, train=False):
     its config's levels, graph norm and exchange layout, and its widths:
     c = v_emb_dim, k = the mutan's K (v_emb_dim + spatial_dim, padded to a
     multiple of 8 as `cmpc.apply_mutan` pads it), a = the affinity width
-    (vw_emb_dim, else v_emb_dim) and cm = mlp_dim (the fusion stack)."""
+    (vw_emb_dim, else v_emb_dim) and cm = mlp_dim (the fusion stack); and
+    the head's options: the l2-normalized affinity, the graph rounds per
+    level and the sentence fusion's second mutan."""
     return {"batch": batch, "train": train, "levels": len(cfg.levels),
             "graph_norm": cfg.graph_norm, "self_gate": cfg.exchange_self_gate,
+            "l2n": bool(cfg.l2norm_affinity), "rounds": cfg.num_graph_conv,
+            "sent_fusion": cfg.sent_fusion,
             "c": cfg.v_emb_dim, "k": -(-(cfg.v_emb_dim + cfg.spatial_dim)
                                         // 8) * 8,
             "a": cfg.vw_emb_dim or cfg.v_emb_dim, "cm": cfg.mlp_dim}
@@ -355,7 +383,9 @@ def path_specs(get_config):
     around a checkpoint and the requests to services from it; each
     OPTIONS config's bs=8 forward, the CMPCv5_BiLSTM_HSV_model batch-1
     request and its bs=8 train step, and CMPCv4_BERT_model's bs=8 train
-    step."""
+    step; each PLUS config's bs=8 forward, batch-1 request and bs=8 train
+    step, CMPCv4_model's bs=8 conv5 step and CMPC_model's grad_accum=2
+    bs=4 micro-steps."""
     flag = get_config("CMPC_model")
     specs = {"forward_bs8": path_spec(flag, B),
              "serving_bs1": path_spec(flag, 1),
@@ -376,6 +406,13 @@ def path_specs(get_config):
     specs["v5_bilstm_hsv_train_bs8"] = path_spec(hsv, B, train=True)
     specs["bert_train_bs8"] = path_spec(get_config("CMPCv4_BERT_model"), B,
                                         train=True)
+    for tag, name, overrides in PLUS:
+        cfg = get_config(name, **overrides)
+        specs[f"{tag}_bs8"] = path_spec(cfg, B)
+        specs[f"{tag}_serving_bs1"] = path_spec(cfg, 1)
+        specs[f"{tag}_train_bs8"] = path_spec(cfg, B, train=True)
+    specs["v4conv5_train_bs8"] = path_spec(v4, B, train=True)
+    specs[f"accum_train_bs{B // 2}"] = path_spec(flag, B // 2, train=True)
     return specs
 
 
@@ -429,7 +466,7 @@ def kernel_inputs(torch, kernels, cmpc, dev, spec):
                  randn(*lead, a, scale=0.1), randn(bg, T, a),
                  torch.rand(bg, 1, T, generator=g, device=dev),
                  word_mask(bg)),
-                {"scale": math.sqrt(c), "l2n": False,
+                {"scale": math.sqrt(c), "l2n": spec["l2n"],
                  "masked": norm in ("masked", "unmasked")})
     msg, stats1 = kernels.graph_msg_plain(*msg_args(bg))
     update = (randn(bg, N, c), msg, stats1,
@@ -866,26 +903,194 @@ def check_edges(torch, kernels, cmpc, dev):
     return records
 
 
+def odd_width_edges(torch, kernels, cmpc, dev):
+    """Phase 10's edge records: the functions of models/cmpc.py that pad for
+    the kernels, at odd widths C = ODD_C, A = ODD_A, CM = ODD_CM (padded to
+    1008, 1008 and 504), each on CUDA tensors against the unpadded plain
+    function on the same inputs, with phase 3's tolerance (1e-2 of the
+    largest entry; the mutan's gradients per leaf at TRAIN_GRAD_TOL of its
+    norm), and each must launch its kernels: `cmpc.apply_mutan` on a bs=8
+    40x40 level (the mutan kernel) and its gradient under autograd (the
+    training form, the dz pass and dW); `cmpc.affinity` (l2n, masked, the
+    grouped form at G = 2 over 2 x 8 samples of N rows); `cmpc.graph_conv`
+    (the message kernel and the grouped update) on those samples against
+    the two-pass plain graph convolution; `cmpc.se_sum` with 2 others and
+    `cmpc.convlstm_step_fused` (the gates and raw kernels, whose layer
+    norms count ODD_CM columns) at bs=8."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf, f32 = torch.bfloat16, torch.float32
+    c, a, cm, side = ODD_C, ODD_A, ODD_CM, H_IMG // 8
+
+    def randn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    def unit(*shape):
+        return torch.nn.functional.normalize(randn(*shape), dim=-1).to(bf)
+
+    def launched(names, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        if set(counts) != set(names):
+            fail(f"odd widths: expected launches of {sorted(names)}, got "
+                 f"{counts}")
+        return out, counts
+
+    records = []
+
+    def record(name, got, want, counts, tol=1e-2):
+        errs = [compare(torch, x, y, tol, f"{name} at odd widths output {i}")
+                for i, (x, y) in enumerate(zip(got, want))]
+        rec = {"name": f"{name}@edge:odd", "widths": {"c": c, "a": a,
+                                                      "cm": cm},
+               "tolerance": tol, "launches": counts,
+               "max_abs_err": max(e for e, _ in errs),
+               "max_norm_err": max(n for _, n in errs)}
+        records.append(rec)
+        log(f"[kernels] {rec['name']} (C={c} A={a} CM={cm}, padded to "
+            f"{cmpc.padded(c)}/{cmpc.padded(a)}/{cmpc.padded(cm)}): max abs "
+            f"err {rec['max_abs_err']:.3e} (norm {rec['max_norm_err']:.3e} "
+            f"<= {tol:.0e}); launches {counts}")
+
+    # mutan: K = C + 8 = 1009 -> 1016, C -> 1008 per head
+    k = c + 8
+    params = {"vis_trans": {"DW": randn(1, 1, k, HEADS * c,
+                                        scale=math.sqrt(2 / (k + HEADS * c))),
+                            "biases": randn(HEADS * c, scale=0.1)},
+              "lang_trans": {"DW": randn(1, 1, C, HEADS * c,
+                                         scale=math.sqrt(2 / (C + HEADS * c))),
+                             "biases": randn(HEADS * c, scale=0.1)}}
+    vis, lang = unit(B, side, side, c), unit(B, 1, 1, C).float()
+    spatial = randn(B, side, side, 8).clamp(-1, 1)
+    m = B * side * side
+
+    def mutan_plain(p):
+        x = torch.cat([vis, spatial.to(bf)], -1).reshape(m, k)
+        lt = torch.tanh(lang.reshape(B, C) @ p["lang_trans"]["DW"][0, 0]
+                        + p["lang_trans"]["biases"])
+        return kernels.mutan_plain(x, p["vis_trans"]["DW"][0, 0].to(bf),
+                                   p["vis_trans"]["biases"], lt, heads=HEADS,
+                                   rows_per_sample=side * side)
+
+    with torch.inference_mode():
+        got, counts = launched({"mutan_fused"}, lambda: cmpc.apply_mutan(
+            params, lang, spatial, vis))
+        record("apply_mutan", [got.reshape(m, c)], [mutan_plain(params)],
+               counts)
+    leaves = [params[t][n] for t in ("vis_trans", "lang_trans")
+              for n in ("DW", "biases")]
+    for leaf in leaves:
+        leaf.requires_grad_()
+    cot = randn(m, c, scale=1e-2)
+    with torch.enable_grad():
+        out, counts = launched(
+            {"mutan_fwd_residual", "mutan_bwd_dz", "mutan_dw"},
+            lambda: torch.autograd.grad(
+                (cmpc.apply_mutan(params, lang, spatial, vis).reshape(m, c)
+                 .float() * cot).sum(), leaves))
+        want = torch.autograd.grad((mutan_plain(params).float() * cot).sum(),
+                                   leaves)
+    rel = max(((x - y).norm() / y.norm()).item() for x, y in zip(out, want))
+    if not rel <= TRAIN_GRAD_TOL:
+        fail(f"apply_mutan's gradient at odd widths: {rel:.3e} > "
+             f"{TRAIN_GRAD_TOL} of a leaf's norm")
+    records.append({"name": "apply_mutan_grad@edge:odd", "widths": {"c": c},
+                    "tolerance": TRAIN_GRAD_TOL, "launches": counts,
+                    "max_grad_rel_err": rel})
+    log(f"[kernels] apply_mutan_grad@edge:odd (C={c}, K={k}): worst leaf "
+        f"||g_k - g_p|| / ||g_p|| {rel:.3e} <= {TRAIN_GRAD_TOL}; launches "
+        f"{counts}")
+    del params, leaves, out, want, got
+
+    # the affinity and the graph convolution: 2 groups of B samples
+    groups, n = 2, side * side
+    x = unit(groups * B, n, c)
+    wgs = randn(groups, c, a, scale=c ** -0.5, dtype=bf)
+    bgs = randn(groups, a, scale=0.1, dtype=bf)
+    wt = unit(groups * B, T, a)
+    rel = torch.rand(groups * B, 1, T, generator=g, device=dev)
+    lens = torch.randint(3, T + 1, (groups * B,), generator=g, device=dev)
+    mask = (torch.arange(T, device=dev)[None] < lens[:, None]).float()[:, None]
+    kw = {"scale": math.sqrt(c), "l2n": True, "masked": True}
+    with torch.inference_mode():
+        got, counts = launched({"spa_affinity_grouped"}, lambda: cmpc.affinity(
+            x, *cmpc.pad_projection(wgs, bgs), wt, rel, mask, **kw))
+        want = kernels.spa_affinity_grouped_plain(x, wgs, bgs, wt, rel, mask,
+                                                  **kw)
+        record("affinity", got, want, counts)
+        w_aff, v_aff = want
+        gps = [{"update": {"DW": randn(1, 1, c, c, scale=c ** -0.5),
+                           "biases": randn(c, scale=0.1)},
+                "feat_ln": {"gamma": 1 + randn(c, scale=0.1),
+                            "beta": randn(c, scale=0.1)},
+                "update_ln": {"gamma": 1 + randn(c, scale=0.1),
+                              "beta": randn(c, scale=0.1)}}
+               for _ in range(groups)]
+        got, counts = launched({"graph_msg", "graph_update_grouped"},
+                               lambda: cmpc.graph_conv(
+                                   cmpc.stack_gconv(gps, bf), x, w_aff, v_aff))
+        record("graph_conv", [got], [cmpc._graph_conv_grouped(
+            gps, x, w_aff, v_aff)], counts)
+        del x, wt, w_aff, v_aff, got, want
+
+        # the fusion stack's width
+        feat = unit(B, n, cm)
+        others = [unit(B, n, cm) for _ in range(2)]
+        gates = [torch.sigmoid(randn(B, cm)).to(bf) for _ in range(2)]
+        ws = [randn(cm, cm, scale=cm ** -0.5, dtype=bf) for _ in range(2)]
+        bs = [randn(cm, scale=0.1, dtype=bf) for _ in range(2)]
+        got, counts = launched({"se_sum"}, lambda: cmpc.se_sum(
+            feat, others, gates, ws, bs))
+        record("se_sum", [got], [kernels.se_sum_plain(feat, others, gates,
+                                                      ws, bs)], counts)
+        p = {"kernel": randn(1, 1, 2 * cm, 4 * cm,
+                             scale=math.sqrt(1 / (3 * cm))),
+             **{f"W_{q}": randn(side, side, cm, scale=0.1)
+                for q in ("ci", "cf", "co")},
+             "ln": [{"gamma": 1 + randn(cm, scale=0.1),
+                     "beta": randn(cm, scale=0.1)} for _ in range(5)]}
+        xs = [feat.reshape(B, side, side, cm)] + [
+            unit(B, side, side, cm) for _ in range(2)]
+        got, counts = launched({"convlstm_gates", "convlstm_raw"},
+                               lambda: cmpc.convlstm_step_fused(p, *xs))
+        # the plain step on the unpadded tables, counting cm columns
+        tables = {"w": p["kernel"][0, 0].to(bf),
+                  **{k: p[f"W_{k}"].reshape(-1, cm).to(bf)
+                     for k in ("ci", "cf", "co")},
+                  **{k: torch.stack([ln[k] for ln in p["ln"]])
+                     for k in ("gamma", "beta")}}
+        want = cmpc.convlstm_step_fused({**p, "tables": tables}, *xs,
+                                        use_kernels=False)
+        record("convlstm_step", got, want, counts)
+    return records
+
+
 def expected_launches(cmpc, batch, levels=3, train=False,
-                      graph_norm="masked", self_gate=False):
+                      graph_norm="masked", self_gate=False, rounds=1,
+                      sent_fusion=False):
     """Kernel launches of one forward (or train step) at `batch` of a config
-    with `levels` levels: one mutan per level (a train step: the training
-    form, the dz pass and the dW product, each once per level), one graph
-    per level (or one packed set of launches; under the double softmax no
-    affinity kernel), one SE sum per level in each of the two exchange
-    rounds (none for the self-gated exchange), and one ConvLSTM step per
-    level.  The backward launches no other kernel: it recomputes the other
-    ops' plain routes."""
+    with `levels` levels: one mutan per level, two with the sentence fusion
+    (a train step: the training form, the dz pass and the dW product, each
+    once per mutan), one graph per level (or one packed set of launches;
+    under the double softmax no affinity kernel) whose message and update
+    run once per graph round, one SE sum per level in each of the two
+    exchange rounds (none for the self-gated exchange), and one ConvLSTM
+    step per level.  The backward launches no other kernel: it recomputes
+    the other ops' plain routes."""
     packed = cmpc.pack_levels(batch, levels, graph_norm)
     per_level = 0 if packed else levels
     affinity = graph_norm != "double_softmax"
+    mutans = levels * (2 if sent_fusion else 1)
     mutan = dict.fromkeys(("mutan_fwd_residual", "mutan_bwd_dz", "mutan_dw"),
-                          levels if train else 0)
-    return {"mutan_fused": 0 if train else levels, **mutan,
+                          mutans if train else 0)
+    return {"mutan_fused": 0 if train else mutans, **mutan,
             "spa_affinity": per_level if affinity else 0,
             "spa_affinity_grouped": int(packed and affinity),
-            "graph_msg": 1 if packed else levels, "graph_update": per_level,
-            "graph_update_grouped": int(packed),
+            "graph_msg": rounds * (1 if packed else levels),
+            "graph_update": rounds * per_level,
+            "graph_update_grouped": rounds * int(packed),
             "se_sum": 0 if self_gate else 2 * levels,
             "convlstm_gates": levels, "convlstm_raw": levels}
 
@@ -893,7 +1098,8 @@ def expected_launches(cmpc, batch, levels=3, train=False,
 def config_launches(cmpc, cfg, batch, train=False):
     """`expected_launches` of config `cfg`."""
     return expected_launches(cmpc, batch, len(cfg.levels), train,
-                             cfg.graph_norm, cfg.exchange_self_gate)
+                             cfg.graph_norm, cfg.exchange_self_gate,
+                             cfg.num_graph_conv, cfg.sent_fusion)
 
 
 def check_counts(counts, expected, runs, what):
@@ -969,6 +1175,16 @@ def check_forward(torch, cfg, out, ref, batch, what):
     if not sigm_err <= SIGM_TOL:
         fail(f"{what} sigm: kernels vs plain versions differ by "
              f"{sigm_err:.3e} > {SIGM_TOL}")
+    if cfg.bbox_head:
+        shape = (batch, cfg.vf_h, cfg.vf_w, cfg.num_anchors, 5)
+        dec, dec_ref = out.bbox[1], ref.bbox[1]
+        if tuple(dec.shape) != shape or not torch.isfinite(dec).all():
+            fail(f"{what} boxes: shape {tuple(dec.shape)} (want {shape}) or "
+                 "non-finite values")
+        conf_err = (dec[..., 4] - dec_ref[..., 4]).abs().max().item()
+        if not conf_err <= SIGM_TOL:
+            fail(f"{what} box confidence: kernels vs plain versions differ "
+                 f"by {conf_err:.3e} > {SIGM_TOL}")
     return sigm_err
 
 
@@ -1232,14 +1448,26 @@ def run_serving(torch, np, kernels, cmpc, build_service, apply_model, card,
 def train_batch(cfg, batch, seed):
     """A seeded uint8 train batch: RGB images, a box mask per sample (a
     quarter to all of each side), 3-20-word expressions (`bert_text` for
-    the 'bert' encoder)."""
+    the 'bert' encoder); with the detection head, the v5+ train script's labels
+    of each mask's box (`preprocess_true_boxes`: 'label_bbox' and
+    'true_bbox')."""
+    from cmpc_refseg_torch.data.anchors import (DEFAULT_ANCHORS,
+                                                preprocess_true_boxes)
     rng = np.random.default_rng(100 + seed)
     target = np.zeros((batch, cfg.H, cfg.W, 1), np.uint8)
+    boxes = []
     for t in target:
         h, w = rng.integers(cfg.H // 4, cfg.H + 1), rng.integers(
             cfg.W // 4, cfg.W + 1)
         y, x = rng.integers(0, cfg.H - h + 1), rng.integers(0, cfg.W - w + 1)
         t[y:y + h, x:x + w] = 1
+        boxes.append(preprocess_true_boxes(
+            [[x, y, x + w, y + h]], cfg.H,
+            DEFAULT_ANCHORS[:cfg.num_anchors]))
+    labels = {"label_bbox": np.stack([lb for lb, _ in boxes]).astype(
+                  np.float32),
+              "true_bbox": np.stack([tb for _, tb in boxes]).astype(
+                  np.float32)} if cfg.bbox_head else {}
     lens = rng.integers(3, cfg.num_steps + 1, batch)
     if cfg.text_encoder == "bert":
         text = bert_text(cfg, rng, lens)
@@ -1250,39 +1478,102 @@ def train_batch(cfg, batch, seed):
         text = {"words": words, "seq_len": lens}
     return {"im_u8": rng.integers(0, 256, (batch, cfg.H, cfg.W, 3),
                                   dtype=np.uint8),
-            "target_u8": target, **text}
+            "target_u8": target, **text, **labels}
+
+
+def mutan_faults(kernels):
+    """Faults planted in the mutan kernels' wrappers, as check_train_routes'
+    controls (name, plant, must_fail): the training forward with its first
+    head's language vector zeroed (one head dropped) and its output times
+    1.10, and the dW product times 1.25, which the rule must fail; the
+    forward's output times 1.02 and dW times 1.10, near the tolerance and
+    the noise of the mutan's own leaves, reported."""
+    fwd, dw = kernels.mutan_fwd_residual, kernels.mutan_dw
+
+    @contextlib.contextmanager
+    def patched(name, fn):
+        original = getattr(kernels, name)
+        fn.launches = 0            # the wrapper counts under its own name
+        setattr(kernels, name, fn)
+        try:
+            yield
+        finally:
+            setattr(kernels, name, original)
+
+    def head_dropped(x, w, b, lang, *, heads, rows_per_sample):
+        lang = lang.clone()
+        lang[:, :lang.shape[1] // heads] = 0
+        return fwd(x, w, b, lang, heads=heads,
+                   rows_per_sample=rows_per_sample)
+
+    def fwd_scaled(f):
+        def fn(x, w, b, lang, *, heads, rows_per_sample):
+            out, v = fwd(x, w, b, lang, heads=heads,
+                         rows_per_sample=rows_per_sample)
+            return (out.float() * f).to(out.dtype), v
+        return lambda: patched("mutan_fwd_residual", fn)
+
+    def dw_scaled(f):
+        return lambda: patched("mutan_dw", lambda x, dz: dw(x, dz) * f)
+
+    return (("mutan forward, first head dropped",
+             lambda: patched("mutan_fwd_residual", head_dropped), True),
+            ("mutan forward output x 1.10", fwd_scaled(1.10), True),
+            ("mutan dW x 1.25", dw_scaled(1.25), True),
+            ("mutan forward output x 1.02", fwd_scaled(1.02), False),
+            ("mutan dW x 1.10", dw_scaled(1.10), False))
 
 
 def check_train_routes(torch, trainer, reference, compute_gradients,
-                       named_leaves, batch, drawn=()):
-    """The loss and every trainable gradient of the kernel route (g_k)
-    against the plain route (g_p) on one batch from the trainer's current
-    weights.
+                       named_leaves, batch, kernel=None, controls=()):
+    """The loss and every trainable gradient of the kernel route (g_k) against
+    the plain route (g_p) on one batch from the trainer's current weights.
 
-    `reference` is a float32 TrainState from the same seed: its plain
-    route gives each gradient without bf16 rounding (g_32).  A leaf whose
-    g_32 lies below the bf16 rounding noise of the plain route itself,
-    ||g_p - g_32|| > TRAIN_GRAD_TOL ||g_p||, is unresolved in bf16: its
-    gradient is a small sum of large terms that cancel (PERF.md, "Train
-    path").  The rule reads the plain routes only, so no kernel fault can
-    move a leaf into that set.  A resolved leaf is held at
-    ||g_k - g_p|| <= TRAIN_GRAD_TOL ||g_p||.  An unresolved one is held to
-    the plain route's own noise: ||g_k - g_32|| <= 2 ||g_p - g_32||, both
-    gradients nonzero and ||g_p|| / 2 <= ||g_k|| <= 2 ||g_p||, so that a
-    gradient dropped, zeroed or blown up fails.  An unresolved leaf in
-    `drawn` is held the same way against the largest of the plain route's
-    readings (and the range of its norms) over NOISE_DRAWS draws of the
-    weights times (1 + NOISE_EPS N(0, 1)) besides the unperturbed one; the
-    kernel route's readings at those draws are reported.  The ASPP
-    decoder's BN
-    batch statistics (mean and variance of each unit, read back from the
-    moving statistics each route leaves) are held like resolved gradients:
-    ||s_k - s_p|| <= TRAIN_GRAD_TOL ||s_p|| per leaf; the state is restored
-    after each route.  Returns a summary; fails past the tolerances or on
-    a non-finite gradient."""
+    `reference` is a float32 TrainState from the same seed: its plain route
+    gives each gradient without bf16 rounding (g_32).  The three routes are
+    read at the weights and at NOISE_DRAWS draws of them times
+    (1 + NOISE_EPS N(0, 1)), each draw the same for all three, a change far
+    below what moves a gradient that bf16 resolves; each quantity below is
+    the median over these 1 + NOISE_DRAWS paired readings, over ||g_p|| at
+    the weights.  The plain route's noise in a leaf is the median of
+    ||g_p - g_32||.  A leaf whose noise exceeds TRAIN_GRAD_TOL is
+    unresolved in bf16: its gradient is a small sum of large terms that
+    cancel (PERF.md, section 6).  The classification reads the plain routes
+    only, so no kernel fault can move a leaf into that set.  A resolved
+    leaf is held at the median of ||g_k - g_p|| <= TRAIN_GRAD_TOL.  An
+    unresolved one is held to the plain route's noise: the medians of
+    ||g_k - g_32|| and of ||g_k - g_p|| each <= 2 x that noise, both
+    gradients nonzero at the weights and the median ||g_k|| within half and
+    twice the median ||g_p||, so that a gradient dropped, zeroed or blown
+    up fails.  The summary also counts the leaves that one reading at the
+    weights would resolve and fail (the rule before the draws) and that the
+    largest of the plain readings would resolve.
+
+    `kernel(i)`, when given, is the kernel route's (loss, gradients, BN
+    statistics) at draw i (0: the weights), made elsewhere (phase 10's
+    accumulated micro-steps).  `controls` are (name, plant, must_fail)
+    triples (`mutan_faults`): plant() is a context in which a kernel
+    wrapper gives a wrong result; the kernel route is read again at every
+    draw under it and judged against the same plain readings; the rule must
+    fail each control marked must_fail, and the others are reported.  The
+    ASPP decoder's BN batch statistics (mean and variance of each unit,
+    read back from the moving statistics each route leaves) are held like
+    resolved gradients at the weights: ||s_k - s_p|| <= TRAIN_GRAD_TOL
+    ||s_p|| per leaf; the state is restored after each route.  Returns a
+    summary; fails past the tolerances, on a non-finite gradient or on a
+    control that passes."""
     from cmpc_refseg_torch.models.aspp import BN_DECAY
     state, cfg = trainer.state, trainer.cfg
-    paths = ["/".join(map(str, p)) for p, _ in named_leaves(state.trainable)]
+    named = list(named_leaves(state.trainable))
+    paths = ["/".join(map(str, p)) for p, _ in named]
+    pairs = list(zip((leaf for _, leaf in named),
+                     (leaf for _, leaf in named_leaves(
+                         reference.state.trainable))))
+    label = f"train {cfg.variant}"
+    if len(pairs) != len(paths) or any(not torch.equal(a, b)
+                                       for a, b in pairs):
+        fail(f"{label}: the f32 reference does not start from the weights")
+    saved = [a.detach().clone() for a, _ in pairs]
 
     def grads(st, c, use_kernels):
         before = st.model_state
@@ -1298,37 +1589,53 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
         st.model_state = before
         return loss.item(), out, stats
 
-    def drawn_grads(use_kernels, seed):
-        leaves = [leaf for _, leaf in named_leaves(state.trainable)]
-        saved = [leaf.detach().clone() for leaf in leaves]
-        gen = torch.Generator(device=DEV).manual_seed(seed)
+    def draw(i):
+        """Both trainers' weights, times (1 + NOISE_EPS N(0, 1)) drawn from
+        seed i for i > 0."""
         with torch.no_grad():
-            for leaf in leaves:
-                leaf.mul_(1 + NOISE_EPS * torch.randn(
-                    leaf.shape, generator=gen, device=DEV))
-        try:
-            return grads(state, cfg, use_kernels)[1]
-        finally:
-            with torch.no_grad():
-                for leaf, old in zip(leaves, saved):
-                    leaf.copy_(old)
+            gen = torch.Generator(device=DEV).manual_seed(i)
+            for (a, b), old in zip(pairs, saved):
+                a.copy_(old)
+                if i:
+                    a.mul_(1 + NOISE_EPS * torch.randn(
+                        a.shape, generator=gen, device=DEV))
+                b.copy_(a)
 
-    label = f"train {cfg.variant}"
-    loss_k, gk, sk = grads(state, cfg, True)
-    loss_p, gp, sp = grads(state, cfg, False)
-    loss_32, g32, _ = grads(reference.state, reference.cfg, False)
-    missing = set(drawn) - set(paths)
-    if missing:
-        fail(f"{label}: no leaf {sorted(missing)}")
-    # leaf -> route -> [(||g - g_32||, ||g||) per draw]
-    draws = {leaf: {"plain": [], "kernel": []} for leaf in drawn}
-    for seed in range(1, NOISE_DRAWS + 1) if drawn else ():
-        for route, use_kernels in (("plain", False), ("kernel", True)):
-            g = drawn_grads(use_kernels, seed)
-            for leaf in drawn:
-                i = paths.index(leaf)
-                draws[leaf][route].append(
-                    ((g[i] - g32[i]).norm().item(), g[i].norm().item()))
+    def kernel_readings(read):
+        """[draw][leaf] (||g_k - g_32||, ||g_k - g_p||, ||g_k||) of the
+        kernel route `read(i)` against the f32 and plain gradients of each
+        draw, and its (loss, BN statistics) at the weights."""
+        out, first = [], None
+        try:
+            for i, (gp_i, g32_i) in enumerate(zip(plains, refs)):
+                draw(i)
+                loss, gk_i, stats = read(i)
+                first = first or (loss, stats)
+                out.append([((a - c).norm().item(), (a - b).norm().item(),
+                             a.norm().item())
+                            for a, b, c in zip(gk_i, gp_i, g32_i)])
+        finally:
+            draw(0)
+        return out, first
+
+    kernel = kernel or (lambda i: grads(state, cfg, True))
+    # [draw][leaf] the f32 and plain gradients (f32, as the leaves hold
+    # them) and (||g_p - g_32||, ||g_p||)
+    refs, plains, plain = [], [], []
+    try:
+        for i in range(NOISE_DRAWS + 1):
+            draw(i)
+            loss32, g32, _ = grads(reference.state, reference.cfg, False)
+            loss, g, stats = grads(state, cfg, False)
+            if i == 0:
+                loss_32, loss_p, sp = loss32, loss, stats
+            refs.append([t.float() for t in g32])
+            plains.append([t.float() for t in g])
+            plain.append([((a - c).norm().item(), a.norm().item())
+                          for a, c in zip(g, g32)])
+    finally:
+        draw(0)
+    kern, (loss_k, sk) = kernel_readings(kernel)
     bn_rel = {leaf: ((sk[leaf] - sp[leaf]).norm() / sp[leaf].norm()).item()
               for leaf in sp}
     if any(not v <= TRAIN_GRAD_TOL for v in bn_rel.values()):
@@ -1339,46 +1646,73 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
         fail(f"{label}: loss of the kernel route {loss_k:.6g} vs the plain "
              f"route {loss_p:.6g}: relative error {loss_err:.3e} > "
              f"{TRAIN_LOSS_TOL}")
-    rows = []
-    for path, a, b, c in zip(paths, gk, gp, g32):
-        norm = b.norm().item()
-        if norm == 0 or a.norm().item() == 0:
-            fail(f"{label}: zero gradient of {path}: kernel route "
-                 f"{a.norm().item():.3e}, plain route {norm:.3e}")
-        rows.append({"leaf": path, "rel": (a - b).norm().item() / norm,
-                     "plain_vs_f32": (b - c).norm().item() / norm,
-                     "kernel_vs_f32": (a - c).norm().item() / norm,
-                     "kernel_norm": a.norm().item() / norm,
-                     "f32_norm": c.norm().item() / norm, "norm": norm})
-    rows.sort(key=lambda r: -r["rel"])
-    unresolved = [r for r in rows if r["plain_vs_f32"] > TRAIN_GRAD_TOL]
-    resolved = [r for r in rows if r not in unresolved]
+    norms = [n for _, n in plain[0]]
+    for path, n in zip(paths, norms):
+        if n == 0:
+            fail(f"{label}: zero gradient of {path} on the plain route")
+
+    def judge(kern):
+        """Per leaf: the medians of the rule and its verdict, and the rule
+        at the weights alone."""
+        rows = []
+        for j, (path, norm) in enumerate(zip(paths, norms)):
+            def med(xs):
+                return statistics.median(xs) / norm
+            r = {"leaf": path, "norm": norm,
+                 "plain_noise": med([d[j][0] for d in plain]),
+                 "plain_norm": med([d[j][1] for d in plain]),
+                 "plain_noise_max": max(d[j][0] for d in plain) / norm,
+                 "rel": med([d[j][1] for d in kern]),
+                 "kernel_vs_f32": med([d[j][0] for d in kern]),
+                 "kernel_norm": med([d[j][2] for d in kern]),
+                 "plain_vs_f32": plain[0][j][0] / norm,
+                 "rel_at_weights": kern[0][j][1] / norm,
+                 "f32_norm": refs[0][j].norm().item() / norm}
+            r["resolved"] = r["plain_noise"] <= TRAIN_GRAD_TOL
+            r["ok"] = kern[0][j][2] > 0 and (
+                r["rel"] <= TRAIN_GRAD_TOL if r["resolved"] else
+                max(r["kernel_vs_f32"], r["rel"]) <= 2 * r["plain_noise"]
+                and r["plain_norm"] / 2 <= r["kernel_norm"]
+                <= 2 * r["plain_norm"])
+            # the rule on the one reading at the weights
+            at = kern[0][j]
+            r["ok_at_weights"] = at[2] > 0 and (
+                at[1] / norm <= TRAIN_GRAD_TOL
+                if r["plain_vs_f32"] <= TRAIN_GRAD_TOL else
+                at[0] / norm <= 2 * r["plain_vs_f32"]
+                and 0.5 <= at[2] / norm <= 2)
+            rows.append(r)
+        rows.sort(key=lambda r: -r["rel"])
+        return rows
+
+    rows = judge(kern)
+    resolved = [r for r in rows if r["resolved"]]
+    unresolved = [r for r in rows if not r["resolved"]]
     for r in rows[:6]:
-        log(f"[{label}] gradient of {r['leaf']}: ||g_k - g_p|| / ||g_p|| = "
-            f"{r['rel']:.3e}; over ||g_p|| = {r['norm']:.3e}: ||g_k|| "
-            f"{r['kernel_norm']:.3e}, ||g_32|| {r['f32_norm']:.3e}, "
-            f"||g_p - g_32|| {r['plain_vs_f32']:.3e}, ||g_k - g_32|| "
+        log(f"[{label}] gradient of {r['leaf']}: medians over the weights "
+            f"and {NOISE_DRAWS} draws, over ||g_p|| = {r['norm']:.3e}: "
+            f"||g_k - g_p|| {r['rel']:.3e} (at the weights "
+            f"{r['rel_at_weights']:.3e}), ||g_k|| {r['kernel_norm']:.3e}, "
+            f"||g_32|| {r['f32_norm']:.3e}, ||g_p - g_32|| "
+            f"{r['plain_noise']:.3e} (at the weights {r['plain_vs_f32']:.3e}"
+            f", largest {r['plain_noise_max']:.3e}), ||g_k - g_32|| "
             f"{r['kernel_vs_f32']:.3e}")
-    for r in unresolved:
-        # the plain route's noise and norm: its one reading, or its range
-        # over the draws (in units of ||g_p||)
-        plain = [(r["plain_vs_f32"], 1.0)] + [
-            (a / r["norm"], b / r["norm"])
-            for a, b in draws.get(r["leaf"], {}).get("plain", ())]
-        r["plain_noise"] = max(a for a, _ in plain)
-        r["plain_norms"] = (min(b for _, b in plain),
-                            max(b for _, b in plain))
-        if r["leaf"] in draws:
-            r["draws"] = {route: [round(a / r["norm"], 4) for a, _ in d]
-                          for route, d in draws[r["leaf"]].items()}
-    bad = [r for r in resolved if r["rel"] > TRAIN_GRAD_TOL] + [
-        r for r in unresolved
-        if r["kernel_vs_f32"] > 2 * r["plain_noise"]
-        or not r["plain_norms"][0] / 2 <= r["kernel_norm"]
-        <= 2 * r["plain_norms"][1]]
+    bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{label}: kernel vs plain route gradients of {len(bad)} leaves "
              f"beyond the tolerance, first {bad[0]}")
+    planted = {}
+    for name, plant, must_fail in controls:
+        with plant():
+            caught = [r for r in judge(kernel_readings(kernel)[0])
+                      if not r["ok"]]
+        planted[name] = {"leaves_failed": len(caught), "must_fail": must_fail,
+                         "first": caught[0]["leaf"] if caught else None}
+        log(f"[{label}] control {name}: the rule fails {len(caught)} of "
+            f"{len(rows)} leaves"
+            f"{', first ' + caught[0]['leaf'] if caught else ''}")
+        if must_fail and not caught:
+            fail(f"{label}: control {name} passes the rule")
     return {"loss_rel_err": loss_err, "loss_f32_rel_err":
             abs(loss_k - loss_32) / abs(loss_32),
             "worst_grad_rel_err": rows[0]["rel"],
@@ -1387,11 +1721,21 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
             "worst_resolved_grad_leaf": resolved[0]["leaf"],
             "bn_stats_rel_err_max": max(bn_rel.values(), default=None),
             "bn_stats_leaves": len(bn_rel),
-            "leaves": len(rows), "unresolved_leaves": [
+            "leaves": len(rows),
+            "counts": {
+                "resolved": len(resolved), "held_to_noise": len(unresolved),
+                "resolved_at_weights": sum(r["plain_vs_f32"] <= TRAIN_GRAD_TOL
+                                           for r in rows),
+                "failed_at_weights": sum(not r["ok_at_weights"]
+                                         for r in rows),
+                "resolved_by_largest": sum(
+                    r["plain_noise_max"] <= TRAIN_GRAD_TOL for r in rows)},
+            "controls": planted,
+            "unresolved_leaves": [
                 {k: r[k] for k in ("leaf", "rel", "kernel_norm", "f32_norm",
                                    "plain_vs_f32", "kernel_vs_f32",
-                                   "plain_noise", "plain_norms", "draws")
-                 if k in r}
+                                   "plain_noise", "plain_noise_max",
+                                   "plain_norm")}
                 for r in unresolved]}
 
 
@@ -1425,28 +1769,33 @@ def recompute_ms(torch, autograd, step):
 
 def run_train(torch, kernels, autograd, cmpc, build_trainer,
               compute_gradients, named_leaves, card, name="CMPC_model",
-              path="train_bs8", glove=None):
+              path="train_bs8", glove=None, overrides=None, controls=()):
     """Phase 6 (and the CMPCv4_model steps of phase 7, the
-    CMPCv5_BiLSTM_HSV_model and CMPCv4_BERT_model steps of phase 9): the
-    bs=8 train step of config `name` through build_trainer / Trainer.step;
-    with `glove`, both trainers start from that embedding table, which
-    must arrive on the card bit for bit."""
+    CMPCv5_BiLSTM_HSV_model and CMPCv4_BERT_model steps of phase 9, and
+    phase 10's): the bs=8 train step of config `name` (with `overrides`)
+    through build_trainer / Trainer.step; with `glove`, both trainers
+    start from that embedding table, which must arrive on the card bit for
+    bit.  With conv5, `conv5_proof` after the steps.  `controls` go to
+    `check_train_routes`."""
+    overrides = overrides or {}
     trainer = build_trainer(name, glove=glove, device=DEV, dtype="bfloat16",
-                            batch_size=B)
+                            batch_size=B, **overrides)
     cfg = trainer.cfg
-    check_config(cfg, name, path, conv5=False, grad_accum=1)
+    check_config(cfg, name, path, conv5=overrides.get("conv5", False),
+                 grad_accum=1)
     if glove is not None and not torch.equal(
             trainer.state.trainable["text"]["embedding"].cpu(),
             torch.from_numpy(glove)):
         fail(f"{path}: the embedding on the card is not the GloVe table")
     batches = [train_batch(cfg, B, i) for i in range(N_TRAIN + 1)]
     reference = build_trainer(name, glove=glove, device=DEV,
-                              dtype="float32", batch_size=B)
+                              dtype="float32", batch_size=B, **overrides)
     routes = check_train_routes(torch, trainer, reference, compute_gradients,
-                                named_leaves, batches[0],
-                                drawn=NOISE_DRAWN.get(path, ()))
+                                named_leaves, batches[0], controls=controls)
     del reference
     torch.cuda.empty_cache()
+    initial = ({p: leaf.detach().clone() for p, leaf in named_leaves(
+        trainer.state.trainable["backbone"])} if cfg.conv5 else None)
     trainer.step(batches[0])                  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1475,6 +1824,10 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
     if trainer.state.step != N_TRAIN + 1:
         fail(f"{path}: state.step {trainer.state.step}, expected "
              f"{N_TRAIN + 1}")
+    if cfg.conv5:
+        routes["conv5_proof"] = conv5_proof(torch, trainer, initial,
+                                            named_leaves, path)
+        del initial
     rec_ms, rec_step_ms = recompute_ms(
         torch, autograd, lambda: trainer.step(batches[-1]))
     ms = statistics.median(times)
@@ -1484,13 +1837,15 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
                "max_ms": max(times), "steps_per_s": 1e3 / ms,
                "peak_gb": peak, **routes, "losses": losses,
                "learning_rate": float(metrics[-1]["learning_rate"])}
-    log(f"[{path}] {card}: {name} 320x320 bs={B} bf16 res4_blocks=23, "
-        f"frozen backbone: {ms:.3f} ms/step (median of {N_TRAIN}; range "
+    log(f"[{path}] {card}: {name}{overrides or ''} 320x320 bs={B} bf16 "
+        f"res4_blocks=23, "
+        f"{'res3-5 training' if cfg.conv5 else 'frozen backbone'}: "
+        f"{ms:.3f} ms/step (median of {N_TRAIN}; range "
         f"{min(times):.3f}-{max(times):.3f}; all "
         f"{[round(t, 3) for t in times]}), {1e3 / ms:.2f} steps/s, "
         f"{B * 1e3 / ms:.1f} samples/s; peak memory {peak:.2f} GB")
     unresolved = [(r["leaf"], *(round(r[k], 4) for k in (
-        "kernel_norm", "f32_norm", "plain_vs_f32", "kernel_vs_f32")))
+        "kernel_norm", "f32_norm", "plain_noise", "kernel_vs_f32", "rel")))
         for r in routes["unresolved_leaves"]]
     log(f"[{path}] kernel vs plain route on one batch: loss relative error "
         f"{routes['loss_rel_err']:.3e} <= {TRAIN_LOSS_TOL} (vs the f32 "
@@ -1498,20 +1853,14 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
         f"||g_k - g_p|| / ||g_p|| {routes['worst_resolved_grad_rel_err']:.3e}"
         f" <= {TRAIN_GRAD_TOL} ({routes['worst_resolved_grad_leaf']}) over "
         f"the {routes['leaves'] - len(unresolved)} leaves the bf16 plain "
-        f"route resolves; {len(unresolved)} leaves below its bf16 noise, "
-        f"each kernel route within twice the plain route's distance to "
-        f"the f32 gradient and within 2x of its norm: {unresolved} (leaf, "
-        f"then over ||g_p||: ||g_k||, ||g_32||, ||g_p - g_32||, ||g_k - "
-        f"g_32||); losses {[round(v, 2) for v in losses]}")
-    for r in routes["unresolved_leaves"]:
-        if "draws" in r:
-            log(f"[{path}] {r['leaf']}: held against the plain route's "
-                f"largest noise over {NOISE_DRAWS} draws of the weights x "
-                f"(1 + {NOISE_EPS:g} N(0, 1)) and the unperturbed one, "
-                f"{r['plain_noise']:.4f} (norms {r['plain_norms'][0]:.4f}-"
-                f"{r['plain_norms'][1]:.4f}); kernel route "
-                f"{r['kernel_vs_f32']:.4f} <= {2 * r['plain_noise']:.4f}; "
-                f"||g - g_32|| / ||g_p|| per draw: {r['draws']}")
+        f"route resolves (medians over its weights and {NOISE_DRAWS} draws "
+        f"of them x (1 + {NOISE_EPS:g} N(0, 1))); {len(unresolved)} leaves "
+        f"below its bf16 noise, each kernel route within twice the plain "
+        f"route's median distance to the f32 gradient of both and within "
+        f"2x of its norm: {unresolved} (leaf, then medians over ||g_p||: "
+        f"||g_k||, ||g_32||, ||g_p - g_32||, ||g_k - g_32||, ||g_k - "
+        f"g_p||); leaf counts "
+        f"{routes['counts']}; losses {[round(v, 2) for v in losses]}")
     if routes["bn_stats_leaves"]:
         log(f"[{path}] BN batch statistics of the kernel vs the plain route: "
             f"worst ||s_k - s_p|| / ||s_p|| "
@@ -1522,6 +1871,125 @@ def run_train(torch, kernels, autograd, cmpc, build_trainer,
         f"of a {rec_step_ms:.3f} ms step ({rec_ms / rec_step_ms:.1%}; one "
         "extra step, each recompute bracketed by synchronizes)")
     return {path: (counts, N_TRAIN, ms)}, summary
+
+
+def conv5_proof(torch, trainer, initial, named_leaves, path):
+    """With conv5, the forward after the steps reads the trained res3-5
+    kernels: they moved from `initial`, the state's parameter tree holds
+    the very tensors that train (no frozen copy of them), and a forward
+    from the state differs from one with the initial kernels put back.
+    Returns the largest weight change and logit difference."""
+    from cmpc_refseg_torch.models.model import apply_model
+    from cmpc_refseg_torch.train.optimizer import merge_params
+    state, cfg = trainer.state, trainer.cfg
+    params = state.params()
+    moved = 0.0
+    for p, leaf in named_leaves(state.trainable["backbone"]):
+        node = params["backbone"]
+        for key in p:
+            node = node[key]
+        if node is not leaf:
+            fail(f"{path}: the forward's {p} is not the trained tensor")
+        moved = max(moved, (leaf.detach() - initial[p]).abs().max().item())
+    if not moved > 0:
+        fail(f"{path}: the res3-5 kernels did not move")
+    before = {}
+    for p, v in initial.items():
+        node = before
+        for key in p[:-1]:
+            node = node.setdefault(key, {})
+        node[p[-1]] = v
+    old = merge_params({**state.trainable, "backbone": before}, state.frozen)
+    feed = {k: torch.as_tensor(v, device=DEV)
+            for k, v in make_batch(cfg, B, seed=5).items()}
+    with torch.inference_mode():
+        now = apply_model(params, cfg, feed, model_state=state.model_state)
+        then = apply_model(old, cfg, feed, model_state=state.model_state)
+    diff = (now.up - then.up).abs().max().item()
+    if not diff > 0:
+        fail(f"{path}: the forward after the steps ignores the trained "
+             "res3-5 kernels")
+    log(f"[{path}] the forward reads the trained res3-5 kernels: largest "
+        f"weight change {moved:.3e}, logits from them vs the initial "
+        f"kernels max abs difference {diff:.3e}")
+    return {"max_weight_change": moved, "logit_diff": diff}
+
+
+def run_accum(torch, kernels, cmpc, build_trainer, compute_gradients,
+              named_leaves, card):
+    """Phase 10: CMPC_model with grad_accum=2 at bs=4 takes two micro-steps
+    on the halves of a bs=8 batch (launches counted): no update after the
+    first, one Adam update after the second.  The mean gradient it
+    updates with is held against the bs=8 step's by phase 6's rule
+    (`check_train_routes` with that mean as the kernel route's reading at
+    the weights, and the mean of two bs=4 kernel-route gradients at each
+    draw of them)."""
+    path = f"accum_train_bs{B // 2}"
+    acc = build_trainer("CMPC_model", device=DEV, dtype="bfloat16",
+                        batch_size=B // 2, grad_accum=2)
+    cfg = acc.cfg
+    check_config(cfg, "CMPC_model", path, grad_accum=2, conv5=False)
+    full = build_trainer("CMPC_model", device=DEV, dtype="bfloat16",
+                         batch_size=B)
+    reference = build_trainer("CMPC_model", device=DEV, dtype="float32",
+                              batch_size=B)
+    batch = train_batch(full.cfg, B, 0)
+    halves = [{k: v[s] for k, v in batch.items()}
+              for s in (slice(0, B // 2), slice(B // 2, B))]
+    w0 = [leaf.detach().clone()
+          for _, leaf in named_leaves(acc.state.trainable)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    times, metrics = [], []
+    for i, half in enumerate(halves):
+        t0 = time.perf_counter()
+        metrics.append(acc.step(half))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        moved = [not torch.equal(leaf, w) for (_, leaf), w in
+                 zip(named_leaves(acc.state.trainable), w0)]
+        if any(moved) != (i == 1):
+            fail(f"{path}: after micro-step {i + 1}, {sum(moved)} of "
+                 f"{len(moved)} leaves moved")
+    counts = kernels.launch_counts()
+    check_counts(counts, config_launches(cmpc, cfg, B // 2, train=True), 2,
+                 path)
+    adam = {float(st["step"]) for st in acc.state.optimizer.state.values()}
+    if acc.state.step != 2 or adam != {1.0}:
+        fail(f"{path}: step {acc.state.step}, Adam counts {adam}")
+    loss = sum(float(m["loss_total"]) for m in metrics) / 2
+    mean = [leaf.grad.double() for _, leaf in named_leaves(
+        acc.state.trainable)]
+
+    def micro_mean(i):
+        """The kernel route's mean gradient over the two halves: at the
+        weights the one the update took; at a draw of them, the same mean
+        of two bs=4 kernel-route gradients on the full trainer's (drawn)
+        weights (CMPC_model draws no augmentation)."""
+        if i == 0:
+            return loss, mean, {}
+        total, out = 0.0, []
+        for half in halves:
+            part, _ = compute_gradients(full.state, cfg, half)
+            out.append([leaf.grad.double() for _, leaf in named_leaves(
+                full.state.trainable)])
+            full.state.optimizer.zero_grad(set_to_none=True)
+            total += part.item() / 2
+        return total, [(a + b) / 2 for a, b in zip(*out)], {}
+
+    routes = check_train_routes(torch, full, reference, compute_gradients,
+                                named_leaves, batch, kernel=micro_mean)
+    del reference, full
+    summary = {"micro_steps_ms": times, **routes}
+    log(f"[{path}] {card}: CMPC_model grad_accum=2 bs={B // 2} bf16 "
+        f"res4_blocks=23: micro-steps {[round(t, 3) for t in times]} ms; "
+        f"the update's mean gradient vs the bs={B} step: loss relative "
+        f"error {routes['loss_rel_err']:.3e}, worst resolved gradient "
+        f"{routes['worst_resolved_grad_rel_err']:.3e} "
+        f"({routes['worst_resolved_grad_leaf']}), "
+        f"{len(routes['unresolved_leaves'])} leaves below the bf16 noise "
+        f"held to it; launches in 2 micro-steps: {counts}")
+    return {path: (counts, 2, statistics.median(times))}, summary
 
 
 def device_categories(split):
@@ -1935,6 +2403,7 @@ def main():
     records = check_kernels(torch, kernels, cmpc, torch.device(DEV),
                             path_specs(get_config))
     edges = check_edges(torch, kernels, cmpc, torch.device(DEV))
+    edges += odd_width_edges(torch, kernels, cmpc, torch.device(DEV))
     torch.cuda.empty_cache()
     # path -> (launch counts of its runs, runs, ms per run)
     paths = run_forward(torch, kernels, cmpc, build_model, apply_model, card)
@@ -1959,7 +2428,8 @@ def main():
     torch.cuda.empty_cache()
     train_paths, v4_train = run_train(
         torch, kernels, autograd, cmpc, build_trainer, compute_gradients,
-        named_leaves, card, name="CMPCv4_model", path="v4_train_bs8")
+        named_leaves, card, name="CMPCv4_model", path="v4_train_bs8",
+        controls=mutan_faults(kernels))
     paths.update(train_paths)
     torch.cuda.empty_cache()
     eval_paths, evaluation = run_eval(torch, kernels, cmpc, card)
@@ -1992,6 +2462,35 @@ def main():
         torch, kernels, autograd, cmpc, build_trainer, compute_gradients,
         named_leaves, card, name="CMPCv4_BERT_model", path="bert_train_bs8")
     paths.update(train_paths)
+    torch.cuda.empty_cache()
+    # phase 10: the sentence fusion and detection head configs, conv5 and
+    # grad_accum
+    plus_paths, plus = run_variants(torch, kernels, cmpc, aspp, build_model,
+                                    apply_model, card, variants=PLUS)
+    paths.update(plus_paths)
+    for tag, name, _ in PLUS:
+        torch.cuda.empty_cache()
+        srv_paths, plus[f"{tag}_serving_bs1"] = run_serving(
+            torch, np, kernels, cmpc, build_service, apply_model, card,
+            name=name, path=f"{tag}_serving_bs1")
+        paths.update(srv_paths)
+        torch.cuda.empty_cache()
+        train_paths, plus[f"{tag}_train_bs8"] = run_train(
+            torch, kernels, autograd, cmpc, build_trainer, compute_gradients,
+            named_leaves, card, name=name, path=f"{tag}_train_bs8",
+            controls=mutan_faults(kernels) if tag == "v5plus" else ())
+        paths.update(train_paths)
+    torch.cuda.empty_cache()
+    train_paths, plus["v4conv5_train_bs8"] = run_train(
+        torch, kernels, autograd, cmpc, build_trainer, compute_gradients,
+        named_leaves, card, name="CMPCv4_model", path="v4conv5_train_bs8",
+        overrides={"conv5": True})
+    paths.update(train_paths)
+    torch.cuda.empty_cache()
+    accum_paths, plus[f"accum_train_bs{B // 2}"] = run_accum(
+        torch, kernels, cmpc, build_trainer, compute_gradients, named_leaves,
+        card)
+    paths.update(accum_paths)
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
@@ -2019,6 +2518,7 @@ def main():
     log(f"[v5_bilstm_hsv_serving_bs1] {json.dumps(hsv_serving)}")
     log(f"[v5_bilstm_hsv_train_bs8] {json.dumps(hsv_train)}")
     log(f"[bert_train_bs8] {json.dumps(bert_train)}")
+    log(f"[plus] {json.dumps(plus)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -123,14 +123,18 @@ def model_state_from_jax(tree: dict, *, device=None) -> dict:
 
 def train_state_from_jax(trainable: dict, frozen: dict, mu: dict, nu: dict,
                          count, cfg: ModelConfig, *, model_state=None,
-                         device=None):
+                         step=None, accum=None, device=None):
     """The port's TrainState from a JAX train state: the trainable and
-    frozen trees and Adam's first and second moments `mu`, `nu` (trees of
-    the trainable's structure), `count` and the BN moving statistics
-    `model_state` ({} or None for the multiscore decoder; required by the
-    ASPP decoder), all as numpy (the JAX package's ``state.unravel(...)``
-    of its flat vectors).  The port's Adam then holds the same exp_avg,
-    exp_avg_sq and step, and the state's step is `count`."""
+    frozen trees (with conv5, the res3-5 kernels in the trainable one) and
+    Adam's first and second moments `mu`, `nu` (trees of the trainable's
+    structure), `count` and the BN moving statistics `model_state` ({} or
+    None for the multiscore decoder; required by the ASPP decoder), all as
+    numpy (the JAX package's ``state.unravel(...)`` of its flat vectors).
+    Under grad_accum > 1 the JAX optimizer is optax's MultiSteps: `count`
+    is its inner Adam's, `step` the state's micro-step count and `accum`
+    its `acc_grads` tree.  The port's Adam then holds the same exp_avg,
+    exp_avg_sq and step, and the state's step is `step` (`count` when
+    None)."""
     from cmpc_refseg_torch.train.optimizer import merge_params, named_leaves
     from cmpc_refseg_torch.train.trainer import train_state_from_params
     device = resolve_device(device)
@@ -144,5 +148,8 @@ def train_state_from_jax(trainable: dict, frozen: dict, mu: dict, nu: dict,
         state.optimizer.state[p] = {
             "step": torch.tensor(float(count), dtype=torch.float32),
             "exp_avg": moments[0][path], "exp_avg_sq": moments[1][path]}
-    state.step = int(count)
+    state.step = int(count if step is None else step)
+    if accum is not None:
+        state.accum = [leaf for _, leaf in
+                       named_leaves(_convert(accum, device))]
     return state

@@ -255,7 +255,7 @@ convlstm_raw_kernel(const bf16* __restrict__ gates, const bf16* __restrict__ c,
                     int parts, const float* __restrict__ gamma,
                     const float* __restrict__ beta, bf16* __restrict__ ncr,
                     bf16* __restrict__ oraw, float* __restrict__ stats2, int L, int C,
-                    size_t ML, int per_block) {
+                    float cnt, size_t ML, int per_block) {
   extern __shared__ __align__(16) float gb[];
   __shared__ float tot[6];
   __shared__ float red[kRawThreads / 32][4];
@@ -290,7 +290,6 @@ convlstm_raw_kernel(const bf16* __restrict__ gates, const bf16* __restrict__ c,
     gb[3 * C + i] = beta[i];
   }
   __syncthreads();
-  const float cnt = static_cast<float>(L);
   float mean[3], inv[3];
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
@@ -440,13 +439,16 @@ extern "C" int cmpc_convlstm_gates(const void* x, const void* h, const void* c,
 // c [B*N, C], co [N, C] bf16; gamma, beta [5, C] f32 (layer norms j, i, f,
 // o, c; rows 0-2 used) -> new_c_raw, o_raw [B*N, C] bf16 and stats2
 // [B, raw_parts, 2, 2] f32 (sum, sum of squares of new_c_raw, then o_raw).
-// C must be a multiple of 4; the bf16 tensors 8-byte aligned.
+// C must be a multiple of 4; the bf16 tensors 8-byte aligned.  The layer
+// norms count N * width elements per sample: columns width..C-1 are zero
+// padding (zero gates, peepholes, gamma and beta), which adds nothing to
+// the sums.
 extern "C" int cmpc_convlstm_raw(const void* gates, const void* c, const void* co,
                                  const void* stats, int parts, const void* gamma,
                                  const void* beta, void* ncr, void* oraw, void* stats2,
-                                 int B, int N, int C, void* stream) {
+                                 int B, int N, int C, int width, void* stream) {
   using namespace cmpc;
-  if (C % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (C % 4 || width < 1 || width > C) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = raw_parts(B, N, C);
   if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t addr = reinterpret_cast<uintptr_t>(gates) | reinterpret_cast<uintptr_t>(c) |
@@ -469,6 +471,7 @@ extern "C" int cmpc_convlstm_raw(const void* gates, const void* c, const void* c
       static_cast<const bf16*>(co), static_cast<const float*>(stats), parts,
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<bf16*>(ncr), static_cast<bf16*>(oraw), static_cast<float*>(stats2), L, C,
-      static_cast<size_t>(B) * L, (nvec + blocks - 1) / blocks);
+      static_cast<float>(N) * static_cast<float>(width), static_cast<size_t>(B) * L,
+      (nvec + blocks - 1) / blocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -456,7 +456,7 @@ graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
                     const float* __restrict__ stats1, int parts1,
                     const bf16* __restrict__ bias, const float* __restrict__ g1,
                     const float* __restrict__ b1, float* __restrict__ stats2, int N,
-                    int C, int per_group) {
+                    int C, float cnt, int per_group) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kUpdStages], empty[kUpdStages];
   __shared__ float red[8][2];
@@ -518,7 +518,6 @@ graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
       sa += stats1[(static_cast<size_t>(s) * parts1 + j) * 2];
       sb += stats1[(static_cast<size_t>(s) * parts1 + j) * 2 + 1];
     }
-    const float cnt = static_cast<float>(N) * static_cast<float>(C);
     mean = sa / cnt;
     inv = rsqrtf(fmaxf(sb / cnt - mean * mean, 0.f) + 1e-12f);
   }
@@ -703,12 +702,14 @@ extern "C" int cmpc_graph_msg(const void* w_aff, const void* pooled, void* msg,
 // bf16 and stats2 [B, update_parts, 2] f32.  G divides B; sample s uses
 // group s / (B / G).  x, msg, w and z 16-byte aligned, C a multiple of 8
 // (TMA strides) and at most kUpdMaxC (the LN1 affine in shared memory).
+// LN1 counts N * width elements per sample: columns width..C-1 are zero
+// padding (zero in msg, g1 and b1), which adds nothing to the sums.
 extern "C" int cmpc_graph_update(const void* x, const void* msg, const void* stats1,
                                  int parts1, const void* w, const void* bias,
                                  const void* g1, const void* b1, void* z, void* stats2,
-                                 int B, int N, int C, int groups, void* stream) {
+                                 int B, int N, int C, int width, int groups, void* stream) {
   using namespace cmpc;
-  if (groups < 1 || B % groups || C % 8 || C > kUpdMaxC)
+  if (groups < 1 || B % groups || C % 8 || C > kUpdMaxC || width < 1 || width > C)
     return static_cast<int>(cudaErrorInvalidValue);
   const uint64_t bf = sizeof(bf16);
   CUtensorMap x_map, msg_map, w_map, z_map;
@@ -736,6 +737,7 @@ extern "C" int cmpc_graph_update(const void* x, const void* msg, const void* sta
   graph_update_kernel<<<grid, kUpdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x_map, msg_map, w_map, z_map, static_cast<const float*>(stats1), parts1,
       static_cast<const bf16*>(bias), static_cast<const float*>(g1),
-      static_cast<const float*>(b1), static_cast<float*>(stats2), N, C, B / groups);
+      static_cast<const float*>(b1), static_cast<float*>(stats2), N, C,
+      static_cast<float>(N) * static_cast<float>(width), B / groups);
   return static_cast<int>(cudaGetLastError());
 }

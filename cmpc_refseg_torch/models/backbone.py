@@ -34,6 +34,10 @@ def resnet_stages(res4_blocks: int = 23):
     )
 
 
+# the stages whose conv kernels train with conv5=True
+TRAINABLE_STAGES = ("res3", "res4", "res5")
+
+
 def taps_for(stages):
     """c2 = res2b_relu (CMPCv4_model.py:88), c3/c4/c5 = last block of
     res3/res4/res5."""

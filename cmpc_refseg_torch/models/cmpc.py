@@ -25,6 +25,16 @@ The JAX package's plain references `_mutan_reference`,
 their kernels; `_graph_conv` stays below as the graph kernels' plain
 route.
 
+Any width: the kernels take column counts that are multiples of 8 (16-byte
+bf16 rows; 4 for the SE sum and the ConvLSTM's), the JAX package any.
+Each kernel call here pads its operands with zero columns (its weights
+with zero rows and columns: per mutan head, per ConvLSTM gate block and
+input half) up to the kernel's multiple and slices its output back.  Zero
+biases, gammas and betas in the padding keep the padded columns exactly
+zero through every stage, and the layer norms count the true width (the
+kernels' `width`).  Widths already at those multiples (every registry
+config's) pad nothing.
+
 The [HW, HW] adjacency is never materialized: ``adj @ X = W @ (V^T @ X)``.
 Init functions return numpy trees in the JAX package's layout (HWIO
 kernels); ``convert.params_from_jax`` turns them into tensors.
@@ -79,6 +89,42 @@ def _matmul_f32(a, b):
     return a.float() @ b.float()
 
 
+# the kernels' column multiples: 16-byte bf16 rows for the TMA kernels
+# (mutan, the affinity, the graph convolution), 8-byte rows for the SE sum
+# and the ConvLSTM's
+COLUMN_MULTIPLE = 8
+FUSION_COLUMN_MULTIPLE = 4
+
+
+def padded(c: int, multiple: int = COLUMN_MULTIPLE) -> int:
+    """`c` rounded up to a kernel's column multiple."""
+    return c + (-c % multiple)
+
+
+def pad_cols(t, cp: int):
+    """`t` with zero columns appended on its last axis up to `cp`
+    (differentiable; `t` itself when it is that wide already)."""
+    pad = cp - t.shape[-1]
+    return F.pad(t, (0, pad)) if pad else t
+
+
+def pad_blocks(t, blocks: int, cp: int):
+    """`t`'s last axis, `blocks` equal blocks of C columns, with each block
+    padded by zero columns to `cp` (differentiable)."""
+    c = t.shape[-1] // blocks
+    if c == cp:
+        return t
+    lead = t.shape[:-1]
+    return pad_cols(t.reshape(*lead, blocks, c), cp).reshape(*lead,
+                                                             blocks * cp)
+
+
+def pad_square(w, cp: int):
+    """A [..., C, C] weight with zero rows and columns up to [..., Cp, Cp]."""
+    pad = cp - w.shape[-1]
+    return F.pad(w, (0, pad, 0, pad)) if pad else w
+
+
 def _differentiable(use_kernels: bool) -> bool:
     """Whether a head op takes the kernels' autograd route
     (``ops/autograd.py``): with the kernels, where autograd records."""
@@ -129,13 +175,15 @@ def init_mutan(key, cfg, num_heads: int = 5):
     }
 
 
-def pad_mutan_weight(w):
-    """The visual weight [K, heads*C] with zero rows appended up to the next
-    multiple of 8 rows, the K that `apply_mutan` pads its input to (the
-    kernel's TMA boxes need 16-byte rows).  Differentiable: the gradient of
-    the padded rows is sliced off."""
+def pad_mutan_weight(w, heads: int = 5):
+    """The visual weight [K, heads*C] as the kernel takes it: zero rows
+    appended up to the next multiple of 8 rows, the K that `apply_mutan`
+    pads its input to, and each head's C columns padded with zero columns
+    to `padded(C)` (the kernel's TMA boxes need 16-byte rows).
+    Differentiable: the gradient of the padding is sliced off."""
     pad = -w.shape[0] % 8
-    return F.pad(w, (0, 0, 0, pad)) if pad else w
+    w = F.pad(w, (0, 0, 0, pad)) if pad else w
+    return pad_blocks(w, heads, padded(w.shape[1] // heads))
 
 
 def apply_mutan(params, lang_feat, spatial_feat, visual_feat,
@@ -145,9 +193,12 @@ def apply_mutan(params, lang_feat, spatial_feat, visual_feat,
     records, the training form through `autograd.mutan`).  K = v_emb_dim +
     spatial_dim is padded with zero columns of the input and zero rows of
     the weight to a multiple of 8 on every route (the JAX package pads it
-    at parameter prep, pallas_kernels.py:41-76); zeros add exact zeros.
-    The padded visual weight in the compute dtype is `params['w_wide']`
-    when model.prepare_params built it, else padded and cast here."""
+    at parameter prep, pallas_kernels.py:41-76), and each head's C output
+    columns to `padded(C)`: zero weight columns, biases and language
+    columns make the padded output columns exactly 0, and they are sliced
+    off.  The padded visual weight in the compute dtype is
+    `params['w_wide']` when model.prepare_params built it, else padded and
+    cast here."""
     b, h, w, c = visual_feat.shape
     dt = visual_feat.dtype
     parts = [visual_feat, spatial_feat.to(dt)]
@@ -157,16 +208,21 @@ def apply_mutan(params, lang_feat, spatial_feat, visual_feat,
     vis_in = torch.cat(parts, dim=-1)
     lang = torch.tanh(conv2d(params["lang_trans"], lang_feat))  # [B,1,1,5C]
     x = vis_in.reshape(b * h * w, vis_in.shape[-1])
-    rest = (params["vis_trans"]["biases"].float(), lang.reshape(b, -1).float())
+    cp = padded(c)
+    rest = (pad_blocks(params["vis_trans"]["biases"].float(), num_heads, cp),
+            pad_blocks(lang.reshape(b, -1).float(), num_heads, cp))
     kw = dict(heads=num_heads, rows_per_sample=h * w)
     if _differentiable(use_kernels):
-        w_pad = pad_mutan_weight(params["vis_trans"]["DW"][0, 0])
-        return autograd.mutan(x, w_pad, *rest, **kw).reshape(b, h, w, c)
-    w_wide = params.get("w_wide")
-    if w_wide is None:
-        w_wide = pad_mutan_weight(params["vis_trans"]["DW"][0, 0]).to(dt)
-    fn = kernels.mutan_fused if use_kernels else kernels.mutan_plain
-    return fn(x, w_wide, *rest, **kw).reshape(b, h, w, c)
+        w_pad = pad_mutan_weight(params["vis_trans"]["DW"][0, 0], num_heads)
+        out = autograd.mutan(x, w_pad, *rest, **kw)
+    else:
+        w_wide = params.get("w_wide")
+        if w_wide is None:
+            w_wide = pad_mutan_weight(params["vis_trans"]["DW"][0, 0],
+                                      num_heads).to(dt)
+        fn = kernels.mutan_fused if use_kernels else kernels.mutan_plain
+        out = fn(x, w_wide, *rest, **kw)
+    return out[:, :c].reshape(b, h, w, c)
 
 
 # ---------------------------------------------------------------------------
@@ -226,24 +282,44 @@ def _stack(leaves, dtype):
 
 def stack_gconv(gps, dtype):
     """One graph-conv round of G levels as `graph_conv` takes it, stacked
-    along a leading group axis: the update's `w` [G, C, C] and `b` [G, C]
-    in `dtype`, its two layer norms' `g1`, `b1`, `g2`, `b2` [G, C] in f32."""
+    along a leading group axis and padded with zeros to Cp = `padded(C)`:
+    the update's `w` [G, Cp, Cp] and `b` [G, Cp] in `dtype`, its two layer
+    norms' `g1`, `b1`, `g2`, `b2` [G, Cp] in f32."""
+    cp = padded(gps[0]["update"]["DW"].shape[-1])
+
+    def stack(leaves, dt):
+        return pad_cols(_stack(leaves, dt), cp).contiguous()
+
     def ln(name, key):
-        return _stack((gp[name][key] for gp in gps), torch.float32)
-    return {"w": _stack((gp["update"]["DW"][0, 0] for gp in gps), dtype),
-            "b": _stack((gp["update"]["biases"] for gp in gps), dtype),
+        return stack((gp[name][key] for gp in gps), torch.float32)
+    w = _stack((gp["update"]["DW"][0, 0] for gp in gps), dtype)
+    return {"w": pad_square(w, cp).contiguous(),
+            "b": stack((gp["update"]["biases"] for gp in gps), dtype),
             "g1": ln("feat_ln", "gamma"), "b1": ln("feat_ln", "beta"),
             "g2": ln("update_ln", "gamma"), "b2": ln("update_ln", "beta")}
 
 
+def pad_projection(wgs, bgs):
+    """The affinity's projection [G, C, A] and bias [G, A] with zero rows
+    and columns up to [G, padded(C), padded(A)] (themselves when no width
+    pads)."""
+    c, a = wgs.shape[1:]
+    cp, ap = padded(c), padded(a)
+    if (cp, ap) != (c, a):
+        wgs = F.pad(wgs, (0, ap - a, 0, cp - c))
+    return wgs.contiguous(), pad_cols(bgs, ap).contiguous()
+
+
 def stack_graph_params(params_list, dtype):
     """The spatial-graph weights of G levels as the kernels take them: the
-    projection `wg` [G, C, A] and `bg` [G, A] in `dtype`, and each round's
-    `stack_gconv`.  model.prepare_params builds it once; `level_of` takes
-    one level's slice."""
+    projection `wg` [G, Cp, Ap] and `bg` [G, Ap] in `dtype`
+    (`pad_projection`), and each round's `stack_gconv`.
+    model.prepare_params builds it once; `level_of` takes one level's
+    slice."""
     projs = [p["spa_graph_trans2"] for p in params_list]
-    return {"wg": _stack((q["DW"][0, 0] for q in projs), dtype),
-            "bg": _stack((q["biases"] for q in projs), dtype),
+    wg, bg = pad_projection(_stack((q["DW"][0, 0] for q in projs), dtype),
+                            _stack((q["biases"] for q in projs), dtype))
+    return {"wg": wg, "bg": bg,
             "gconv": [stack_gconv([p["gconv"][r] for p in params_list], dtype)
                       for r in range(len(params_list[0]["gconv"]))]}
 
@@ -262,19 +338,41 @@ def graph_conv(gs, x_nodes, w_aff, v_aff):
 
     `gs` is one round's `stack_gconv` of G groups; samples
     [g*B/G, (g+1)*B/G) use group g.  G = 1 launches the update kernel's
-    ungrouped form, G > 1 its grouped form."""
+    ungrouped form, G > 1 its grouped form.  x_nodes [B, N, C] is padded
+    to the stack's width and the output sliced back to C; the layer norms
+    count C columns."""
     dt = x_nodes.dtype
-    pooled = torch.matmul(v_aff.to(dt).transpose(1, 2), x_nodes)  # [B,T,C]
+    c = x_nodes.shape[-1]
+    x_nodes = pad_cols(x_nodes, gs["w"].shape[-1])
+    pooled = torch.matmul(v_aff.to(dt).transpose(1, 2), x_nodes)  # [B,T,Cp]
     msg, stats1 = kernels.graph_msg(w_aff.to(dt).contiguous(), pooled)
     weights = (gs["w"], gs["b"], gs["g1"], gs["b1"])
     if gs["w"].shape[0] == 1:
         z, stats2 = kernels.graph_update(x_nodes, msg, stats1,
-                                         *(v[0] for v in weights))
+                                         *(v[0] for v in weights), width=c)
     else:
         z, stats2 = kernels.graph_update_grouped(x_nodes, msg, stats1,
-                                                 *weights)
-    return torch.relu(kernels.ln_from_stats(z, stats2, gs["g2"],
-                                            gs["b2"])).to(dt)
+                                                 *weights, width=c)
+    return torch.relu(kernels.ln_from_stats(z, stats2, gs["g2"], gs["b2"],
+                                            c)[..., :c]).to(dt)
+
+
+def affinity(x, wgs, bgs, wt, rel, mask, *, scale: float, l2n: bool,
+             masked: bool, use_kernels: bool = True):
+    """The spatial-graph affinity of G levels: wgs [G, Cp, Ap] and bgs
+    [G, Ap] as `pad_projection` gives them, in x's dtype; x [B, N, C] and
+    the word projections wt [B, T, A] are padded with zero columns to Cp
+    and Ap.  The kernels (G = 1: the ungrouped form), or the plain
+    version."""
+    x = pad_cols(x, wgs.shape[1])
+    wt = pad_cols(wt, wgs.shape[2]).contiguous()
+    kw = dict(scale=scale, l2n=l2n, masked=masked)
+    if not use_kernels:
+        return kernels.spa_affinity_grouped_plain(x, wgs, bgs, wt, rel, mask,
+                                                  **kw)
+    if wgs.shape[0] == 1:
+        return kernels.spa_affinity(x, wgs[0], bgs[0], wt, rel, mask, **kw)
+    return kernels.spa_affinity_grouped(x, wgs, bgs, wt, rel, mask, **kw)
 
 
 GRAPH_NORMS = ("masked", "unmasked", "softmax_mask", "double_softmax")
@@ -349,15 +447,9 @@ def apply_spa_graph_grouped(params_list, cfg, spa_graphs, words_feat,
         w_aff, v_aff = autograd.spa_affinity_grouped(
             x, [q["DW"][0, 0] for q in projs], [q["biases"] for q in projs],
             *args, **kw)
-    elif not use_kernels:
-        w_aff, v_aff = kernels.spa_affinity_grouped_plain(
-            x, stack["wg"], stack["bg"], *args, **kw)
-    elif g_n == 1:
-        w_aff, v_aff = kernels.spa_affinity(x, stack["wg"][0],
-                                            stack["bg"][0], *args, **kw)
     else:
-        w_aff, v_aff = kernels.spa_affinity_grouped(x, stack["wg"],
-                                                    stack["bg"], *args, **kw)
+        w_aff, v_aff = affinity(x, stack["wg"], stack["bg"], *args, **kw,
+                                use_kernels=use_kernels)
 
     for r in range(len(params_list[0]["gconv"])):
         gps = [p["gconv"][r] for p in params_list]
@@ -390,15 +482,17 @@ def apply_spa_graph(params, cfg, spa_graph, words_feat, words_parse, seq_mask,
 # ---------------------------------------------------------------------------
 
 def init_lang2vis(key, cfg):
-    k1, k2, _, k4 = split_stream(key, 4)
+    k1, k2, k3, k4 = split_stream(key, 4)
+    p = {"mutan": init_mutan(k1, cfg), "graph": init_spa_graph(k2, cfg)}
     if cfg.sent_fusion:
-        raise NotImplementedError("sent_fusion is not ported yet")
-    fin = cfg.v_emb_dim * 2 + cfg.lang_dim + cfg.spatial_dim
-    return {
-        "mutan": init_mutan(k1, cfg),
-        "graph": init_spa_graph(k2, cfg),
-        "fusion": init_conv(k4, 1, fin, cfg.mlp_dim),
-    }
+        # v6+ (CMPCv6_plus_model.py:417-433): a second mutan replaces the
+        # concat, its conv C -> mlp
+        p["sent_mutan"] = init_mutan(k3, cfg)
+        p["fusion"] = init_conv(k4, 1, cfg.v_emb_dim, cfg.mlp_dim)
+    else:
+        fin = cfg.v_emb_dim * 2 + cfg.lang_dim + cfg.spatial_dim
+        p["fusion"] = init_conv(k4, 1, fin, cfg.mlp_dim)
+    return p
 
 
 # The packed graph takes one launch of each kernel and its glue instead of
@@ -452,9 +546,25 @@ def apply_lang2vis_multi(params_list, cfg, visuals, words_feat, words_parse,
                                 else level_of(graph_stack, i), **route)
                 for i, (g, v) in enumerate(zip(graphs, vis_list))]
         feats, gws = [o[0] for o in outs], [o[1] for o in outs]
-    fusions = [_lang2vis_fuse(p, v, f, valid, spatial)
-               for p, v, f in zip(params_list, vis_list, feats)]
+    if cfg.sent_fusion:
+        # all parse classes but U (the reference's nec_lang)
+        nec = valid_lang_feat(words_parse, words_feat,
+                              tuple(range(cfg.parse_classes - 1)))
+        fusions = [_sent_fuse(p, f, nec, spatial, **route)
+                   for p, f in zip(params_list, feats)]
+    else:
+        fusions = [_lang2vis_fuse(p, v, f, valid, spatial)
+                   for p, v, f in zip(params_list, vis_list, feats)]
     return fusions, gws
+
+
+def _sent_fuse(params, graph_feat, nec, spatial, *, use_kernels: bool):
+    """The sentence fusion of v6+ (CMPCv6_plus_model.py:417-433): a second
+    mutan of the graph output with the sentence vector, then
+    relu(conv1x1)."""
+    feat = apply_mutan(params["sent_mutan"], nec, spatial, graph_feat,
+                       use_kernels=use_kernels)
+    return torch.relu(conv2d(params["fusion"], feat))
 
 
 def _lang2vis_fuse(params, vis_la_sp, graph_feat, valid, spatial):
@@ -536,11 +646,31 @@ def init_exchange(key, cfg, num_others: int):
 
 
 def se_tables(pex, dtype):
-    """The SE sum's weights [C, C] and biases [C] of each other level, in
-    `dtype` as the kernel takes them (built once by model.prepare_params)."""
-    return {"w": [se["trans_feat"]["DW"][0, 0].to(dtype).contiguous()
-                  for se in pex["se"]],
-            "b": [se["trans_feat"]["biases"].to(dtype) for se in pex["se"]]}
+    """The SE sum's weights [Cp, Cp] and biases [Cp] of each other level,
+    in `dtype` and padded with zeros to Cp, C rounded up to the kernel's
+    multiple of 4, as the kernel takes them (built once by
+    model.prepare_params)."""
+    cp = padded(pex["se"][0]["trans_feat"]["DW"].shape[-1],
+                FUSION_COLUMN_MULTIPLE)
+    return {"w": [pad_square(se["trans_feat"]["DW"][0, 0].to(dtype),
+                             cp).contiguous() for se in pex["se"]],
+            "b": [pad_cols(se["trans_feat"]["biases"].to(dtype), cp)
+                  for se in pex["se"]]}
+
+
+def se_sum(feat, others, gates, ws, bs, *, use_kernels: bool = True):
+    """The SE sum (`kernels.se_sum_plain`) at the kernel's width: feat,
+    others [B, N, C] and gates [B, C] padded with zero columns to Cp, C
+    rounded up to a multiple of 4, the weights and biases padded likewise
+    where they come at C (`se_tables` builds them at Cp); the output
+    sliced back to C."""
+    c = feat.shape[-1]
+    cp = padded(c, FUSION_COLUMN_MULTIPLE)
+    fn = kernels.se_sum if use_kernels else kernels.se_sum_plain
+    out = fn(pad_cols(feat, cp), [pad_cols(o, cp) for o in others],
+             [pad_cols(g, cp) for g in gates],
+             [pad_square(w, cp) for w in ws], [pad_cols(b, cp) for b in bs])
+    return out[..., :c]
 
 
 def exchange_step_normed(pex, cfg, feat, others, lang_feat, *,
@@ -568,8 +698,8 @@ def exchange_step_normed(pex, cfg, feat, others, lang_feat, *,
                               [t["biases"] for t in trans])
         return out.reshape(b, h, w, c)
     tables = pex.get("se_tables") or se_tables(pex, dt)
-    fn = kernels.se_sum if use_kernels else kernels.se_sum_plain
-    return fn(*rows, tables["w"], tables["b"]).reshape(b, h, w, c)
+    return se_sum(*rows, tables["w"], tables["b"],
+                  use_kernels=use_kernels).reshape(b, h, w, c)
 
 
 def apply_exchange(p, cfg, feat, others, lang_feat):
@@ -607,14 +737,22 @@ def init_convlstm(key, cfg):
 
 def convlstm_tables(p, dtype):
     """The ConvLSTM weights as its kernels take them (built once by
-    model.prepare_params): the 1x1 kernel `w` [2C, 4C] and the peepholes
-    `ci`, `cf`, `co` [N, C] in `dtype`, and the 5 layer norms' `gamma` and
-    `beta` [5, C] in f32, in the order j, i, f, o, c."""
+    model.prepare_params), padded with zeros to Cp, C rounded up to the
+    kernels' multiple of 4: the 1x1 kernel `w` [2Cp, 4Cp] (each input half
+    and each gate block padded) and the peepholes `ci`, `cf`, `co` [N, Cp]
+    in `dtype`, and the 5 layer norms' `gamma` and `beta` [5, Cp] in f32,
+    in the order j, i, f, o, c."""
     c = p["W_ci"].shape[-1]
-    peep = {k: p[f"W_{k}"].reshape(-1, c).to(dtype).contiguous()
-            for k in ("ci", "cf", "co")}
-    return {"w": p["kernel"][0, 0].to(dtype).contiguous(), **peep,
-            **{k: _stack((ln[k] for ln in p["ln"]), torch.float32)
+    cp = padded(c, FUSION_COLUMN_MULTIPLE)
+    peep = {k: pad_cols(p[f"W_{k}"].reshape(-1, c).to(dtype), cp)
+            .contiguous() for k in ("ci", "cf", "co")}
+    w = p["kernel"][0, 0].to(dtype)
+    if cp != c:
+        w = F.pad(w.reshape(2, c, 4, c), (0, cp - c, 0, 0, 0, cp - c)
+                  ).reshape(2 * cp, 4 * cp)
+    return {"w": w.contiguous(), **peep,
+            **{k: pad_cols(_stack((ln[k] for ln in p["ln"]), torch.float32),
+                           cp).contiguous()
                for k in ("gamma", "beta")}}
 
 
@@ -627,8 +765,10 @@ def convlstm_step_fused(p, x, c, h, *, use_kernels: bool = True):
     sigmoid(LN_o(o_raw)) * tanh(new_c)), as the JAX package's
     convlstm_step_fused finalizes in XLA.  The layer norms take their
     statistics as (sum, sum of squares) from the kernels.  The weights are
-    `p['tables']` when model.prepare_params built them.  Where autograd
-    records, the step runs through `autograd.convlstm_step`."""
+    `p['tables']` when model.prepare_params built them.  x, c and h run
+    padded to the tables' width, the layer norms counting C columns, and
+    the new state comes back at C.  Where autograd records, the step runs
+    through `autograd.convlstm_step`."""
     if _differentiable(use_kernels):
         return autograd.convlstm_step(p, x, c, h)
     b, hh, ww, cc = x.shape
@@ -640,14 +780,16 @@ def convlstm_step_fused(p, x, c, h, *, use_kernels: bool = True):
     else:
         gates_fn = kernels.convlstm_gates_plain
         raw_fn = kernels.convlstm_raw_plain
-    c2 = c.reshape(b, n, cc)
-    gates, stats = gates_fn(x.reshape(b, n, cc), h.reshape(b, n, cc), c2,
-                            t["w"], t["ci"], t["cf"])
-    new_c_raw, o_raw, stats2 = raw_fn(gates, c2, t["co"], stats, gamma, beta)
+    x2, h2, c2 = (pad_cols(v.reshape(b, n, cc), gamma.shape[-1])
+                  for v in (x, h, c))
+    gates, stats = gates_fn(x2, h2, c2, t["w"], t["ci"], t["cf"])
+    new_c_raw, o_raw, stats2 = raw_fn(gates, c2, t["co"], stats, gamma, beta,
+                                      width=cc)
     new_c = kernels.ln_from_stats(new_c_raw, stats2[:, :, 0], gamma[4],
-                                  beta[4]).to(x.dtype)
+                                  beta[4], cc)[..., :cc].to(x.dtype)
     o = torch.sigmoid(kernels.ln_from_stats(o_raw, stats2[:, :, 1], gamma[3],
-                                            beta[3])).to(x.dtype)
+                                            beta[3], cc)[..., :cc]
+                      ).to(x.dtype)
     new_h = o * torch.tanh(new_c)
     return new_c.reshape(b, hh, ww, cc), new_h.reshape(b, hh, ww, cc)
 

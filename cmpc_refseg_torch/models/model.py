@@ -7,7 +7,8 @@ backbone taps -> text encoder -> laterals (+tanh, l2norm) -> spatial grid
 language parser -> per-level lang2vis (mutan + spatial graph) -> aux score
 heads -> nec_lang -> 2x gated exchange + ConvLSTM fusion -> decoder
 (multiscore 3x3 score conv, or ASPP + v3+ decoder on the c2 tap) -> TF1
-resize -> sigmoid.
+resize -> sigmoid; with `bbox_head` (CMPCv5_plus_model), the detection
+head on the fused feature (``models/detection.py``).
 
 The ASPP and the decoder hold live BatchNorm: their moving statistics are
 the model state (`init_model_state`), passed to `apply_model` and returned
@@ -29,9 +30,11 @@ import torch
 
 from cmpc_refseg_torch.config import ModelConfig
 from cmpc_refseg_torch.convert import model_state_from_jax, params_from_jax
+from cmpc_refseg_torch.data.anchors import DEFAULT_ANCHORS
 from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR
-from cmpc_refseg_torch.models import aspp, cmpc
-from cmpc_refseg_torch.models.backbone import apply_backbone, init_backbone
+from cmpc_refseg_torch.models import aspp, cmpc, detection
+from cmpc_refseg_torch.models.backbone import (TRAINABLE_STAGES,
+                                               apply_backbone, init_backbone)
 from cmpc_refseg_torch.models.language import encode_text, init_text_encoder
 from cmpc_refseg_torch.ops import losses
 from cmpc_refseg_torch.ops.layers import conv2d, init_conv, split_stream
@@ -52,16 +55,17 @@ class ModelOutputs(NamedTuple):
     # BN moving statistics after the forward: the new ones in train mode,
     # the given ones in eval mode ({} for the multiscore decoder)
     model_state: dict
+    # the detection head's (raw, decoded) [B,S,S,A,5] (bbox_head), or None
+    bbox: Optional[tuple] = None
 
 
 DECODERS = ("multiscore", "aspp_v3plus")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.decoder not in DECODERS or cfg.bbox_head or cfg.video:
+    if cfg.decoder not in DECODERS or cfg.video:
         raise NotImplementedError(
-            f"variant {cfg.variant or cfg!r}: the bbox head and video are "
-            "not ported yet")
+            f"variant {cfg.variant or cfg!r}: video is not ported yet")
 
 
 def rgb_to_hsv(rgb):
@@ -114,6 +118,8 @@ def init_numpy(seed, cfg: ModelConfig, glove=None) -> dict:
         params["levels"][lv] = cmpc.init_lang2vis(lkeys[3 * i + 1], cfg)
         params["scores"][f"score_{lv}"] = init_conv(
             lkeys[3 * i + 2], 3, cfg.mlp_dim, 1)
+    if cfg.bbox_head:
+        params["bbox"] = detection.init_bbox_head(keys[8], cfg)
     if cfg.decoder == "multiscore":
         params["scores"]["score"] = init_conv(keys[5], 3, cfg.mlp_dim, 1)
     else:
@@ -141,22 +147,24 @@ def init_model_state(cfg: ModelConfig, *, device=None) -> dict:
 def prepare_backbone(backbone: dict, cfg: ModelConfig) -> dict:
     """The backbone's conv kernels in bf16 (channels_last) when the compute
     dtype is bf16, built once; unchanged in f32.  Training keeps this view
-    of the frozen backbone."""
+    of the frozen backbone (with conv5, the frozen tree's res3-5 units
+    have no kernel: they train in f32)."""
     if cfg.compute_dtype != "bfloat16":
         return backbone
 
     def cast_units(node):
-        if isinstance(node, dict) and "w" in node:
+        if "w" in node:
             return {**node, "w": node["w"].to(torch.bfloat16).contiguous(
                 memory_format=torch.channels_last)}
-        return {k: cast_units(v) for k, v in node.items()}
+        return {k: cast_units(v) if isinstance(v, dict) else v
+                for k, v in node.items()}
     return cast_units(backbone)
 
 
 def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     """Inference view of the parameters, built once: the weights the head's
-    kernels take, in the compute dtype (each level's mutan weight [K, 5C]
-    with K padded to a multiple of 8, `cmpc.pad_mutan_weight`,
+    kernels take, in the compute dtype and padded to the kernels' widths
+    (each level's mutan weights [K, 5C], `cmpc.pad_mutan_weight`,
     the spatial graph's weights stacked over the levels, the exchanges' SE
     weights where the SE sum runs and the ConvLSTM's tables), the ASPP's
     and decoder's conv kernels in the compute dtype (BN's gamma and beta
@@ -165,9 +173,11 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     levels = {}
     for lv, level in params["levels"].items():
-        w_wide = cmpc.pad_mutan_weight(
-            level["mutan"]["vis_trans"]["DW"][0, 0]).to(dt).contiguous()
-        levels[lv] = {**level, "mutan": {**level["mutan"], "w_wide": w_wide}}
+        levels[lv] = dict(level)
+        for name in [k for k in ("mutan", "sent_mutan") if k in level]:
+            w_wide = cmpc.pad_mutan_weight(
+                level[name]["vis_trans"]["DW"][0, 0]).to(dt).contiguous()
+            levels[lv][name] = {**level[name], "w_wide": w_wide}
     fs = params["fusion_stack"]
     exchange = fs["exchange"] if cfg.exchange_self_gate else {
         k: {**pex, "se_tables": cmpc.se_tables(pex, dt)}
@@ -197,7 +207,8 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     'words' [B,T] token ids with 'seq_len' [B] (back-padded) or
     'valid_idx' [B] (front-padded: the number of pads); for the 'bert'
     encoder, 'words_feat' [B,T,768] float32 and 'sequence_mask' [B,T]
-    instead of tokens.
+    instead of tokens; with `bbox_head`, optionally 'anchors' [A, 2] (in
+    cells; DEFAULT_ANCHORS when absent).
 
     `model_state`: the BN moving statistics (`init_model_state`), required
     by the ASPP decoder (a missing state raises: it is never replaced by
@@ -211,7 +222,7 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     the head's kernels run through ``ops/autograd.py``, from the f32
     weights (not `prepare_params`' inference view of the head); the frozen
     backbone's weights need no gradient, so autograd records nothing
-    there."""
+    there, except through the res3-5 kernels that train with conv5."""
     _check_supported(cfg)
     decoder = cfg.decoder == "aspp_v3plus"
     if decoder and model_state is None:
@@ -276,43 +287,59 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     else:
         pred = conv2d(params["scores"]["score"], fused.float())
     up = resize_bilinear(pred, cfg.H, cfg.W)
+    bbox = None
+    if cfg.bbox_head:
+        anchors = batch.get("anchors")
+        if anchors is None:
+            anchors = DEFAULT_ANCHORS[:cfg.num_anchors]
+        bbox = detection.apply_bbox_head(params["bbox"], fused, anchors,
+                                         stride=cfg.H // cfg.vf_h)
     return ModelOutputs(pred, up, torch.sigmoid(up), up_levels, words_parse,
-                        gw, {} if model_state is None else model_state)
+                        gw, {} if model_state is None else model_state, bbox)
 
 
 # ---------------------------------------------------------------------------
 # loss (train_op, CMPC_model.py:426-447)
 # ---------------------------------------------------------------------------
 
-def _collect_reg_leaves(params) -> list:
+def _collect_reg_leaves(params, cfg: ModelConfig) -> list:
     """Regularized leaves: every 'DW' conv kernel of the head, the ASPP's
     and decoder's included (the reference filters trainable names for
-    'DW', CMPC_model.py:433; BN's gamma and beta are not matched).  The
-    backbone is frozen: training res3-5 (conv5=True) is not ported."""
+    'DW', CMPC_model.py:433; BN's gamma and beta are not matched), and,
+    with conv5=True, the res3-5 conv kernels 'w' (their folded BN
+    constants are not trained)."""
     leaves = []
 
-    def walk(node):
+    def walk(node, key):
         if isinstance(node, dict):
             for k, v in node.items():
-                if k == "DW":
+                if k == key:
                     leaves.append(v)
                 else:
-                    walk(v)
+                    walk(v, key)
         elif isinstance(node, (list, tuple)):
             for v in node:
-                walk(v)
+                walk(v, key)
 
-    walk({k: v for k, v in params.items() if k != "backbone"})
+    for k, v in params.items():
+        if k != "backbone":
+            walk(v, "DW")
+        elif cfg.conv5:
+            walk({n: b for n, b in v.items()
+                  if n.startswith(TRAINABLE_STAGES)}, "w")
     return leaves
 
 
 def compute_loss(outputs: ModelOutputs, target, cfg: ModelConfig,
-                 params=None):
+                 params=None, *, label_bbox=None, true_bbox=None):
     """The 4-term weighed logistic loss + L2 regularization
     (CMPC_model.py:439-447): main and per-level losses weighted by
-    cfg.loss_weights (main, c5, c4, c3).  Returns (total, metrics) with
-    'loss_main', 'loss_<level>', 'loss_cls_all', 'loss_reg' (when `params`
-    is given) and 'loss_total'."""
+    cfg.loss_weights (main, c5, c4, c3); with the detection head and
+    `label_bbox` [B,S,S,A,5] / `true_bbox` [B,M,4] given, plus the
+    detection loss at weight 1 (the v5+ train script,
+    trainval_model_v5+.py).  Returns (total, metrics) with 'loss_main',
+    'loss_<level>', 'loss_cls_all', 'loss_bbox' (with box labels),
+    'loss_reg' (when `params` is given) and 'loss_total'."""
     metrics = {}
     main = losses.weighed_logistic_loss(outputs.up, target, 1, 1)
     metrics["loss_main"] = main
@@ -324,8 +351,14 @@ def compute_loss(outputs: ModelOutputs, target, cfg: ModelConfig,
         metrics[f"loss_{lv}"] = lv_loss
         total = total + wgt * lv_loss
     metrics["loss_cls_all"] = total
+    if cfg.bbox_head and outputs.bbox is not None and label_bbox is not None:
+        raw, decoded = outputs.bbox
+        det = detection.bbox_loss(raw, decoded, label_bbox, true_bbox,
+                                  input_size=cfg.H)
+        metrics["loss_bbox"] = det
+        total = total + det
     if params is not None:
-        reg = losses.l2_regularization_loss(_collect_reg_leaves(params),
+        reg = losses.l2_regularization_loss(_collect_reg_leaves(params, cfg),
                                             cfg.weight_decay)
         metrics["loss_reg"] = reg
         total = total + reg

@@ -18,7 +18,11 @@
   need a gradient of their own.
 
 Weights enter as the f32 trainable tensors, flat, and are cast and stacked
-to the compute dtype inside each call, so every leaf gets its gradient.  On
+to the compute dtype inside each call, so every leaf gets its gradient.
+The forwards pad to the kernels' widths inside (``models/cmpc.py``); the
+recomputed plain routes of the backward run at the true widths, but for
+the ConvLSTM step's, which runs on its padded tables (its layer norms
+counting the true width).  On
 CPU tensors the wrappers run their plain versions, so the same functions
 run there (with an f32 residual when the compute dtype is f32).
 """
@@ -109,9 +113,7 @@ def spa_affinity_grouped(x, wgs, bgs, wt, rel, mask, *, scale: float,
 
     def kernel_fn(*ts):
         x_, wg, bg, *rest = split(ts)
-        if groups == 1:
-            return kernels.spa_affinity(x_, wg[0], bg[0], *rest, **kw)
-        return kernels.spa_affinity_grouped(x_, wg, bg, *rest, **kw)
+        return cmpc.affinity(x_, *cmpc.pad_projection(wg, bg), *rest, **kw)
 
     def plain_fn(*ts):
         return kernels.spa_affinity_grouped_plain(*split(ts), **kw)
@@ -163,7 +165,7 @@ def se_sum(feat, others, gates, ws, bs):
                 [b.to(dt) for b in ts[1 + 3 * k:]])
 
     def kernel_fn(*ts):
-        return (kernels.se_sum(*split(ts)),)
+        return (cmpc.se_sum(*split(ts)),)
 
     def plain_fn(*ts):
         return (kernels.se_sum_plain(*split(ts)),)

@@ -48,7 +48,7 @@ SIGNATURES = {
         "cmpc_graph_msg": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "cmpc_graph_msg_parts": ([_I], _I),
         "cmpc_graph_msg_smem": ([_I, _I], _I),
-        "cmpc_graph_update": ([_P] * 3 + [_I] + [_P] * 6 + [_I] * 4 + [_P], _I),
+        "cmpc_graph_update": ([_P] * 3 + [_I] + [_P] * 6 + [_I] * 5 + [_P], _I),
         "cmpc_graph_update_parts": ([_I, _I], _I),
     },
     "se_sum": {
@@ -57,7 +57,7 @@ SIGNATURES = {
     "convlstm": {
         "cmpc_convlstm_gates": ([_P] * 8 + [_I] * 3 + [_P], _I),
         "cmpc_convlstm_gates_parts": ([_I, _I], _I),
-        "cmpc_convlstm_raw": ([_P] * 4 + [_I] + [_P] * 5 + [_I] * 3 + [_P], _I),
+        "cmpc_convlstm_raw": ([_P] * 4 + [_I] + [_P] * 5 + [_I] * 4 + [_P], _I),
         "cmpc_convlstm_raw_parts": ([_I] * 3, _I),
     },
 }

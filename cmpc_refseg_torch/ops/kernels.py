@@ -408,14 +408,27 @@ def _sum_stats(v):
                        dim=-1)[:, None]
 
 
-def ln_from_stats(v, stats, gamma, beta):
+def _width(c: int, width) -> int:
+    """The number of columns a statistic counts: `width` (the unpadded
+    width of a zero-padded tensor of c columns), or all c when None."""
+    if width is None:
+        return c
+    if not 1 <= width <= c:
+        raise ValueError(f"width={width}: expected 1..{c}")
+    return int(width)
+
+
+def ln_from_stats(v, stats, gamma, beta, width=None):
     """Whole-sample layer norm of v [B, N, C] from summed statistics
     [B, P, 2] (var = E[v^2] - mean^2, clamped at 0); f32 result.  gamma,
-    beta [C], or [G, C] per group: samples [g*B/G, (g+1)*B/G) use row g."""
+    beta [C], or [G, C] per group: samples [g*B/G, (g+1)*B/G) use row g.
+    `width`: the count of true columns when columns width..C-1 are zero
+    padding (zero in v, gamma and beta; the padding stays zero)."""
     bsz, n, c = v.shape
     s = stats.sum(dim=1)
-    mean = s[:, 0] / float(n * c)
-    var = torch.clamp(s[:, 1] / float(n * c) - mean * mean, min=0.0)
+    count = float(n * _width(c, width))
+    mean = s[:, 0] / count
+    var = torch.clamp(s[:, 1] / count - mean * mean, min=0.0)
     inv = torch.rsqrt(var + _LN_EPS)
     y = (v.float() - mean[:, None, None]) * inv[:, None, None]
     if gamma.dim() == 1:
@@ -467,32 +480,34 @@ def graph_msg(w_aff, pooled):
 graph_msg.launches = 0
 
 
-def graph_update_plain(x, msg, stats1, w, b, g1, b1):
+def graph_update_plain(x, msg, stats1, w, b, g1, b1, *, width=None):
     """z = relu(x + LN1(msg)) @ w + b, rounded to x's dtype, and the
     whole-sample (sum, sum of squares) of z.
 
     x, msg [B, N, C]; stats1 [B, P, 2] f32 (msg's); w [C, C], b [C] (x
-    dtype); g1, b1 [C] f32 -> (z [B, N, C], stats [B, P', 2] f32)."""
+    dtype); g1, b1 [C] f32 -> (z [B, N, C], stats [B, P', 2] f32).
+    `width`: LN1's count of true columns (`ln_from_stats`)."""
     dt = x.dtype
-    y = torch.relu(x + ln_from_stats(msg, stats1, g1, b1).to(dt))
+    y = torch.relu(x + ln_from_stats(msg, stats1, g1, b1, width).to(dt))
     z = (y.float() @ w.float()).to(dt) + b
     return z, _sum_stats(z)
 
 
-def graph_update_grouped_plain(x, msg, stats1, ws, bs, g1s, b1s):
+def graph_update_grouped_plain(x, msg, stats1, ws, bs, g1s, b1s, *,
+                               width=None):
     """The level-packed update: ws [G, C, C], bs, g1s, b1s [G, C]; samples
     [g*B/G, (g+1)*B/G) use group g.  Otherwise `graph_update_plain`."""
     groups = ws.shape[0]
     _check_groups(x.shape[0], groups, "graph_update_grouped")
     per = x.shape[0] // groups
     outs = [graph_update_plain(x[s], msg[s], stats1[s], ws[g], bs[g], g1s[g],
-                               b1s[g])
+                               b1s[g], width=width)
             for g in range(groups)
             for s in [slice(g * per, (g + 1) * per)]]
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
 
-def _update_launch(x, msg, stats1, ws, bs, g1s, b1s):
+def _update_launch(x, msg, stats1, ws, bs, g1s, b1s, width):
     """One launch of the update kernel with G = ws.shape[0] groups."""
     bsz, n, c = x.shape
     groups = ws.shape[0]
@@ -517,16 +532,18 @@ def _update_launch(x, msg, stats1, ws, bs, g1s, b1s):
     rc = lib.cmpc_graph_update(x.data_ptr(), msg.data_ptr(), stats1.data_ptr(),
                                parts1, ws.data_ptr(), bs.data_ptr(),
                                g1s.data_ptr(), b1s.data_ptr(), z.data_ptr(),
-                               stats.data_ptr(), bsz, n, c, groups, _stream())
+                               stats.data_ptr(), bsz, n, c, _width(c, width),
+                               groups, _stream())
     build.check(lib, rc, "graph_update")
     return z, stats
 
 
-def graph_update(x, msg, stats1, w, b, g1, b1):
+def graph_update(x, msg, stats1, w, b, g1, b1, *, width=None):
     """Wrapper of the update kernel; same contract as `graph_update_plain`."""
     if _on_cpu(x, msg, stats1, w, b, g1, b1):
-        return graph_update_plain(x, msg, stats1, w, b, g1, b1)
-    out = _update_launch(x, msg, stats1, w[None], b[None], g1[None], b1[None])
+        return graph_update_plain(x, msg, stats1, w, b, g1, b1, width=width)
+    out = _update_launch(x, msg, stats1, w[None], b[None], g1[None], b1[None],
+                         width)
     graph_update.launches += 1
     return out
 
@@ -534,12 +551,13 @@ def graph_update(x, msg, stats1, w, b, g1, b1):
 graph_update.launches = 0
 
 
-def graph_update_grouped(x, msg, stats1, ws, bs, g1s, b1s):
+def graph_update_grouped(x, msg, stats1, ws, bs, g1s, b1s, *, width=None):
     """Wrapper of the update kernel's grouped form (one launch for all G
     levels); same contract as `graph_update_grouped_plain`."""
     if _on_cpu(x, msg, stats1, ws, bs, g1s, b1s):
-        return graph_update_grouped_plain(x, msg, stats1, ws, bs, g1s, b1s)
-    out = _update_launch(x, msg, stats1, ws, bs, g1s, b1s)
+        return graph_update_grouped_plain(x, msg, stats1, ws, bs, g1s, b1s,
+                                          width=width)
+    out = _update_launch(x, msg, stats1, ws, bs, g1s, b1s, width)
     graph_update_grouped.launches += 1
     return out
 
@@ -657,7 +675,7 @@ def convlstm_gates(x, h, c, w, ci, cf):
 convlstm_gates.launches = 0
 
 
-def convlstm_raw_plain(gates, c, co, stats, gamma, beta):
+def convlstm_raw_plain(gates, c, co, stats, gamma, beta, *, width=None):
     """j, i, f layer-normed from their (sum, sum of squares); then
     new_c_raw = c * sigmoid(f + 1) + sigmoid(i) * tanh(j) (the cell's fixed
     forget bias 1.0) and
@@ -666,11 +684,15 @@ def convlstm_raw_plain(gates, c, co, stats, gamma, beta):
 
     gates [4, B, N, C]; c [B, N, C]; co [N, C] (c dtype); stats
     [B, P, 3, 2]; gamma, beta [5, C] f32 (j, i, f, o, c) ->
-    (new_c_raw, o_raw [B, N, C], stats [B, P', 2, 2] f32)."""
+    (new_c_raw, o_raw [B, N, C], stats [B, P', 2, 2] f32).  `width`: the
+    layer norms' count of true columns where columns width..C-1 are zero
+    padding (zero gates, peepholes, gamma and beta; the padding stays
+    zero)."""
     dt = c.dtype
 
     def ln(k):
-        return ln_from_stats(gates[k], stats[:, :, k], gamma[k], beta[k])
+        return ln_from_stats(gates[k], stats[:, :, k], gamma[k], beta[k],
+                             width)
 
     jn = torch.tanh(ln(0)).to(dt)
     i_s = torch.sigmoid(ln(1)).to(dt)
@@ -681,11 +703,12 @@ def convlstm_raw_plain(gates, c, co, stats, gamma, beta):
     return new_c_raw, o_raw, stats2
 
 
-def convlstm_raw(gates, c, co, stats, gamma, beta):
+def convlstm_raw(gates, c, co, stats, gamma, beta, *, width=None):
     """Wrapper of the ConvLSTM raw kernel; same contract as
     `convlstm_raw_plain`."""
     if _on_cpu(gates, c, co, stats, gamma, beta):
-        return convlstm_raw_plain(gates, c, co, stats, gamma, beta)
+        return convlstm_raw_plain(gates, c, co, stats, gamma, beta,
+                                  width=width)
     bsz, n, cc = c.shape
     parts1 = stats.shape[1]
     _expect("gates", gates, torch.bfloat16, (4, bsz, n, cc))
@@ -709,7 +732,7 @@ def convlstm_raw(gates, c, co, stats, gamma, beta):
                                stats.data_ptr(), parts1, gamma.data_ptr(),
                                beta.data_ptr(), new_c_raw.data_ptr(),
                                o_raw.data_ptr(), stats2.data_ptr(), bsz, n,
-                               cc, _stream())
+                               cc, _width(cc, width), _stream())
     build.check(lib, rc, "convlstm_raw")
     convlstm_raw.launches += 1
     return new_c_raw, o_raw, stats2

@@ -6,13 +6,18 @@ One file per step, ``<directory>/<step>/train_state.pt``, as orbax lays
 out its steps: a ``torch.save`` of a dict of tensors keyed by the tree
 paths of `optimizer.named_leaves`, read back with ``weights_only=True``:
 
-- 'trainable', 'exp_avg', 'exp_avg_sq': the trainable weights and Adam's
-  moments (zeros before the first update), 'adam_step' Adam's count;
+- 'trainable', 'exp_avg', 'exp_avg_sq': the trainable weights (with
+  conv5, the res3-5 conv kernels as trained) and Adam's moments (zeros
+  before the first update), 'adam_step' Adam's count;
+- 'accum' with grad_accum > 1: the running mean of the update in progress
+  (zeros at an update boundary), so a resume mid-accumulation continues
+  exactly;
 - 'frozen': the frozen backbone in float32 (the state's `frozen_f32`,
   whatever the compute dtype);
 - 'model_state': the ASPP decoder's BN moving statistics ({} for the
   multiscore decoder);
-- 'step', and 'config': the config's name and fields.
+- 'step' (micro-steps, `TrainState.step`), and 'config': the config's
+  name and fields.
 
 A step is written under a temporary name, flushed to disk and moved into
 place with ``os.replace``, so a kill in mid-save leaves no step behind
@@ -92,6 +97,12 @@ def save_checkpoint(directory: str, state, step: int,
                "trainable": _flat(state.trainable), **moments,
                "frozen": _flat(state.frozen_f32),
                "model_state": _flat(state.model_state)}
+    if state.cfg.grad_accum > 1:
+        payload["accum"] = {
+            _key(path): (torch.zeros_like(p) if state.accum is None
+                         else a).detach().cpu()
+            for (path, p), a in zip(leaves, state.accum or [None] *
+                                    len(leaves))}
     step_dir = os.path.join(directory, str(step))
     os.makedirs(step_dir, exist_ok=True)
     tmp = os.path.join(step_dir, f".{FILE}.tmp-{os.getpid()}")
@@ -176,5 +187,8 @@ def restore_checkpoint(directory: str, target, step: Optional[int] = None):
         target.cfg)}
     target.model_state = _load(target.model_state, ck["model_state"],
                                "model_state")
+    if target.cfg.grad_accum > 1:
+        target.accum = [leaf for _, leaf in named_leaves(
+            _load(target.trainable, ck["accum"], "accum"))]
     target.step = ck["step"]
     return target

@@ -5,17 +5,23 @@ multiplier and trainable set (CMPC_model.py:426-478).
   (CMPC_model.py:450-452); the step clamps at the decay horizon.
 - bias gradients x2 BEFORE Adam (the reference multiplies the gradient, not
   the lr, CMPC_model.py:462-475).
-- trainable set: everything but the backbone (CMPC_model.py:427-432);
-  training the res3/4/5 conv kernels too (conv5=True) is not ported.
+- trainable set: everything but the backbone (CMPC_model.py:427-432),
+  and with conv5=True also the res3/4/5 conv kernels (never their folded
+  BN constants; JAX optimizer.py:80-115).
 - Adam is ``torch.optim.Adam`` (b1 0.9, b2 0.999, eps 1e-8: the same update
-  as optax's adam); its lr is set before every step from
-  `polynomial_lr(step)`, with `step` counting from 0 as optax's schedule
-  count does.
+  as optax's adam); its lr is set before every update from
+  `polynomial_lr(update)`, with `update` counting Adam's updates from 0 as
+  optax's schedule count does.
+- grad_accum = k (optax ``MultiSteps``): k micro-steps make one Adam
+  update on the mean of their gradients, accumulated as optax's running
+  mean (`accumulate`); the other micro-steps update nothing.
 """
 
 from __future__ import annotations
 
 import torch
+
+from cmpc_refseg_torch.models.backbone import TRAINABLE_STAGES
 
 
 def polynomial_lr(cfg):
@@ -62,25 +68,37 @@ def make_optimizer(cfg, params) -> torch.optim.Adam:
 # trainable/frozen partition
 # ---------------------------------------------------------------------------
 
-def check_trainable(cfg) -> None:
-    """Raise NotImplementedError for the training options not ported."""
-    if cfg.conv5:
-        raise NotImplementedError("conv5=True (training res3-5 through the "
-                                  "folded-BN backbone) is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
-    if cfg.grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
+def accumulate(acc, grad, n_acc: int):
+    """optax MultiSteps' running mean: acc + (grad - acc) / (n_acc + 1), in
+    place on `acc`, after `n_acc` earlier micro-steps."""
+    acc.add_((grad - acc) / (n_acc + 1))
 
 
 def partition_params(params: dict, cfg):
     """Split the parameter tree into (trainable, frozen) trees: the head
-    trains, the backbone is frozen (`check_trainable` refuses conv5)."""
-    check_trainable(cfg)
-    return ({k: v for k, v in params.items() if k != "backbone"},
-            {"backbone": params["backbone"]})
+    trains; the backbone is frozen but for, with conv5=True, the res3/4/5
+    conv kernels 'w', which move into trainable['backbone'] (the JAX
+    package's layout: {block: {unit: {'w': ...}}})."""
+    trainable = {k: v for k, v in params.items() if k != "backbone"}
+    frozen_bb, train_bb = {}, {}
+    for name, block in params["backbone"].items():
+        if cfg.conv5 and name.startswith(TRAINABLE_STAGES):
+            train_bb[name] = {u: {"w": unit["w"]} for u, unit in block.items()}
+            frozen_bb[name] = {u: {k: v for k, v in unit.items() if k != "w"}
+                               for u, unit in block.items()}
+        else:
+            frozen_bb[name] = block
+    if train_bb:
+        trainable["backbone"] = train_bb
+    return trainable, {"backbone": frozen_bb}
 
 
 def merge_params(trainable: dict, frozen: dict) -> dict:
-    """Inverse of partition_params."""
-    return {**trainable, **frozen}
+    """Inverse of partition_params (the backbone merged unit by unit)."""
+    params = {k: v for k, v in trainable.items() if k != "backbone"}
+    train_bb = trainable.get("backbone", {})
+    params["backbone"] = {
+        name: {u: {**unit, **train_bb[name][u]} for u, unit in block.items()}
+        if name in train_bb else block
+        for name, block in frozen["backbone"].items()}
+    return params

@@ -2,11 +2,14 @@
 
 A step is the differentiable forward (`models.model.apply_model` in train
 mode where autograd records: the head's kernels through
-``ops/autograd.py``, the frozen backbone outside the graph, the ASPP
-decoder's BN on the batch statistics), the loss, autograd's backward, the
-conv-bias gradient x2 and one Adam update whose lr comes from the
-polynomial schedule at the step count; the decoder's BN moving statistics
-are carried in the state.  Batches arrive as uint8 images and masks
+``ops/autograd.py``, the frozen backbone outside the graph, or with
+conv5=True its res3-5 kernels in it, the ASPP decoder's BN on the batch
+statistics), the loss (with the detection loss when the batch carries box
+labels), autograd's backward, the conv-bias gradient x2 and one Adam
+update whose lr comes from the polynomial schedule at the update count;
+with grad_accum = k, k such micro-steps make one update on their mean
+gradient (optax MultiSteps).  The decoder's BN moving statistics are
+carried in the state.  Batches arrive as uint8 images and masks
 (`prepare_image_batch_u8`) and are expanded on the device.
 
 The loop saves snapshots and a checkpoint at preemption
@@ -15,7 +18,7 @@ The loop saves snapshots and a checkpoint at preemption
 Not ported: the JAX step's layout knobs (the flat master vector, the grad
 modes, the fused Adam, the XLA dW switch), which are TPU launch-count
 workarounds with the same math; mesh sharding and the multi-host loop
-(ROADMAP queue 1, item 11); grad_accum > 1 and conv5=True (item 6).
+(ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -35,9 +38,9 @@ from cmpc_refseg_torch.models.model import (apply_model, compute_loss,
                                             init_model, init_model_state,
                                             prepare_backbone)
 from cmpc_refseg_torch.train.checkpoint import save_checkpoint
-from cmpc_refseg_torch.train.optimizer import (check_trainable,
-                                               make_optimizer, merge_params,
-                                               named_leaves, partition_params,
+from cmpc_refseg_torch.train.optimizer import (accumulate, make_optimizer,
+                                               merge_params, named_leaves,
+                                               partition_params,
                                                polynomial_lr, scale_bias_grads)
 from cmpc_refseg_torch.utils.moving_average import MovingAverage
 
@@ -45,13 +48,17 @@ from cmpc_refseg_torch.utils.moving_average import MovingAverage
 @dataclasses.dataclass
 class TrainState:
     """`cfg`: the config the state trains; `trainable`: the f32 parameter
-    tensors that train (requires_grad); `frozen`: the frozen backbone, in
+    tensors that train (requires_grad; with conv5, the res3-5 conv kernels
+    under 'backbone'); `frozen`: the frozen backbone, in
     `prepare_backbone`'s view (bf16 kernels under a bf16 compute dtype);
     `frozen_f32`: the same tree in float32 on the host, bit-equal to the
     weights the state was built from (what a checkpoint saves);
     `optimizer`: Adam over the trainable tensors; `model_state`: the BN
     moving statistics (`models.model.init_model_state`; {} for the
-    multiscore decoder); `step`: updates done."""
+    multiscore decoder); `step`: micro-steps done, as the JAX state counts
+    them (updates done = step // grad_accum); `accum`: with grad_accum > 1,
+    the running mean of this update's micro-step gradients, one tensor per
+    trainable leaf (None before the first micro-step)."""
     cfg: ModelConfig
     trainable: dict
     frozen: dict
@@ -59,6 +66,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     model_state: dict
     step: int = 0
+    accum: Optional[list] = None
 
     @property
     def device(self) -> torch.device:
@@ -164,7 +172,9 @@ def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
     outputs = apply_model(params, cfg, b, model_state=state.model_state,
                           train=True, use_kernels=use_kernels)
     state.model_state = outputs.model_state
-    total, metrics = compute_loss(outputs, b["target"], cfg, params)
+    total, metrics = compute_loss(outputs, b["target"], cfg, params,
+                                  label_bbox=b.get("label_bbox"),
+                                  true_bbox=b.get("true_bbox"))
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
     scale_bias_grads(state.trainable)
@@ -177,25 +187,50 @@ def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
     return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(cfg: ModelConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, *, use_kernels: bool = True
+                    ) -> Callable:
     """(state, batch) -> metrics: one update of `state` in place.
 
     batch: 'im_u8' [B,H,W,3] uint8 RGB and 'target_u8' [B,H,W,1] uint8 (or
     'im' f32 BGR - mean and 'target' f32), 'words' [B,T], 'seq_len' [B]
     (the 'bert' encoder: 'words_feat' [B,T,768] f32 and 'sequence_mask'
-    [B,T] instead, moved by `device_image_prologue` as they are); numpy
-    or tensors.  Metrics: the losses of `compute_loss`, 'train_mIoU'
-    (0-d tensors on the device) and 'learning_rate' (the lr of this
-    update)."""
-    check_trainable(cfg)
+    [B,T] instead, moved by `device_image_prologue` as they are; with the
+    detection head, 'label_bbox' [B,S,S,A,5] and 'true_bbox' [B,M,4] f32,
+    `data.anchors.preprocess_true_boxes`' labels); numpy or tensors.
+    Metrics: the losses of `compute_loss`, 'train_mIoU' (0-d tensors on
+    the device) and 'learning_rate' (the lr of this micro-step's update,
+    from the update count: it advances once per update, as the JAX
+    package's MultiSteps `gradient_step` does).
+
+    With grad_accum = k, the step is a micro-step: its gradient joins the
+    running mean in `state.accum`, and every k-th micro-step makes one
+    Adam update from that mean and clears it.  `use_kernels=False` trains
+    on the plain route (`compute_gradients`)."""
     schedule = polynomial_lr(cfg)
+    k = cfg.grad_accum
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        _, metrics = compute_gradients(state, cfg, batch)
-        lr = schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
+        _, metrics = compute_gradients(state, cfg, batch,
+                                       use_kernels=use_kernels)
+        lr = schedule(state.step // k)
+        emit = True
+        if k > 1:
+            leaves = [p for _, p in named_leaves(state.trainable)]
+            if state.accum is None:
+                state.accum = [torch.zeros_like(p) for p in leaves]
+            mini = state.step % k
+            with torch.no_grad():
+                for acc, p in zip(state.accum, leaves):
+                    accumulate(acc, p.grad, mini)
+            emit = mini == k - 1
+            if emit:
+                for acc, p in zip(state.accum, leaves):
+                    p.grad = acc.clone()
+                    acc.zero_()
+        if emit:
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.optimizer.step()
         state.step += 1
         metrics["learning_rate"] = lr
         return metrics
@@ -254,7 +289,9 @@ def train_loop(cfg: ModelConfig, reader, *, max_iter: int,
     the next step boundary and stops the loop there (`PreemptionGuard`;
     without `checkpoint_dir` it only stops).  Resume with
     `checkpoint.restore_checkpoint` into `state` and `start_iter` =
-    the restored step."""
+    the restored step.  Iterations count micro-steps (`TrainState.step`),
+    so with grad_accum = k a snapshot at a step that is not a multiple of
+    k holds the accumulator of the update in progress."""
     if state is None:
         state = create_train_state(seed, cfg, glove, device=device)
     step_fn = make_train_step(cfg)

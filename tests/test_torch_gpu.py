@@ -880,3 +880,104 @@ def test_kernel_at_bert_widths_matches_plain_version(cuda, name):
     if name == "mutan_dw":
         ref = torch.mm(args[0].t(), args[1], out_dtype=torch.float32)
         assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# any width: models/cmpc.py pads the kernels' operands
+# ---------------------------------------------------------------------------
+
+ODD_C, ODD_A, ODD_CM = 37, 29, 21     # padded to 40, 32, 24
+
+
+def _odd_case(g, name):
+    """(the padding function on CUDA tensors, the unpadded plain function,
+    the kernels it must launch) at odd widths, 2 samples of 10 x 10."""
+    from cmpc_refseg_torch.models import cmpc
+    bf, b, side, t = torch.bfloat16, 2, 10, 7
+    n = side * side
+
+    def f32(*shape, scale=1.0):
+        return _rnd(g, *shape, dtype=torch.float32, scale=scale)
+
+    if name == "apply_mutan":
+        c, k = ODD_C, ODD_C + 8
+        p = {"vis_trans": {"DW": f32(1, 1, k, 5 * c, scale=0.1),
+                           "biases": f32(5 * c, scale=0.1)},
+             "lang_trans": {"DW": f32(1, 1, 16, 5 * c, scale=0.2),
+                            "biases": f32(5 * c, scale=0.1)}}
+        vis, spatial = _rnd(g, b, side, side, c), f32(b, side, side, 8)
+        lang = f32(b, 1, 1, 16)
+        x = torch.cat([vis, spatial.to(bf)], -1).reshape(b * n, k)
+        lt = torch.tanh(lang.reshape(b, 16) @ p["lang_trans"]["DW"][0, 0]
+                        + p["lang_trans"]["biases"])
+        want = kernels.mutan_plain(x, p["vis_trans"]["DW"][0, 0].to(bf),
+                                   p["vis_trans"]["biases"], lt, heads=5,
+                                   rows_per_sample=n)
+        return (lambda: cmpc.apply_mutan(p, lang, spatial, vis).reshape(
+            b * n, c)), want, {"mutan_fused"}
+    if name in ("affinity", "graph_conv"):
+        c, a = ODD_C, ODD_A
+        x = _rnd(g, 2 * b, n, c)
+        wgs, bgs = _rnd(g, 2, c, a, scale=c ** -0.5), _rnd(g, 2, a,
+                                                           scale=0.1)
+        wt = _rnd(g, 2 * b, t, a)
+        rel = torch.rand(2 * b, 1, t, generator=g, device="cuda")
+        mask = torch.ones(2 * b, 1, t, device="cuda")
+        kw = dict(scale=c ** 0.5, l2n=True, masked=True)
+        w_aff, v_aff = kernels.spa_affinity_grouped_plain(x, wgs, bgs, wt,
+                                                          rel, mask, **kw)
+        if name == "affinity":
+            return (lambda: torch.cat(cmpc.affinity(
+                x, *cmpc.pad_projection(wgs, bgs), wt, rel, mask, **kw))), \
+                torch.cat([w_aff, v_aff]), {"spa_affinity_grouped"}
+        gps = [{"update": {"DW": f32(1, 1, c, c, scale=c ** -0.5),
+                           "biases": f32(c, scale=0.1)},
+                "feat_ln": {"gamma": 1 + f32(c, scale=0.1),
+                            "beta": f32(c, scale=0.1)},
+                "update_ln": {"gamma": 1 + f32(c, scale=0.1),
+                              "beta": f32(c, scale=0.1)}} for _ in range(2)]
+        return (lambda: cmpc.graph_conv(cmpc.stack_gconv(gps, bf), x, w_aff,
+                                        v_aff)), \
+            cmpc._graph_conv_grouped(gps, x, w_aff, v_aff), \
+            {"graph_msg", "graph_update_grouped"}
+    cm = ODD_CM
+    if name == "se_sum":
+        args = (_rnd(g, b, n, cm), [_rnd(g, b, n, cm)],
+                [torch.sigmoid(f32(b, cm)).to(bf)],
+                [_rnd(g, cm, cm, scale=cm ** -0.5)], [_rnd(g, cm, scale=0.1)])
+        return (lambda: cmpc.se_sum(*args)), kernels.se_sum_plain(*args), \
+            {"se_sum"}
+    p = {"kernel": f32(1, 1, 2 * cm, 4 * cm, scale=(3 * cm) ** -0.5),
+         **{f"W_{q}": f32(side, side, cm, scale=0.1)
+            for q in ("ci", "cf", "co")},
+         "ln": [{"gamma": 1 + f32(cm, scale=0.1), "beta": f32(cm, scale=0.1)}
+                for _ in range(5)]}
+    xs = [_rnd(g, b, side, side, cm) for _ in range(3)]
+    # the plain step on the unpadded tables, counting cm columns
+    tables = {"w": p["kernel"][0, 0].to(bf),
+              **{k: p[f"W_{k}"].reshape(-1, cm).to(bf)
+                 for k in ("ci", "cf", "co")},
+              **{k: torch.stack([ln[k] for ln in p["ln"]])
+                 for k in ("gamma", "beta")}}
+    want = cmpc.convlstm_step_fused({**p, "tables": tables}, *xs,
+                                    use_kernels=False)
+    return (lambda: torch.cat(cmpc.convlstm_step_fused(p, *xs))), \
+        torch.cat(want), {"convlstm_gates", "convlstm_raw"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["apply_mutan", "affinity", "graph_conv",
+                                  "se_sum", "convlstm_step_fused"])
+def test_padding_functions_take_odd_widths_on_the_card(cuda, name):
+    """C 37, A 29, CM 21 (no multiple of 8): each padding function of
+    models/cmpc.py launches its kernels, no ValueError, and matches the
+    unpadded plain function (the graph convolution's layer norms two-pass
+    on the plain side; the ConvLSTM's counting 21 columns)."""
+    with torch.inference_mode():
+        fn, want, names = _odd_case(cuda, name)
+        kernels.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+    assert {k for k, v in kernels.launch_counts().items() if v} == names
+    assert got.shape == want.shape
+    _close(name, got, want, None)

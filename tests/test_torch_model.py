@@ -280,12 +280,16 @@ def test_build_model_on_cpu_runs_without_kernel_launches():
 
 
 def test_unported_variant_raises():
-    """Each option not ported yet refuses at init: the sentence-conditioned
-    fusion, the detection head, video."""
-    for name in ("CMPCv6_plus_model", "CMPCv5_plus_model",
-                 "CMPC_video_mm_tgraph_allvec"):
-        with pytest.raises(NotImplementedError):
-            tinit(0, tget(name, **TINY))
+    """The one config not ported yet, the video model, refuses at init; the
+    sentence-conditioned fusion and the detection head, refused before,
+    init on the CPU (held against JAX in tests/test_torch_plus.py)."""
+    with pytest.raises(NotImplementedError, match="video"):
+        tinit(0, tget("CMPC_video_mm_tgraph_allvec", **TINY))
+    for name in ("CMPCv6_plus_model", "CMPCv5_plus_model"):
+        params = tinit(0, tget(name, **TINY), device="cpu")
+        assert ("sent_mutan" in params["levels"]["c4"]) == (
+            name == "CMPCv6_plus_model")
+        assert ("bbox" in params) == (name == "CMPCv5_plus_model")
 
 
 def test_port_imports_nothing_of_jax():

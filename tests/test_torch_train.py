@@ -327,18 +327,21 @@ def test_polynomial_lr_matches_jax(step):
 @pytest.mark.parametrize("conv5", [False, True])
 def test_partition_merge_matches_jax(conv5):
     """The trainable and frozen trees have JAX's paths, leaf for leaf, and
-    merge_params inverts partition_params.  conv5=True (training res3-5,
-    not ported) is refused."""
+    merge_params inverts partition_params.  With conv5=True the res3-5
+    conv kernels 'w' train (under trainable['backbone']); their folded BN
+    constants, conv1 and res2 stay frozen."""
     geo = {**TINY, "conv5": conv5}
     params = tinit(0, tget("CMPC_model", **geo), device="cpu")
-    if conv5:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            topt.partition_params(params, tget("CMPC_model", **geo))
-        return
     jp, _ = jinit(0, jget("CMPC_model", **geo))
     jtr, jfr = jopt.partition_params(jp, jget("CMPC_model", **geo))
     ttr, tfr = topt.partition_params(params, tget("CMPC_model", **geo))
-    assert "backbone" not in ttr
+    assert ("backbone" in ttr) == conv5
+    if conv5:
+        trained = {k for k in _leaves(ttr) if k[0] == "backbone"}
+        assert trained and all(k[-1] == "w" and k[1][:4] in (
+            "res3", "res4", "res5") for k in trained)
+        assert not any(k[-1] == "w" and k[1][:4] in ("res3", "res4", "res5")
+                       for k in _leaves(tfr))
     for mine, theirs in ((ttr, jtr), (tfr, jfr)):
         assert _leaves(mine).keys() == _leaves(theirs).keys()
     merged = topt.merge_params(ttr, tfr)
@@ -579,10 +582,20 @@ def test_brightness_aug_adds_one_scalar():
 
 
 def test_unsupported_training_options_raise():
+    """The options the port once refused, conv5 and grad_accum, now build a
+    step and train (held against JAX in tests/test_torch_plus_train.py);
+    a grad_accum micro-step that makes no update leaves the weights."""
     for kw in ({"grad_accum": 2}, {"conv5": True}):
         cfg = tget("CMPC_model", **{**TINY, **kw})
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ttrain.make_train_step(cfg)
+        state = ttrain.create_train_state(0, cfg, device="cpu")
+        before = {p: v.detach().clone()
+                  for p, v in topt.named_leaves(state.trainable)}
+        metrics = ttrain.make_train_step(cfg)(
+            state, _batch(cfg, np.random.default_rng(2)))
+        assert np.isfinite(float(metrics["loss_total"]))
+        moved = any(not torch.equal(v, before[p])
+                    for p, v in topt.named_leaves(state.trainable))
+        assert moved == (cfg.grad_accum == 1) and state.step == 1
 
 
 def test_build_trainer_needs_cuda_unless_cpu(monkeypatch):

@@ -10,7 +10,8 @@ restore_checkpoint (which also migrates its legacy layouts); unravels the
 flat trainable vector and Adam's first and second moments into trees;
 builds the port's TrainState from them on the CPU
 (`cmpc_refseg_torch.convert.train_state_from_jax`: weights, frozen
-backbone, moments, Adam's count, BN moving statistics) and saves it as
+backbone, moments, Adam's count, BN moving statistics, and under
+grad_accum > 1 the MultiSteps accumulator and micro-step count) and saves it as
 the same step under OUT (`cmpc_refseg_torch.train.checkpoint`).  Restore
 it with `restore_checkpoint(OUT, trainer.state)`.  This tool imports both
 packages; the port itself imports no JAX.
@@ -49,19 +50,32 @@ def convert(ckpt_dir: str, model: str, out: str, step=None,
     target = create_train_state(jax.random.PRNGKey(0),
                                 get_config(model, **overrides))
     jstate = restore_checkpoint(ckpt_dir, target, step)
-    adam = jstate.opt_state[0]
 
     def tree(flat):
         return jax.tree.map(np.asarray, jstate.unravel(flat))
 
+    trees, extra = _jax_train_trees(jstate, tree)
     state = train_state_from_jax(
-        tree(jstate.trainable), jax.tree.map(np.asarray, jstate.frozen),
-        tree(adam.mu), tree(adam.nu), int(adam.count),
-        torch_config(model, **overrides),
+        *trees, torch_config(model, **overrides),
         model_state=jax.tree.map(np.asarray, jstate.model_state),
-        device="cpu")
+        device="cpu", **extra)
     save_checkpoint(out, state, step)
     return step
+
+
+def _jax_train_trees(jstate, tree):
+    """(trainable, frozen, mu, nu, count) of a JAX train state, and with
+    grad_accum > 1 (optax MultiSteps) `step` and `accum` as keywords of
+    `train_state_from_jax`, through `tree` (flat vector -> numpy tree)."""
+    import jax
+    opt = jstate.opt_state
+    multi = hasattr(opt, "inner_opt_state")
+    adam = (opt.inner_opt_state if multi else opt)[0]
+    trees = [tree(jstate.trainable), jax.tree.map(np.asarray, jstate.frozen),
+             tree(adam.mu), tree(adam.nu), int(adam.count)]
+    if not multi:
+        return trees, {}
+    return trees, {"step": int(jstate.step), "accum": tree(opt.acc_grads)}
 
 
 def main():
