@@ -125,7 +125,28 @@ Phases, each fatal on failure:
     odd widths (C 1001, A 1003, CM 502: mutan and its training kernels, the
     affinity, the graph convolution, the SE sum and the ConvLSTM step, each
     against the unpadded plain function);
-11. the kernels' share of each path's run, the `kernels` JSON line (each
+11. command lines: the flagship (320x320, bs=8, bf16, full depth) through the
+    port's command line, `cli.main` called in this process, on a fake
+    `unc` npz dataset written with numpy (64 train samples at 320x320, the
+    61 eval samples of phase 8's native sizes, a 12112-word vocabulary
+    and a seeded [12112, 300] GloVe table): `-m train` 20 steps with a
+    snapshot every 10, then `-resume` to 30 (it starts at 20 and ends with
+    a snapshot at 30; its first loss within 1e-2 of a Trainer.step from
+    the restored step 20 on the same batch); `-m test` from step 30 (the
+    printed IoUs within 1e-5 of `evaluate` on the same samples and
+    weights); the readers alone (NpzReader; where PIL imports,
+    RefVOSReader on 32 seeded 720x1280 JPEG frames and palette PNG masks
+    with 1 thread and 8 spawned processes, the fast decode where cv2
+    imports, then a 10-step `-d refvos -workers 8` CLI run); where PIL
+    imports, `serving.server.main` on step 30 in a thread answering one
+    POST /predict as a PredictService on the same state does; and
+    `export_program` at bs=1 loaded back (its masks within 2e-2 of the
+    plain route's, no kernel launched).  Step ms (steps 2-20, the loop's
+    read included) against phase 6's, samples/s against phase 8's, the
+    readers' samples/s and the host libraries are printed.  The CLI's
+    runs launch at the shapes of phase 3's train_bs8, eval_bs8 and
+    serving_bs1 paths and are held there (CLI_PATHS);
+12. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -136,6 +157,7 @@ Exits non-zero, printing no result, without CUDA or without the package.
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -202,6 +224,17 @@ N_EVAL = 61
 EVAL_SIZES = ((240, 320), (333, 500), (375, 500), (427, 640), (480, 640),
               (500, 375), (512, 512), (640, 480))
 CKPT_LOSS_TOL = 1e-4         # next-step loss, restored vs original, relative
+# phase 11, the command lines: the fake npz dataset's 320x320 train samples (its
+# eval samples are phase 8's N_EVAL at EVAL_SIZES) and the fake RefVOS
+# tree's 720x1280 frames; the CLI's runs are held at the shapes of the
+# phase-3 paths they share
+N_CLI_TRAIN = 64
+N_REFVOS, REFVOS_HW = 32, (720, 1280)
+CLI_PATHS = {"cli_train_bs8": "train_bs8",
+                "cli_refvos_train_bs8": "train_bs8",
+                "cli_eval_bs8": "eval_bs8", "cli_serving_bs1": "serving_bs1"}
+IOU_TOL = 1e-5               # the CLI's printout vs `evaluate`'s results
+HOST_LIBS = ("PIL", "cv2", "h5py", "scipy", "tensorboardX")
 REPLACES = {
     "mutan_fused": "cmpc_refseg_tpu/ops/pallas_kernels.py:98",
     "mutan_fwd_residual": "cmpc_refseg_tpu/ops/pallas_kernels.py:332",
@@ -2367,6 +2400,559 @@ def run_checkpoint(torch, kernels, cmpc, build_trainer, named_leaves, card):
                                     statistics.median(req_ms))}, summary
 
 
+def host_libraries():
+    """{name: version or None} of the host libraries the data layer imports
+    where it decodes (PIL, cv2), reads HDF5 (h5py), resizes (scipy) and
+    logs (tensorboardX)."""
+    import importlib
+    out = {}
+    for name in HOST_LIBS:
+        try:
+            out[name] = getattr(importlib.import_module(name), "__version__",
+                                "?")
+        except ImportError:
+            out[name] = None
+    return out
+
+
+class Tee:
+    """A stdout that also keeps what is written (the CLI's printout)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def run_cli(main, argv):
+    """`main(argv)` in this process (so the launch counts see it), its
+    printout kept; (result, printout, wall s)."""
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        result = main(argv)
+    return result, tee.text(), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def timed_steps(torch):
+    """For the enclosed CLI runs, `trainer.make_train_step`'s steps and
+    `save_checkpoint` are wrapped: each step ends in a synchronize and
+    records its end on the host clock, the first step's batch and loss
+    are kept, and each save's step and ms (`laps_ms` takes a save's time
+    out of the lap of the step after it, so a lap is the loop's read,
+    prepare and step)."""
+    from cmpc_refseg_torch.train import trainer as tm
+    real_step, real_save = tm.make_train_step, tm.save_checkpoint
+    rec = {"ends": [], "first": None, "saves": [], "saved_after": {}}
+
+    def make_train_step(cfg, **kw):
+        step = real_step(cfg, **kw)
+
+        def run(state, batch):
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            rec["ends"].append(time.perf_counter())
+            if rec["first"] is None:
+                rec["first"] = (dict(batch), float(metrics["loss_total"]))
+            return metrics
+        return run
+
+    def save_checkpoint(directory, state, step, **kw):
+        t0 = time.perf_counter()
+        real_save(directory, state, step, **kw)
+        dt = time.perf_counter() - t0
+        rec["saves"].append((step, dt * 1e3))
+        rec["saved_after"][len(rec["ends"]) - 1] = dt
+
+    tm.make_train_step, tm.save_checkpoint = make_train_step, save_checkpoint
+    try:
+        yield rec
+    finally:
+        tm.make_train_step, tm.save_checkpoint = real_step, real_save
+
+
+def laps_ms(rec):
+    """Host ms between consecutive step ends of a `timed_steps` record,
+    less a save between them: steps 2 to n."""
+    ends, saved = rec["ends"], rec["saved_after"]
+    return [(ends[i + 1] - ends[i] - saved.get(i, 0.0)) * 1e3
+            for i in range(len(ends) - 1)]
+
+
+class MemoryReader:
+    """`read_collated` over batches held in memory, in turn: the train
+    loop without a reader thread."""
+
+    def __init__(self, batches):
+        self.batches, self.n = batches, 0
+
+    def read_collated(self, bs):
+        batch = self.batches[self.n % len(self.batches)]
+        self.n += 1
+        return batch
+
+
+def cli_dataset(root, vocab_size, glove_dim):
+    """Phase 11's fake `unc` dataset, numpy alone, in the batch builders'
+    layout: N_CLI_TRAIN train samples at 320x320 (uint8 image, a box
+    mask, 3-20 back-padded words; no 'seq_length', so the CLI's collator
+    counts the words) and N_EVAL eval samples at phase 8's native sizes
+    (an ellipse mask each); the vocabulary file of `vocab_size` words and
+    a seeded GloVe table [vocab_size, glove_dim] as `Gref_emb.npy`."""
+    import os
+
+    from cmpc_refseg_torch.data.text import synthetic_vocab
+    rng = np.random.default_rng(13)
+
+    def text():
+        t = np.zeros(T, np.int32)
+        n = int(rng.integers(3, T + 1))
+        t[:n] = rng.integers(4, vocab_size, n)
+        return t
+    for split, n in (("train", N_CLI_TRAIN), ("val", N_EVAL)):
+        d = os.path.join(root, "unc", f"{split}_batch")
+        os.makedirs(d)
+        for i in range(n):
+            h, w = (H_IMG, H_IMG) if split == "train" else \
+                EVAL_SIZES[i % len(EVAL_SIZES)]
+            yy, xx = np.mgrid[:h, :w]
+            if split == "train":
+                bh, bw = rng.integers(h // 4, h + 1, 2)
+                y, x = rng.integers(0, h - bh + 1), rng.integers(0, w - bw + 1)
+                mask = (yy >= y) & (yy < y + bh) & (xx >= x) & (xx < x + bw)
+            else:
+                cy, cx = rng.uniform(0.2, 0.8, 2) * (h, w)
+                ry, rx = rng.uniform(0.1, 0.5, 2) * (h, w)
+                mask = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+            np.savez(os.path.join(d, f"unc_{split}_{i}.npz"),
+                     text_batch=text(), mask_batch=mask,
+                     im_batch=rng.integers(0, 256, (h, w, 3), np.uint8),
+                     sent_batch=[f"sample {i}"])
+    vocab = synthetic_vocab(vocab_size)
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(sorted(vocab, key=vocab.get)) + "\n")
+    glove = (0.4 * np.random.default_rng(GLOVE_SEED).standard_normal(
+        (vocab_size, glove_dim))).astype(np.float32)
+    np.save(os.path.join(root, "Gref_emb.npy"), glove)
+
+
+def refvos_tree(root, vocab_size):
+    """A seeded fake RefVOS tree: N_REFVOS JPEG frames at REFVOS_HW
+    (smooth content, quality 90) and palette PNG masks with object 1's
+    color, one expression each; returns (im_dir, mask_dir, meta)."""
+    import os
+
+    from PIL import Image
+
+    from cmpc_refseg_torch.data.refvos import OBJECT_COLOR
+    im_dir, mask_dir = (os.path.join(root, d, "v") for d in ("J", "A"))
+    os.makedirs(im_dir)
+    os.makedirs(mask_dir)
+    rng = np.random.default_rng(14)
+    h, w = REFVOS_HW
+    meta = []
+    for i in range(N_REFVOS):
+        small = rng.integers(0, 256, (h // 16, w // 16, 3), np.uint8)
+        Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
+            os.path.join(im_dir, f"f{i}.jpg"), quality=90)
+        m = np.zeros((h, w), np.uint8)
+        y, x = rng.integers(0, h // 2), rng.integers(0, w // 2)
+        m[y:y + h // 3, x:x + w // 3] = 1
+        pm = Image.fromarray(m, mode="P")
+        pm.putpalette([0, 0, 0] + list(OBJECT_COLOR["1"]) + [0] * (254 * 3))
+        pm.save(os.path.join(mask_dir, f"f{i}.png"))
+        words = rng.integers(4, vocab_size, rng.integers(3, T + 1))
+        meta.append([f"v/f{i}.jpg", f"v/f{i}.png",
+                     " ".join(f"w{v}" for v in words), "1"])
+    path = os.path.join(root, "meta.json")
+    with open(path, "w") as f:
+        json.dump(meta, f)
+    return os.path.dirname(im_dir), os.path.dirname(mask_dir), path
+
+
+def reader_rate(read, n, warm):
+    """Samples/s of `read()` over n calls after `warm` calls."""
+    for _ in range(warm):
+        read()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        read()
+    return n / (time.perf_counter() - t0)
+
+
+def serve_once(torch, requests, argv):
+    """`serving.server.main(argv)` in a thread until it serves, a POST
+    /predict of each (image, expression) of `requests` (each in a new
+    handler thread), then the server shut down; returns (reply, mask,
+    wall ms) per request."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from cmpc_refseg_torch.serving import server as srv
+    real_serve, held, errors = srv.serve, [], []
+
+    def serve(service, host="127.0.0.1", port=8500):
+        httpd = real_serve(service, host=host, port=port)
+        held.append(httpd)
+        return httpd
+
+    def target():
+        try:
+            srv.main(argv)
+        except BaseException as e:        # reported by the caller
+            errors.append(e)
+    srv.serve = serve
+    thread = threading.Thread(target=target, daemon=True)
+    try:
+        thread.start()
+        deadline = time.monotonic() + 600
+        while not held and not errors and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if not held:
+            fail(f"cli: serving.server.main did not serve: {errors!r}")
+        port = held[0].server_address[1]
+        out = []
+        for image, expr in requests:
+            buf = io.BytesIO()
+            Image.fromarray(image).save(buf, format="PNG")
+            body = json.dumps({
+                "image": base64.b64encode(buf.getvalue()).decode(),
+                "expression": expr}).encode()
+            t0 = time.perf_counter()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/predict", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                reply = json.loads(r.read())
+            ms = (time.perf_counter() - t0) * 1e3
+            mask = np.asarray(Image.open(io.BytesIO(base64.b64decode(
+                reply["mask"])))) > 0
+            out.append((reply, mask, ms))
+    finally:
+        if held:
+            held[0].shutdown()
+        thread.join(60)
+        srv.serve = real_serve
+    if thread.is_alive() or errors:
+        fail(f"cli: the server did not stop cleanly: {errors!r}")
+    return out
+
+
+def run_cli_phase(torch, kernels, cmpc, card, train_ms, eval_sps):
+    """Phase 11: the flagship through the port's command line at 320x320,
+    bs=8, bf16, full depth, on `cli_dataset`: `cli.main -m train` 20
+    steps with a snapshot every 10, then `-resume` to 30 (it must start at
+    20, end with a snapshot at 30, and its first loss agree within
+    TRAIN_LOSS_TOL with a Trainer.step from the restored step-20 state on
+    the same batch); `-m test` on the 61 eval samples from step 30 (its
+    printed IoUs within IOU_TOL of `evaluate` called directly); the
+    readers alone (NpzReader; where PIL imports, RefVOSReader on
+    `refvos_tree` with 1 thread and 8 spawned processes, fast decode where
+    cv2 imports, and a 10-step `-d refvos -workers 8` CLI run); where PIL
+    imports, `serving.server.main` on step 30 answering one POST /predict
+    as a PredictService on the same state does (masks equal but where
+    prob is within SIGM_TOL of the threshold); `export_program` at bs=1
+    loaded back, its masks within SIGM_TOL of the plain route's.  The
+    CLI's launches are counted and held at the shapes of the phase-3 path
+    each shares (CLI_PATHS).  `train_ms` and `eval_sps` are phase 6's
+    step ms and phase 8's samples/s, printed beside."""
+    import os
+    import tempfile
+
+    from cmpc_refseg_torch import api, cli
+    from cmpc_refseg_torch.data.reader import NpzReader
+    from cmpc_refseg_torch.data.refvos import RefVOSReader
+    from cmpc_refseg_torch.data.text import load_vocab_dict_from_file
+    from cmpc_refseg_torch.models.model import apply_model, prepare_params
+    from cmpc_refseg_torch.serving import export
+    from cmpc_refseg_torch.serving.server import PredictService
+    from cmpc_refseg_torch.train import evaluator as ev
+    from cmpc_refseg_torch.train.checkpoint import (FILE, latest_step,
+                                                    restore_checkpoint)
+    from cmpc_refseg_torch.train.trainer import create_train_state, train_loop
+
+    libs = host_libraries()
+    log(f"[cli] host libraries: {json.dumps(libs)}")
+    has_pil, has_cv2 = libs["PIL"] is not None, libs["cv2"] is not None
+    paths, out = {}, {"host_libraries": libs}
+    with tempfile.TemporaryDirectory() as root:
+        ck = os.path.join(root, "ckpt")
+        common = ["-n", "CMPC_model", "-f", root, "-emb_dir", root,
+                  "-bs", str(B), "-ckpt_dir", ck,
+                  "-log_dir", os.path.join(root, "logs")]
+        train_argv = ["-m", "train", "-d", "unc", "-t", "train", "-s", "10",
+                      "-workers", "1"] + common
+        cfg, _ = cli.make_config(cli.build_argparser().parse_args(
+            train_argv), torch.device(DEV))
+        check_config(cfg, "CMPC_model", "cli")
+        t0 = time.perf_counter()
+        cli_dataset(root, cfg.vocab_size, cfg.glove_dim)
+        out["dataset_s"] = time.perf_counter() - t0
+
+        # train 20 steps, then resume to 30
+        kernels.reset_launch_counts()
+        with timed_steps(torch) as first:
+            _, text, wall = run_cli(cli.main, train_argv + ["-st", "20"])
+        if latest_step(ck) != 20 or len(first["ends"]) != 20 \
+                or "GloVe embedding not found" in text:
+            fail(f"cli: the 20-step run: latest snapshot "
+                 f"{latest_step(ck)}, {len(first['ends'])} steps (and the "
+                 f"GloVe table must load): {text[-300:]!r}")
+        with timed_steps(torch) as resumed:
+            state, text, wall_resume = run_cli(
+                cli.main, train_argv + ["-st", "30", "-resume"])
+        counts = kernels.launch_counts()
+        check_counts(counts, expected_launches(cmpc, B, train=True), 30,
+                     "cli_train_bs8")
+        if f"resumed from {ck} at step 20" not in text or \
+                latest_step(ck) != 30 or state.step != 30:
+            fail(f"cli: the resumed run: {text[-300:]!r}, latest "
+                 f"snapshot {latest_step(ck)}, step {state.step}")
+        del state
+        step_ms = laps_ms(first)
+        ms = statistics.median(step_ms)
+        resume_ms = statistics.median(laps_ms(resumed))
+        nbytes = os.path.getsize(os.path.join(ck, "30", FILE))
+        paths["cli_train_bs8"] = (counts, 30, ms)
+
+        # the resumed first step against Trainer.step from step 20
+        batch, loss = resumed["first"]
+        st = create_train_state(0, cfg, device=DEV)
+        restore_checkpoint(ck, st, 20)
+        ref = float(api.Trainer(cfg=cfg, state=st).step(batch)["loss_total"])
+        loss_err = abs(loss - ref) / abs(ref)
+        if not loss_err <= TRAIN_LOSS_TOL:
+            fail(f"cli: the resumed run's first loss {loss!r} vs "
+                 f"Trainer.step's {ref!r}: relative {loss_err:.3e} > "
+                 f"{TRAIN_LOSS_TOL}")
+        # control: the same loop over 10 of the dataset's batches held in
+        # memory (no reader thread)
+        collator = cli.NpzCollator(NpzReader(
+            os.path.join(root, "unc", "train_batch"), "unc_train"))
+        held = [collator.read_collated(B) for _ in range(10)]
+        with timed_steps(torch) as mem:
+            train_loop(cfg, MemoryReader(held), max_iter=st.step + 10,
+                       state=st, start_iter=st.step)
+        memory_ms = statistics.median(laps_ms(mem))
+        restore_checkpoint(ck, st, 30)
+        torch.cuda.empty_cache()
+
+        # test from step 30
+        real_evaluate, eval_s = ev.evaluate, []
+
+        def timed_evaluate(*a, **kw):
+            t0 = time.perf_counter()
+            r = real_evaluate(*a, **kw)
+            eval_s.append(time.perf_counter() - t0)
+            return r
+        test_argv = ["-m", "test", "-d", "unc", "-t", "val"] + common
+        kernels.reset_launch_counts()
+        ev.evaluate = timed_evaluate
+        try:
+            printed, text, test_wall = run_cli(cli.main, test_argv)
+        finally:
+            ev.evaluate = real_evaluate
+        eval_counts = kernels.launch_counts()
+        forwards = -(-N_EVAL // B)
+        check_counts(eval_counts, expected_launches(cmpc, B), forwards,
+                     "cli_eval_bs8")
+        paths["cli_eval_bs8"] = (eval_counts, forwards,
+                                 eval_s[0] * 1e3 / forwards)
+        t0 = time.perf_counter()
+        samples = list(cli.npz_eval_samples(root, "unc", "val", cfg))
+        host_ms = (time.perf_counter() - t0) * 1e3 / N_EVAL
+        t0 = time.perf_counter()
+        direct = ev.evaluate(cfg, st.params(), st.model_state, iter(samples),
+                             device=DEV)["no_crf"]
+        memory_sps = N_EVAL / (time.perf_counter() - t0)
+        del samples
+        shown = {k: float(v) for k, v in re.findall(
+            r"^(overall IoU|mean IoU|precision@[\d.]+) = ([-\d.]+)", text,
+            re.M)}
+        want = {"overall IoU": direct["overall_iou"],
+                "mean IoU": direct["mean_iou"],
+                **{f"precision@{k[5:]}": v for k, v in direct.items()
+                   if k.startswith("prec@")}}
+        iou_err = max((abs(shown[k] - v) for k, v in want.items()
+                       if k in shown), default=math.inf)
+        if set(shown) != set(want) or not iou_err <= IOU_TOL \
+                or direct["n"] != N_EVAL:
+            fail(f"cli: the CLI printed {shown}, evaluate gives {want} "
+                 f"over {direct['n']} samples")
+
+        # the readers alone
+        npz = NpzReader(os.path.join(root, "unc", "train_batch"),
+                        "unc_train")
+        rates = {"npz_1_thread": reader_rate(npz.read, N_CLI_TRAIN, B)}
+        refvos_ms = None
+        if has_pil:
+            t0 = time.perf_counter()
+            im_dir, mask_dir, meta = refvos_tree(root, cfg.vocab_size)
+            out["refvos_tree_s"] = time.perf_counter() - t0
+            vocab = os.path.join(root, "vocab.txt")
+            for fast in (False, True) if has_cv2 else (False,):
+                for workers in (1, 8):
+                    r = RefVOSReader(im_dir, mask_dir, meta, vocab,
+                                     num_workers=workers,
+                                     prefetch_num=4 * workers,
+                                     fast_decode=fast)
+                    kind = "thread" if workers == 1 else "procs"
+                    try:
+                        rates[f"refvos_{'fast' if fast else 'pil'}_"
+                              f"{workers}_{kind}"] = reader_rate(
+                                  r.read_batch, N_REFVOS, 2 * workers)
+                    finally:
+                        r.close()
+            kernels.reset_launch_counts()
+            with timed_steps(torch) as rv:
+                run_cli(cli.main, [
+                    "-m", "train", "-d", "refvos", "-n", "CMPC_model",
+                    "-im_dir", im_dir, "-mask_dir", mask_dir, "-meta", meta,
+                    "-vocab", vocab, "-emb", "Gref", "-emb_dir", root,
+                    "-bs", str(B), "-st", "10", "-s", "0", "-workers", "8",
+                    "-ckpt_dir", os.path.join(root, "ck_refvos"),
+                    "-log_dir", os.path.join(root, "logs_refvos")])
+            rv_counts = kernels.launch_counts()
+            check_counts(rv_counts, expected_launches(cmpc, B, train=True),
+                         10, "cli_refvos_train_bs8")
+            refvos_ms = statistics.median(laps_ms(rv))
+            paths["cli_refvos_train_bs8"] = (rv_counts, 10, refvos_ms)
+        else:
+            log("[cli] PIL does not import here: the RefVOS readers, "
+                "the -d refvos CLI run and the HTTP round trip did not run")
+
+        # serve step 30 over HTTP; a PredictService on the same state
+        requests = request_set(np, cfg.vocab_size)[1:3]
+        serving = None
+        if has_pil:
+            kernels.reset_launch_counts()
+            replies = serve_once(torch, requests, [
+                "-ckpt_dir", ck, "-vocab", os.path.join(root, "vocab.txt"),
+                "-emb", "Gref", "-emb_dir", root, "-port", "0"])
+            srv_counts = kernels.launch_counts()
+            check_counts(srv_counts, expected_launches(cmpc, 1),
+                         1 + len(requests), "cli_serving_bs1")
+            paths["cli_serving_bs1"] = (srv_counts, 1 + len(requests),
+                                        replies[-1][2])
+            svc = PredictService(cfg, st.params(), load_vocab_dict_from_file(
+                os.path.join(root, "vocab.txt")),
+                model_state=st.model_state, device=DEV)
+            serving = []
+            for (image, expr), (reply, mask, req_ms) in zip(requests,
+                                                            replies):
+                prob, want_mask = svc.predict(image, expr)
+                near = np.abs(prob - 0.5) <= SIGM_TOL
+                differ = int(((mask != want_mask) & ~near).sum())
+                if mask.shape != image.shape[:2] or differ or \
+                        abs(reply["prob_max"] - float(prob.max())) > SIGM_TOL:
+                    fail(f"cli: POST /predict's mask {mask.shape} "
+                         f"differs from PredictService's at {differ} pixels "
+                         f"away from the threshold; prob_max "
+                         f"{reply['prob_max']} vs {float(prob.max())}")
+                serving.append({
+                    "request_ms": req_ms,
+                    "server_latency_ms": reply["latency_ms"],
+                    "mask_pixels_differ": int((mask != want_mask).sum()),
+                    "prob_max": reply["prob_max"]})
+            del svc
+
+        # export at bs=1, loaded back, against the plain route
+        path = os.path.join(root, "predict.pt2")
+        cfg1 = cfg.replace(batch_size=1)
+        t0 = time.perf_counter()
+        export.export_program(cfg1, st.params(), st.model_state, path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = export.load_program(path)
+        load_s = time.perf_counter() - t0
+        feed = make_batch(cfg1, 1, seed=21)
+        args = (torch.as_tensor(feed["im"], device=DEV),
+                torch.as_tensor(feed["words"], device=DEV),
+                torch.as_tensor(feed["seq_len"], device=DEV))
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            got = program(*args)
+            if any(kernels.launch_counts().values()):
+                fail(f"cli: the exported program launched the port's "
+                     f"kernels: {kernels.launch_counts()}")
+            prepared = prepare_params(st.params(), cfg1)
+            batch1 = {"im": args[0], "words": args[1], "seq_len": args[2]}
+            plain = apply_model(prepared, cfg1, batch1,
+                                model_state=st.model_state,
+                                use_kernels=False).sigm[..., 0]
+            kernel = apply_model(prepared, cfg1, batch1,
+                                 model_state=st.model_state).sigm[..., 0]
+            program_ms = wall_ms(torch, lambda: program(*args))
+            plain_ms = wall_ms(torch, lambda: apply_model(
+                prepared, cfg1, batch1, model_state=st.model_state,
+                use_kernels=False))
+        export_err = (got.float() - plain.float()).abs().max().item()
+        if got.shape != (1, H_IMG, H_IMG) or not export_err <= SIGM_TOL:
+            fail(f"cli: the exported program's masks "
+                 f"{tuple(got.shape)} differ from the plain route's by "
+                 f"{export_err:.3e} > {SIGM_TOL}")
+        export_bytes = os.path.getsize(path)
+        del program, prepared, st
+    summary = {
+        **out, "train_ms_steps_2_20": step_ms, "train_ms": ms,
+        "trainer_step_ms_phase6": train_ms, "resume_ms": resume_ms,
+        "train_loop_in_memory_ms": memory_ms,
+        "train_wall_s": wall, "resume_wall_s": wall_resume,
+        "saves_ms": first["saves"] + resumed["saves"],
+        "snapshot_bytes": nbytes, "resumed_loss": loss,
+        "trainer_step_loss": ref, "resumed_loss_rel_err": loss_err,
+        "test_wall_s": test_wall, "evaluate_s": eval_s[0],
+        "cli_samples_per_s": N_EVAL / test_wall,
+        "evaluate_samples_per_s": N_EVAL / eval_s[0],
+        "npz_eval_samples_host_ms_per_sample": host_ms,
+        "evaluate_in_memory_samples_per_s": memory_sps,
+        "eval_samples_per_s_phase8": eval_sps, "printed": shown,
+        "printed_vs_evaluate_max_abs": iou_err, "reader_samples_per_s": rates,
+        "refvos_cli_train_ms": refvos_ms, "serving": serving,
+        "export_s": export_s, "load_s": load_s, "export_bytes": export_bytes,
+        "program_ms": program_ms, "plain_route_ms": plain_ms,
+        "export_vs_plain_max_abs": export_err,
+        "export_vs_kernel_route_max_abs": (
+            got.float() - kernel.float()).abs().max().item()}
+    log(f"[cli] {card}: CMPC_model 320x320 bs={B} bf16 res4_blocks=23 "
+        f"through cli.main: train {ms:.3f} ms/step (median of steps 2-20, "
+        f"the loop's read and prepare included; resumed steps 22-30 "
+        f"{resume_ms:.3f}; the loop over batches in memory, no reader "
+        f"thread, {memory_ms:.3f}) vs phase 6's Trainer.step "
+        f"{train_ms:.3f}; "
+        f"snapshot {nbytes} bytes, saves {summary['saves_ms']} (step, ms); "
+        f"resumed first loss {loss!r} vs Trainer.step {ref!r} (relative "
+        f"{loss_err:.3e} <= {TRAIN_LOSS_TOL}); test {N_EVAL} samples: "
+        f"{summary['cli_samples_per_s']:.1f} samples/s for the whole run "
+        f"({test_wall:.3f} s), evaluate "
+        f"{summary['evaluate_samples_per_s']:.1f} (over the samples in "
+        f"memory {memory_sps:.1f}; npz_eval_samples {host_ms:.3f} host ms "
+        f"per sample) vs phase 8's {eval_sps:.1f}; printed IoUs within "
+        f"{iou_err:.1e} of evaluate's")
+    log(f"[cli] readers, samples/s: {json.dumps(rates)}; -d refvos "
+        f"-workers 8 CLI: {refvos_ms} ms/step (median of steps 2-10)")
+    log(f"[cli] serving.server.main: {json.dumps(serving)}; export at "
+        f"bs=1: {export_s:.1f} s, {export_bytes} bytes, load {load_s:.1f} "
+        f"s, program {program_ms:.3f} ms vs the plain route {plain_ms:.3f} "
+        f"ms; masks vs the plain route {export_err:.3e} <= {SIGM_TOL}, vs "
+        f"the kernel route {summary['export_vs_kernel_route_max_abs']:.3e}")
+    log(f"[cli] launches: 30 train steps {counts}; eval {eval_counts}")
+    return paths, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2491,19 +3077,27 @@ def main():
         torch, kernels, cmpc, build_trainer, compute_gradients, named_leaves,
         card)
     paths.update(accum_paths)
+    torch.cuda.empty_cache()
+    # phase 11: the command lines
+    cli_paths, cli_phase = run_cli_phase(torch, kernels, cmpc, card,
+                                         train["median_ms"],
+                                         evaluation["samples_per_s"])
+    paths.update(cli_paths)
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
         if not rec["launches"]:
             fail(f"{rec['name']}: no launch on its path")
-    unheld = {f"{k}@{path}" for path, (counts, _, _) in paths.items()
+    unheld = {f"{k}@{CLI_PATHS.get(path, path)}"
+              for path, (counts, _, _) in paths.items()
               for k, n in counts.items() if n} - {r["name"] for r in records}
     if unheld:
         fail(f"launched on a path but not held at its shapes in phase 3: "
              f"{sorted(unheld)}")
-    for path, (_, runs, run_ms) in paths.items():
-        share = sum(r["ms"] * r["launches"] / runs for r in records
-                    if r["path"] == path) / run_ms
+    for path, (_, _, run_ms) in paths.items():
+        held = CLI_PATHS.get(path, path)
+        share = sum(r["ms"] * r["launches"] / r["runs"] for r in records
+                    if r["path"] == held) / run_ms
         log(f"[{path}] the kernels take {share:.1%} of the {run_ms:.3f} ms "
             "run (kernel ms at this path's shapes x launches per run)")
     log(f"[kernels] edge records: {json.dumps(edges)}")
@@ -2519,6 +3113,7 @@ def main():
     log(f"[v5_bilstm_hsv_train_bs8] {json.dumps(hsv_train)}")
     log(f"[bert_train_bs8] {json.dumps(bert_train)}")
     log(f"[plus] {json.dumps(plus)}")
+    log(f"[cli] {json.dumps(cli_phase)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -124,3 +124,10 @@ def build_trainer(name: str, *, seed: int = 0, glove=None, device=None,
     cfg = _config(name, dtype, overrides)
     return Trainer(cfg=cfg, state=create_train_state(
         seed, cfg, glove, device=resolve_device(device)))
+
+
+def get_segmentation_model(name: str, **kwargs) -> Model:
+    """Name-compatible entry point (reference: get_model.py:15-17, which
+    `eval()`s the model name; the JAX package's api.get_segmentation_model):
+    `build_model(name, **kwargs)`."""
+    return build_model(name, **kwargs)

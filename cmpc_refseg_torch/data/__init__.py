@@ -1,1 +1,3 @@
-"""Host-side data helpers of the port (text and image preprocessing)."""
+"""Host-side data code of the port: text and image preprocessing, the
+readers and the offline batch builders (numpy; nothing here imports
+torch)."""

@@ -1,4 +1,5 @@
-"""Image geometry for serving: aspect-preserving resize-pad and resize-crop.
+"""Image geometry: aspect-preserving resize-pad and resize-crop, box and
+mask crops, brightness augmentation.
 
 The port's own copy of the JAX package's framework-free image helpers
 (reference: util/im_processing.py).  The reference resizes with
@@ -111,3 +112,71 @@ def resize_and_crop(im: np.ndarray, input_h: int, input_w: int) -> np.ndarray:
     resized_im = resize(im, resized_h, resized_w)
     return np.ascontiguousarray(
         resized_im[crop_h:crop_h + input_h, crop_w:crop_w + input_w, ...])
+
+
+def bboxes_from_masks(masks: np.ndarray) -> np.ndarray:
+    """Tight [xmin, ymin, xmax, ymax] boxes per mask (im_processing.py:60-70)."""
+    if masks.ndim == 2:
+        masks = masks[np.newaxis, ...]
+    num_mask = masks.shape[0]
+    bboxes = np.zeros((num_mask, 4), dtype=np.int32)
+    for n in range(num_mask):
+        idx = np.nonzero(masks[n])
+        if len(idx[0]) == 0:
+            continue
+        bboxes[n] = [np.min(idx[1]), np.min(idx[0]),
+                     np.max(idx[1]), np.max(idx[0])]
+    return bboxes
+
+
+def crop_bboxes_subtract_mean(im: np.ndarray, bboxes, crop_size: int,
+                              image_mean: np.ndarray) -> np.ndarray:
+    """Per-bbox square crops, resized and mean-subtracted
+    (im_processing.py:43-58): crop im[ymin:ymax+1, xmin:xmax+1], bilinear
+    resize to crop_size x crop_size, round to uint8 scale, subtract mean."""
+    bboxes = np.asarray(bboxes).reshape((-1, 4))
+    im = np.clip(np.rint(np.asarray(im, np.float32)), 0, 255)
+    out = np.zeros((bboxes.shape[0], crop_size, crop_size, 3), np.float32)
+    for n, (xmin, ymin, xmax, ymax) in enumerate(bboxes):
+        crop = im[ymin:ymax + 1, xmin:xmax + 1, :]
+        out[n] = np.clip(np.rint(resize(crop, crop_size, crop_size)), 0, 255)
+    return out - image_mean
+
+
+def crop_masks_subtract_mean(im: np.ndarray, masks: np.ndarray,
+                             crop_size: int,
+                             image_mean: np.ndarray) -> np.ndarray:
+    """Mask-tight crops with the background filled by the mean pixel
+    (im_processing.py:72-92): mask out the image (background <- uint8 mean),
+    crop each mask's tight bbox, resize to crop_size (the reference
+    hard-codes 224 — equivalent whenever its call is valid), subtract mean."""
+    masks = np.asarray(masks)
+    if masks.ndim == 2:
+        masks = masks[np.newaxis, ...]
+    im = np.clip(np.rint(np.asarray(im, np.float32)), 0, 255
+                 ).astype(np.uint8)
+    bboxes = bboxes_from_masks(masks)
+    out = np.zeros((masks.shape[0], crop_size, crop_size, 3), np.float32)
+    mean_u8 = image_mean.astype(np.uint8)
+    for n in range(masks.shape[0]):
+        xmin, ymin, xmax, ymax = bboxes[n]
+        mask = masks[n, ..., np.newaxis].astype(np.uint8)
+        im_masked = im * mask + mean_u8 * (1 - mask)
+        crop = im_masked[ymin:ymax + 1, xmin:xmax + 1, :].astype(np.float32)
+        out[n] = np.clip(np.rint(resize(crop, crop_size, crop_size)), 0, 255)
+    return out - image_mean
+
+
+def brightness(x: np.ndarray, gamma: float = 0.2, gain: float = 1.0,
+               is_random: bool = True, rng: np.random.Generator | None = None
+               ) -> np.ndarray:
+    """Gamma brightness augmentation (im_processing.py:94-113)."""
+    if is_random:
+        rng = rng or np.random.default_rng()
+        gamma = rng.uniform(1 - gamma, 1 + gamma)
+    x = np.asarray(x)
+    if x.dtype == np.uint8:
+        lut = (np.clip(((np.arange(256) / 255.0) ** gamma) * gain, 0, 1)
+               * 255).astype(np.uint8)
+        return lut[x]
+    return np.clip((x ** gamma) * gain, 0, None)

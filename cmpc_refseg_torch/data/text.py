@@ -1,9 +1,16 @@
-"""Text preprocessing for serving (reference: util/text_processing.py).
+"""Text preprocessing (reference: util/text_processing.py).
 
-The port's own copy of the JAX package's framework-free text helpers
-(back-padding convention of the fork's dynamic_rnn models: tokens, then
-<pad>, and the true length).  No trained vocabulary ships with the
-repository, so `synthetic_vocab` builds a seeded stand-in of a given size.
+The port's own copy of the JAX package's framework-free text helpers.
+Both padding conventions are load-bearing:
+
+- ``preprocess_sentence`` front-pads to T (text_processing.py:42-53), the
+  convention of the offline batch builders (`data/builders.py`);
+- ``preprocess_sentence_lstm`` back-pads and returns the true length
+  (text_processing.py:55-67), the fork's dynamic_rnn models (serving,
+  the RefVOS readers).
+
+No trained vocabulary ships with the repository, so `synthetic_vocab`
+builds a stand-in of a given size.
 """
 
 from __future__ import annotations
@@ -46,6 +53,17 @@ def sentence2vocab_indices(sentence: str,
         words = words[:-1]
     unk = vocab_dict[UNK_IDENTIFIER]
     return [vocab_dict.get(w, unk) for w in words]
+
+
+def preprocess_sentence(sentence: str, vocab_dict: Dict[str, int],
+                        T: int) -> List[int]:
+    """Truncate to T, FRONT-pad with <pad> (text_processing.py:42-53)."""
+    idx = sentence2vocab_indices(sentence, vocab_dict)
+    if len(idx) > T:
+        idx = idx[:T]
+    if len(idx) < T:
+        idx = [vocab_dict[PAD_IDENTIFIER]] * (T - len(idx)) + idx
+    return idx
 
 
 def preprocess_sentence_lstm(sentence: str, vocab_dict: Dict[str, int],

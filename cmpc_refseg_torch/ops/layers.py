@@ -113,7 +113,10 @@ def conv2d(params, x, *, stride: int = 1, dilation: int = 1):
     if w.shape[0] == 1 and w.shape[1] == 1 and stride == 1:
         y = torch.matmul(x, w[0, 0])
     else:
-        y = conv2d_nchw(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+        # a contiguous OIHW kernel: the CPU's slow_conv2d backward (taken at
+        # batch 1) rejects a permuted one; the head's kernels are small
+        y = conv2d_nchw(x.permute(0, 3, 1, 2),
+                        w.permute(3, 2, 0, 1).contiguous(),
                         stride=stride, dilation=dilation).permute(0, 2, 3, 1)
     if "biases" in params:
         y = y + params["biases"].to(dt)

@@ -14,6 +14,12 @@ when the caller asks for it).  Requests are served one at a time: the
 service holds a lock around the forward, since the card runs one stream
 and concurrency belongs in a fleet balancer.  PIL is imported by the HTTP
 handler only, so the service itself needs none.
+
+`main()` serves a checkpoint (the JAX package's server command line, with
+`-device`):
+
+    python -m cmpc_refseg_torch.serving.server -ckpt_dir CKPT \
+        -vocab data/vocabulary_Gref.txt [-n CMPC_model] [-port 8500]
 """
 
 from __future__ import annotations
@@ -164,3 +170,62 @@ def serve(service: PredictService, host: str = "127.0.0.1",
     caller decides the blocking policy (``serve_forever`` in a thread)."""
     service.warmup()
     return ThreadingHTTPServer((host, port), make_handler(service))
+
+
+def main(argv=None):
+    """Serve a checkpoint over HTTP (the JAX package's server main, with
+    `-device`): the state from `create_train_state` + `restore_checkpoint`
+    of `-ckpt_dir`, in the config the checkpoint was saved with (it must
+    be `-n`'s), the vocabulary from `-vocab`, the embedding from
+    `load_glove`.  CUDA (bf16) unless `-device cpu` (float32); raises
+    without a CUDA device otherwise."""
+    import argparse
+    ap = argparse.ArgumentParser("cmpc_refseg_torch inference server")
+    ap.add_argument("-n", dest="model_name", default="CMPC_model")
+    ap.add_argument("-ckpt_dir", dest="ckpt_dir", default="./checkpoints")
+    ap.add_argument("-vocab", dest="vocab", required=True)
+    ap.add_argument("-port", type=int, default=8500)
+    ap.add_argument("-emb", dest="emb_name", default="refvos")
+    ap.add_argument("-emb_dir", dest="emb_dir", default="data")
+    ap.add_argument("-quantize", action="store_true",
+                    help="int8 backbone serving path: not ported yet "
+                         "(raises)")
+    ap.add_argument("-device", dest="device", default=None,
+                    help="cuda (default; raises without a CUDA device) or "
+                         "cpu")
+    args = ap.parse_args(argv)
+    if args.quantize:
+        raise NotImplementedError("-quantize: the int8 backbone is not "
+                                  "ported yet (ROADMAP queue 1, item 10: "
+                                  "backbone options)")
+
+    from cmpc_refseg_torch.cli import load_glove
+    from cmpc_refseg_torch.data.text import load_vocab_dict_from_file
+    from cmpc_refseg_torch.train.checkpoint import (restore_checkpoint,
+                                                    saved_config)
+    from cmpc_refseg_torch.train.trainer import create_train_state
+
+    device = resolve_device(args.device)
+    saved = saved_config(args.ckpt_dir)
+    if saved.variant != args.model_name:
+        raise ValueError(f"-n {args.model_name}: the checkpoint under "
+                         f"{args.ckpt_dir} is of {saved.variant!r}")
+    cfg = saved.replace(compute_dtype="bfloat16" if device.type == "cuda"
+                        else "float32")
+    glove = load_glove(args.emb_dir, args.emb_name)
+    state = create_train_state(0, cfg, glove, device=device)
+    state = restore_checkpoint(args.ckpt_dir, state)
+    service = PredictService(cfg, state.params(),
+                             load_vocab_dict_from_file(args.vocab),
+                             model_state=state.model_state, device=device)
+    httpd = serve(service, port=args.port)
+    print(f"serving on :{httpd.server_address[1]} (POST /predict, "
+          "GET /healthz)", flush=True)
+    try:
+        httpd.serve_forever()
+    finally:
+        httpd.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -64,6 +64,21 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def saved_config(directory: str, step: Optional[int] = None):
+    """The config step `step` (the newest when None) under `directory` was
+    saved with: the registry's config of its name with its saved fields.
+    The file is mapped, not read.  FileNotFoundError when there is no
+    such step."""
+    from cmpc_refseg_torch.config import get_config
+    step = latest_step(directory) if step is None else step
+    if step is None or not os.path.isfile(_step_file(directory, step)):
+        raise FileNotFoundError(f"no checkpoint step {step} under "
+                                f"{directory}")
+    record = torch.load(_step_file(directory, step), map_location="cpu",
+                        weights_only=True, mmap=True)["config"]
+    return get_config(record["name"], **record["fields"])
+
+
 def _config_record(cfg) -> dict:
     return {"name": cfg.variant, "fields": dataclasses.asdict(cfg)}
 

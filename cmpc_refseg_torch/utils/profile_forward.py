@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Where the time of the port's flagship forward (or train step) goes on
 the GPU.
 
@@ -7,11 +6,11 @@ CUDA under torch.profiler, or with --train one train step (Trainer.step:
 forward, backward, Adam) on seeded uint8 batches, and prints the device
 time per kernel name and per category (the port's own kernels,
 convolutions, GEMMs, other), the device's busy share of the wall time, and
-the host time per call.  The Chrome trace goes to
-<out>/torch_forward_trace.json (torch_train_trace.json with --train).
+the host time per call.  The Chrome trace goes to <out>/forward/trace.json
+(<out>/train/trace.json with --train), written by `utils.profiling.trace`.
 
-    python3 tools/profile_torch_forward.py [--batch 8] [--steps 3] [--train]
-        [--out DIR]
+    python -m cmpc_refseg_torch.utils.profile_forward [--batch 8]
+        [--steps 3] [--train] [--out DIR]
 """
 
 import argparse
@@ -23,7 +22,8 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from cmpc_refseg_torch.api import build_model, build_trainer
+from cmpc_refseg_torch.utils.profiling import trace
 
 CATEGORIES = (
     ("port kernels", re.compile(r"mutan_|spa_affinity|graph_msg|graph_update|se_sum|convlstm_")),
@@ -49,10 +49,7 @@ def main():
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        sys.exit("profile_torch_forward: needs a CUDA GPU")
-    from torch.profiler import ProfilerActivity, profile
-
-    from cmpc_refseg_torch.api import build_model, build_trainer
+        sys.exit("profile_forward: needs a CUDA GPU")
 
     what = "train step" if args.train else "forward"
     build = build_trainer if args.train else build_model
@@ -88,8 +85,8 @@ def main():
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(os.path.join(args.out, "train" if args.train
+                            else "forward")) as prof:
         for _ in range(args.steps):
             call(feed)
         torch.cuda.synchronize()
@@ -120,10 +117,6 @@ def main():
     print(f"top device kernels (ms per {what}, launches per {what}):")
     for ms, n, name in rows[:30]:
         print(f"  {ms:9.4f}  {n:5d}  {name[:110]}")
-    os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        args.out, "torch_train_trace.json" if args.train
-        else "torch_forward_trace.json"))
 
 
 if __name__ == "__main__":

@@ -981,3 +981,106 @@ def test_padding_functions_take_odd_widths_on_the_card(cuda, name):
     assert {k for k, v in kernels.launch_counts().items() if v} == names
     assert got.shape == want.shape
     _close(name, got, want, None)
+
+
+# ---------------------------------------------------------------------------
+# the command lines on the card
+# ---------------------------------------------------------------------------
+
+CLI_TINY = ["-H", "32", "-W", "32", "-T", "8", "-rnn_size", "16",
+               "-v_emb_dim", "16", "-mlp_dim", "12", "-glove_dim", "8",
+               "-res4_blocks", "2", "-vocab_size", "7"]
+
+
+def _cli_tree(root, n=4):
+    """A fake RefVOS tree: n 48x64 JPEG frames and RGB PNG masks."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from cmpc_refseg_torch.data.refvos import OBJECT_COLOR
+    for d in ("J", "A"):
+        os.makedirs(os.path.join(root, d, "v"))
+    rng = np.random.default_rng(0)
+    meta = []
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (48, 64, 3), dtype=np.uint8)
+                        ).save(os.path.join(root, "J", "v", f"f{i}.jpg"))
+        mask = np.zeros((48, 64, 3), np.uint8)
+        mask[10:30, 20:50] = OBJECT_COLOR["1"]
+        Image.fromarray(mask).save(os.path.join(root, "A", "v", f"f{i}.png"))
+        meta.append([f"v/f{i}.jpg", f"v/f{i}.png", "the red box", "1"])
+    with open(os.path.join(root, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(["<pad>", "<go>", "<eos>", "the", "red", "box",
+                           "<unk>"]))
+    return [os.path.join(root, p) for p in ("J", "A", "meta.json",
+                                            "vocab.txt")]
+
+
+@pytest.mark.gpu
+def test_cli_runs_on_cuda_by_default(cuda, tmp_path):
+    """No -device: the CLI trains on the card, in bf16, through the
+    kernels."""
+    from cmpc_refseg_torch import cli
+    im_dir, mask_dir, meta, vocab = _cli_tree(str(tmp_path))
+    kernels.reset_launch_counts()
+    state = cli.main(["-m", "train", "-d", "refvos", "-im_dir", im_dir,
+                      "-mask_dir", mask_dir, "-meta", meta, "-vocab", vocab,
+                      "-emb_dir", str(tmp_path), "-bs", "2", "-st", "2",
+                      "-s", "0", "-workers", "1",
+                      "-ckpt_dir", str(tmp_path / "c"),
+                      "-log_dir", str(tmp_path / "l")] + CLI_TINY)
+    assert state.device.type == "cuda" and state.step == 2
+    assert state.cfg.compute_dtype == "bfloat16"
+    assert kernels.launch_counts()["mutan_fwd_residual"] > 0
+
+
+@pytest.mark.gpu
+def test_export_program_round_trips_on_the_card(cuda, tmp_path):
+    """The exported plain route, saved and loaded, gives the masks of
+    `make_predict_fn` on the card (float32: the same ops)."""
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.models.model import init_model, init_model_state
+    from cmpc_refseg_torch.serving import export
+    cfg = get_config("CMPC_model", H=32, W=32, num_steps=8, rnn_size=16,
+                     v_emb_dim=16, mlp_dim=12, glove_dim=8, res4_blocks=2,
+                     vocab_size=7, compute_dtype="float32")
+    params = init_model(0, cfg, device="cuda")
+    state = init_model_state(cfg, device="cuda")
+    path = str(tmp_path / "p.pt2")
+    export.export_program(cfg, params, state, path, batch_size=2)
+    feed = (torch.randn(2, 32, 32, 3, generator=cuda, device="cuda") * 50,
+            torch.tensor([[3, 4, 5, 0, 0, 0, 0, 0], [5, 3, 0, 0, 0, 0, 0, 0]],
+                         device="cuda"),
+            torch.tensor([3, 2], device="cuda"))
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = export.load_program(path)(*feed)
+        want = export.make_predict_fn(cfg, params, state)(*feed)
+    assert got.device.type == "cuda" and got.shape == (2, 32, 32)
+    assert not any(kernels.launch_counts().values())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_spawned_reader_workers_never_touch_cuda(cuda, tmp_path):
+    """RefVOSReader's spawned workers, started from a process that holds a
+    CUDA context, map neither torch nor libcuda."""
+    from cmpc_refseg_torch.data.refvos import RefVOSReader
+    torch.ones(1, device="cuda")
+    reader = RefVOSReader(*_cli_tree(str(tmp_path)), T=8, input_h=32,
+                          input_w=32, num_workers=2)
+    try:
+        batch = reader.read_collated(4)
+        assert batch["im_batch"].shape == (4, 32, 32, 3)
+        for proc in reader._reader._procs:
+            assert proc.is_alive()
+            with open(f"/proc/{proc.pid}/maps") as f:
+                maps = f.read()
+            assert "libtorch" not in maps and "libcuda" not in maps
+    finally:
+        reader.close()
+    assert not any(p.is_alive() for p in reader._reader._procs)
