@@ -146,7 +146,27 @@ Phases, each fatal on failure:
     readers' samples/s and the host libraries are printed.  The CLI's
     runs launch at the shapes of phase 3's train_bs8, eval_bs8 and
     serving_bs1 paths and are held there (CLI_PATHS);
-12. the kernels' share of each path's run, the `kernels` JSON line (each
+12. video and post-processing: CMPC_video_mm_tgraph_allvec (16-frame
+    clips, 5 sampled; C 1000, K 1008, A 1000, CM 500, T 20) through
+    build_model at 1 and 8 clips as phase 7 drives its configs (ms,
+    clips/s, the device split, launches, sigm against the plain route),
+    its bs=8 train step as phase 6 holds it (the planted mutan faults
+    must fail: its mutan runs at 8 x 5 x 1600 rows); the A2D command line
+    on a seeded fake npz set (64 train and 16 test clips at 320x320, 3 of
+    the test masks empty): `cli_video -m train -bs 8` 10 steps, then `-m
+    test`, whose printout must equal `evaluate_a2d` on the same weights
+    and samples within 1e-5 (n counting the non-empty samples); RefVOS
+    inference (`infer_video.run_inference`, the flagship, frame_batch 8)
+    over phase 11's kind of 32-frame 720x1280 tree with 2 expressions:
+    frames/s, the PNGs equal to masks made from Model.forward's sigm, and
+    with the native DenseCRF (required: it loads, and no frame falls back
+    to `mean_field_gaussian`) its ms per frame; on the card,
+    `mean_field_gaussian` against its CPU run (1e-5) and `nms_torch`
+    keeping `nms_numpy`'s boxes.  Phase 3 holds the video paths
+    (`video_bs1`, `video_bs8`, `video_train_bs8`: the mutan family at the
+    clips' rows, everything else at the clips' batch) and the command
+    lines' launches through CLI_PATHS (the inference at forward_bs8);
+13. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -231,9 +251,24 @@ CKPT_LOSS_TOL = 1e-4         # next-step loss, restored vs original, relative
 N_CLI_TRAIN = 64
 N_REFVOS, REFVOS_HW = 32, (720, 1280)
 CLI_PATHS = {"cli_train_bs8": "train_bs8",
-                "cli_refvos_train_bs8": "train_bs8",
-                "cli_eval_bs8": "eval_bs8", "cli_serving_bs1": "serving_bs1"}
+             "cli_refvos_train_bs8": "train_bs8",
+             "cli_eval_bs8": "eval_bs8", "cli_serving_bs1": "serving_bs1",
+             "cli_video_train_bs8": "video_train_bs8",
+             "cli_video_test_bs1": "video_bs1",
+             "infer_video_bs8": "forward_bs8"}
 IOU_TOL = 1e-5               # the CLI's printout vs `evaluate`'s results
+# phase 12, the video model and post-processing: its config; the fake A2D
+# npz set (16-frame 320x320 clips; the test samples at A2D_EMPTY have empty
+# masks, which the evaluation skips); the CLI's train steps; the RefVOS
+# inference's expressions (over phase 11's tree) and the CRF's frames
+VIDEO = "CMPC_video_mm_tgraph_allvec"
+N_A2D_TRAIN, N_A2D_TEST, A2D_EMPTY = 64, 16, (3, 9, 14)
+N_VIDEO_STEPS = 10
+N_EXPR = 2
+N_CRF = 4                    # frames refined by the native DenseCRF (~1.2 s
+                             # a frame at 320x320 on the card's host)
+N_NMS = 300                  # boxes of the on-device NMS check
+MF_TOL = 1e-5                # mean field on the card vs the CPU
 HOST_LIBS = ("PIL", "cv2", "h5py", "scipy", "tensorboardX")
 REPLACES = {
     "mutan_fused": "cmpc_refseg_tpu/ops/pallas_kernels.py:98",
@@ -392,13 +427,18 @@ def compare_stats(torch, got, want, count, tol, what):
 
 def path_spec(cfg, batch, train=False):
     """What phase 3 needs to know of a path: its batch, whether it trains,
-    its config's levels, graph norm and exchange layout, and its widths:
+    the frames per sample of its mutan (the video model's sampled frames:
+    each clip is one mutan sample of frames * N rows; 1 for the image
+    configs), its config's levels, graph norm and exchange layout, and its
+    widths:
     c = v_emb_dim, k = the mutan's K (v_emb_dim + spatial_dim, padded to a
     multiple of 8 as `cmpc.apply_mutan` pads it), a = the affinity width
     (vw_emb_dim, else v_emb_dim) and cm = mlp_dim (the fusion stack); and
     the head's options: the l2-normalized affinity, the graph rounds per
     level and the sentence fusion's second mutan."""
-    return {"batch": batch, "train": train, "levels": len(cfg.levels),
+    return {"batch": batch, "train": train,
+            "frames": len(cfg.sampled_frames) if cfg.video else 1,
+            "levels": len(cfg.levels),
             "graph_norm": cfg.graph_norm, "self_gate": cfg.exchange_self_gate,
             "l2n": bool(cfg.l2norm_affinity), "rounds": cfg.num_graph_conv,
             "sent_fusion": cfg.sent_fusion,
@@ -418,7 +458,8 @@ def path_specs(get_config):
     request and its bs=8 train step, and CMPCv4_BERT_model's bs=8 train
     step; each PLUS config's bs=8 forward, batch-1 request and bs=8 train
     step, CMPCv4_model's bs=8 conv5 step and CMPC_model's grad_accum=2
-    bs=4 micro-steps."""
+    bs=4 micro-steps; the video model's forwards of 1 and 8 clips and its
+    bs=8 train step."""
     flag = get_config("CMPC_model")
     specs = {"forward_bs8": path_spec(flag, B),
              "serving_bs1": path_spec(flag, 1),
@@ -446,6 +487,10 @@ def path_specs(get_config):
         specs[f"{tag}_train_bs8"] = path_spec(cfg, B, train=True)
     specs["v4conv5_train_bs8"] = path_spec(v4, B, train=True)
     specs[f"accum_train_bs{B // 2}"] = path_spec(flag, B // 2, train=True)
+    video = get_config(VIDEO)
+    specs["video_bs1"] = path_spec(video, 1)
+    specs[f"video_bs{B}"] = path_spec(video, B)
+    specs[f"video_train_bs{B}"] = path_spec(video, B, train=True)
     return specs
 
 
@@ -462,9 +507,12 @@ def kernel_inputs(torch, kernels, cmpc, dev, spec):
     per word).  The SE sum takes G - 1 others; the self-gated exchange
     launches none.  With `train`, the mutan kernel's training form takes
     the inference form's place, and the dz pass takes the residual v it
-    makes and a cotangent, the dW product x and the dz pass's dz.
+    makes and a cotangent, the dW product x and the dz pass's dz.  The
+    mutan family takes `frames` * N rows per sample (the video model's
+    clips), everything else N.
     Returns {wrapper name: (args, kwargs, kernel batch, groups)}."""
     batch, train, levels = spec["batch"], spec["train"], spec["levels"]
+    rows = spec["frames"] * N                 # the mutan's rows per sample
     norm = spec["graph_norm"]
     c, k, a, cm = spec["c"], spec["k"], spec["a"], spec["cm"]
     g = torch.Generator(device=dev).manual_seed(batch)
@@ -512,14 +560,14 @@ def kernel_inputs(torch, kernels, cmpc, dev, spec):
                                       limit=math.sqrt(6 / (6 * cm))),
                   uniform(N, cm, limit=0.1), uniform(N, cm, limit=0.1))
     gates, gstats = kernels.convlstm_gates_plain(*gates_args)
-    mutan_args = (randn(batch * N, k),
+    mutan_args = (randn(batch * rows, k),
                   uniform(k, HEADS * c, limit=math.sqrt(6 / (k + HEADS * c))),
                   randn(HEADS * c, scale=0.1, dtype=f32),
                   torch.tanh(randn(batch, HEADS * c, dtype=f32)))
-    mutan_kw = {"heads": HEADS, "rows_per_sample": N}
+    mutan_kw = {"heads": HEADS, "rows_per_sample": rows}
     if train:
         _, v = kernels.mutan_fwd_residual_plain(*mutan_args, **mutan_kw)
-        dz_args = (v, mutan_args[3], randn(batch * N, c, scale=1e-3))
+        dz_args = (v, mutan_args[3], randn(batch * rows, c, scale=1e-3))
         dz, _, _ = kernels.mutan_bwd_dz_plain(*dz_args, **mutan_kw)
         out = {"mutan_fwd_residual": (mutan_args, mutan_kw, batch, 1),
                "mutan_bwd_dz": (dz_args, mutan_kw, batch, 1),
@@ -551,9 +599,12 @@ def kernel_cost(name, bk, groups, spec, others=2):
     """(bf16 product FLOPs, other f32 operations, bytes) of a kernel's
     function on a batch of `bk` samples of N rows with `groups` weight
     groups (the SE sum with `others` other levels), at the path `spec`'s
-    widths: each input read once, each output written once."""
+    widths (the mutan family at `frames` * N rows a sample): each input
+    read once, each output written once."""
     c, k, a, cm = spec["c"], spec["k"], spec["a"], spec["cm"]
     m = bk * N
+    if name.startswith("mutan"):
+        m *= spec["frames"]
     if name in ("mutan_fused", "mutan_fwd_residual"):
         v_out = m * HEADS * c * 2 if name == "mutan_fwd_residual" else 0
         return (2 * m * k * HEADS * c, 4 * m * HEADS * c + 4 * m * c,
@@ -678,18 +729,20 @@ def check_kernels(torch, kernels, cmpc, dev, specs):
             bound_ms, bound_by = bound(*kernel_cost(name, bk, groups, spec,
                                                     others or 2))
             extra = {}
+            rows = bk * N * (spec["frames"] if name.startswith("mutan")
+                             else 1)
             if name == "mutan_bwd_dz":
                 # dz kernel and finalize apart; the grid is one block per SM
                 extra["split_ms"] = device_split_ms(
                     torch, lambda: wrapper(*args, **kw))
-                rows = kernels.mutan_bwd_dz_scratch(bk * N, N, spec["c"],
-                                                    HEADS)[0]
-                extra["grid"] = (rows - bk + 1) // 2
+                scratch = kernels.mutan_bwd_dz_scratch(
+                    rows, rows // bk, spec["c"], HEADS)[0]
+                extra["grid"] = (scratch - bk + 1) // 2
             if name == "convlstm_raw":   # one statistics slot per block
                 extra["grid"] = slots * bk
             rec = {
                 "name": f"{name}@{path}", "kernel": name, "path": path,
-                "shape": {"batch": bk, "groups": groups, "rows": bk * N,
+                "shape": {"batch": bk, "groups": groups, "rows": rows,
                           **{w: spec[w] for w in ("c", "k", "a", "cm")},
                           **({"others": others} if others else {}),
                           **({"masked": kw["masked"]} if "masked" in kw
@@ -717,8 +770,8 @@ def check_kernels(torch, kernels, cmpc, dev, specs):
                 prod += f"; {json.dumps(extra)}"
             form = (f", {others} other(s)" if others else "") + (
                 "" if kw.get("masked", True) else ", unmasked")
-            log(f"[kernels] {name} at {path} (batch {bk}, {groups} weight "
-                f"group(s){form}, C={spec['c']} K={spec['k']} "
+            log(f"[kernels] {name} at {path} (batch {bk}, {rows} rows, "
+                f"{groups} weight group(s){form}, C={spec['c']} K={spec['k']} "
                 f"A={spec['a']} CM={spec['cm']}): max abs err {rec['max_abs_err']:.3e} (norm "
                 f"{rec['max_norm_err']:.3e} <= {tol:.0e}){stats_note}; "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {prod}, bound "
@@ -1155,7 +1208,8 @@ def bert_text(cfg, rng, lens):
 def make_batch(cfg, batch, seed=0):
     """Seeded images and 3-20-word expressions: back-padded with 'seq_len',
     or, for the 'lstm_frontpad' encoder, front-padded with 'valid_idx' (the
-    number of pads); for the 'bert' encoder, `bert_text`."""
+    number of pads); for the 'bert' encoder, `bert_text`.  The video
+    model's batch holds a 'clip' of num_frames images instead of 'im'."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(3, cfg.num_steps + 1, batch)
     if cfg.text_encoder == "bert":
@@ -1172,8 +1226,10 @@ def make_batch(cfg, batch, seed=0):
             words[i, :n] = ids
     text = {"valid_idx": cfg.num_steps - lens} if front else \
         {"seq_len": lens.astype(np.int64)}
-    return {"im": (50 * rng.standard_normal(
-                (batch, cfg.H, cfg.W, 3))).astype(np.float32),
+    key, lead = ("clip", (batch, cfg.num_frames)) if cfg.video else \
+        ("im", (batch,))
+    return {key: (50 * rng.standard_normal(
+                (*lead, cfg.H, cfg.W, 3))).astype(np.float32),
             "words": words, **text}
 
 
@@ -1483,7 +1539,8 @@ def train_batch(cfg, batch, seed):
     quarter to all of each side), 3-20-word expressions (`bert_text` for
     the 'bert' encoder); with the detection head, the v5+ train script's labels
     of each mask's box (`preprocess_true_boxes`: 'label_bbox' and
-    'true_bbox')."""
+    'true_bbox'); for the video model, uint8 clips 'clip_u8' of
+    num_frames frames and the center frame's mask."""
     from cmpc_refseg_torch.data.anchors import (DEFAULT_ANCHORS,
                                                 preprocess_true_boxes)
     rng = np.random.default_rng(100 + seed)
@@ -1509,8 +1566,10 @@ def train_batch(cfg, batch, seed):
         for i, n in enumerate(lens):
             words[i, :n] = rng.integers(3, cfg.vocab_size, n)
         text = {"words": words, "seq_len": lens}
-    return {"im_u8": rng.integers(0, 256, (batch, cfg.H, cfg.W, 3),
-                                  dtype=np.uint8),
+    key, lead = ("clip_u8", (batch, cfg.num_frames)) if cfg.video else \
+        ("im_u8", (batch,))
+    return {key: rng.integers(0, 256, (*lead, cfg.H, cfg.W, 3),
+                              dtype=np.uint8),
             "target_u8": target, **text, **labels}
 
 
@@ -2047,21 +2106,24 @@ def device_categories(split):
 
 
 def run_variants(torch, kernels, cmpc, aspp, build_model, apply_model,
-                 card, variants=VARIANTS):
-    """Phase 7 (and phase 9 with OPTIONS): the bs=8 forward of each of
-    `variants` through build_model, counted, timed and held against the
-    plain route as phase 4 holds the flagship's; the device split of a
+                 card, variants=VARIANTS, batch=B):
+    """Phase 7 (and phase 9 with OPTIONS, phase 10 with PLUS, phase 12
+    with the video model at 1 and 8 clips): the forward of each of
+    `variants` at `batch` through build_model, counted, timed and held
+    against the plain route as phase 4 holds the flagship's; the device
+    split of a
     forward and, for the ASPP decoder, of the ASPP + decoder alone on
     inputs of its shapes (the fused features [B, 40, 40, mlp_dim] and the
     c2 tap [B, 80, 80, 256])."""
     paths, summary = {}, {}
+    bs = batch
     for tag, name, overrides in variants:
-        path = f"{tag}_bs8"
-        model = build_model(name, device=DEV, dtype="bfloat16", batch_size=B,
-                            **overrides)
+        path = f"{tag}_bs{bs}"
+        model = build_model(name, device=DEV, dtype="bfloat16",
+                            batch_size=bs, **overrides)
         cfg = model.cfg
         check_config(cfg, name, path)
-        batch = make_batch(cfg, B, seed=3)
+        batch = make_batch(cfg, bs, seed=3)
         if ("valid_idx" in batch) != (cfg.text_encoder == "lstm_frontpad"):
             fail(f"{path}: the batch's padding does not fit "
                  f"{cfg.text_encoder}")
@@ -2078,17 +2140,17 @@ def run_variants(torch, kernels, cmpc, aspp, build_model, apply_model,
             times.append((time.perf_counter() - t0) * 1e3)
         counts = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        check_counts(counts, config_launches(cmpc, cfg, B), N_FWD, path)
+        check_counts(counts, config_launches(cmpc, cfg, bs), N_FWD, path)
         with torch.inference_mode():
             ref = apply_model(model.params, cfg, feed,
                               model_state=model.model_state, use_kernels=False)
-        err = check_forward(torch, cfg, out, ref, B, path)
+        err = check_forward(torch, cfg, out, ref, bs, path)
         ms = statistics.median(times)
         split, per_fwd = device_split_ms(
             torch, lambda: model.forward(feed), reps=5, launches=True)
         split = device_categories(split)
         rec = {"config": name, **overrides, "median_ms": ms,
-               "runs_ms": times, "masks_per_s": B * 1e3 / ms,
+               "runs_ms": times, "masks_per_s": bs * 1e3 / ms,
                "peak_gb": peak, "sigm_vs_plain_max_abs": err,
                "device_ms": split, "device_kernels_per_forward": per_fwd,
                "launches": counts}
@@ -2115,9 +2177,11 @@ def run_variants(torch, kernels, cmpc, aspp, build_model, apply_model,
         dec = (f"; ASPP + decoder alone {rec['decoder_wall_ms']:.3f} ms "
                f"(host clock), device {json.dumps(rec['decoder_device_ms'])}"
                if "decoder_wall_ms" in rec else "")
-        log(f"[{path}] {card}: {name}{overrides or ''} 320x320 bs={B} bf16 "
+        unit = f"{cfg.num_frames}-frame clips" if cfg.video else "masks"
+        log(f"[{path}] {card}: {name}{overrides or ''} 320x320 bs={bs} bf16 "
             f"res4_blocks=23: {ms:.3f} ms/batch (median of {N_FWD}; all "
-            f"{[round(t, 3) for t in times]}), {B * 1e3 / ms:.1f} masks/s; "
+            f"{[round(t, 3) for t in times]}), {bs * 1e3 / ms:.1f} {unit}/s "
+            f"(one mask each); "
             f"peak memory {peak:.2f} GB; sigm vs plain max abs {err:.3e} <= "
             f"{SIGM_TOL}; device ms per forward {json.dumps(split)} over "
             f"{per_fwd:.0f} device kernels{dec}")
@@ -2953,6 +3017,404 @@ def run_cli_phase(torch, kernels, cmpc, card, train_ms, eval_sps):
     return paths, summary
 
 
+def a2d_dataset(root, vocab_size, glove_dim):
+    """Phase 12's fake A2D set, numpy alone, in `data/a2d.py`'s npz layout:
+    N_A2D_TRAIN train and N_A2D_TEST test samples of seeded uint8 16-frame
+    clips at 320x320, the center frame's box mask (empty at the test
+    samples A2D_EMPTY), 3-20 back-padded words and their length; a seeded
+    GloVe table [vocab_size, glove_dim] as `Gref_emb.npy`."""
+    import os
+    rng = np.random.default_rng(15)
+    for split, n in (("train", N_A2D_TRAIN), ("test", N_A2D_TEST)):
+        d = os.path.join(root, f"{split}_batch")
+        os.makedirs(d)
+        for i in range(n):
+            text = np.zeros(T, np.int32)
+            k = int(rng.integers(3, T + 1))
+            text[:k] = rng.integers(4, vocab_size, k)
+            mask = np.zeros((H_IMG, H_IMG), bool)
+            if not (split == "test" and i in A2D_EMPTY):
+                bh, bw = rng.integers(H_IMG // 4, H_IMG + 1, 2)
+                y, x = rng.integers(0, H_IMG - bh + 1), rng.integers(
+                    0, H_IMG - bw + 1)
+                mask[y:y + bh, x:x + bw] = True
+            np.savez(os.path.join(d, f"a2d_{split}_{i}.npz"),
+                     text_batch=text, seq_length=np.int32(k),
+                     mask_batch=mask, frames=rng.integers(
+                         0, 256, (16, H_IMG, H_IMG, 3), np.uint8))
+    glove = (0.4 * np.random.default_rng(GLOVE_SEED).standard_normal(
+        (vocab_size, glove_dim))).astype(np.float32)
+    np.save(os.path.join(root, "Gref_emb.npy"), glove)
+
+
+def run_video_cli(torch, kernels, cmpc, card, train_ms):
+    """Phase 12's A2D command line: the video model (320x320, bf16, full
+    depth) through `cli_video.main` in this process on `a2d_dataset`:
+    `-m train -bs 8` for N_VIDEO_STEPS steps and a snapshot at the last,
+    then `-m test` from it, its final score's bias moved so that the masks
+    cover part of each frame (batch 1; the empty-mask samples skipped
+    before the forward), whose printed results must equal `evaluate_a2d`
+    on the same weights and samples within IOU_TOL, with n the non-empty
+    count and a mean IoU above 0.
+    Launches held at the phase-3 paths video_train_bs8 and video_bs1
+    (CLI_PATHS).  `train_ms` is the Trainer.step ms of the video train
+    path, printed beside."""
+    import os
+    import tempfile
+
+    from cmpc_refseg_torch import cli_video
+    from cmpc_refseg_torch.data.reader import NpzReader
+    from cmpc_refseg_torch.models.model import apply_model
+    from cmpc_refseg_torch.train.checkpoint import (FILE, latest_step,
+                                                    restore_checkpoint,
+                                                    save_checkpoint)
+    from cmpc_refseg_torch.train.trainer import create_train_state
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        ck = os.path.join(root, "ckpt")
+        common = ["-f", root, "-emb_dir", root, "-ckpt_dir", ck,
+                  "-log_dir", os.path.join(root, "logs")]
+        train_argv = ["-m", "train", "-bs", str(B), "-i", str(N_VIDEO_STEPS),
+                      "-s", str(N_VIDEO_STEPS)] + common
+        cfg = cli_video.make_config(cli_video.build_argparser().parse_args(
+            train_argv), torch.device(DEV))
+        check_config(cfg, VIDEO, "cli_video")
+        t0 = time.perf_counter()
+        a2d_dataset(root, cfg.vocab_size, cfg.glove_dim)
+        dataset_s = time.perf_counter() - t0
+
+        kernels.reset_launch_counts()
+        with timed_steps(torch) as rec:
+            state, text, train_wall = run_cli(cli_video.main, train_argv)
+        counts = kernels.launch_counts()
+        check_counts(counts, config_launches(cmpc, cfg, B, train=True),
+                     N_VIDEO_STEPS, "cli_video_train_bs8")
+        if latest_step(ck) != N_VIDEO_STEPS or state.step != N_VIDEO_STEPS \
+                or len(rec["ends"]) != N_VIDEO_STEPS \
+                or "GloVe embedding not found" in text \
+                or not math.isfinite(rec["first"][1]):
+            fail(f"cli_video: the {N_VIDEO_STEPS}-step run: latest snapshot "
+                 f"{latest_step(ck)}, step {state.step}, first loss "
+                 f"{rec['first'][1]}: {text[-300:]!r}")
+        step_ms = laps_ms(rec)
+        ms = statistics.median(step_ms)
+        nbytes = os.path.getsize(os.path.join(ck, str(N_VIDEO_STEPS), FILE))
+        paths["cli_video_train_bs8"] = (counts, N_VIDEO_STEPS, ms)
+        del state
+        torch.cuda.empty_cache()
+
+        # the test set, and the step-10 weights with the final score's
+        # bias moved by minus the median logit of the first sample, saved
+        # as step 11: the masks then cover part of each frame, so the
+        # IoUs the CLI prints are not all 0 (10 steps from random weights
+        # predict none)
+        reader = NpzReader(os.path.join(root, "test_batch"), "a2d_test",
+                           shuffle=False)
+        samples = [cli_video.prepare_video_batch(
+            {k: np.asarray(v)[None] for k, v in reader.read().items()
+             if k in cli_video.SAMPLE_KEYS})
+            for _ in range(reader.num_samples)]
+        cfg1 = cfg.replace(batch_size=1)
+        st = create_train_state(0, cfg1, device=DEV)
+        restore_checkpoint(ck, st)
+        with torch.inference_mode():
+            up = apply_model(st.params(), cfg1, {
+                k: torch.as_tensor(v, device=DEV) for k, v in
+                samples[0].items() if k != "target"}).up
+        with torch.no_grad():
+            st.trainable["scores"]["score"]["biases"] -= up.median()
+        save_checkpoint(ck, st, N_VIDEO_STEPS + 1)
+
+        n_scored = N_A2D_TEST - len(A2D_EMPTY)
+        kernels.reset_launch_counts()
+        printed, text, test_wall = run_cli(cli_video.main,
+                                           ["-m", "test"] + common)
+        test_counts = kernels.launch_counts()
+        check_counts(test_counts, config_launches(cmpc, cfg, 1), n_scored,
+                     "cli_video_test_bs1")
+        paths["cli_video_test_bs1"] = (test_counts, n_scored,
+                                       test_wall * 1e3 / n_scored)
+        shown = {k: float(v) for k, v in re.findall(
+            r"^(\S+) = (\S+)$", text, re.M)}
+        t0 = time.perf_counter()
+        direct = cli_video.evaluate_a2d(cfg, st.params(), st.model_state,
+                                        samples, device=DEV)
+        direct_s = time.perf_counter() - t0
+        del st, samples
+        err = max((abs(shown[k] - float(v)) for k, v in direct.items()
+                   if k in shown), default=math.inf)
+        if set(shown) != set(direct) or not err <= IOU_TOL \
+                or direct["n"] != n_scored or shown["n"] != n_scored \
+                or not direct["mean_iou"] > 0:
+            fail(f"cli_video: the CLI printed {shown}, evaluate_a2d gives "
+                 f"{direct}; {n_scored} samples have a mask")
+    summary = {"dataset_s": dataset_s, "train_ms_steps_2_10": step_ms,
+               "train_ms": ms, "trainer_step_ms": train_ms,
+               "train_wall_s": train_wall,
+               "snapshot_bytes": nbytes, "first_loss": rec["first"][1],
+               "test_wall_s": test_wall, "test_samples": N_A2D_TEST,
+               "scored": n_scored, "evaluate_a2d_s": direct_s,
+               "printed": shown, "printed_vs_evaluate_max_abs": err}
+    log(f"[cli_video] {card}: {VIDEO} 320x320 bs={B} bf16 res4_blocks=23 "
+        f"through cli_video.main on {N_A2D_TRAIN} + {N_A2D_TEST} fake A2D "
+        f"clips: train {ms:.3f} ms/step (median of steps 2-"
+        f"{N_VIDEO_STEPS}, the loop's read and prepare included) vs "
+        f"Trainer.step {train_ms:.3f}; snapshot {nbytes} bytes; test "
+        f"{test_wall:.3f} s for {N_A2D_TEST} samples ({n_scored} scored, "
+        f"evaluate_a2d alone {direct_s:.3f} s); printed results within "
+        f"{err:.3e} <= {IOU_TOL} of evaluate_a2d: {shown}")
+    return paths, summary
+
+
+def run_video_infer(torch, kernels, cmpc, card):
+    """Phase 12's RefVOS inference: `infer_video.run_inference` with the
+    flagship (320x320, bf16, full depth) over `refvos_tree`'s N_REFVOS
+    720x1280 frames, N_EXPR expressions, frame_batch 8: frames/s; every
+    PNG (half resolution) equal to the mask `video_output_mask` makes
+    from Model.forward's sigm on the same frames (but where sigm lies
+    within 1e-4 of the threshold), launches held at forward_bs8; then
+    with use_crf=True over the first N_CRF frames of one expression, the
+    native DenseCRF required (it loads, and `mean_field_gaussian`, which
+    `refine_mask` calls where the library returns nonzero, is called no
+    time), its ms per frame."""
+    import os
+    import tempfile
+
+    from PIL import Image
+
+    from cmpc_refseg_torch import infer_video
+    from cmpc_refseg_torch.api import build_model
+    from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR, resize_and_pad
+    from cmpc_refseg_torch.data.text import (load_vocab_dict_from_file,
+                                             preprocess_sentence_lstm,
+                                             synthetic_vocab)
+    from cmpc_refseg_torch.models.model import init_model
+    from cmpc_refseg_torch.ops import densecrf
+
+    model = build_model("CMPC_model", device=DEV, dtype="bfloat16",
+                        batch_size=B)
+    cfg = model.cfg
+    check_config(cfg, "CMPC_model", "infer_video")
+    if not densecrf.native_available():
+        fail(f"infer_video: {densecrf.native_library_path()} does not load: "
+             "the CRF would fall back to its approximation")
+    with tempfile.TemporaryDirectory() as root:
+        vocab = synthetic_vocab(cfg.vocab_size)
+        vocab_path = os.path.join(root, "vocab.txt")
+        with open(vocab_path, "w") as f:
+            f.write("\n".join(sorted(vocab, key=vocab.get)) + "\n")
+        t0 = time.perf_counter()
+        im_dir, _, _ = refvos_tree(root, cfg.vocab_size)
+        tree_s = time.perf_counter() - t0
+        frames = [f"f{i}" for i in range(N_REFVOS)]
+        rng = np.random.default_rng(16)
+        exprs = {str(e): {"exp": " ".join(
+            f"w{v}" for v in rng.integers(4, cfg.vocab_size,
+                                          rng.integers(3, T + 1)))}
+            for e in range(N_EXPR)}
+        meta_path = os.path.join(root, "meta_expressions.json")
+        crf_meta = os.path.join(root, "meta_crf.json")
+        for path, videos in ((meta_path, {"v": {"expressions": exprs,
+                                                "frames": frames}}),
+                             (crf_meta, {"v": {"expressions": {
+                                 "0": exprs["0"]},
+                                 "frames": frames[:N_CRF]}})):
+            with open(path, "w") as f:
+                json.dump({"videos": videos}, f)
+        kw = dict(im_dir=im_dir, vocab_path=vocab_path, frame_batch=B,
+                  device=DEV)
+        raw = init_model(0, cfg, device=DEV)
+        out = os.path.join(root, "out")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        n = infer_video.run_inference(cfg, raw, {}, meta_path=meta_path,
+                                      out_dir=out, **kw)
+        infer_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        forwards = N_EXPR * -(-N_REFVOS // B)
+        check_counts(counts, expected_launches(cmpc, B), forwards,
+                     "infer_video_bs8")
+        paths = {"infer_video_bs8": (counts, forwards,
+                                     infer_s * 1e3 / forwards)}
+        if n != N_EXPR:
+            fail(f"infer_video: {n} expressions, expected {N_EXPR}")
+
+        # the same frames through Model.forward
+        ims = []
+        for frame in frames:
+            with Image.open(os.path.join(im_dir, "v", f"{frame}.jpg")) as im:
+                native = np.asarray(im.convert("RGB"))
+            im = resize_and_pad(native.astype(np.float32), cfg.H, cfg.W)
+            ims.append(im[..., ::-1] - IMAGE_MEAN_BGR)
+        oh, ow = native.shape[0] // 2, native.shape[1] // 2
+        words = load_vocab_dict_from_file(vocab_path)
+        differ = outside = 0
+        for eid, e in exprs.items():
+            tokens, seq_len = preprocess_sentence_lstm(e["exp"], words,
+                                                       cfg.num_steps)
+            for start in range(0, N_REFVOS, B):
+                sigm = model.forward({
+                    "im": np.stack(ims[start:start + B]).astype(np.float32),
+                    "words": np.tile(np.asarray(tokens, np.int64)[None],
+                                     (B, 1)),
+                    "seq_len": np.full((B,), seq_len)}).sigm[..., 0]
+                sigm = sigm.float().cpu().numpy()
+                for k, frame in enumerate(frames[start:start + B]):
+                    png = np.asarray(Image.open(os.path.join(
+                        out, "v", eid, f"{frame}.png")))
+                    want, lo, hi = (infer_video.video_output_mask(
+                        (sigm[k] >= t).astype(np.float32), oh, ow)
+                        for t in (0.5, 0.5 + 1e-4, 0.5 - 1e-4))
+                    if png.shape != (oh, ow):
+                        fail(f"infer_video: {eid}/{frame}.png is "
+                             f"{png.shape}, expected {(oh, ow)}")
+                    differ += int((png != want).sum())
+                    outside += int(((png < lo) | (png > hi)).sum())
+        if outside:
+            fail(f"infer_video: {outside} PNG pixels differ from "
+                 "Model.forward's masks away from the threshold")
+
+        # N_CRF frames of one expression with the DenseCRF; a call of the
+        # approximation means the native route returned nonzero
+        real, crf_ms = densecrf.refine_mask, []
+        approx, fallbacks = densecrf.mean_field_gaussian, []
+
+        def timed(*a, **k):
+            t1 = time.perf_counter()
+            r = real(*a, **k)
+            crf_ms.append((time.perf_counter() - t1) * 1e3)
+            return r
+
+        def counted(*a, **k):
+            fallbacks.append(1)
+            return approx(*a, **k)
+        densecrf.refine_mask = timed
+        densecrf.mean_field_gaussian = counted
+        try:
+            t0 = time.perf_counter()
+            infer_video.run_inference(cfg, raw, {}, use_crf=True,
+                                      meta_path=crf_meta,
+                                      out_dir=os.path.join(root, "crf"),
+                                      **kw)
+            crf_s = time.perf_counter() - t0
+        finally:
+            densecrf.refine_mask = real
+            densecrf.mean_field_gaussian = approx
+        if fallbacks:
+            fail(f"infer_video -c: the native DenseCRF failed on "
+                 f"{len(fallbacks)} of {len(crf_ms)} frames and "
+                 "mean_field_gaussian stood in")
+        crf_png = np.asarray(Image.open(os.path.join(root, "crf", "v", "0",
+                                                     "f0.png")))
+        if len(crf_ms) != N_CRF or crf_png.shape != (oh, ow) \
+                or not set(np.unique(crf_png)) <= {0, 255}:
+            fail(f"infer_video -c: {len(crf_ms)} refinements, mask "
+                 f"{crf_png.shape}")
+    frames_per_s = N_EXPR * N_REFVOS / infer_s
+    summary = {"tree_s": tree_s, "frames": N_EXPR * N_REFVOS,
+               "inference_s": infer_s, "frames_per_s": frames_per_s,
+               "png_pixels_differ": differ, "crf_frames": len(crf_ms),
+               "crf_fallbacks": len(fallbacks),
+               "crf_ms_per_frame": statistics.median(crf_ms),
+               "crf_ms_range": [min(crf_ms), max(crf_ms)],
+               "crf_run_s": crf_s,
+               "crf_frames_per_s": N_CRF / crf_s}
+    log(f"[infer_video] {card}: CMPC_model 320x320 bf16 res4_blocks=23, "
+        f"{N_EXPR} expressions x {N_REFVOS} frames of "
+        f"{REFVOS_HW[0]}x{REFVOS_HW[1]} at frame_batch {B}: "
+        f"{frames_per_s:.1f} frames/s ({infer_s:.3f} s, JPEG decode, resize "
+        f"and PNG writes included); PNGs vs Model.forward's masks: {differ} "
+        f"pixels differ (none away from the threshold); with -c (native "
+        f"DenseCRF at 320x320): refine_mask "
+        f"{summary['crf_ms_per_frame']:.3f} ms per frame (median of "
+        f"{len(crf_ms)}), {summary['crf_frames_per_s']:.1f} frames/s")
+    del model, raw
+    return paths, summary
+
+
+def run_postproc_device(torch, card):
+    """Phase 12's post-processing on the card: `mean_field_gaussian` on a
+    bs=8 320x320 batch against its CPU run (within MF_TOL), and
+    `nms_torch` on N_NMS seeded boxes with distinct scores keeping
+    `nms_numpy`'s set (and `nms_native` its list); their times."""
+    from cmpc_refseg_torch.ops import densecrf, nms
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    prob = torch.rand(B, H_IMG, H_IMG, generator=gen, device=DEV) * 0.98 \
+        + 0.01
+    got = densecrf.mean_field_gaussian(prob)
+    t0 = time.perf_counter()
+    want = densecrf.mean_field_gaussian(prob.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    mf_err = (got.cpu() - want).abs().max().item()
+    if not mf_err <= MF_TOL:
+        fail(f"mean_field_gaussian on the card vs the CPU: {mf_err:.3e} > "
+             f"{MF_TOL}")
+    mf_ms = gpu_ms(torch, lambda: densecrf.mean_field_gaussian(prob))
+    rng = np.random.default_rng(18)
+    xy = rng.random((N_NMS, 2)) * 300
+    # distinct scores: the three take ties in different orders
+    dets = np.concatenate([xy, xy + rng.random((N_NMS, 2)) * 80 + 4,
+                           rng.permutation(N_NMS)[:, None] / N_NMS],
+                          1).astype(np.float32)
+    keep = nms.nms_numpy(dets, 0.5)
+    boxes = torch.as_tensor(dets[:, :4], device=DEV)
+    scores = torch.as_tensor(dets[:, 4], device=DEV)
+    mask = nms.nms_torch(boxes, scores, 0.5)
+    got_keep = np.flatnonzero(mask.cpu().numpy()).tolist()
+    if got_keep != sorted(keep) or nms.nms_native(dets, 0.5) != keep:
+        fail(f"nms: nms_torch on the card kept {len(got_keep)} boxes, "
+             f"nms_numpy {len(keep)}, or nms_native differs")
+    nms_ms = wall_ms(torch, lambda: nms.nms_torch(boxes, scores, 0.5))
+    summary = {"mean_field_max_abs_vs_cpu": mf_err,
+               "mean_field_ms_bs8": mf_ms, "mean_field_cpu_ms_bs8": cpu_ms,
+               "nms_boxes": N_NMS, "nms_kept": len(keep),
+               "nms_torch_wall_ms": nms_ms}
+    log(f"[postproc] {card}: mean_field_gaussian bs={B} 320x320 on the card "
+        f"{mf_ms:.4f} ms (CPU {cpu_ms:.1f} ms), max abs vs the CPU "
+        f"{mf_err:.3e} <= {MF_TOL}; nms_torch over {N_NMS} boxes keeps "
+        f"nms_numpy's {len(keep)} ({nms_ms:.3f} ms host clock)")
+    return summary
+
+
+def run_video_phase(torch, kernels, autograd, cmpc, aspp, build_model,
+                    build_trainer, apply_model, compute_gradients,
+                    named_leaves, card):
+    """Phase 12: the video model's forwards of 1 and 8 clips (as phase 7
+    drives its configs), its bs=8 train step (as phase 6 holds it, with
+    `mutan_faults`' controls), the A2D command line, the RefVOS inference
+    driver with its DenseCRF, and the post-processing on the card.
+    Returns (paths, summary)."""
+    t0 = time.perf_counter()
+    paths, summary = {}, {}
+    for bs in (1, B):
+        torch.cuda.empty_cache()
+        fwd_paths, fwd = run_variants(torch, kernels, cmpc, aspp,
+                                      build_model, apply_model, card,
+                                      variants=(("video", VIDEO, {}),),
+                                      batch=bs)
+        paths.update(fwd_paths)
+        summary.update(fwd)
+    torch.cuda.empty_cache()
+    train_paths, summary[f"video_train_bs{B}"] = run_train(
+        torch, kernels, autograd, cmpc, build_trainer, compute_gradients,
+        named_leaves, card, name=VIDEO, path=f"video_train_bs{B}",
+        controls=mutan_faults(kernels))
+    paths.update(train_paths)
+    torch.cuda.empty_cache()
+    cli_paths, summary["cli_video"] = run_video_cli(
+        torch, kernels, cmpc, card,
+        summary[f"video_train_bs{B}"]["median_ms"])
+    paths.update(cli_paths)
+    torch.cuda.empty_cache()
+    inf_paths, summary["infer_video"] = run_video_infer(torch, kernels, cmpc,
+                                                        card)
+    paths.update(inf_paths)
+    summary["postproc"] = run_postproc_device(torch, card)
+    summary["phase_s"] = time.perf_counter() - t0
+    return paths, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3083,6 +3545,12 @@ def main():
                                          train["median_ms"],
                                          evaluation["samples_per_s"])
     paths.update(cli_paths)
+    torch.cuda.empty_cache()
+    # phase 12: the video model and the post-processing
+    video_paths, video = run_video_phase(
+        torch, kernels, autograd, cmpc, aspp, build_model, build_trainer,
+        apply_model, compute_gradients, named_leaves, card)
+    paths.update(video_paths)
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
@@ -3114,6 +3582,7 @@ def main():
     log(f"[bert_train_bs8] {json.dumps(bert_train)}")
     log(f"[plus] {json.dumps(plus)}")
     log(f"[cli] {json.dumps(cli_phase)}")
+    log(f"[video] {json.dumps(video)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@ Examples (mirroring trainval.sh):
 
 Runs on the CUDA device unless `-device cpu` is given, in bf16 there and
 float32 on the CPU unless `-dtype` says otherwise; without a CUDA device
-and without `-device cpu` it raises.  Flags of parts not ported yet raise
-NotImplementedError naming their ROADMAP item: `-c` (DenseCRF, queue 1
-item 9), `-mesh N` with N > 1 and `-distributed` (queue 1 item 11).
+and without `-device cpu` it raises.  `-c` scores the DenseCRF-refined
+masks beside the plain ones in test mode (``ops/densecrf.py``).  Flags of
+parts not ported yet raise NotImplementedError naming their ROADMAP
+item: `-mesh N` with N > 1 and `-distributed` (queue 1 item 11).
 
 torch is imported by the functions that run the model, not by the module:
 the RefVOS reader's spawned workers import the main module, and must not
@@ -53,7 +54,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-H", dest="H", type=int, default=320)
     p.add_argument("-W", dest="W", type=int, default=320)
     p.add_argument("-c", dest="use_crf", action="store_true",
-                   help="DenseCRF refinement: not ported yet (raises)")
+                   help="test: also score DenseCRF-refined masks")
     p.add_argument("-v", dest="visualize", action="store_true")
     p.add_argument("-conv5", dest="conv5", action="store_true")
     p.add_argument("-emb", dest="emb_name", default=None)
@@ -105,9 +106,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose part is not ported."""
-    if args.use_crf:
-        raise NotImplementedError("-c: DenseCRF refinement is not ported "
-                                  "yet (ROADMAP queue 1, item 9: densecrf)")
     if args.mesh_devices > 1 or args.distributed:
         flag = "-distributed" if args.distributed else \
             f"-mesh {args.mesh_devices}"
@@ -301,7 +299,8 @@ def run_test(args, device):
             Image.fromarray(pred.astype(np.uint8) * 255).save(
                 os.path.join(vis_dir, f"{n:05d}_pred.png"))
     results = evaluate(cfg, state.params(), state.model_state, samples,
-                       visualize_fn=visualize_fn, device=device)
+                       use_crf=args.use_crf, visualize_fn=visualize_fn,
+                       device=device)
     print_results(results)
     return results
 

@@ -521,6 +521,28 @@ def pack_levels(batch: int, num_levels: int,
         and graph_norm != "double_softmax"
 
 
+def apply_spa_graph_levels(graphs, cfg, spa_graphs, words_feat, words_parse,
+                           seq_mask, *, graph_stack=None,
+                           use_kernels: bool = True):
+    """The spatial graph of every level: level-packed when `pack_levels`
+    says so at this batch, else level by level.  `graph_stack`: the
+    levels' `stack_graph_params`, built here when None (not on the
+    autograd route, which takes the f32 weights).  Returns (list of
+    outputs, list of gw)."""
+    if graph_stack is None and not _differentiable(use_kernels):
+        graph_stack = stack_graph_params(graphs, spa_graphs[0].dtype)
+    lang = (words_feat, words_parse, seq_mask)
+    route = dict(use_kernels=use_kernels)
+    if pack_levels(spa_graphs[0].shape[0], len(spa_graphs), cfg.graph_norm):
+        return apply_spa_graph_grouped(graphs, cfg, spa_graphs, *lang,
+                                       stack=graph_stack, **route)
+    outs = [apply_spa_graph(g, cfg, v, *lang,
+                            stack=None if graph_stack is None
+                            else level_of(graph_stack, i), **route)
+            for i, (g, v) in enumerate(zip(graphs, spa_graphs))]
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
 def apply_lang2vis_multi(params_list, cfg, visuals, words_feat, words_parse,
                          seq_mask, spatial, *, graph_stack=None,
                          use_kernels: bool = True):
@@ -533,19 +555,9 @@ def apply_lang2vis_multi(params_list, cfg, visuals, words_feat, words_parse,
     valid = valid_lang_feat(words_parse, words_feat, (0, 1))  # E+A
     vis_list = [apply_mutan(p["mutan"], valid, spatial, v, **route)
                 for p, v in zip(params_list, visuals)]
-    graphs = [p["graph"] for p in params_list]
-    if graph_stack is None and not _differentiable(use_kernels):
-        graph_stack = stack_graph_params(graphs, vis_list[0].dtype)
-    lang = (words_feat, words_parse, seq_mask)
-    if pack_levels(vis_list[0].shape[0], len(vis_list), cfg.graph_norm):
-        feats, gws = apply_spa_graph_grouped(graphs, cfg, vis_list, *lang,
-                                             stack=graph_stack, **route)
-    else:
-        outs = [apply_spa_graph(g, cfg, v, *lang,
-                                stack=None if graph_stack is None
-                                else level_of(graph_stack, i), **route)
-                for i, (g, v) in enumerate(zip(graphs, vis_list))]
-        feats, gws = [o[0] for o in outs], [o[1] for o in outs]
+    feats, gws = apply_spa_graph_levels(
+        [p["graph"] for p in params_list], cfg, vis_list, words_feat,
+        words_parse, seq_mask, graph_stack=graph_stack, **route)
     if cfg.sent_fusion:
         # all parse classes but U (the reference's nec_lang)
         nec = valid_lang_feat(words_parse, words_feat,
@@ -553,7 +565,7 @@ def apply_lang2vis_multi(params_list, cfg, visuals, words_feat, words_parse,
         fusions = [_sent_fuse(p, f, nec, spatial, **route)
                    for p, f in zip(params_list, feats)]
     else:
-        fusions = [_lang2vis_fuse(p, v, f, valid, spatial)
+        fusions = [fuse_parts(p["fusion"], [v, f, valid, spatial])
                    for p, v, f in zip(params_list, vis_list, feats)]
     return fusions, gws
 
@@ -567,19 +579,21 @@ def _sent_fuse(params, graph_feat, nec, spatial, *, use_kernels: bool):
     return torch.relu(conv2d(params["fusion"], feat))
 
 
-def _lang2vis_fuse(params, vis_la_sp, graph_feat, valid, spatial):
-    """relu(conv1x1(concat([vis, graph, tiled lang, spatial]))) computed as
-    the split sum vis@Wv + graph@Wg + lang@Wl + spatial@Ws + bias, each
-    term accumulated and summed in f32, one cast at the end."""
-    dt = vis_la_sp.dtype
-    c = vis_la_sp.shape[-1]
-    cl = valid.shape[-1]
-    w = params["fusion"]["DW"][0, 0].to(dt)               # [2C+Cl+S, mlp]
-    y = (_matmul_f32(vis_la_sp, w[:c]) + _matmul_f32(graph_feat, w[c:2 * c])
-         + _matmul_f32(valid.to(dt), w[2 * c:2 * c + cl])
-         + _matmul_f32(spatial.to(dt), w[2 * c + cl:])
-         + params["fusion"]["biases"].float())
-    return torch.relu(y).to(dt)
+def fuse_parts(params, parts):
+    """relu(conv1x1(concat(parts))) as the split sum of each part's
+    product with its rows of the kernel (vis@Wv + graph@Wg + lang@Wl +
+    spatial@Ws + bias for lang2vis), each accumulated and summed in f32,
+    one cast to the first part's dtype at the end; parts broadcast over
+    h, w (the [B,1,1,C] language vector)."""
+    dt = parts[0].dtype
+    w = params["DW"][0, 0].to(dt)
+    y, row = None, 0
+    for part in parts:
+        n = part.shape[-1]
+        t = _matmul_f32(part.to(dt), w[row:row + n])
+        y = t if y is None else y + t
+        row += n
+    return torch.relu(y + params["biases"].float()).to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -63,9 +63,8 @@ DECODERS = ("multiscore", "aspp_v3plus")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.decoder not in DECODERS or cfg.video:
-        raise NotImplementedError(
-            f"variant {cfg.variant or cfg!r}: video is not ported yet")
+    if cfg.decoder not in DECODERS:
+        raise ValueError(f"unknown decoder {cfg.decoder!r}")
 
 
 def rgb_to_hsv(rgb):
@@ -99,8 +98,12 @@ def init_numpy(seed, cfg: ModelConfig, glove=None) -> dict:
     """The parameter tree as numpy arrays in the JAX package's layout, draw
     for draw what the JAX package's init_model makes from the same seed;
     `glove` [vocab_size, glove_dim] is the embedding's initial value (the
-    reference starts from GloVe, CMPC_model.py:79-81)."""
+    reference starts from GloVe, CMPC_model.py:79-81).  The video config's
+    tree is `models.video.init_numpy`'s."""
     _check_supported(cfg)
+    if cfg.video:
+        from cmpc_refseg_torch.models import video
+        return video.init_numpy(seed, cfg, glove)
     keys = split_stream(seed, 12)
     params = {
         "backbone": init_backbone(keys[0], cfg.res4_blocks),
@@ -138,7 +141,7 @@ def init_model_state(cfg: ModelConfig, *, device=None) -> dict:
     """The initial BN moving statistics (mean 0, variance 1; the second
     value of the JAX package's init_model) as float32 tensors on `device`
     (CUDA when None): {'aspp': ..., 'decoder': ...}, or {} for the
-    multiscore decoder."""
+    multiscore decoder and the video model."""
     _check_supported(cfg)
     tree = aspp.init_state() if cfg.decoder == "aspp_v3plus" else {}
     return model_state_from_jax(tree, device=device)
@@ -208,7 +211,9 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     'valid_idx' [B] (front-padded: the number of pads); for the 'bert'
     encoder, 'words_feat' [B,T,768] float32 and 'sequence_mask' [B,T]
     instead of tokens; with `bbox_head`, optionally 'anchors' [A, 2] (in
-    cells; DEFAULT_ANCHORS when absent).
+    cells; DEFAULT_ANCHORS when absent).  A video config's forward is
+    `models.video.apply_video_model` (its batch holds a 'clip' instead of
+    'im').
 
     `model_state`: the BN moving statistics (`init_model_state`), required
     by the ASPP decoder (a missing state raises: it is never replaced by
@@ -224,6 +229,22 @@ def apply_model(params, cfg: ModelConfig, batch: dict, *,
     backbone's weights need no gradient, so autograd records nothing
     there, except through the res3-5 kernels that train with conv5."""
     _check_supported(cfg)
+    if cfg.video:
+        from cmpc_refseg_torch.models import video
+        return video.apply_video_model(params, cfg, batch,
+                                       model_state=model_state, train=train,
+                                       use_kernels=use_kernels)
+    return _apply_image(params, cfg, batch, model_state=model_state,
+                        train=train, use_kernels=use_kernels)
+
+
+def _apply_image(params, cfg: ModelConfig, batch: dict, *,
+                 model_state: Optional[dict], train: bool,
+                 use_kernels: bool) -> ModelOutputs:
+    """`apply_model`'s body for the image configs."""
+    if cfg.video:
+        raise ValueError(f"{cfg.variant}: the video model's forward is "
+                         "models.video.apply_video_model")
     decoder = cfg.decoder == "aspp_v3plus"
     if decoder and model_state is None:
         raise ValueError(f"{cfg.variant or 'this config'}: the ASPP decoder "

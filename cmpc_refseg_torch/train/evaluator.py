@@ -10,8 +10,9 @@
 The forward runs batched on the device; the native-resolution mapping and
 the sums run per sample on the host, since every sample has its own size.
 `evaluate_sharded` is the on-device form at model resolution that a train
-loop's `val_fn` uses, for one device.  DenseCRF refinement is not ported
-(ROADMAP queue 1, item 9).
+loop's `val_fn` uses, for one device.  With `use_crf`, `evaluate` also
+scores the DenseCRF-refined masks (trainval_model.py:246-259,
+``ops/densecrf.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from cmpc_refseg_torch.config import ModelConfig
 from cmpc_refseg_torch.convert import resolve_device, to_device
 from cmpc_refseg_torch.data.image import resize_and_crop
 from cmpc_refseg_torch.models.model import apply_model, prepare_params
+from cmpc_refseg_torch.ops.densecrf import refine_mask
 from cmpc_refseg_torch.ops.metrics import (EVAL_PRECISION_THRESHOLDS,
                                            SegEvalAccumulator,
                                            batched_mask_iu)
@@ -104,21 +106,22 @@ def evaluate(cfg: ModelConfig, params, model_state, sample_iter, *,
     model inputs (batched [1, ...]: 'im', 'words' with 'seq_len' or
     'valid_idx', or BERT's 'words_feat' and 'sequence_mask') plus
     'orig_size' (h, w) and 'target_native' (the
-    native-resolution ground truth).
+    native-resolution ground truth), and with `use_crf` 'im_native' (the
+    native uint8 RGB image).
 
     Forwards run on `device` (CUDA when None; raises without it) in
     batches of `batch_size` (`eval_batches`); each sample's prediction is
     mapped back to its native size and summed on the host.
     `visualize_fn(n, sample, pred, sigm)` sees each sample.  Returns
-    {'no_crf': SegEvalAccumulator.result()}."""
-    if use_crf:
-        raise NotImplementedError("DenseCRF refinement is not ported yet "
-                                  "(ROADMAP queue 1, item 9: densecrf)")
+    {'no_crf': SegEvalAccumulator.result()}, and with `use_crf` also
+    'crf': the same sums of `densecrf.refine_mask` of the native image
+    and the sigmoid taken to native size (resize_and_crop)."""
     dev = resolve_device(device)
     params = prepare_params(to_device(params, dev), cfg)
     model_state = to_device(model_state or {}, dev)
     eval_step = make_eval_step(cfg, use_kernels=use_kernels)
     acc = SegEvalAccumulator()
+    acc_crf = SegEvalAccumulator() if use_crf else None
     n = 0
     for group, batch in eval_batches(sample_iter, batch_size, max_samples):
         up_b, sigm_b = eval_step(params, model_state, batch)
@@ -130,10 +133,18 @@ def evaluate(cfg: ModelConfig, params, model_state, sample_iter, *,
             pred = native_prediction(up_b[j], oh, ow)
             acc.update(np.sum(np.logical_and(pred, target)),
                        np.sum(np.logical_or(pred, target)))
+            if use_crf:
+                crf_mask = refine_mask(np.asarray(sample["im_native"]),
+                                       resize_and_crop(sigm_b[j], oh, ow))
+                acc_crf.update(np.sum(np.logical_and(crf_mask, target)),
+                               np.sum(np.logical_or(crf_mask, target)))
             if visualize_fn is not None:
                 visualize_fn(n, sample, pred, sigm_b[j])
             n += 1
-    return {"no_crf": acc.result()}
+    results = {"no_crf": acc.result()}
+    if use_crf:
+        results["crf"] = acc_crf.result()
+    return results
 
 
 def model_res_iu(up: torch.Tensor, target: torch.Tensor):

@@ -157,6 +157,24 @@ def device_image_prologue(batch: dict, device) -> dict:
     return b
 
 
+def device_clip_prologue(batch: dict, device, cfg: ModelConfig) -> dict:
+    """`device_image_prologue` of a video batch: a uint8 RGB 'clip_u8'
+    [B, num_frames, H, W, 3] has its cfg.sampled_frames gathered on the
+    device and only those expanded, into 'frames' [B, F, H, W, 3] f32 BGR
+    - mean (`models.video.apply_video_model` takes them as they are; the
+    same numbers as expanding the whole clip and gathering after)."""
+    clip = batch.get("clip_u8")
+    b = device_image_prologue({k: v for k, v in batch.items()
+                               if k != "clip_u8"}, device)
+    if clip is not None:
+        clip = torch.as_tensor(clip, device=device)
+        idx = torch.as_tensor(cfg.sampled_frames, device=device)
+        mean = torch.as_tensor(IMAGE_MEAN_BGR, dtype=torch.float32,
+                               device=device)
+        b["frames"] = clip.index_select(1, idx).float().flip(-1) - mean
+    return b
+
+
 def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
                       use_kernels: bool = True):
     """Forward (train mode), loss and backward of one batch: leaves every
@@ -164,9 +182,14 @@ def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
     new BN moving statistics in `state.model_state` (no gradient), and
     returns (loss_total, metrics), detached.  `use_kernels=False` runs the
     plain PyTorch versions of the kernels under autograd (the reference
-    the kernel route is held against)."""
-    b = device_image_prologue(batch, state.device)
-    if cfg.is_aug:
+    the kernel route is held against).  A video config's batch goes
+    through `device_clip_prologue`, and its metrics have no 'train_mIoU'
+    (the JAX package's video step has none)."""
+    if cfg.video:
+        b = device_clip_prologue(batch, state.device, cfg)
+    else:
+        b = device_image_prologue(batch, state.device)
+    if cfg.is_aug and not cfg.video:
         b["im"] = brightness_aug(aug_generator(state.step), b["im"])
     params = state.params()
     outputs = apply_model(params, cfg, b, model_state=state.model_state,
@@ -178,6 +201,8 @@ def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
     scale_bias_grads(state.trainable)
+    if cfg.video:
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}
     with torch.no_grad():
         # on-graph batch mIoU summary (CMPC_model.py:486-490)
         pred, labl = outputs.up > 0, b["target"] > 0
@@ -196,11 +221,14 @@ def make_train_step(cfg: ModelConfig, *, use_kernels: bool = True
     (the 'bert' encoder: 'words_feat' [B,T,768] f32 and 'sequence_mask'
     [B,T] instead, moved by `device_image_prologue` as they are; with the
     detection head, 'label_bbox' [B,S,S,A,5] and 'true_bbox' [B,M,4] f32,
-    `data.anchors.preprocess_true_boxes`' labels); numpy or tensors.
-    Metrics: the losses of `compute_loss`, 'train_mIoU' (0-d tensors on
-    the device) and 'learning_rate' (the lr of this micro-step's update,
-    from the update count: it advances once per update, as the JAX
-    package's MultiSteps `gradient_step` does).
+    `data.anchors.preprocess_true_boxes`' labels); numpy or tensors.  The
+    video config's batch holds 'clip_u8' [B,num_frames,H,W,3] uint8 RGB
+    (or 'clip' f32 BGR - mean) instead of the image, and the center
+    frame's 'target_u8' (`cli_video.prepare_video_batch_u8`).
+    Metrics: the losses of `compute_loss`, 'train_mIoU' (not for the
+    video model; 0-d tensors on the device) and 'learning_rate' (the lr
+    of this micro-step's update, from the update count: it advances once
+    per update, as the JAX package's MultiSteps `gradient_step` does).
 
     With grad_accum = k, the step is a micro-step: its gradient joins the
     running mean in `state.accum`, and every k-th micro-step makes one

@@ -1,16 +1,17 @@
-"""Where the time of the port's flagship forward (or train step) goes on
-the GPU.
+"""Where the time of the port's forward (or train step) goes on the GPU.
 
-Runs cmpc_refseg_torch's CMPC_model forward (320x320, bf16, full depth) on
-CUDA under torch.profiler, or with --train one train step (Trainer.step:
-forward, backward, Adam) on seeded uint8 batches, and prints the device
+Runs cmpc_refseg_torch's forward of the flagship CMPC_model, or of the
+config --model names (the video model's batch: 16-frame clips), at
+320x320, bf16, full depth on CUDA under torch.profiler, or with --train
+one train step (Trainer.step: forward, backward, Adam) on seeded uint8
+batches, and prints the device
 time per kernel name and per category (the port's own kernels,
 convolutions, GEMMs, other), the device's busy share of the wall time, and
 the host time per call.  The Chrome trace goes to <out>/forward/trace.json
 (<out>/train/trace.json with --train), written by `utils.profiling.trace`.
 
     python -m cmpc_refseg_torch.utils.profile_forward [--batch 8]
-        [--steps 3] [--train] [--out DIR]
+        [--steps 3] [--train] [--model NAME] [--out DIR]
 """
 
 import argparse
@@ -46,6 +47,7 @@ def main():
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the forward")
+    ap.add_argument("--model", default="CMPC_model")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -53,22 +55,24 @@ def main():
 
     what = "train step" if args.train else "forward"
     build = build_trainer if args.train else build_model
-    model = build("CMPC_model", device="cuda", dtype="bfloat16",
+    model = build(args.model, device="cuda", dtype="bfloat16",
                   batch_size=args.batch)
     cfg = model.cfg
     rng = np.random.default_rng(0)
     words = np.zeros((args.batch, cfg.num_steps), np.int64)
     words[:, :6] = rng.integers(3, cfg.vocab_size, (args.batch, 6))
+    image, lead = ("clip", (args.batch, cfg.num_frames)) if cfg.video \
+        else ("im", (args.batch,))
     if args.train:
-        feed = {"im_u8": rng.integers(0, 256, (args.batch, cfg.H, cfg.W, 3),
-                                      dtype=np.uint8),
+        feed = {f"{image}_u8": rng.integers(0, 256, (*lead, cfg.H, cfg.W, 3),
+                                            dtype=np.uint8),
                 "target_u8": (rng.random((args.batch, cfg.H, cfg.W, 1))
                               > 0.7).astype(np.uint8),
                 "words": words, "seq_len": np.full((args.batch,), 6)}
         call = model.step
     else:
-        feed = {"im": torch.as_tensor(50 * rng.standard_normal(
-                    (args.batch, cfg.H, cfg.W, 3)), dtype=torch.float32,
+        feed = {image: torch.as_tensor(50 * rng.standard_normal(
+                    (*lead, cfg.H, cfg.W, 3)), dtype=torch.float32,
                     device="cuda"),
                 "words": torch.as_tensor(words, device="cuda"),
                 "seq_len": torch.full((args.batch,), 6, device="cuda")}
@@ -103,7 +107,8 @@ def main():
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: {what} bs={args.batch}: {wall_ms:.3f} ms wall, host "
+    print(f"{card}: {args.model} {what} bs={args.batch}: {wall_ms:.3f} ms "
+          f"wall, host "
           f"enqueue {enqueue_ms:.3f} ms; device kernels {busy_ms:.3f} ms "
           f"per call under the profiler ({busy_ms / wall_ms:.1%} of the "
           f"unprofiled wall); {host_ops // args.steps} aten ops and "

@@ -16,7 +16,7 @@ the CPU, at the TINY geometry of tests/test_cli_e2e.py.
   IoU, mean IoU and prec@X printed within 1e-5 of JAX's printout; `-v`
   writes the same file names.
 - The flags of parts not ported raise NotImplementedError naming their
-  ROADMAP item, and without a CUDA device and without `-device cpu` the
+  ROADMAP item (`-c` no longer: it is ported), and without a CUDA device and without `-device cpu` the
   command lines raise.
 - `serving.server.main` answers a POST /predict as a `PredictService` on
   the same weights does (masks equal).
@@ -261,8 +261,17 @@ def test_visualize_writes_jax_file_names(runs):
     (["-distributed"], "item 11")])
 @pytest.mark.parametrize("mode", ["train", "test"])
 def test_unported_flags_raise(flag, item, mode):
+    """The data-parallel flags raise, naming their ROADMAP item.  `-c`
+    (item 9, ported) passes the gate and reaches `evaluate` as use_crf
+    (its run against JAX's: tests/test_torch_postproc.py)."""
+    argv = ["-m", mode, "-device", "cpu"] + flag
+    if item == "item 9":
+        args = tcli.build_argparser().parse_args(argv)
+        tcli.check_ported(args)
+        assert args.use_crf
+        return
     with pytest.raises(NotImplementedError, match=item):
-        tcli.main(["-m", mode, "-device", "cpu"] + flag)
+        tcli.main(argv)
 
 
 def test_no_cuda_without_device_cpu_raises(monkeypatch, tmp_path):

@@ -17,6 +17,7 @@ CPU.  Both are numpy host code, so the comparisons are exact:
   imports) loads no torch.
 """
 
+import importlib
 import json
 import os
 import pickle
@@ -64,7 +65,8 @@ def _assert_same(a: dict, b: dict):
 @pytest.mark.parametrize("module", [
     "data.reader", "data.refvos", "data.builders", "data.coco_mask",
     "data.h5_reader", "data.text", "data.image", "data.anchors", "cli",
-    "utils.logging", "utils.profiling"])
+    "utils.logging", "utils.profiling", "data.a2d", "cli_video",
+    "infer_video", "utils.save_image_worker"])
 def test_module_imports_no_torch(module):
     """The modules a spawned reader worker imports (its dataset's and the
     main module's) load no torch."""
@@ -217,19 +219,32 @@ def test_refvos_preprocess_sample_matches_jax():
         jv._resized_geom(720, 1280, 320, 320)
 
 
+def _warm_refvos_dataset(module_name, *args):
+    """A RefVOSDataset that has loaded one sample.  A worker's first load
+    pays for the image path's lazy imports (~0.16 s against ~2 ms for each
+    later one on the CPU), so a cold worker would hold its index while a
+    warm one runs far past the in-flight depth."""
+    dataset = importlib.import_module(module_name).RefVOSDataset(*args)
+    dataset.load(0)
+    return dataset
+
+
 def test_process_prefetch_reader_epochs_match_jax(tmp_path):
     """2 spawned workers, shard 0 of 2, 10 epochs: every sample read is one
     the shard's epochs hold (JAX's single-thread order), as often.
     Completion order across the workers is free, so a sample may arrive
     up to the in-flight depth (the index queue, the workers, the output
-    queue: 8 here) before or after its place in that order."""
+    queue: 8 here) before or after its place in that order; each worker
+    loads one sample before it takes an index, so that no first load's
+    imports stand in that depth."""
     paths = _refvos_tree(str(tmp_path))
     kw = dict(seed=2, shard_index=0, shard_count=2)
     n, depth = 30, 8
     order = jr.PrefetchReader(N_SAMPLES, lambda i: {"i": i}, **kw)
     want = [f"a thing {i}" for i in _reads(order, n + depth)]
     for m, r in ((tv, tr), (jv, jr)):
-        factory = partial(m.RefVOSDataset, *paths, 6, 16, 16, None)
+        factory = partial(_warm_refvos_dataset, m.__name__, *paths, 6, 16,
+                          16, None)
         reader = r.ProcessPrefetchReader(factory, N_SAMPLES, num_workers=2,
                                          prefetch_num=2, **kw)
         try:

@@ -277,10 +277,17 @@ def test_evaluate_sharded_matches_jax(flagship):
 
 
 def test_unported_options_raise(flagship):
+    """The mesh raises (ROADMAP item 11); the DenseCRF option (item 9) is
+    ported: it scores the refined masks beside the plain ones (held
+    against JAX in tests/test_torch_postproc.py)."""
     m = flagship
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tev.evaluate(m["tcfg"], m["tparams"], m["tstate"], iter([]),
-                     use_crf=True, device="cpu")
+    rng = np.random.default_rng(9)
+    samples = [{**s, "im_native": rng.integers(
+        0, 256, (*s["orig_size"], 3), dtype=np.uint8)}
+        for s in m["samples"][:2]]
+    res = tev.evaluate(m["tcfg"], m["tparams"], m["tstate"], iter(samples),
+                       use_crf=True, device="cpu")
+    assert set(res) == {"no_crf", "crf"} and res["crf"]["n"] == 2
     with pytest.raises(NotImplementedError, match="item 11"):
         tev.evaluate_sharded(m["tcfg"], m["tparams"], m["tstate"], iter([]),
                              mesh=object(), device="cpu")

@@ -1084,3 +1084,48 @@ def test_spawned_reader_workers_never_touch_cuda(cuda, tmp_path):
     finally:
         reader.close()
     assert not any(p.is_alive() for p in reader._reader._procs)
+
+
+VIDEO_TINY = dict(TINY, batch_size=2, num_frames=8,
+                  sampled_frames=(0, 2, 4, 6, 7))
+
+
+@pytest.mark.gpu
+def test_small_video_forward_kernel_route_matches_plain_route(cuda):
+    """A TINY bf16 video forward on the card at 2 clips of 8 frames: the
+    mutan per level once over each clip's 5 sampled frames (2 samples of
+    5 * 4 * 4 rows), the center frame's spatial graph packed, the fusion
+    stack at batch 2; sigm within 2e-2 of the plain route's."""
+    from cmpc_refseg_torch.api import build_model
+    from cmpc_refseg_torch.models.model import apply_model
+    model = build_model("CMPC_video_mm_tgraph_allvec", dtype="bfloat16",
+                        **VIDEO_TINY)
+    rng = np.random.default_rng(3)
+    words = np.zeros((2, 6), np.int64)
+    words[:, 2:] = rng.integers(3, 30, (2, 4))
+    batch = {"clip": (20 * rng.standard_normal((2, 8, 32, 32, 3))
+                      ).astype(np.float32),
+             "words": words, "valid_idx": np.array([2, 2])}
+    kernels.reset_launch_counts()
+    out = model.forward(batch)
+    assert kernels.launch_counts() == _expected_launches(model.cfg, 2)
+    with torch.inference_mode():
+        ref = apply_model(model.params, model.cfg,
+                          {k: torch.as_tensor(v, device="cuda")
+                           for k, v in batch.items()}, use_kernels=False)
+    assert out.sigm.shape == (2, 32, 32, 1) and torch.isfinite(out.sigm).all()
+    assert (out.sigm - ref.sigm).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,sxy", [(320, 320, 3.0), (45, 61, 1.5)])
+def test_mean_field_gaussian_on_the_card_matches_the_cpu(cuda, h, w, sxy):
+    """The on-device mean field (cuDNN's conv1d, f32 with TF32 off)
+    within 1e-5 of the same function on the CPU."""
+    from cmpc_refseg_torch.ops.densecrf import mean_field_gaussian
+    p = torch.rand(2, h, w, generator=cuda, device="cuda") * 0.98 + 0.01
+    got = mean_field_gaussian(p, sxy=sxy)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), mean_field_gaussian(p.cpu(),
+                                                              sxy=sxy),
+                               rtol=0, atol=1e-5)

@@ -280,11 +280,25 @@ def test_build_model_on_cpu_runs_without_kernel_launches():
 
 
 def test_unported_variant_raises():
-    """The one config not ported yet, the video model, refuses at init; the
-    sentence-conditioned fusion and the detection head, refused before,
-    init on the CPU (held against JAX in tests/test_torch_plus.py)."""
-    with pytest.raises(NotImplementedError, match="video"):
-        tinit(0, tget("CMPC_video_mm_tgraph_allvec", **TINY))
+    """No config is refused any more: the video model, the last one
+    refused, inits and runs forward on the CPU (held against JAX in
+    tests/test_torch_video.py); the sentence-conditioned fusion and the
+    detection head init on the CPU (held against JAX in
+    tests/test_torch_plus.py)."""
+    cfg = tget("CMPC_video_mm_tgraph_allvec",
+               **{**TINY, "batch_size": 1, "num_frames": 8,
+                  "sampled_frames": (0, 2, 4, 6, 7)})
+    params = tinit(0, cfg, device="cpu")
+    assert set(params["levels"]["c4"]) >= {"mutan", "tg_gconv", "graph"}
+    words = np.zeros((1, 6), np.int32)
+    words[0, :3] = [3, 4, 5]
+    with torch.inference_mode():
+        out = tapply(params, cfg, {
+            "clip": torch.zeros(1, 8, 32, 32, 3),
+            "words": torch.from_numpy(words),
+            "seq_len": torch.tensor([3])})
+    assert out.sigm.shape == (1, 32, 32, 1)
+    assert out.words_parse.shape == (1, 1, 6, 5)
     for name in ("CMPCv6_plus_model", "CMPCv5_plus_model"):
         params = tinit(0, tget(name, **TINY), device="cpu")
         assert ("sent_mutan" in params["levels"]["c4"]) == (

@@ -5,7 +5,8 @@
         --model CMPC_model --out OUT [--step N]
 
 Restores step N (the newest when omitted) of the orbax checkpoint under
-CKPT into a JAX train state of the config, through the JAX package's
+CKPT into a JAX train state of the config (the video model's built by
+the JAX package's cli_video.create_video_train_state), through its
 restore_checkpoint (which also migrates its legacy layouts); unravels the
 flat trainable vector and Adam's first and second moments into trees;
 builds the port's TrainState from them on the CPU
@@ -47,8 +48,12 @@ def convert(ckpt_dir: str, model: str, out: str, step=None,
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-    target = create_train_state(jax.random.PRNGKey(0),
-                                get_config(model, **overrides))
+    cfg = get_config(model, **overrides)
+    if cfg.video:
+        from cmpc_refseg_tpu.cli_video import create_video_train_state
+        target = create_video_train_state(0, cfg)
+    else:
+        target = create_train_state(jax.random.PRNGKey(0), cfg)
     jstate = restore_checkpoint(ckpt_dir, target, step)
 
     def tree(flat):
