@@ -166,7 +166,23 @@ Phases, each fatal on failure:
     (`video_bs1`, `video_bs8`, `video_train_bs8`: the mutan family at the
     clips' rows, everything else at the clips' batch) and the command
     lines' launches through CLI_PATHS (the inference at forward_bs8);
-13. the kernels' share of each path's run, the `kernels` JSON line (each
+13. int8 backbone, VGG16-FCN, data parallelism: phase 5's 20 requests
+    through `PredictService(quantize=True)`, dynamic and calibrated on 4
+    seeded images (latency beside phase 5's, the backbone's bytes on the
+    card, masks agreeing with the bf16 service's on > 95% of the pixels),
+    on one request all 104 units' int32 accumulations (`torch._int_mm`)
+    bit-equal to the float64 conv, c5 against the f32 backbone within the
+    JAX package's bounds, a bs=8 int8 forward; VGG16-FCN at bs=1 and 8 in
+    bf16 (fc8 against float32 by a stated bound); two ranks on the one
+    card over gloo (spawned): the flagship's and CMPCv4_model's DP
+    gradients at global bs=8 held against the plain route by phase 6's
+    rule, 3 DP steps against single-process steps, the ranks bit-equal
+    after each, `evaluate_sharded` over the ranks, `cli.main -m train
+    -distributed` through torchrun's environment, and a one-rank NCCL
+    step bit-equal to the step without a group.  Phase 3 holds the ranks'
+    launches at their shapes (`v4_dp_train_bs4`, `dp_eval_bs4`; the
+    flagship's rank step shares `accum_train_bs4`'s);
+14. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -255,7 +271,14 @@ CLI_PATHS = {"cli_train_bs8": "train_bs8",
              "cli_eval_bs8": "eval_bs8", "cli_serving_bs1": "serving_bs1",
              "cli_video_train_bs8": "video_train_bs8",
              "cli_video_test_bs1": "video_bs1",
-             "infer_video_bs8": "forward_bs8"}
+             "infer_video_bs8": "forward_bs8",
+             # phase 13: the int8 backbone leaves the head's shapes alone,
+             # and a rank's flagship step is the accumulation's bs=4 one
+             "int8_dynamic_serving_bs1": "serving_bs1",
+             "int8_calibrated_serving_bs1": "serving_bs1",
+             "int8_forward_bs8": "forward_bs8",
+             f"dp_train_bs{B // 2}": f"accum_train_bs{B // 2}",
+             f"cli_dp_train_bs{B // 2}": f"accum_train_bs{B // 2}"}
 IOU_TOL = 1e-5               # the CLI's printout vs `evaluate`'s results
 # phase 12, the video model and post-processing: its config; the fake A2D
 # npz set (16-frame 320x320 clips; the test samples at A2D_EMPTY have empty
@@ -270,6 +293,28 @@ N_CRF = 4                    # frames refined by the native DenseCRF (~1.2 s
 N_NMS = 300                  # boxes of the on-device NMS check
 MF_TOL = 1e-5                # mean field on the card vs the CPU
 HOST_LIBS = ("PIL", "cv2", "h5py", "scipy", "tensorboardX")
+# phase 13: the int8 backbone, VGG16-FCN and data parallelism on one card
+INT8_UNITS = 104             # ResNet-101's conv units: conv1, 4 shortcuts,
+                             # 33 blocks x 3
+N_CAL = 4                    # calibration images of the calibrated service
+# the JAX package's own bounds on the int8 backbone
+# (tests/test_model.py:154-199): c5 against the f32 backbone, and the
+# masks against the unquantized model at 0.5
+INT8_C5_REL, INT8_C5_COS, INT8_AGREE = 0.08, 0.995, 0.95
+# VGG16-FCN in bf16 against float32: each of its 16 convs rounds its input
+# and its weights to bf16 (2^-9 relative each) and sums in f32, so the
+# relative error of fc8's norm grows at most ~linearly with depth
+VGG_CONVS = 16
+VGG_TOL = VGG_CONVS * 2 * 2.0 ** -9
+N_DP, DP_STEPS = 2, 3        # ranks sharing the card over gloo; DP steps
+DP_CONFIGS = (("dp", "CMPC_model"), ("v4_dp", "CMPCv4_model"))
+N_DP_CLI = 3                 # steps of the 2-rank command line
+# a DP loss against the single process's from the same weights on the same
+# global batch, relative: the readings were 2.3e-5 (flagship) and 3.7e-4
+# (CMPCv4_model, whose ill-conditioned image-level BN moves most) on the
+# H100 (PERF.md), so a wrong step sits well above it
+DP_LOSS_TOL = 2e-3
+DP_TIMEOUT = 900             # s for all of the ranks' work: a hang fails
 REPLACES = {
     "mutan_fused": "cmpc_refseg_tpu/ops/pallas_kernels.py:98",
     "mutan_fwd_residual": "cmpc_refseg_tpu/ops/pallas_kernels.py:332",
@@ -459,7 +504,8 @@ def path_specs(get_config):
     step; each PLUS config's bs=8 forward, batch-1 request and bs=8 train
     step, CMPCv4_model's bs=8 conv5 step and CMPC_model's grad_accum=2
     bs=4 micro-steps; the video model's forwards of 1 and 8 clips and its
-    bs=8 train step."""
+    bs=8 train step; a data-parallel rank's CMPCv4_model step and
+    flagship evaluation at half of bs=8."""
     flag = get_config("CMPC_model")
     specs = {"forward_bs8": path_spec(flag, B),
              "serving_bs1": path_spec(flag, 1),
@@ -491,6 +537,10 @@ def path_specs(get_config):
     specs["video_bs1"] = path_spec(video, 1)
     specs[f"video_bs{B}"] = path_spec(video, B)
     specs[f"video_train_bs{B}"] = path_spec(video, B, train=True)
+    # phase 13's ranks: CMPCv4_model's step and the flagship's evaluation
+    # on each rank's half of a bs=8 batch (the flagship's step: CLI_PATHS)
+    specs[f"v4_dp_train_bs{B // 2}"] = path_spec(v4, B // 2, train=True)
+    specs[f"dp_eval_bs{B // 2}"] = path_spec(flag, B // 2)
     return specs
 
 
@@ -1616,6 +1666,19 @@ def mutan_faults(kernels):
             ("mutan dW x 1.10", dw_scaled(1.10), False))
 
 
+def draw_weights(torch, leaves, saved, i):
+    """Draw i of check_train_routes: `leaves` set to `saved`, times
+    (1 + NOISE_EPS N(0, 1)) from seed i for i > 0, leaf by leaf in order
+    (the same draws in every process on the card)."""
+    with torch.no_grad():
+        gen = torch.Generator(device=DEV).manual_seed(i)
+        for leaf, old in zip(leaves, saved):
+            leaf.copy_(old)
+            if i:
+                leaf.mul_(1 + NOISE_EPS * torch.randn(
+                    leaf.shape, generator=gen, device=DEV))
+
+
 def check_train_routes(torch, trainer, reference, compute_gradients,
                        named_leaves, batch, kernel=None, controls=()):
     """The loss and every trainable gradient of the kernel route (g_k) against
@@ -1684,13 +1747,9 @@ def check_train_routes(torch, trainer, reference, compute_gradients,
     def draw(i):
         """Both trainers' weights, times (1 + NOISE_EPS N(0, 1)) drawn from
         seed i for i > 0."""
+        draw_weights(torch, [a for a, _ in pairs], saved, i)
         with torch.no_grad():
-            gen = torch.Generator(device=DEV).manual_seed(i)
-            for (a, b), old in zip(pairs, saved):
-                a.copy_(old)
-                if i:
-                    a.mul_(1 + NOISE_EPS * torch.randn(
-                        a.shape, generator=gen, device=DEV))
+            for a, b in pairs:
                 b.copy_(a)
 
     def kernel_readings(read):
@@ -3414,6 +3473,770 @@ def run_video_phase(torch, kernels, autograd, cmpc, aspp, build_model,
     summary["phase_s"] = time.perf_counter() - t0
     return paths, summary
 
+def tree_bytes(tree):
+    """Bytes of the distinct storages under a tree of tensors (a view and
+    its base count once)."""
+    seen = {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        else:
+            st = node.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    walk(tree)
+    return sum(seen.values())
+
+
+def check_accumulations(torch, bb, svc, request):
+    """On one request through `svc` (an int8 service), every conv unit's
+    int32 accumulations from `int8_conv_gemm` (`torch._int_mm`) held
+    bit-equal to `int8_conv_plain` (float64 `F.conv2d`, exact) on the same
+    codes.  Returns the units' shape classes and their count."""
+    seen = []
+    real = bb.int8_conv_gemm
+
+    def checked(xq, w_gemm, *, ksize, stride=1, dilation=1):
+        got = real(xq, w_gemm, ksize=ksize, stride=stride, dilation=dilation)
+        cin = xq.shape[1]
+        k = ksize * ksize * cin
+        w_q = w_gemm[:, :k].reshape(-1, ksize, ksize, cin).permute(0, 3, 1,
+                                                                    2)
+        want = bb.int8_conv_plain(xq, w_q, stride=stride, dilation=dilation)
+        seen.append({"class": f"{ksize}x{ksize}/{stride} d{dilation}",
+                     "k": k, "k_gemm": w_gemm.shape[1],
+                     "m": got.shape[0] * got.shape[2] * got.shape[3],
+                     "n": got.shape[1], "equal": bool(torch.equal(got, want)),
+                     "max_abs_err": (got.double() - want.double()).abs()
+                     .max().item()})
+        return got
+
+    bb.int8_conv_gemm = checked
+    try:
+        svc.predict(*request)
+    finally:
+        bb.int8_conv_gemm = real
+    bad = [u for u in seen if not u["equal"]]
+    if len(seen) != INT8_UNITS or bad:
+        fail(f"int8: {len(seen)} units (expected {INT8_UNITS}); "
+             f"{len(bad)} whose int32 accumulations differ from the float64 "
+             f"conv, first {bad[:1]}")
+    classes = {}
+    for u in seen:
+        key = f"{u['class']} K {u['k']}" + (
+            f" -> {u['k_gemm']}" if u["k_gemm"] != u["k"] else "")
+        classes[key] = classes.get(key, 0) + 1
+    want = {"7x7/2 d1 K 147 -> 152", "1x1/1 d1", "1x1/2 d1", "3x3/1 d1",
+            "3x3/1 d2", "3x3/1 d4"}
+    missing = {c for c in want if not any(k.startswith(c) for k in classes)}
+    if missing:
+        fail(f"int8: shape classes not met on the request: {missing}")
+    return classes
+
+
+def run_int8(torch, kernels, cmpc, build_service, card, bf16_serving,
+             bf16_fwd_ms):
+    """Phase 13a: the int8 backbone serving path of the flagship (bf16,
+    full depth, seed-0 weights).  Phase 5's 20 requests through
+    `PredictService(quantize=True)`, dynamic scales and then calibrated on
+    N_CAL seeded images: latency beside phase 5's bf16 service, launches
+    counted, masks agreeing with a bf16 service's on > INT8_AGREE of the
+    pixels at 0.5; the backbone's bytes on the card, int8 against bf16;
+    on one request every unit's int32 accumulations bit-equal to the
+    float64 conv (`check_accumulations`); the JAX package's quality bounds
+    on c5 at full width against the f32 backbone; a bs=8 forward with the
+    int8 backbone (ms, device split) beside phase 4's."""
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR, resize_and_pad
+    from cmpc_refseg_torch.models import backbone as bb
+    from cmpc_refseg_torch.models.model import (apply_model, init_model,
+                                                prepare_backbone,
+                                                prepare_params)
+
+    svc = build_service("CMPC_model", dtype="bfloat16", device=DEV)
+    cfg = svc.cfg
+    requests = request_set(np, cfg.vocab_size)
+    bf16_probs = [svc.predict(img, expr)[0] for img, expr in requests]
+    bf16_bytes = tree_bytes(svc.params["backbone"])
+    del svc
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(31)
+    cal = []
+    for _ in range(N_CAL):
+        h, w = rng.integers(240, 641, 2)
+        im = resize_and_pad(rng.integers(0, 256, (h, w, 3)).astype(
+            np.float32), cfg.H, cfg.W)
+        cal.append((im[..., ::-1] - IMAGE_MEAN_BGR)[None].astype(np.float32))
+    paths, out = {}, {"bf16_backbone_bytes": bf16_bytes}
+    for tag, images in (("dynamic", None), ("calibrated", cal)):
+        path = f"int8_{tag}_serving_bs1"
+        t0 = time.perf_counter()
+        svc = build_service("CMPC_model", dtype="bfloat16", device=DEV,
+                            quantize=True, calibration_images=images)
+        build_s = time.perf_counter() - t0
+        unit = svc.params["backbone"]["res5c"]["branch2b"]
+        if unit["w_q"].dtype != torch.int8 or "w" in unit or \
+                ("x_scale" in unit) != (images is not None):
+            fail(f"{path}: the backbone is not int8 ({sorted(unit)})")
+        svc.warmup()
+        svc.predict(*requests[0])
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        latency, probs = [], []
+        for img, expr in requests:
+            t0 = time.perf_counter()
+            probs.append(svc.predict(img, expr)[0])
+            latency.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        check_counts(counts, config_launches(cmpc, cfg, 1), N_REQ, path)
+        same = sum(int(((p > 0.5) == (q > 0.5)).sum())
+                   for p, q in zip(probs, bf16_probs))
+        agree = same / sum(p.size for p in probs)
+        if not all(np.isfinite(p).all() and p.shape == img.shape[:2]
+                   for p, (img, _) in zip(probs, requests)) \
+                or not agree > INT8_AGREE:
+            fail(f"{path}: masks agree with the bf16 service's on "
+                 f"{agree:.4f} of the pixels (> {INT8_AGREE} needed), or "
+                 "prob is non-finite or misshaped")
+        rec = {"median_ms": float(np.percentile(latency, 50)),
+               "p90_ms": float(np.percentile(latency, 90)),
+               "runs_ms": latency, "mask_agreement": agree,
+               "build_s": build_s,
+               "backbone_bytes": tree_bytes(svc.params["backbone"])}
+        if tag == "dynamic":
+            rec["units"] = check_accumulations(torch, bb, svc, requests[1])
+        out[tag] = rec
+        paths[path] = (counts, N_REQ, rec["median_ms"])
+        log(f"[{path}] {card}: CMPC_model 320x320 bf16 res4_blocks=23, "
+            f"int8 backbone ({tag} activation scales): {N_REQ} requests, "
+            f"latency median {rec['median_ms']:.3f} ms, p90 "
+            f"{rec['p90_ms']:.3f} ms (bf16 backbone, phase 5: "
+            f"{bf16_serving['median_ms']:.3f} / "
+            f"{bf16_serving['p90_ms']:.3f}); masks agree with the bf16 "
+            f"service's on {agree:.4%} of the pixels (> {INT8_AGREE}); "
+            f"backbone {rec['backbone_bytes']} bytes on the card vs bf16 "
+            f"{bf16_bytes}")
+        del svc
+        torch.cuda.empty_cache()
+    log(f"[int8] on one request, all {INT8_UNITS} units' int32 "
+        f"accumulations bit-equal to the float64 conv; shape classes "
+        f"{json.dumps(out['dynamic']['units'])}")
+
+    # the JAX package's quality bounds at full width
+    f32 = get_config("CMPC_model", compute_dtype="float32")
+    backbone = init_model(0, f32, device=DEV)["backbone"]
+    quant = prepare_backbone(bb.quantize_backbone(backbone), f32)
+    x = torch.as_tensor(50 * np.random.default_rng(0).standard_normal(
+        (1, cfg.H, cfg.W, 3)).astype(np.float32), device=DEV)
+    with torch.inference_mode():
+        ref = bb.apply_backbone(backbone, x, taps=("c5",),
+                                res4_blocks=f32.res4_blocks)["c5"].double()
+        got = bb.apply_backbone(quant, x, taps=("c5",),
+                                res4_blocks=f32.res4_blocks)["c5"].double()
+    rel = ((ref - got).norm() / ref.norm()).item()
+    cos = ((ref * got).sum() / (ref.norm() * got.norm())).item()
+    if not (rel < INT8_C5_REL and cos > INT8_C5_COS):
+        fail(f"int8: c5 against the f32 backbone: relative error {rel:.4f} "
+             f"(< {INT8_C5_REL}), cosine {cos:.5f} (> {INT8_C5_COS})")
+    out["c5_rel_err"], out["c5_cosine"] = rel, cos
+    del backbone, quant, ref, got
+    torch.cuda.empty_cache()
+
+    # a bs=8 forward with the int8 backbone
+    cfg8 = get_config("CMPC_model", compute_dtype="bfloat16", batch_size=B)
+    params = prepare_params(init_model(0, cfg8, device=DEV), cfg8,
+                            quantize_backbone=True)
+    feed = {k: torch.as_tensor(v, device=DEV)
+            for k, v in make_batch(cfg8, B, seed=3).items()}
+
+    def forward():
+        with torch.inference_mode():
+            return apply_model(params, cfg8, feed, model_state={})
+    sigm = forward().sigm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(N_FWD):
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    check_counts(counts, expected_launches(cmpc, B), N_FWD,
+                 "int8_forward_bs8")
+    if sigm.shape != (B, cfg8.H, cfg8.W, 1) or \
+            not torch.isfinite(sigm).all():
+        fail(f"int8_forward_bs8: sigm {tuple(sigm.shape)} or non-finite")
+    ms = statistics.median(times)
+    raw = device_split_ms(torch, forward, reps=5)
+    split = {**device_categories(raw), "top": sorted(
+        raw.items(), key=lambda kv: -kv[1])[:6]}
+    out["forward_bs8"] = {"median_ms": ms, "runs_ms": times,
+                          "masks_per_s": B * 1e3 / ms, "device_ms": split,
+                          "bf16_forward_ms_phase4": bf16_fwd_ms}
+    paths["int8_forward_bs8"] = (counts, N_FWD, ms)
+    log(f"[int8_forward_bs8] {card}: CMPC_model 320x320 bs={B} bf16 "
+        f"res4_blocks=23, int8 backbone (dynamic): {ms:.3f} ms/batch "
+        f"(median of {N_FWD}; all {[round(t, 3) for t in times]}) vs the "
+        f"bf16 backbone's {bf16_fwd_ms:.3f} (phase 4); device ms per "
+        f"forward {json.dumps(split)}; c5 vs the f32 backbone: relative "
+        f"error {rel:.4f} < {INT8_C5_REL}, cosine {cos:.5f} > "
+        f"{INT8_C5_COS}")
+    del params, feed
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def run_vgg(torch, card):
+    """Phase 13b: VGG16-FCN (its init bit-equal by construction to the
+    JAX package's) at 320x320 in bf16, bs=1 and bs=8: host-clock ms per
+    forward (median of 5 groups of 5) and the shapes; fc8 held against the
+    float32 run (TF32 off) on the same input, ||fc8_bf16 - fc8_f32|| /
+    ||fc8_f32|| <= VGG_TOL."""
+    from cmpc_refseg_torch.convert import vgg16_fcn_from_jax
+    from cmpc_refseg_torch.models.vgg16_fcn import (apply_vgg16_fcn,
+                                                    init_vgg16_fcn)
+    t0 = time.perf_counter()
+    params = vgg16_fcn_from_jax(init_vgg16_fcn(0), device=DEV)
+    out = {"init_s": time.perf_counter() - t0}
+    for bs in (1, B):
+        x = torch.as_tensor(50 * np.random.default_rng(bs).standard_normal(
+            (bs, H_IMG, H_IMG, 3)).astype(np.float32), device=DEV)
+
+        def forward(dtype=torch.bfloat16):
+            with torch.inference_mode():
+                return apply_vgg16_fcn(params, x, compute_dtype=dtype)
+        got = forward()
+        shapes = {k: list(v.shape) for k, v in got.items()
+                  if k in ("pool3", "conv5_3", "fc7", "fc8")}
+        if shapes["fc8"] != [bs, H_IMG // 8, H_IMG // 8, 1000]:
+            fail(f"vgg bs={bs}: shapes {shapes}")
+        ms = wall_ms(torch, forward)
+        raw = device_split_ms(torch, forward, reps=3)
+        split = {**device_categories(raw), "top": sorted(
+            raw.items(), key=lambda kv: -kv[1])[:4]}
+        ref = forward(None)["fc8"].double()
+        fc8 = got["fc8"].double()
+        rel = ((fc8 - ref).norm() / ref.norm()).item()
+        if not rel <= VGG_TOL:
+            fail(f"vgg bs={bs}: fc8 in bf16 vs float32: relative error "
+                 f"{rel:.3e} > {VGG_TOL:.3e}")
+        out[f"bs{bs}"] = {"ms": ms, "images_per_s": bs * 1e3 / ms,
+                          "device_ms": split,
+                          "fc8_rel_err": rel,
+                          "fc8_max_abs_err": (fc8 - ref).abs().max().item(),
+                          "fc8_max_abs": ref.abs().max().item(),
+                          "shapes": shapes}
+        log(f"[vgg16_fcn_bs{bs}] {card}: 320x320 bs={bs} bf16: {ms:.3f} "
+            f"ms per forward ({bs * 1e3 / ms:.1f} images/s; device ms "
+            f"{json.dumps(split)}); fc8 vs "
+            f"float32 relative error {rel:.3e} <= {VGG_TOL:.3e} ({VGG_CONVS}"
+            f" convs x 2 x 2^-9); shapes {json.dumps(shapes)}")
+        del x, got, ref, fc8
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(rank, init_file, port, root, argvs, results, release):
+    """A data-parallel rank of phase 13 (a spawned process; `dp_tasks`),
+    reporting (rank, kind, payload) on `results`, or (rank, 'error',
+    traceback) before it exits nonzero."""
+    import os
+    import traceback
+    # deterministic cuBLAS for the one-rank NCCL step's bit-equality check;
+    # set before the process makes a cuBLAS handle
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+    import torch.multiprocessing  # noqa: F401  CUDA tensors through queues
+    try:
+        dp_tasks(torch, rank, init_file, port, root, argvs, results, release)
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+    results.put((rank, "done", None))
+
+
+def dp_tasks(torch, rank, init_file, port, root, argvs, results, release):
+    """The ranks' work, two ranks on cuda:0 over gloo: for each of
+    DP_CONFIGS, its bs=8 trainer (each rank the same seed, checked), then
+    DP_STEPS steps on the halves of DP_STEPS batches.  Before each step,
+    the gradients of the DP route (each rank's half of the batch, the
+    all-reduced mean) at check_train_routes' draws 1 to NOISE_DRAWS of the
+    step's weights; then the timed `Trainer.step`, whose all-reduced
+    gradient (an optimizer pre-hook), loss and BN batch statistics are
+    draw 0; the ranks' weights and BN statistics bit-equal after each,
+    launches counted over the steps alone.  Rank 0 sends each reading and
+    the weights after each step on `results` (CUDA tensors, kept until
+    `release` is set).  Then `evaluate_sharded` over the group on phase 8's
+    batches; `cli.main -m train -distributed` in a group joined from
+    torchrun's environment (`argvs[rank]`); and on rank 0 the one-rank
+    NCCL step against the step without a group (`nccl_step`)."""
+    import os
+
+    import torch.distributed as dist
+
+    from cmpc_refseg_torch import cli
+    from cmpc_refseg_torch.api import build_trainer
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.models.aspp import BN_DECAY
+    from cmpc_refseg_torch.models.model import init_model, init_model_state
+    from cmpc_refseg_torch.ops import kernels
+    from cmpc_refseg_torch.parallel.mesh import (all_reduce_mean_,
+                                                 check_replicated,
+                                                 initialize_distributed,
+                                                 shard_batch)
+    from cmpc_refseg_torch.train.evaluator import evaluate_sharded
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+    from cmpc_refseg_torch.train.trainer import (compute_gradients,
+                                                 reduce_gradients)
+
+    dev = initialize_distributed(f"file://{init_file}", N_DP, rank,
+                                 backend="gloo", device=DEV)
+    keep = []
+
+    def flat(tensors):
+        return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+    def bn_stats(before, after):
+        return {"/".join(p): ((a.double() - BN_DECAY * b.double())
+                              / (1 - BN_DECAY)).cpu()
+                for (p, a), (_, b) in zip(named_leaves(after),
+                                          named_leaves(before))}
+
+    def send(kind, payload):
+        # rank 0's CUDA tensors stay alive until the parent has copied them
+        keep.extend(t for t in payload if torch.is_tensor(t))
+        results.put((rank, kind, payload))
+    for tag, name in DP_CONFIGS:
+        trainer = build_trainer(name, device=dev, dtype="bfloat16",
+                                batch_size=B)
+        state, cfg = trainer.state, trainer.cfg
+        leaves = [leaf for _, leaf in named_leaves(state.trainable)]
+        check_replicated(leaves)
+        local = [shard_batch(train_batch(cfg, B, i)) for i in range(DP_STEPS)]
+        used = []     # the all-reduced gradient each update takes
+        state.optimizer.register_step_pre_hook(
+            lambda *_: used.append(flat(leaf.grad for leaf in leaves)))
+        times, losses, counts = [], [], {}
+        for j, batch in enumerate(local):
+            # check_train_routes' draws of this step's weights (draw 0 is
+            # the step itself, below)
+            saved = [leaf.detach().clone() for leaf in leaves]
+            for i in range(1, NOISE_DRAWS + 1):
+                draw_weights(torch, leaves, saved, i)
+                before = state.model_state
+                loss, _ = compute_gradients(state, cfg, batch)
+                reduce_gradients(state)
+                loss = loss.reshape(1).clone()
+                all_reduce_mean_([loss])
+                grads = flat(leaf.grad for leaf in leaves)
+                stats = bn_stats(before, state.model_state)
+                state.optimizer.zero_grad(set_to_none=True)
+                state.model_state = before
+                if rank == 0:
+                    send(f"{tag}_reading", (j, i, loss.item(), grads, stats))
+            draw_weights(torch, leaves, saved, 0)
+            del saved
+            before = state.model_state
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = trainer.step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            for k, v in kernels.launch_counts().items():
+                counts[k] = counts.get(k, 0) + v
+            losses.append(float(metrics["loss_total"]))
+            check_replicated(leaves + [v for _, v in named_leaves(
+                state.model_state)], "weights and BN statistics after a "
+                "step")
+            if rank == 0:
+                send(f"{tag}_reading", (j, 0, losses[-1], used[-1],
+                                        bn_stats(before, state.model_state)))
+                send(f"{tag}_after", (j, flat(leaves)))
+        if rank == 0:
+            results.put((rank, f"{tag}_steps", {
+                "losses": losses, "times_ms": times, "step": state.step,
+                "counts": counts}))
+        del trainer, state, leaves, used
+        torch.cuda.empty_cache()
+
+    ev_cfg = get_config("CMPC_model", compute_dtype="bfloat16",
+                        batch_size=B)
+    samples = eval_samples(ev_cfg)
+    batches = [{k: np.concatenate([s[k] for s in samples[i:i + B]])
+                for k in ("im", "words", "seq_len", "target")}
+               for i in range(0, N_EVAL - B + 1, B)]
+    params = init_model(0, ev_cfg, device=dev)
+    model_state = init_model_state(ev_cfg, device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = evaluate_sharded(ev_cfg, params, model_state, iter(batches),
+                           mesh=dist.group.WORLD, device=dev)
+    msg = {"results": res, "seconds": time.perf_counter() - t0,
+           "counts": kernels.launch_counts()}
+    if rank == 0:
+        # one device over the same rows at the ranks' batch, in this
+        # process (the same cuBLAS set-up: bf16 forwards that round
+        # otherwise can flip a pixel at the threshold)
+        msg["one_device"] = evaluate_sharded(
+            ev_cfg, params, model_state, iter(
+                {k: v[j:j + B // N_DP] for k, v in b.items()}
+                for b in batches for j in range(0, B, B // N_DP)),
+            device=dev)
+    results.put((rank, "eval", msg))
+    del params
+    torch.cuda.empty_cache()
+
+    dist.destroy_process_group()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(N_DP), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    # gloo, so that both ranks can share the card: the command line runs in
+    # the group its process has joined
+    initialize_distributed(backend="gloo", device=DEV)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = cli.main(argvs[rank])
+    results.put((rank, "cli", {"step": st.step,
+                               "seconds": time.perf_counter() - t0,
+                               "counts": kernels.launch_counts()}))
+    del st
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        results.put((rank, "nccl", nccl_step(torch, init_file + ".nccl")))
+    if not release.wait(timeout=DP_TIMEOUT):
+        raise RuntimeError("the parent never took the readings")
+
+
+def nccl_step(torch, init_file):
+    """One flagship bs=8 step from the seed without a process group, again
+    (the control: the step is deterministic), then under a one-rank NCCL
+    group; the losses and every weight bit-equal to the first, since a
+    one-rank all-reduce of the gradients and metrics must change
+    nothing.  Then `agree_any` under that group (its host-side gloo
+    group)."""
+    import torch.distributed as dist
+
+    from cmpc_refseg_torch.api import build_trainer
+    from cmpc_refseg_torch.parallel.mesh import (agree_any,
+                                                 initialize_distributed)
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    trainer = build_trainer("CMPC_model", device=DEV, dtype="bfloat16",
+                            batch_size=B)
+    state = trainer.state
+    leaves = [leaf for _, leaf in named_leaves(state.trainable)]
+    initial = [leaf.detach().clone() for leaf in leaves]
+    batch = train_batch(trainer.cfg, B, 0)
+
+    def step():
+        with torch.no_grad():
+            for leaf, w in zip(leaves, initial):
+                leaf.copy_(w)
+        state.optimizer.state.clear()
+        state.step = 0
+        loss = trainer.step(batch)["loss_total"].clone()
+        torch.cuda.synchronize()
+        return loss, [leaf.detach().clone() for leaf in leaves]
+
+    def equal(a, b):
+        return bool(torch.equal(a[0], b[0])) and all(
+            torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    first = step()
+    control = equal(first, step())
+    initialize_distributed(f"file://{init_file}", 1, 0, device=DEV)
+    try:
+        backend = dist.get_backend()
+        grouped = step()
+        # the preemption flag, agreed over the gloo group made beside NCCL
+        agreed = [agree_any(False), agree_any(True)]
+    finally:
+        dist.destroy_process_group()
+    torch.use_deterministic_algorithms(False)
+    return {"backend": backend, "control_equal": control,
+            "nccl_equal": equal(first, grouped), "agreed": agreed,
+            "loss": first[0].item(), "nccl_loss": grouped[0].item()}
+
+
+def run_dp(torch, kernels, cmpc, build_trainer, compute_gradients,
+           named_leaves, card, train_ms):
+    """Phase 13c: data parallelism on the one card, N_DP ranks on cuda:0
+    over gloo in spawned processes (`dp_rank`), then the checks here:
+    for the flagship and CMPCv4_model at global bs=8, each of the DP_STEPS
+    DP steps held against the single process on the same whole batch from
+    the weights that DP step started from: its gradients against the
+    plain route by check_train_routes' rule (DP as the route under test:
+    draw 0 the step's own all-reduced gradient, the other draws read by
+    the ranks; CMPCv4_model's BN batch statistics by phase 7's rule), its
+    loss against the single process's kernel route within DP_LOSS_TOL,
+    and its update: the single process's `Trainer.step` whose optimizer
+    takes the DP step's gradient must leave every weight bit-equal to the
+    ranks' (a wrong lr, bias correction or moment under DP fails it), so
+    each step starts from the ranks' weights.  The ranks bit-equal after
+    each step (checked by the ranks), launches held at each rank's
+    shapes; `evaluate_sharded` over the ranks equal (overall IoU, prec@X,
+    n) to one device over the same rows at the ranks' batch of 4 (bf16
+    forwards at another batch round differently, and a pixel at the
+    threshold may flip; rank 0 runs it), every rank returning the same;
+    the 2-rank `cli.main -m train -distributed` on phase 11's kind of npz
+    set: rank 0 alone logs and writes snapshots, its first loss within
+    DP_LOSS_TOL of the single-process CLI's; the one-rank NCCL step
+    bit-equal to the step without a group.  Step ms: two ranks share one
+    card, so they show correctness, not scaling.  A rank that fails or
+    outlives DP_TIMEOUT fails the phase."""
+    import os
+    import queue
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from cmpc_refseg_torch import cli
+
+    paths, out = {}, {}
+    ctx = mp.get_context("spawn")
+    results, release = ctx.Queue(), ctx.Event()
+    with tempfile.TemporaryDirectory() as root, socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        base = ["-m", "train", "-d", "unc", "-t", "train", "-n",
+                "CMPC_model", "-f", root, "-emb_dir", root, "-bs", str(B),
+                "-workers", "1", "-st", str(N_DP_CLI), "-s", str(N_DP_CLI),
+                "-device", DEV]
+        cfg, _ = cli.make_config(cli.build_argparser().parse_args(base),
+                                 torch.device(DEV))
+        cli_dataset(root, cfg.vocab_size, cfg.glove_dim)
+
+        def dirs(tag):
+            return ["-ckpt_dir", os.path.join(root, f"ckpt_{tag}"),
+                    "-log_dir", os.path.join(root, f"logs_{tag}")]
+        argvs = [base + dirs(f"rank{r}") + ["-distributed", "-mesh",
+                                            str(N_DP)]
+                 for r in range(N_DP)]
+        sock.close()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=dp_rank, args=(
+            r, os.path.join(root, "rdzv"), port, root, argvs, results,
+            release)) for r in range(N_DP)]
+        for p in procs:
+            p.start()
+        got, deadline = {}, time.perf_counter() + DP_TIMEOUT
+        try:
+            done = 0
+            while done < N_DP:
+                try:
+                    rank, kind, payload = results.get(
+                        timeout=max(1.0, deadline - time.perf_counter()))
+                except queue.Empty:
+                    fail(f"dp: the ranks did not finish within "
+                         f"{DP_TIMEOUT} s (got {sorted(got)})")
+                if kind == "error":
+                    fail(f"dp: rank {rank} failed:\n{payload}")
+                if kind == "done":
+                    done += 1
+                    continue
+                if kind.endswith("_reading"):
+                    j, i, loss, flat, stats = payload
+                    payload = (j, i, loss, flat.clone(), stats)
+                    del flat
+                elif kind.endswith("_after"):
+                    payload = (payload[0], payload[1].clone())
+                got.setdefault(kind, {}).setdefault(rank, []).append(payload)
+                if kind == "nccl":
+                    # the last thing rank 0 sends: every reading is copied
+                    release.set()
+        finally:
+            release.set()
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.terminate()
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"dp: rank exit codes {[p.exitcode for p in procs]}")
+        ranks_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+
+        for tag, name in DP_CONFIGS:
+            path = f"{tag}_train_bs{B // 2}"
+            steps = got[f"{tag}_steps"][0][0]
+            readings = {(j, i): r for j, i, *r in got.pop(f"{tag}_reading")[0]}
+            afters = dict(got.pop(f"{tag}_after")[0])
+            trainer = build_trainer(name, device=DEV, dtype="bfloat16",
+                                    batch_size=B)
+            reference = build_trainer(name, device=DEV, dtype="float32",
+                                      batch_size=B)
+            tcfg = trainer.cfg
+            leaves = [leaf for _, leaf in named_leaves(
+                trainer.state.trainable)]
+            ref_leaves = [leaf for _, leaf in named_leaves(
+                reference.state.trainable)]
+            batches = [train_batch(tcfg, B, i) for i in range(DP_STEPS)]
+            used = []      # the DP update's gradient, for the replay
+
+            def dp_update(*_):
+                k = 0
+                with torch.no_grad():
+                    for leaf in leaves:
+                        leaf.grad.copy_(used[0][k:k + leaf.numel()]
+                                        .view_as(leaf))
+                        k += leaf.numel()
+            trainer.state.optimizer.register_step_pre_hook(dp_update)
+            routes, single, replay = [], [], []
+            for j, b in enumerate(batches):
+                def dp_reading(i, j=j):
+                    loss, flat, stats = readings[j, i]
+                    grads, k = [], 0
+                    for leaf in leaves:
+                        grads.append(flat[k:k + leaf.numel()]
+                                     .view_as(leaf).double())
+                        k += leaf.numel()
+                    return loss, grads, {p: v.to(DEV)
+                                         for p, v in stats.items()}
+                # the f32 reference at this step's weights and brightness
+                # draw (the update count)
+                with torch.no_grad():
+                    for a, r in zip(leaves, ref_leaves):
+                        r.copy_(a)
+                reference.state.step = trainer.state.step
+                routes.append(check_train_routes(
+                    torch, trainer, reference, compute_gradients,
+                    named_leaves, b, kernel=dp_reading))
+                # the single process's step from the same weights on the
+                # whole batch, its update made from the DP step's gradient:
+                # the weights must come out bit-equal to the ranks'
+                used[:] = [readings[j, 0][1]]
+                single.append(float(trainer.step(b)["loss_total"]))
+                after = torch.cat([leaf.detach().reshape(-1)
+                                   for leaf in leaves])
+                differ = [p for (p, _), ok in zip(
+                    named_leaves(trainer.state.trainable), torch.split(
+                        after == afters[j], [x.numel() for x in leaves]))
+                    if not bool(ok.all())]
+                replay.append(len(differ))
+                if differ:
+                    fail(f"{path}: step {j + 1}: {len(differ)} leaves of "
+                         f"the ranks' weights differ from the single "
+                         f"process's update from the same weights with the "
+                         f"DP gradient, first {differ[:3]}")
+                del after
+            del reference, readings, afters, ref_leaves, used
+            torch.cuda.empty_cache()
+            errs = [abs(a - b) / abs(b) for a, b in zip(steps["losses"],
+                                                        single)]
+            if not max(errs) <= DP_LOSS_TOL or steps["step"] != DP_STEPS:
+                fail(f"{path}: DP losses {steps['losses']} vs the single "
+                     f"process's from the same weights {single}: relative "
+                     f"{errs} (<= {DP_LOSS_TOL}), step {steps['step']}")
+            check_counts(steps["counts"], config_launches(
+                cmpc, tcfg, B // 2, train=True), DP_STEPS, path)
+            ms = statistics.median(steps["times_ms"])
+            paths[path] = (steps["counts"], DP_STEPS, ms)
+            out[path] = {"routes": routes, "dp_losses": steps["losses"],
+                         "single_losses": single, "loss_rel_errs": errs,
+                         "replay_leaves_differing": replay,
+                         "step_ms": steps["times_ms"]}
+            for j, r in enumerate(routes):
+                log(f"[{path}] step {j + 1}: DP gradients vs the single "
+                    f"process's plain route: loss relative "
+                    f"{r['loss_rel_err']:.3e}, worst resolved leaf "
+                    f"{r['worst_resolved_grad_rel_err']:.3e} "
+                    f"({r['worst_resolved_grad_leaf']}), leaf counts "
+                    f"{r['counts']}, BN statistics "
+                    f"{r['bn_stats_rel_err_max']}")
+            log(f"[{path}] {card}: {name} 320x320 global bs={B} over {N_DP} "
+                f"ranks on one card (gloo), bf16 res4_blocks=23: "
+                f"{DP_STEPS} steps, each step's gradients by "
+                f"check_train_routes' rule (above), losses "
+                f"{steps['losses']} vs the single process's from each "
+                f"step's weights {single} (relative <= {max(errs):.3e} <= "
+                f"{DP_LOSS_TOL}), the single process's update from the DP "
+                f"gradient bit-equal to the ranks' weights after every "
+                f"step, the ranks' weights and BN statistics bit-equal "
+                f"after each; rank step ms "
+                f"{[round(t, 3) for t in steps['times_ms']]}"
+                f" (two ranks share one card: not scaling; phase 6's "
+                f"single-process bs={B} step {train_ms:.3f})")
+            del trainer, leaves
+            torch.cuda.empty_cache()
+
+        # sharded evaluation against one device over the same rows
+        evals = [got["eval"][r][0] for r in range(N_DP)]
+        if any(e["results"] != evals[0]["results"] for e in evals):
+            fail(f"dp_eval: the ranks returned different results "
+                 f"{[e['results'] for e in evals]}")
+        one = evals[0]["one_device"]
+        sharded = evals[0]["results"]
+        batches = (N_EVAL - B) // B + 1
+        exact = ["overall_iou", "n"] + [k for k in one
+                                        if k.startswith("prec@")]
+        if any(sharded[k] != one[k] for k in exact) or \
+                not abs(sharded["mean_iou"] - one["mean_iou"]) <= 1e-6:
+            fail(f"dp_eval: sharded {sharded} vs one device {one}")
+        check_counts(evals[0]["counts"], expected_launches(cmpc, B // 2),
+                     batches, f"dp_eval_bs{B // 2}")
+        paths[f"dp_eval_bs{B // 2}"] = (evals[0]["counts"], batches,
+                                        evals[0]["seconds"] * 1e3 / batches)
+        out["eval"] = {"sharded": sharded, "one_device_bs4": one,
+                       "seconds": evals[0]["seconds"]}
+        log(f"[dp_eval_bs{B // 2}] {card}: evaluate_sharded over {N_DP} "
+            f"ranks of {batches * B} samples: {json.dumps(sharded)}"
+            f"; equal to one device over the same rows at bs={B // 2} "
+            f"(overall IoU, prec@X, n; mean IoU within 1e-6)")
+
+        # the 2-rank command line
+        clis = [got["cli"][r][0] for r in range(N_DP)]
+        logs0 = os.path.join(root, "logs_rank0", "metrics.jsonl")
+        written = [os.path.exists(os.path.join(root, f"{d}_rank1"))
+                   for d in ("ckpt", "logs")]
+        if [c["step"] for c in clis] != [N_DP_CLI] * N_DP or any(written) \
+                or not os.path.exists(os.path.join(root, "ckpt_rank0",
+                                                   str(N_DP_CLI))) \
+                or not os.path.exists(logs0):
+            fail(f"dp_cli: steps {[c['step'] for c in clis]}; rank 1 "
+                 f"wrote (ckpt, logs) {written}; rank 0's snapshot and log")
+        kernels.reset_launch_counts()
+        run_cli(cli.main, base + dirs("single") + ["-st", "1"])
+        with open(logs0) as f:
+            dp_loss = json.loads(f.readline())["loss_total"]
+        with open(os.path.join(root, "logs_single", "metrics.jsonl")) as f:
+            one_loss = json.loads(f.readline())["loss_total"]
+        cli_err = abs(dp_loss - one_loss) / abs(one_loss)
+        if not cli_err <= DP_LOSS_TOL:
+            fail(f"dp_cli: rank 0's first loss {dp_loss} vs the single "
+                 f"process's {one_loss}: relative {cli_err:.3e}")
+        check_counts(clis[0]["counts"], expected_launches(
+            cmpc, B // 2, train=True), N_DP_CLI, f"cli_dp_train_bs{B // 2}")
+        paths[f"cli_dp_train_bs{B // 2}"] = (
+            clis[0]["counts"], N_DP_CLI,
+            clis[0]["seconds"] * 1e3 / N_DP_CLI)
+        out["cli"] = {"first_loss": dp_loss, "single_first_loss": one_loss,
+                      "rel_err": cli_err, "seconds": clis[0]["seconds"]}
+        log(f"[cli_dp] {card}: cli.main -m train -distributed, {N_DP} ranks "
+            f"(torchrun's environment, gloo on one card), {N_DP_CLI} steps "
+            f"at global bs={B}: rank 0 alone wrote logs and snapshots; its "
+            f"first loss {dp_loss!r} vs the single-process CLI's "
+            f"{one_loss!r} (relative {cli_err:.3e} <= {DP_LOSS_TOL}); "
+            f"{clis[0]['seconds']:.1f} s for the run")
+
+    nccl = got["nccl"][0][0]
+    if not (nccl["control_equal"] and nccl["nccl_equal"]
+            and nccl["backend"] == "nccl"
+            and nccl["agreed"] == [False, True]):
+        fail(f"dp_nccl: the one-rank NCCL step vs the step without a "
+             f"group: {nccl}")
+    out["nccl"] = nccl
+    out["ranks_s"] = ranks_s
+    log(f"[dp_nccl] {card}: CMPC_model bs={B} step under a one-rank "
+        f"{nccl['backend']} group bit-equal to the step without one "
+        f"(loss {nccl['loss']!r}; two steps without a group bit-equal too); "
+        f"agree_any over its host-side gloo group {nccl['agreed']}; "
+        f"the ranks' work took {ranks_s:.1f} s")
+    return paths, out
+
 
 def main():
     import torch
@@ -3551,6 +4374,20 @@ def main():
         torch, kernels, autograd, cmpc, aspp, build_model, build_trainer,
         apply_model, compute_gradients, named_leaves, card)
     paths.update(video_paths)
+    torch.cuda.empty_cache()
+    # phase 13: the int8 backbone, VGG16-FCN and data parallelism
+    t13 = time.perf_counter()
+    int8_paths, int8 = run_int8(torch, kernels, cmpc, build_service, card,
+                                serving, paths["forward_bs8"][2])
+    paths.update(int8_paths)
+    torch.cuda.empty_cache()
+    vgg = run_vgg(torch, card)
+    torch.cuda.empty_cache()
+    dp_paths, dp = run_dp(torch, kernels, cmpc, build_trainer,
+                          compute_gradients, named_leaves, card,
+                          train["median_ms"])
+    paths.update(dp_paths)
+    log(f"[phase 13] {time.perf_counter() - t13:.1f} s")
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
@@ -3583,6 +4420,9 @@ def main():
     log(f"[plus] {json.dumps(plus)}")
     log(f"[cli] {json.dumps(cli_phase)}")
     log(f"[video] {json.dumps(video)}")
+    log(f"[int8] {json.dumps(int8)}")
+    log(f"[vgg16_fcn] {json.dumps(vgg)}")
+    log(f"[dp] {json.dumps(dp)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -99,12 +99,14 @@ def build_model(name: str, *, seed: int = 0, glove=None, device=None,
 
 
 def build_service(name: str, *, seed: int = 0, glove=None, device=None,
-                  dtype=None, vocab=None, **overrides) -> PredictService:
+                  dtype=None, vocab=None, quantize: bool = False,
+                  calibration_images=None, **overrides) -> PredictService:
     """A batch-1 `PredictService` for variant `name` with parameters from
     `seed` (the embedding from `glove` when given), on `device` (CUDA when
     None).  `vocab` is a word -> index map; when None, a synthetic
     vocabulary of the config's size stands in for the reference's
-    vocabulary file.  A 'bert' config raises: the service tokenizes an
+    vocabulary file.  `quantize` and `calibration_images`: the service's
+    int8 backbone.  A 'bert' config raises: the service tokenizes an
     expression, and BERT features come from a model outside the
     repository."""
     dev = resolve_device(device)
@@ -112,7 +114,8 @@ def build_service(name: str, *, seed: int = 0, glove=None, device=None,
     return PredictService(cfg, init_model(seed, cfg, glove, device=dev),
                           vocab or synthetic_vocab(cfg.vocab_size),
                           model_state=init_model_state(cfg, device=dev),
-                          device=dev)
+                          device=dev, quantize=quantize,
+                          calibration_images=calibration_images)
 
 
 def build_trainer(name: str, *, seed: int = 0, glove=None, device=None,

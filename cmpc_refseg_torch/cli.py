@@ -11,9 +11,17 @@ Examples (mirroring trainval.sh):
 Runs on the CUDA device unless `-device cpu` is given, in bf16 there and
 float32 on the CPU unless `-dtype` says otherwise; without a CUDA device
 and without `-device cpu` it raises.  `-c` scores the DenseCRF-refined
-masks beside the plain ones in test mode (``ops/densecrf.py``).  Flags of
-parts not ported yet raise NotImplementedError naming their ROADMAP
-item: `-mesh N` with N > 1 and `-distributed` (queue 1 item 11).
+masks beside the plain ones in test mode (``ops/densecrf.py``).
+
+Data-parallel training, one process per device, launched by torchrun:
+  torchrun --nproc_per_node N -m cmpc_refseg_torch.cli -m train \
+      -distributed -bs 8 ...
+`-distributed` joins the process group from torchrun's environment
+(``parallel/mesh.py``) before any device use, on `cuda:LOCAL_RANK`, or
+runs in the group that the calling process has joined already; `-bs`
+is the global batch, each rank reads its shard of the data, the
+validation runs sharded over the ranks and only rank 0 logs and writes
+snapshots.  `-mesh N` (N > 1) must equal the world size.
 
 torch is imported by the functions that run the model, not by the module:
 the RefVOS reader's spawned workers import the main module, and must not
@@ -84,8 +92,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="cuda (default; raises without a CUDA device) or "
                         "cpu (the kernels' plain versions)")
     p.add_argument("-mesh", dest="mesh_devices", type=int, default=0,
-                   help="data-parallel devices: 0 and 1 run on one device; "
-                        "more are not ported yet (raises)")
+                   help="data-parallel devices: 0 means the world size "
+                        "(1 without -distributed); more than 1 must equal "
+                        "the world size of a -distributed run")
     p.add_argument("-workers", dest="num_workers", type=int, default=0,
                    help="host input-pipeline worker PROCESSES "
                         "(0 = min(8, cpu_count); 1 = single prefetch "
@@ -100,18 +109,24 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-res4_blocks", type=int, default=None)
     p.add_argument("-vocab_size", type=int, default=None)
     p.add_argument("-distributed", action="store_true",
-                   help="multi-host training: not ported yet (raises)")
+                   help="data-parallel run under torchrun: join the process "
+                        "group from its environment before any device use; "
+                        "each rank reads batch_size / world_size samples a "
+                        "step and only rank 0 logs and writes snapshots "
+                        "(a process that has joined a group already runs "
+                        "in that one)")
     return p
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose part is not ported."""
-    if args.mesh_devices > 1 or args.distributed:
-        flag = "-distributed" if args.distributed else \
-            f"-mesh {args.mesh_devices}"
-        raise NotImplementedError(f"{flag}: data-parallel and multi-host "
-                                  "runs are not ported yet (ROADMAP queue "
-                                  "1, item 11: parallel)")
+def check_mesh(args, world: int) -> None:
+    """`-mesh N` with N > 1 must be the world size: the port runs one
+    process per device."""
+    if args.mesh_devices > 1 and args.mesh_devices != world:
+        raise ValueError(
+            f"-mesh {args.mesh_devices} with a world of {world} "
+            f"process(es): the port runs one process per device; launch "
+            f"with torchrun --nproc_per_node {args.mesh_devices} ... "
+            "-distributed")
 
 
 def load_glove(emb_dir: str, emb_name: str):
@@ -167,26 +182,37 @@ class NpzCollator:
 
 
 def run_train(args, device):
+    import torch.distributed as dist
+
     from cmpc_refseg_torch.data.refvos import RefVOSReader
+    from cmpc_refseg_torch.parallel.mesh import (is_primary_process,
+                                                 process_count,
+                                                 process_index)
     from cmpc_refseg_torch.train.trainer import create_train_state, train_loop
     from cmpc_refseg_torch.utils.logging import MetricLogger
 
     cfg, emb_name = make_config(args, device)
     glove = load_glove(args.emb_dir, emb_name)
+    mesh = dist.group.WORLD if process_count() > 1 else None
 
+    # every rank draws the same epoch permutation and reads its own
+    # shard_index::shard_count stride of it
+    shard_kw = {"shard_index": process_index(),
+                "shard_count": process_count()}
     if args.dataset == "refvos":
         workers = args.num_workers or min(8, os.cpu_count() or 1)
         reader = RefVOSReader(
             im_dir=args.im_dir, mask_dir=args.mask_dir,
             metadata_path=args.meta, vocab_path=args.vocab,
             T=cfg.num_steps, input_h=cfg.H, input_w=cfg.W,
-            prefetch_num=4 * max(workers, 1), num_workers=workers)
+            prefetch_num=4 * max(workers, 1), num_workers=workers,
+            **shard_kw)
     else:
         from cmpc_refseg_torch.data.reader import NpzReader
         reader = NpzCollator(NpzReader(
             os.path.join(args.data_folder, args.dataset, args.split
                          + "_batch"),
-            f"{args.dataset}_{args.split}"))
+            f"{args.dataset}_{args.split}", **shard_kw))
 
     state = None
     start_iter = args.last_iter
@@ -222,12 +248,13 @@ def run_train(args, device):
                     yield prepare_image_batch(
                         val_reader.read_collated(cfg.batch_size), cfg)
             res = evaluate_sharded(cfg, st.params(), st.model_state,
-                                   batches(), device=device)
-            print(f"[val] overall IoU {res['overall_iou']:.4f} "
-                  f"mean IoU {res['mean_iou']:.4f} (n={res['n']})")
+                                   batches(), mesh=mesh, device=device)
+            if is_primary_process():
+                print(f"[val] overall IoU {res['overall_iou']:.4f} "
+                      f"mean IoU {res['mean_iou']:.4f} (n={res['n']})")
             return res
 
-    logger = MetricLogger(args.log_dir)
+    logger = MetricLogger(args.log_dir) if is_primary_process() else None
     try:
         return train_loop(cfg, reader, max_iter=args.stop_iter, state=state,
                           glove=glove, device=device,
@@ -236,7 +263,8 @@ def run_train(args, device):
                           start_iter=start_iter, val_fn=val_fn,
                           val_every=args.val_every if args.val_meta else 0)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
         if isinstance(reader, RefVOSReader):
             reader.close()
 
@@ -309,8 +337,20 @@ def main(argv=None):
     from cmpc_refseg_torch.convert import resolve_device
 
     args = build_argparser().parse_args(argv)
-    check_ported(args)
-    device = resolve_device(args.device)
+    if args.distributed:
+        import torch.distributed as dist
+
+        from cmpc_refseg_torch.parallel.mesh import (initialize_distributed,
+                                                     local_device,
+                                                     process_count)
+        if dist.is_initialized():
+            device = local_device(args.device)
+        else:
+            device = initialize_distributed(device=args.device)
+        check_mesh(args, process_count())
+    else:
+        check_mesh(args, 1)
+        device = resolve_device(args.device)
     if args.mode == "train":
         return run_train(args, device)
     return run_test(args, device)

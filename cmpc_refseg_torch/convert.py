@@ -4,8 +4,10 @@ and TrainState.
 
 The port keeps the JAX pytree's structure and names.  Leaves become float32
 tensors; the backbone's conv kernels go from HWIO to PyTorch's OIHW (the
-backbone runs through ``F.conv2d``).  Head kernels stay HWIO, as the port's
-``conv2d`` takes them (a 1x1 head conv is a channel matmul with DW[0, 0]).
+backbone runs through ``F.conv2d``), a quantized backbone's int8 `w_q`
+likewise, staying int8 (its `w_scale` and calibrated `x_scale` are
+float32).  Head kernels stay HWIO, as the port's ``conv2d`` takes them (a
+1x1 head conv is a channel matmul with DW[0, 0]); so do VGG16-FCN's.
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ def _tree(node, device, in_backbone=False):
             if in_backbone and k == "w":
                 out[k] = _tensor(np.transpose(np.asarray(v), (3, 2, 0, 1)),
                                  device)
+            elif in_backbone and k == "w_q":
+                out[k] = torch.as_tensor(np.ascontiguousarray(np.transpose(
+                    np.asarray(v, np.int8), (3, 2, 0, 1))), device=device)
             else:
                 out[k] = _tree(v, device, in_backbone)
         return out
@@ -72,6 +77,20 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
         raise ValueError(f"levels {tuple(tree['levels'])} do not match the "
                          f"config's {tuple(cfg.levels)}")
     return _convert(tree, device)
+
+
+def backbone_from_jax(tree: dict, *, device=None) -> dict:
+    """A JAX backbone pytree alone (`init_backbone`, or `quantize_backbone`
+    / `calibrate_backbone` of it) -> the port's backbone tree on `device`
+    (CUDA when None)."""
+    return _tree(tree, resolve_device(device), in_backbone=True)
+
+
+def vgg16_fcn_from_jax(tree: dict, *, device=None) -> dict:
+    """JAX VGG16-FCN parameters (`init_vgg16_fcn`) -> float32 tensors on
+    `device` (CUDA when None), HWIO kernels as the port's ``conv2d`` takes
+    them."""
+    return _tree(tree, resolve_device(device))
 
 
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")

@@ -11,8 +11,11 @@ is frozen.  The moving statistics are an explicit `state` tree
 In train mode BN normalizes with the batch's biased mean and variance over
 (B, H, W), computed in float32 whatever the conv's dtype, and the moving
 statistics become s * 0.9997 + batch * 0.0003; in eval mode it uses the
-moving statistics.  The convs run through cuDNN and the BN arithmetic is
-plain PyTorch, as the JAX package leaves this subgraph to XLA.
+moving statistics.  Under a process group of R > 1 ranks the batch is the
+global one: the moments are summed over the ranks (`batch_moments`), as
+the JAX package's global-batch step computes them.  The convs run through
+cuDNN and the BN arithmetic is plain PyTorch, as the JAX package leaves
+this subgraph to XLA.
 
 Init functions return numpy trees in the JAX package's layout (HWIO
 kernels), draw for draw its init; ``convert.params_from_jax`` turns them
@@ -26,6 +29,7 @@ import torch
 
 from cmpc_refseg_torch.ops.layers import conv2d, init_conv, split_stream
 from cmpc_refseg_torch.ops.resize import resize_bilinear
+from cmpc_refseg_torch.parallel.mesh import all_reduce_sum, process_count
 
 BN_EPS = 1e-5
 BN_DECAY = 0.9997
@@ -58,14 +62,28 @@ def init_state() -> dict:
             "decoder": {n: _init_bn_state(c) for n, c in _DECODER_BN.items()}}
 
 
+def batch_moments(yf):
+    """The biased mean and variance per channel of f32 `yf` [B, h, w, C]
+    over (B, h, w): this rank's, or under R > 1 ranks of equal batches
+    the global batch's, by a differentiable all-reduce of the sum and then
+    of the squared deviations from the global mean (two passes: E[x^2] -
+    E[x]^2 loses float32 digits)."""
+    count = process_count()
+    if count == 1:
+        return yf.mean(dim=(0, 1, 2)), yf.var(dim=(0, 1, 2), unbiased=False)
+    n = yf.numel() // yf.shape[-1] * count
+    mean = all_reduce_sum(yf.sum(dim=(0, 1, 2))) / n
+    var = all_reduce_sum(torch.square(yf - mean).sum(dim=(0, 1, 2))) / n
+    return mean, var
+
+
 def _apply_bn_unit(p, s, x, *, dilation=1, train=False, relu=True):
     """conv -> BN (batch or moving statistics, f32) -> relu, cast back to
     the conv's dtype.  Returns (y, the unit's new state)."""
     y = conv2d({"DW": p["DW"]}, x, dilation=dilation)
     yf = y.float()
     if train:
-        mean = yf.mean(dim=(0, 1, 2))
-        var = yf.var(dim=(0, 1, 2), unbiased=False)
+        mean, var = batch_moments(yf)
         with torch.no_grad():
             new_s = {"mean": s["mean"] * BN_DECAY + mean * (1 - BN_DECAY),
                      "var": s["var"] * BN_DECAY + var * (1 - BN_DECAY)}

@@ -34,7 +34,10 @@ from cmpc_refseg_torch.data.anchors import DEFAULT_ANCHORS
 from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR
 from cmpc_refseg_torch.models import aspp, cmpc, detection
 from cmpc_refseg_torch.models.backbone import (TRAINABLE_STAGES,
-                                               apply_backbone, init_backbone)
+                                               apply_backbone, gemm_weight,
+                                               init_backbone)
+from cmpc_refseg_torch.models.backbone import \
+    quantize_backbone as _quantize_backbone
 from cmpc_refseg_torch.models.language import encode_text, init_text_encoder
 from cmpc_refseg_torch.ops import losses
 from cmpc_refseg_torch.ops.layers import conv2d, init_conv, split_stream
@@ -149,22 +152,28 @@ def init_model_state(cfg: ModelConfig, *, device=None) -> dict:
 
 def prepare_backbone(backbone: dict, cfg: ModelConfig) -> dict:
     """The backbone's conv kernels in bf16 (channels_last) when the compute
-    dtype is bf16, built once; unchanged in f32.  Training keeps this view
-    of the frozen backbone (with conv5, the frozen tree's res3-5 units
-    have no kernel: they train in f32)."""
-    if cfg.compute_dtype != "bfloat16":
-        return backbone
+    dtype is bf16, built once; unchanged in f32.  An int8 unit
+    (`quantize_backbone`) keeps its int8 `w_q`, stored channels_last, and
+    gains `w_gemm`, the int8 GEMM's weight operand (`gemm_weight`: a view
+    of `w_q` but for conv1's padded K).  Training keeps this view of the
+    frozen backbone (with conv5, the frozen tree's res3-5 units have no
+    kernel: they train in f32)."""
+    bf16 = cfg.compute_dtype == "bfloat16"
 
-    def cast_units(node):
+    def prep(node):
+        if "w_q" in node:
+            w_q = node["w_q"].contiguous(memory_format=torch.channels_last)
+            return {**node, "w_q": w_q, "w_gemm": gemm_weight(w_q)}
         if "w" in node:
             return {**node, "w": node["w"].to(torch.bfloat16).contiguous(
-                memory_format=torch.channels_last)}
-        return {k: cast_units(v) if isinstance(v, dict) else v
+                memory_format=torch.channels_last)} if bf16 else node
+        return {k: prep(v) if isinstance(v, dict) else v
                 for k, v in node.items()}
-    return cast_units(backbone)
+    return prep(backbone)
 
 
-def prepare_params(params: dict, cfg: ModelConfig) -> dict:
+def prepare_params(params: dict, cfg: ModelConfig, *,
+                   quantize_backbone: bool = False) -> dict:
     """Inference view of the parameters, built once: the weights the head's
     kernels take, in the compute dtype and padded to the kernels' widths
     (each level's mutan weights [K, 5C], `cmpc.pad_mutan_weight`,
@@ -172,7 +181,12 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     weights where the SE sum runs and the ConvLSTM's tables), the ASPP's
     and decoder's conv kernels in the compute dtype (BN's gamma and beta
     and the decoder's float32 logits conv stay f32) and
-    `prepare_backbone`.  The f32 originals stay."""
+    `prepare_backbone`.  The f32 originals stay.  `quantize_backbone=True`
+    first makes the backbone's units int8 (`models.backbone.
+    quantize_backbone`: the serving path; its f32 kernels are dropped)."""
+    backbone = params["backbone"]
+    if quantize_backbone:
+        backbone = _quantize_backbone(backbone)
     dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     levels = {}
     for lv, level in params["levels"].items():
@@ -193,7 +207,7 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
         [params["levels"][lv]["graph"] for lv in cfg.levels], dt)
     out = {**params, "levels": levels, "fusion_stack": fusion_stack,
            "graph_stack": graph_stack,
-           "backbone": prepare_backbone(params["backbone"], cfg)}
+           "backbone": prepare_backbone(backbone, cfg)}
     if cfg.decoder == "aspp_v3plus":
         out["aspp"] = {k: {**u, "DW": u["DW"].to(dt)}
                        for k, u in params["aspp"].items()}

@@ -15,11 +15,16 @@ service holds a lock around the forward, since the card runs one stream
 and concurrency belongs in a fleet balancer.  PIL is imported by the HTTP
 handler only, so the service itself needs none.
 
+`quantize=True` serves with the int8 backbone (``models/backbone.py``:
+per-channel int8 weights, per-tensor int8 activations, int32 products),
+its activation scales dynamic or calibrated on `calibration_images`.
+
 `main()` serves a checkpoint (the JAX package's server command line, with
 `-device`):
 
     python -m cmpc_refseg_torch.serving.server -ckpt_dir CKPT \
-        -vocab data/vocabulary_Gref.txt [-n CMPC_model] [-port 8500]
+        -vocab data/vocabulary_Gref.txt [-n CMPC_model] [-port 8500] \
+        [-quantize]
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from cmpc_refseg_torch.convert import resolve_device, to_device
 from cmpc_refseg_torch.data.image import (IMAGE_MEAN_BGR, resize_and_crop,
                                           resize_and_pad)
 from cmpc_refseg_torch.data.text import preprocess_sentence_lstm
+from cmpc_refseg_torch.models.backbone import calibrate_backbone
 from cmpc_refseg_torch.models.model import apply_model, prepare_params
 
 
@@ -50,13 +56,14 @@ class PredictService:
     (``init_model_state`` or ``model_state_from_jax``; required by the
     ASPP decoder, whose missing state raises); they are moved to `device`
     (CUDA when None; raises without it), the params prepared for inference
-    once."""
+    once.  `quantize=True` serves with the int8 backbone
+    (`prepare_params(quantize_backbone=True)`); with `calibration_images`
+    (mean-subtracted BGR [B, H, W, 3] arrays) its activation scales are
+    baked from them (`calibrate_backbone`), else taken per call."""
 
     def __init__(self, cfg, params, vocab_dict, *, model_state=None,
-                 device=None, quantize: bool = False):
-        if quantize:
-            raise NotImplementedError("the int8 backbone serving path is not "
-                                      "ported yet")
+                 device=None, quantize: bool = False,
+                 calibration_images=None):
         if cfg.text_encoder == "bert":
             # as the JAX package's service: it tokenizes an expression
             # (serving/server.py:83-97 there), and BERT features come from a
@@ -71,7 +78,11 @@ class PredictService:
         self.cfg = dataclasses.replace(cfg, batch_size=1)
         self.vocab = vocab_dict
         self.params = prepare_params(to_device(params, self.device),
-                                     self.cfg)
+                                     self.cfg, quantize_backbone=quantize)
+        if quantize and calibration_images is not None:
+            self.params["backbone"] = calibrate_backbone(
+                self.params["backbone"], calibration_images,
+                res4_blocks=cfg.res4_blocks)
         self.model_state = to_device(model_state or {}, self.device)
         self.n_requests = 0
         self._lock = threading.Lock()
@@ -177,8 +188,8 @@ def main(argv=None):
     `-device`): the state from `create_train_state` + `restore_checkpoint`
     of `-ckpt_dir`, in the config the checkpoint was saved with (it must
     be `-n`'s), the vocabulary from `-vocab`, the embedding from
-    `load_glove`.  CUDA (bf16) unless `-device cpu` (float32); raises
-    without a CUDA device otherwise."""
+    `load_glove`, the int8 backbone with `-quantize`.  CUDA (bf16) unless
+    `-device cpu` (float32); raises without a CUDA device otherwise."""
     import argparse
     ap = argparse.ArgumentParser("cmpc_refseg_torch inference server")
     ap.add_argument("-n", dest="model_name", default="CMPC_model")
@@ -188,16 +199,12 @@ def main(argv=None):
     ap.add_argument("-emb", dest="emb_name", default="refvos")
     ap.add_argument("-emb_dir", dest="emb_dir", default="data")
     ap.add_argument("-quantize", action="store_true",
-                    help="int8 backbone serving path: not ported yet "
-                         "(raises)")
+                    help="serve with the int8 backbone "
+                         "(models/backbone.py::quantize_backbone)")
     ap.add_argument("-device", dest="device", default=None,
                     help="cuda (default; raises without a CUDA device) or "
                          "cpu")
     args = ap.parse_args(argv)
-    if args.quantize:
-        raise NotImplementedError("-quantize: the int8 backbone is not "
-                                  "ported yet (ROADMAP queue 1, item 10: "
-                                  "backbone options)")
 
     from cmpc_refseg_torch.cli import load_glove
     from cmpc_refseg_torch.data.text import load_vocab_dict_from_file
@@ -217,7 +224,8 @@ def main(argv=None):
     state = restore_checkpoint(args.ckpt_dir, state)
     service = PredictService(cfg, state.params(),
                              load_vocab_dict_from_file(args.vocab),
-                             model_state=state.model_state, device=device)
+                             model_state=state.model_state, device=device,
+                             quantize=args.quantize)
     httpd = serve(service, port=args.port)
     print(f"serving on :{httpd.server_address[1]} (POST /predict, "
           "GET /healthz)", flush=True)

@@ -10,9 +10,9 @@
 The forward runs batched on the device; the native-resolution mapping and
 the sums run per sample on the host, since every sample has its own size.
 `evaluate_sharded` is the on-device form at model resolution that a train
-loop's `val_fn` uses, for one device.  With `use_crf`, `evaluate` also
-scores the DenseCRF-refined masks (trainval_model.py:246-259,
-``ops/densecrf.py``).
+loop's `val_fn` uses, on one device or over a process group's ranks.
+With `use_crf`, `evaluate` also scores the DenseCRF-refined masks
+(trainval_model.py:246-259, ``ops/densecrf.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from cmpc_refseg_torch.ops.densecrf import refine_mask
 from cmpc_refseg_torch.ops.metrics import (EVAL_PRECISION_THRESHOLDS,
                                            SegEvalAccumulator,
                                            batched_mask_iu)
+from cmpc_refseg_torch.parallel.mesh import shard_batch
 from cmpc_refseg_torch.train.optimizer import named_leaves
 from cmpc_refseg_torch.train.trainer import device_image_prologue
 
@@ -180,28 +181,36 @@ def make_sharded_eval_step(cfg: ModelConfig):
 def evaluate_sharded(cfg: ModelConfig, params, model_state, batch_iter, *,
                      mesh=None, max_batches: Optional[int] = None,
                      device=None) -> dict:
-    """`make_sharded_eval_step` over the batches of `batch_iter`, on one
-    device (CUDA when None): overall and mean IoU and precision@X at model
-    resolution."""
-    if mesh is not None:
-        raise NotImplementedError("evaluation over a device mesh is not "
-                                  "ported yet (ROADMAP queue 1, item 11)")
+    """`make_sharded_eval_step` over the global batches of `batch_iter`:
+    overall and mean IoU and precision@X at model resolution, on `device`
+    (CUDA when None).  With `mesh`, a process group (``torch.distributed``,
+    e.g. ``group.WORLD``) whose every rank calls this with the same
+    batches, each rank scores its rows of each batch by its rank in
+    `mesh` (`shard_batch`) and the sums are all-reduced over `mesh`, so
+    every rank returns what one device returns (I, U and the precision
+    counts equal; the IoU sum in another order)."""
     dev = resolve_device(device)
     params = prepare_params(to_device(params, dev), cfg)
     model_state = to_device(model_state or {}, dev)
     eval_step = make_sharded_eval_step(cfg)
-    tot_i = tot_u = tot_iou = 0.0
-    tot_prec = np.zeros(len(EVAL_PRECISION_THRESHOLDS))
-    n = 0
+    # I, U, the IoU sum, n, then the precision counts
+    sums = torch.zeros(4 + len(EVAL_PRECISION_THRESHOLDS),
+                       dtype=torch.float64, device=dev)
     for bi, batch in enumerate(batch_iter):
         if max_batches is not None and bi >= max_batches:
             break
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         i, u, iou, prec = eval_step(params, model_state, batch)
-        tot_i += float(i)
-        tot_u += float(u)
-        tot_iou += float(iou)
-        tot_prec += prec.cpu().numpy()
-        n += np.shape(batch["im" if "im" in batch else "im_u8"])[0]
+        rows = np.shape(batch["im" if "im" in batch else "im_u8"])[0]
+        sums += torch.cat([torch.stack([i.double(), u.double(),
+                                        iou.double()]),
+                           torch.tensor([rows], dtype=torch.float64,
+                                        device=dev), prec.double()])
+    if mesh is not None:
+        torch.distributed.all_reduce(sums, group=mesh)
+    tot_i, tot_u, tot_iou, n, *tot_prec = sums.tolist()
+    n = int(n)
     return {
         "overall_iou": tot_i / max(tot_u, 1),
         "mean_iou": tot_iou / max(n, 1),

@@ -15,10 +15,19 @@ carried in the state.  Batches arrive as uint8 images and masks
 The loop saves snapshots and a checkpoint at preemption
 (``train/checkpoint.py``), resumes from `start_iter` and runs a `val_fn`.
 
+Data parallel: under a process group (``parallel/mesh.py``, one process
+per device) each rank steps on its rows of the global batch; the step
+averages the gradients over the ranks once per update (one flat
+all-reduce) and the metrics each step, the ASPP decoder's BN takes the
+global batch's moments, and every rank makes the same update.  The loop
+reads `batch_size / R` rows a step, checks at start that the ranks hold
+the same weights, agrees on a preemption across the ranks, and logs and
+writes checkpoints on rank 0 only.
+
 Not ported: the JAX step's layout knobs (the flat master vector, the grad
 modes, the fused Adam, the XLA dW switch), which are TPU launch-count
-workarounds with the same math; mesh sharding and the multi-host loop
-(ROADMAP queue 1, item 11).
+workarounds with the same math; tensor parallelism and ZeRO (ROADMAP
+queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -37,6 +46,10 @@ from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR
 from cmpc_refseg_torch.models.model import (apply_model, compute_loss,
                                             init_model, init_model_state,
                                             prepare_backbone)
+from cmpc_refseg_torch.parallel.mesh import (agree_any, all_reduce_mean_,
+                                             check_replicated, distributed,
+                                             is_primary_process,
+                                             local_batch_size)
 from cmpc_refseg_torch.train.checkpoint import save_checkpoint
 from cmpc_refseg_torch.train.optimizer import (accumulate, make_optimizer,
                                                merge_params, named_leaves,
@@ -212,6 +225,13 @@ def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
     return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
 
+def reduce_gradients(state: TrainState) -> None:
+    """Under a process group, every trainable leaf's .grad becomes its mean
+    over the ranks (one flat all-reduce); without one, nothing changes."""
+    if distributed():
+        all_reduce_mean_(p.grad for _, p in named_leaves(state.trainable))
+
+
 def make_train_step(cfg: ModelConfig, *, use_kernels: bool = True
                     ) -> Callable:
     """(state, batch) -> metrics: one update of `state` in place.
@@ -233,7 +253,12 @@ def make_train_step(cfg: ModelConfig, *, use_kernels: bool = True
     With grad_accum = k, the step is a micro-step: its gradient joins the
     running mean in `state.accum`, and every k-th micro-step makes one
     Adam update from that mean and clears it.  `use_kernels=False` trains
-    on the plain route (`compute_gradients`)."""
+    on the plain route (`compute_gradients`).
+
+    Under a process group the batch is this rank's rows of the global
+    batch: the update's gradient is averaged over the ranks (one flat
+    all-reduce, at the micro-step that updates) and so are the metrics,
+    which are then the global batch's."""
     schedule = polynomial_lr(cfg)
     k = cfg.grad_accum
 
@@ -256,9 +281,12 @@ def make_train_step(cfg: ModelConfig, *, use_kernels: bool = True
                     p.grad = acc.clone()
                     acc.zero_()
         if emit:
+            reduce_gradients(state)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
             state.optimizer.step()
+        if distributed():
+            all_reduce_mean_(metrics.values())
         state.step += 1
         metrics["learning_rate"] = lr
         return metrics
@@ -319,9 +347,17 @@ def train_loop(cfg: ModelConfig, reader, *, max_iter: int,
     `checkpoint.restore_checkpoint` into `state` and `start_iter` =
     the restored step.  Iterations count micro-steps (`TrainState.step`),
     so with grad_accum = k a snapshot at a step that is not a multiple of
-    k holds the accumulator of the update in progress."""
+    k holds the accumulator of the update in progress.
+
+    Under a process group of R ranks, `cfg.batch_size` is the global
+    batch: each rank reads `batch_size / R` rows a step from its own
+    `reader` (its shard of the data), the ranks must start from the same
+    weights (checked), a preemption of any rank stops all at the same
+    iteration, and only rank 0 prints, logs and writes checkpoints;
+    `val_fn` runs on every rank."""
     if state is None:
         state = create_train_state(seed, cfg, glove, device=device)
+    check_replicated(leaf for _, leaf in named_leaves(state.trainable))
     step_fn = make_train_step(cfg)
     with PreemptionGuard() as guard:
         return _train_iters(cfg, reader, state, step_fn, guard,
@@ -335,22 +371,25 @@ def train_loop(cfg: ModelConfig, reader, *, max_iter: int,
 def _train_iters(cfg, reader, state, step_fn, guard, *, max_iter, log_every,
                  snapshot_every, checkpoint_dir, logger, start_iter, val_fn,
                  val_every):
+    local_bs = local_batch_size(cfg.batch_size)
+    primary = is_primary_process()
     time_avg = MovingAverage(100)
     last = time.time()
     for it in range(start_iter, max_iter):
-        if guard.fired:
-            if checkpoint_dir:
+        if agree_any(guard.fired):
+            if checkpoint_dir and primary:
                 save_checkpoint(checkpoint_dir, state, it)
-            print(f"preempted at iter {it}: "
-                  f"{'checkpoint saved, ' if checkpoint_dir else ''}"
-                  "stopping cleanly", flush=True)
+            if primary:
+                print(f"preempted at iter {it}: "
+                      f"{'checkpoint saved, ' if checkpoint_dir else ''}"
+                      "stopping cleanly", flush=True)
             return state
-        batch = prepare_image_batch_u8(reader.read_collated(cfg.batch_size))
+        batch = prepare_image_batch_u8(reader.read_collated(local_bs))
         metrics = step_fn(state, batch)
         now = time.time()
         time_avg.add(now - last)
         last = now
-        if it % log_every == 0:
+        if it % log_every == 0 and primary:
             metrics = {k: float(v) for k, v in metrics.items()}
             metrics["step_time_s"] = time_avg.get()
             print(f"iter {it}: loss {metrics['loss_cls_all']:.2f} "
@@ -361,10 +400,10 @@ def _train_iters(cfg, reader, state, step_fn, guard, *, max_iter, log_every,
                 logger.log(it, metrics)
         if val_fn is not None and val_every and (it + 1) % val_every == 0:
             val_metrics = val_fn(state)
-            if logger is not None:
+            if logger is not None and primary:
                 logger.log(it + 1, {f"val_{k}": float(v)
                                     for k, v in val_metrics.items()})
-        if checkpoint_dir and snapshot_every \
+        if checkpoint_dir and snapshot_every and primary \
                 and (it + 1) % snapshot_every == 0:
             save_checkpoint(checkpoint_dir, state, it + 1)
     return state

@@ -15,9 +15,10 @@ the CPU, at the TINY geometry of tests/test_cli_e2e.py.
 - `-m test` on fake npz batches from the converted checkpoint: overall
   IoU, mean IoU and prec@X printed within 1e-5 of JAX's printout; `-v`
   writes the same file names.
-- The flags of parts not ported raise NotImplementedError naming their
-  ROADMAP item (`-c` no longer: it is ported), and without a CUDA device and without `-device cpu` the
-  command lines raise.
+- The flags of the ported items pass (`-c`), or raise where their run
+  cannot start (`-mesh 2` without a world of 2, `-distributed` without
+  torchrun's environment), and without a CUDA device and without
+  `-device cpu` the command lines raise (`-quantize` too).
 - `serving.server.main` answers a POST /predict as a `PredictService` on
   the same weights does (masks equal).
 - `serving.export`: the exported program within 1e-5 of the plain route,
@@ -260,18 +261,27 @@ def test_visualize_writes_jax_file_names(runs):
     (["-c"], "item 9"), (["-mesh", "2"], "item 11"),
     (["-distributed"], "item 11")])
 @pytest.mark.parametrize("mode", ["train", "test"])
-def test_unported_flags_raise(flag, item, mode):
-    """The data-parallel flags raise, naming their ROADMAP item.  `-c`
-    (item 9, ported) passes the gate and reaches `evaluate` as use_crf
-    (its run against JAX's: tests/test_torch_postproc.py)."""
+def test_unported_flags_raise(flag, item, mode, monkeypatch):
+    """The flags of ported items pass the gate and reach their code.  `-c`
+    (item 9) reaches `evaluate` as use_crf (its run against JAX's:
+    tests/test_torch_postproc.py).  The data-parallel flags (item 11):
+    `-mesh 2` without a world of 2 raises the ValueError that says how to
+    launch one, and `-distributed` without torchrun's environment raises
+    from `initialize_distributed` (their runs: tests/test_torch_parallel.py)."""
     argv = ["-m", mode, "-device", "cpu"] + flag
     if item == "item 9":
         args = tcli.build_argparser().parse_args(argv)
-        tcli.check_ported(args)
+        tcli.check_mesh(args, 1)
         assert args.use_crf
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(argv)
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    if flag == ["-mesh", "2"]:
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+            tcli.main(argv)
+    else:
+        with pytest.raises(RuntimeError, match="RANK.*not set.*torchrun"):
+            tcli.main(argv)
 
 
 def test_no_cuda_without_device_cpu_raises(monkeypatch, tmp_path):
@@ -280,7 +290,7 @@ def test_no_cuda_without_device_cpu_raises(monkeypatch, tmp_path):
         tcli.main(["-m", "test", "-f", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserver.main(["-vocab", "v.txt", "-ckpt_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tserver.main(["-vocab", "v.txt", "-quantize"])
 
 

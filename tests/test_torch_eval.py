@@ -276,10 +276,15 @@ def test_evaluate_sharded_matches_jax(flagship):
     _check_results(got, want, ious)
 
 
-def test_unported_options_raise(flagship):
-    """The mesh raises (ROADMAP item 11); the DenseCRF option (item 9) is
-    ported: it scores the refined masks beside the plain ones (held
-    against JAX in tests/test_torch_postproc.py)."""
+def test_unported_options_raise(flagship, tmp_path):
+    """The options of ported items run.  `evaluate_sharded` over a 1-rank
+    gloo group (ROADMAP item 11; 2 ranks: tests/test_torch_parallel.py)
+    gives what it gives without one; the DenseCRF option (item 9) scores
+    the refined masks beside the plain ones (held against JAX in
+    tests/test_torch_postproc.py)."""
+    import torch.distributed as dist
+
+    from cmpc_refseg_torch.parallel.mesh import initialize_distributed
     m = flagship
     rng = np.random.default_rng(9)
     samples = [{**s, "im_native": rng.integers(
@@ -288,9 +293,20 @@ def test_unported_options_raise(flagship):
     res = tev.evaluate(m["tcfg"], m["tparams"], m["tstate"], iter(samples),
                        use_crf=True, device="cpu")
     assert set(res) == {"no_crf", "crf"} and res["crf"]["n"] == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tev.evaluate_sharded(m["tcfg"], m["tparams"], m["tstate"], iter([]),
-                             mesh=object(), device="cpu")
+    batches = [{k: np.concatenate([s[k] for s in m["samples"][i:i + 4]])
+                for k in ("im", "words", "seq_len", "target")}
+               for i in (0, 3)]
+    want = tev.evaluate_sharded(m["tcfg"], m["tparams"], m["tstate"],
+                                iter(batches), device="cpu")
+    initialize_distributed(f"file://{tmp_path / 'init'}", 1, 0,
+                           device="cpu")
+    try:
+        got = tev.evaluate_sharded(m["tcfg"], m["tparams"], m["tstate"],
+                                   iter(batches), mesh=dist.group.WORLD,
+                                   device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert got == want and got["n"] == 8
 
 
 def test_eval_needs_cuda_unless_cpu(flagship, monkeypatch):

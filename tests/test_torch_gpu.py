@@ -1129,3 +1129,93 @@ def test_mean_field_gaussian_on_the_card_matches_the_cpu(cuda, h, w, sxy):
     torch.testing.assert_close(got.cpu(), mean_field_gaussian(p.cpu(),
                                                               sxy=sxy),
                                rtol=0, atol=1e-5)
+
+
+# the int8 backbone's shape classes: (ksize, stride, dilation, cin, cout)
+INT8_CLASSES = {"conv1 7x7/2, K 147 -> 152": (7, 2, 1, 3, 64),
+                "1x1": (1, 1, 1, 64, 256), "1x1/2": (1, 2, 1, 256, 128),
+                "3x3": (3, 1, 1, 64, 64), "3x3 dilation 2": (3, 1, 2, 128, 64),
+                "3x3 dilation 4": (3, 1, 4, 64, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(INT8_CLASSES))
+def test_int8_gemm_conv_equals_float64_conv(cuda, name):
+    """`int8_conv_gemm` (torch._int_mm on the channels_last rows, the
+    im2col for k x k) bit-equal to the exact float64 conv of the same int8
+    codes, per shape class of the backbone, at ragged 17 x 19 maps."""
+    from cmpc_refseg_torch.models import backbone as bb
+    k, stride, dilation, cin, cout = INT8_CLASSES[name]
+    xq = torch.randint(-127, 128, (2, cin, 17, 19), generator=cuda,
+                       device="cuda", dtype=torch.int8).contiguous(
+        memory_format=torch.channels_last)
+    w_q = torch.randint(-127, 128, (cout, cin, k, k), generator=cuda,
+                        device="cuda", dtype=torch.int8).contiguous(
+        memory_format=torch.channels_last)
+    w_gemm = bb.gemm_weight(w_q)
+    assert w_gemm.shape[1] % 8 == 0
+    got = bb.int8_conv_gemm(xq, w_gemm, ksize=k, stride=stride,
+                            dilation=dilation)
+    want = bb.int8_conv_plain(xq, w_q, stride=stride, dilation=dilation)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_int8_gemm_refuses_what_int_mm_refuses(cuda):
+    """A product `torch._int_mm` refuses (here 4 rows: it wants more than
+    16) raises; the unit never falls back to floating point."""
+    from cmpc_refseg_torch.models import backbone as bb
+    w_q = torch.ones((64, 64, 1, 1), device="cuda", dtype=torch.int8)
+    xq = torch.ones((1, 64, 2, 2), device="cuda", dtype=torch.int8)
+    with pytest.raises(RuntimeError):
+        bb.int8_conv_gemm(xq, bb.gemm_weight(w_q), ksize=1)
+
+
+@pytest.mark.gpu
+def test_two_rank_dp_step_on_the_card_matches_one_process(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 (spawned; tests/torch_parallel_worker.py)
+    take one bf16 DP step of the TINY flagship on the halves of a batch of
+    4: both ranks hold bit-equal weights after it, and against one
+    process's step on the whole batch the loss is within 1e-2 relative
+    and the all-reduced gradient within 5e-2 of the single gradient's
+    norm (bf16 sums over other rows: chip_smoke.py holds it leaf by leaf
+    at full size)."""
+    import multiprocessing as mp
+
+    import torch_parallel_worker as worker
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.train import trainer as ttrain
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+    geo = dict(TINY, batch_size=4, compute_dtype="bfloat16")
+    rng = np.random.default_rng(4)
+    words = np.zeros((4, 6), np.int64)
+    for i, n in enumerate((2, 5, 6, 1)):
+        words[i, :n] = rng.integers(3, 30, n)
+    batch = {"im_u8": rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8),
+             "target_u8": (rng.random((4, 32, 32, 1)) > 0.7).astype(np.uint8),
+             "words": words, "seq_len": np.array([2, 5, 6, 1])}
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=worker.gpu_step, args=(
+        r, str(tmp_path / "init"), geo, batch, results)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        ranks = dict(results.get(timeout=300) for _ in range(2))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+    assert not any(p.is_alive() for p in procs)
+    assert all(not isinstance(r, str) for r in ranks.values()), ranks
+    np.testing.assert_array_equal(ranks[0]["weights"], ranks[1]["weights"])
+    cfg = get_config("CMPC_model", **geo)
+    state = ttrain.create_train_state(0, cfg, device="cuda")
+    loss = float(ttrain.make_train_step(cfg)(state, batch)["loss_total"])
+    grad = torch.cat([p.grad.reshape(-1) for _, p in
+                      named_leaves(state.trainable)]).double().cpu().numpy()
+    assert abs(ranks[0]["loss"] - loss) <= 1e-2 * abs(loss)
+    assert np.linalg.norm(ranks[0]["grad"] - grad) \
+        <= 5e-2 * np.linalg.norm(grad)

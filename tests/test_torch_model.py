@@ -322,9 +322,13 @@ def test_port_imports_nothing_of_jax():
 
 def test_kernels_have_no_switch():
     """Kernels are chosen by tensor device only: the port reads no
-    environment variable but CUDA_HOME, which locates nvcc."""
+    environment variable but CUDA_HOME, which locates nvcc, and, in
+    parallel/mesh.py alone, torchrun's LOCAL_RANK, which names a data-
+    parallel process's card."""
+    launcher = {REPO / "cmpc_refseg_torch" / "parallel" / "mesh.py":
+                {"LOCAL_RANK"}}
     for f in (REPO / "cmpc_refseg_torch").rglob("*.py"):
         text = f.read_text()
         assert "getenv" not in text, f
         assert set(re.findall(r'os\.environ\S*?"(\w+)"', text)) <= \
-            {"CUDA_HOME"}, f
+            {"CUDA_HOME"} | launcher.get(f, set()), f

@@ -159,12 +159,19 @@ def test_bert_service_is_refused():
         build_service("CMPCv4_BERT_model", device="cpu", **TINY)
 
 
-def test_service_rules(monkeypatch):
+def test_service_rules(monkeypatch, rng):
+    """`quantize=True` runs on the CPU (the int8 backbone's units, its
+    answer against JAX's: tests/test_torch_int8.py); without a CUDA device
+    and without device='cpu' a service raises."""
     cfg = tget("CMPC_model", **TINY)
     params = tinit(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tserver.PredictService(cfg, params, VOCAB, device="cpu",
-                               quantize=True)
+    svc = tserver.PredictService(cfg, params, VOCAB, device="cpu",
+                                 quantize=True)
+    unit = svc.params["backbone"]["res2a"]["branch2b"]
+    assert unit["w_q"].dtype == torch.int8 and "w" not in unit
+    prob, mask = svc.predict(rng.integers(0, 256, (21, 47, 3),
+                                          dtype=np.uint8), "the dog")
+    assert prob.shape == mask.shape == (21, 47) and np.isfinite(prob).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserver.PredictService(cfg, params, VOCAB)
