@@ -182,7 +182,22 @@ Phases, each fatal on failure:
     step bit-equal to the step without a group.  Phase 3 holds the ranks'
     launches at their shapes (`v4_dp_train_bs4`, `dp_eval_bs4`; the
     flagship's rank step shares `accum_train_bs4`'s);
-14. the kernels' share of each path's run, the `kernels` JSON line (each
+14. tensor parallelism and ZeRO: four ranks on the one card over gloo
+    (spawned, `tp_rank`) laid out as data = 2 x model = 2
+    (`build_trainer(mesh=make_mesh((2, 2)))`), the flagship at full width
+    and bf16, global bs=8, under the production rule (51 leaves stored
+    split over the model axis, Adam ZeRO-sharded over the 4 ranks): 3
+    steps, each step's reduced gradient held against the single
+    process's plain route by phase 6's rule (the ranks read the draws),
+    its loss within DP_LOSS_TOL of the single process's from the same
+    weights, the single process's Adam fed that gradient bit-equal to the
+    ranks' consolidated weights and moments, the 2 ranks of each model
+    index holding bit-equal shards; each rank's Adam, master and engaged
+    bytes against what the layout implies; the rank step's ms; a
+    consolidated checkpoint restored in one process, every leaf
+    bit-equal.  The ranks' launches are held at `accum_train_bs4`'s
+    shapes;
+15. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -278,7 +293,10 @@ CLI_PATHS = {"cli_train_bs8": "train_bs8",
              "int8_calibrated_serving_bs1": "serving_bs1",
              "int8_forward_bs8": "forward_bs8",
              f"dp_train_bs{B // 2}": f"accum_train_bs{B // 2}",
-             f"cli_dp_train_bs{B // 2}": f"accum_train_bs{B // 2}"}
+             f"cli_dp_train_bs{B // 2}": f"accum_train_bs{B // 2}",
+             # phase 14: a rank's step runs the flagship on its data
+             # slot's 4 rows, on full weights gathered from the shards
+             f"tp_train_bs{B // 2}": f"accum_train_bs{B // 2}"}
 IOU_TOL = 1e-5               # the CLI's printout vs `evaluate`'s results
 # phase 12, the video model and post-processing: its config; the fake A2D
 # npz set (16-frame 320x320 clips; the test samples at A2D_EMPTY have empty
@@ -315,6 +333,17 @@ N_DP_CLI = 3                 # steps of the 2-rank command line
 # H100 (PERF.md), so a wrong step sits well above it
 DP_LOSS_TOL = 2e-3
 DP_TIMEOUT = 900             # s for all of the ranks' work: a hang fails
+# phase 14: tensor parallelism and ZeRO, four ranks sharing the card over
+# gloo as data = 2 x model = 2 under the production rule (min_dim 512)
+TP_SHAPE, TP_STEPS = (2, 2), 3
+N_TP = TP_SHAPE[0] * TP_SHAPE[1]
+TP_ENGAGED = 51
+# what each rank should hold of the flagship's 76,055,608 trainable f32
+# entries, 49,962,000 of them in the 51 leaves the rule engages: one
+# process's Adam moments / 4, the master segment, the engaged leaves / 2
+TP_WANT_MB = {"adam_moments": 2 * 76_055_608 * 4 / N_TP / 1e6,
+              "master_segment": 76_055_608 * 4 / N_TP / 1e6,
+              "engaged_storage": 49_962_000 * 4 / TP_SHAPE[1] / 1e6}
 REPLACES = {
     "mutan_fused": "cmpc_refseg_tpu/ops/pallas_kernels.py:98",
     "mutan_fwd_residual": "cmpc_refseg_tpu/ops/pallas_kernels.py:332",
@@ -4238,6 +4267,374 @@ def run_dp(torch, kernels, cmpc, build_trainer, compute_gradients,
     return paths, out
 
 
+def tp_rank(rank, init_file, root, results, release):
+    """A rank of phase 14 (a spawned process; `tp_tasks`), reporting
+    (rank, kind, payload) on `results`, or (rank, 'error', traceback)
+    before it exits nonzero."""
+    import traceback
+
+    import torch
+    import torch.multiprocessing  # noqa: F401  CUDA tensors through queues
+    try:
+        tp_tasks(torch, rank, init_file, root, results, release)
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+    results.put((rank, "done", None))
+
+
+def tp_tasks(torch, rank, init_file, root, results, release):
+    """The ranks' work, N_TP ranks on cuda:0 over gloo laid out as
+    TP_SHAPE: the flagship's bs=8 trainer under the layout (the 2 ranks
+    of each model index holding bit-equal shards, checked, and after
+    every step), then TP_STEPS steps, each rank on its data slot's rows.
+    Before each step, the reduced gradient (reduce-scattered over the
+    world as a mean, gathered) at check_train_routes' draws 1 to
+    NOISE_DRAWS of the step's full weights, with the world's mean loss;
+    then the timed `Trainer.step`, whose reduced gradient (taken by an
+    optimizer pre-hook on the segment and gathered) and loss are draw 0.
+    After each step the consolidated weights and moments; launches
+    counted over the steps alone; each rank's bytes.  Rank 0 sends the
+    readings and states (CUDA tensors, kept until `release` is set).
+    Then a consolidated checkpoint under `root` (rank 0 writes)."""
+    import torch.distributed as dist
+
+    from cmpc_refseg_torch.api import build_trainer
+    from cmpc_refseg_torch.ops import kernels
+    from cmpc_refseg_torch.parallel.mesh import (all_gather_flat,
+                                                 all_reduce_mean_,
+                                                 check_replicated,
+                                                 initialize_distributed,
+                                                 make_mesh,
+                                                 reduce_scatter_mean,
+                                                 shard_batch)
+    from cmpc_refseg_torch.train.checkpoint import save_checkpoint
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+    from cmpc_refseg_torch.train.trainer import compute_gradients
+
+    dev = initialize_distributed(f"file://{init_file}", N_TP, rank,
+                                 backend="gloo", device=DEV)
+    mesh = make_mesh(TP_SHAPE)
+    keep = []
+
+    def send(kind, payload):
+        # rank 0's CUDA tensors stay alive until the parent has copied them
+        keep.extend(t for t in payload if torch.is_tensor(t))
+        results.put((rank, kind, payload))
+    trainer = build_trainer("CMPC_model", device=dev, dtype="bfloat16",
+                            batch_size=B, mesh=mesh)
+    state, cfg = trainer.state, trainer.cfg
+    zero = state.zero
+
+    def stored():
+        return [leaf for _, leaf in named_leaves(state.trainable)]
+    check_replicated(stored(), "shards", group=mesh.data)
+    engaged = [i for i, d in enumerate(zero.dims) if d is not None]
+    local = [shard_batch(train_batch(cfg, B, i), mesh)
+             for i in range(TP_STEPS)]
+    segments = []
+    state.optimizer.register_step_pre_hook(
+        lambda *_: segments.append(zero.master.grad.clone()))
+    # host ms of the step's two collective stages: the gather of the
+    # engaged leaves before the forward, and the update (reduce-scatter,
+    # Adam on the segment, all-gather, write-back)
+    split = {"gather": [], "update": []}
+
+    def timed(name):
+        fn = getattr(zero, name)
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            split[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    times, losses, counts = [], [], {}
+    for j, batch in enumerate(local):
+        full = [leaf for _, leaf in named_leaves(
+            zero.gather(state.trainable, requires_grad=False))]
+        saved = [leaf.detach().clone() for leaf in full]
+        for i in range(1, NOISE_DRAWS + 1):
+            # the step's full weights times this draw, stored back as the
+            # rank's shards
+            draw_weights(torch, full, saved, i)
+            zero.write_back(state.trainable, zero.flatten(full))
+            tree = zero.gather(state.trainable)
+            loss, _ = compute_gradients(state, cfg, batch, trainable=tree)
+            grads = [leaf.grad for _, leaf in named_leaves(tree)]
+            reduced = all_gather_flat(reduce_scatter_mean(
+                zero.flatten(grads)))[:zero.numel]
+            loss = loss.reshape(1).clone()
+            all_reduce_mean_([loss])
+            if rank == 0:
+                send("tp_reading", (j, i, loss.item(), reduced, {}))
+            del reduced, grads, tree
+        draw_weights(torch, full, saved, 0)
+        zero.write_back(state.trainable, zero.flatten(full))
+        del full, saved
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        zero.gather, zero.update = timed("gather"), timed("update")
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del zero.gather, zero.update
+        for k, v in kernels.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        losses.append(float(metrics["loss_total"]))
+        check_replicated(stored(), "shards after a step", group=mesh.data)
+        reduced = all_gather_flat(segments[-1])[:zero.numel]
+        whole = zero.consolidate()      # rank 0's alone
+        if rank == 0:
+            weights, mu, nu = (zero.flatten(t)[:zero.numel]
+                               for t in whole[:3])
+            send("tp_reading", (j, 0, losses[-1], reduced, {}))
+            send("tp_after", (j, weights, mu, nu, whole[3]))
+            del weights, mu, nu
+        del reduced, whole
+    adam = state.optimizer.state[zero.master]
+    mb = {"adam_moments": sum(adam[k].numel() * adam[k].element_size()
+                              for k in ("exp_avg", "exp_avg_sq")) / 1e6,
+          "master_segment": zero.master.numel()
+          * zero.master.element_size() / 1e6,
+          "engaged_storage": sum(stored()[i].numel() * 4
+                                 for i in engaged) / 1e6,
+          "engaged_full": sum(math.prod(zero.shapes[i]) * 4
+                              for i in engaged) / 1e6,
+          "stored_total": sum(t.numel() * 4 for t in stored()) / 1e6}
+    save_checkpoint(root, state, state.step)
+    results.put((rank, "tp_steps", {
+        "losses": losses, "times_ms": times, "split_ms": split,
+        "step": state.step, "counts": counts, "mb": mb,
+        "engaged": len(engaged),
+        "segment": zero.segment, "numel": zero.numel,
+        "groups": {"data": dist.get_process_group_ranks(mesh.data),
+                   "model": dist.get_process_group_ranks(mesh.model)}}))
+    del trainer, state, zero
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    if not release.wait(timeout=DP_TIMEOUT):
+        raise RuntimeError("the parent never took the readings")
+
+
+def run_tp(torch, kernels, cmpc, build_trainer, compute_gradients,
+           named_leaves, card, train_ms):
+    """Phase 14: tensor parallelism and ZeRO on the one card, N_TP ranks on
+    cuda:0 over gloo in spawned processes (`tp_rank`), then the checks
+    here: for the flagship at global bs=8, each of the TP_STEPS steps held
+    against the single process on the same whole batch from the weights
+    that step started from: its reduced gradient against the plain route
+    by check_train_routes' rule (the layout as the route under test: draw
+    0 the step's own gradient, the other draws read by the ranks), its
+    loss against the single process's kernel route within DP_LOSS_TOL,
+    and its update: the single process's `Trainer.step` whose optimizer
+    takes the ranks' gradient must leave every weight and both of Adam's
+    moments bit-equal to the ranks' consolidated state (a wrong segment,
+    shard, lr or moment fails it), so each step starts from the ranks'
+    weights.  Each rank's bytes against TP_WANT_MB (exactly the layout's
+    sizes: the segment pads nothing, 76,055,608 dividing by 4); launches
+    held at each rank's shapes; the consolidated checkpoint restored
+    into a single-process trainer, every leaf bit-equal to the ranks'
+    last state.  Step ms: four ranks share one card, so they show
+    correctness, not scaling.  A rank that fails or outlives DP_TIMEOUT
+    fails the phase."""
+    import os
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from cmpc_refseg_torch.train.checkpoint import restore_checkpoint
+
+    path = f"tp_train_bs{B // 2}"
+    ctx = mp.get_context("spawn")
+    results, release = ctx.Queue(), ctx.Event()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=tp_rank, args=(
+            r, os.path.join(root, "rdzv"), os.path.join(root, "ckpt"),
+            results, release)) for r in range(N_TP)]
+        for p in procs:
+            p.start()
+        got, deadline = {}, time.perf_counter() + DP_TIMEOUT
+        try:
+            done = 0
+            while done < N_TP:
+                try:
+                    rank, kind, payload = results.get(
+                        timeout=max(1.0, deadline - time.perf_counter()))
+                except queue.Empty:
+                    fail(f"tp: the ranks did not finish within "
+                         f"{DP_TIMEOUT} s (got {sorted(got)})")
+                if kind == "error":
+                    fail(f"tp: rank {rank} failed:\n{payload}")
+                if kind == "done":
+                    done += 1
+                    continue
+                if kind in ("tp_reading", "tp_after"):
+                    payload = tuple(t.clone() if torch.is_tensor(t) else t
+                                    for t in payload)
+                got.setdefault(kind, {}).setdefault(rank, []).append(payload)
+                if len(got.get("tp_steps", {})) == N_TP:
+                    # every rank has sent all: every reading is copied
+                    release.set()
+        finally:
+            release.set()
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.terminate()
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"tp: rank exit codes {[p.exitcode for p in procs]}")
+        ranks_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+
+        steps = [got["tp_steps"][r][0] for r in range(N_TP)]
+        readings = {(j, i): r for j, i, *r in got.pop("tp_reading")[0]}
+        afters = {j: r for j, *r in got.pop("tp_after")[0]}
+        trainer = build_trainer("CMPC_model", device=DEV, dtype="bfloat16",
+                                batch_size=B)
+        reference = build_trainer("CMPC_model", device=DEV, dtype="float32",
+                                  batch_size=B)
+        tcfg = trainer.cfg
+        leaves = [leaf for _, leaf in named_leaves(trainer.state.trainable)]
+        ref_leaves = [leaf for _, leaf in named_leaves(
+            reference.state.trainable)]
+        sizes = [leaf.numel() for leaf in leaves]
+        batches = [train_batch(tcfg, B, i) for i in range(TP_STEPS)]
+        used = []      # the ranks' gradient, for the replay
+
+        def tp_update(*_):
+            with torch.no_grad():
+                for leaf, g in zip(leaves, torch.split(used[0], sizes)):
+                    leaf.grad.copy_(g.view_as(leaf))
+        trainer.state.optimizer.register_step_pre_hook(tp_update)
+        routes, single, replay = [], [], []
+        for j, b in enumerate(batches):
+            def tp_reading(i, j=j):
+                loss, flat, stats = readings[j, i]
+                return loss, [g.view_as(leaf).double() for leaf, g in
+                              zip(leaves, torch.split(flat, sizes))], stats
+            with torch.no_grad():
+                for a, r in zip(leaves, ref_leaves):
+                    r.copy_(a)
+            reference.state.step = trainer.state.step
+            routes.append(check_train_routes(
+                torch, trainer, reference, compute_gradients, named_leaves,
+                b, kernel=tp_reading))
+            used[:] = [readings[j, 0][1]]
+            single.append(float(trainer.step(b)["loss_total"]))
+            weights, mu, nu, count = afters[j]
+            adam = [trainer.state.optimizer.state[leaf] for leaf in leaves]
+            differ = {}
+            for what, want in (("weights", weights), ("exp_avg", mu),
+                               ("exp_avg_sq", nu)):
+                mine = leaves if what == "weights" else \
+                    [st[what] for st in adam]
+                differ[what] = [p for (p, _), a, w in zip(
+                    named_leaves(trainer.state.trainable), mine,
+                    torch.split(want, sizes))
+                    if not torch.equal(a.detach().reshape(-1), w)]
+            counts_equal = all(float(st["step"]) == count == j + 1
+                               for st in adam)
+            replay.append({k: len(v) for k, v in differ.items()})
+            if any(differ.values()) or not counts_equal:
+                fail(f"{path}: step {j + 1}: the single process's Adam fed "
+                     f"the ranks' gradient differs from their consolidated "
+                     f"state: {[(k, v[:3]) for k, v in differ.items()]}, "
+                     f"Adam's counts equal {counts_equal}")
+        del readings, ref_leaves, used, reference
+        torch.cuda.empty_cache()
+        errs = [abs(a - b) / abs(b) for a, b in zip(steps[0]["losses"],
+                                                    single)]
+        if not max(errs) <= DP_LOSS_TOL or steps[0]["step"] != TP_STEPS \
+                or any(s["losses"] != steps[0]["losses"] for s in steps):
+            fail(f"{path}: TP losses {[s['losses'] for s in steps]} vs the "
+                 f"single process's from the same weights {single}: "
+                 f"relative {errs} (<= {DP_LOSS_TOL}), step "
+                 f"{steps[0]['step']}")
+        for r, s in enumerate(steps):
+            m = TP_SHAPE[1]
+            want_groups = {"data": list(range(r % m, N_TP, m)),
+                           "model": list(range(r - r % m, r - r % m + m))}
+            if s["engaged"] != TP_ENGAGED or s["groups"] != want_groups or any(
+                    abs(s["mb"][k] - v) > 1e-9 for k, v in
+                    TP_WANT_MB.items()):
+                fail(f"{path}: rank {r}: {s['engaged']} engaged leaves, "
+                     f"groups {s['groups']} (want {want_groups}), MB "
+                     f"{s['mb']} (want {TP_WANT_MB})")
+            check_counts(s["counts"], config_launches(
+                cmpc, tcfg, B // 2, train=True), TP_STEPS, f"{path} rank {r}")
+
+        # the consolidated checkpoint in one process
+        restored = build_trainer("CMPC_model", device=DEV, dtype="bfloat16",
+                                 batch_size=B)
+        restore_checkpoint(os.path.join(root, "ckpt"), restored.state)
+        weights, mu, nu, count = afters[TP_STEPS - 1]
+        r_leaves = [leaf for _, leaf in named_leaves(
+            restored.state.trainable)]
+        r_adam = [restored.state.optimizer.state[leaf] for leaf in r_leaves]
+        ckpt_differ = [
+            (what, p) for what, mine, want in (
+                ("weights", r_leaves, weights),
+                ("exp_avg", [st["exp_avg"] for st in r_adam], mu),
+                ("exp_avg_sq", [st["exp_avg_sq"] for st in r_adam], nu))
+            for (p, _), a, w in zip(named_leaves(restored.state.trainable),
+                                    mine, torch.split(want, sizes))
+            if not torch.equal(a.detach().reshape(-1), w)]
+        ckpt_differ += [("frozen", p) for (p, a), (_, w) in zip(
+            named_leaves(restored.state.frozen_f32),
+            named_leaves(trainer.state.frozen_f32)) if not torch.equal(a, w)]
+        if ckpt_differ or restored.state.step != TP_STEPS or any(
+                float(st["step"]) != count for st in r_adam):
+            fail(f"{path}: the consolidated checkpoint restored in one "
+                 f"process differs: {ckpt_differ[:4]}, step "
+                 f"{restored.state.step}")
+        del restored, r_leaves, r_adam, afters, trainer, leaves
+        torch.cuda.empty_cache()
+
+    ms = statistics.median(steps[0]["times_ms"])
+    out = {"routes": routes, "tp_losses": steps[0]["losses"],
+           "single_losses": single, "loss_rel_errs": errs,
+           "replay_leaves_differing": replay,
+           "rank_step_ms": [s["times_ms"] for s in steps],
+           "rank_split_ms": [s["split_ms"] for s in steps],
+           "mb_per_rank": [s["mb"] for s in steps], "mb_want": TP_WANT_MB,
+           "segment": steps[0]["segment"], "numel": steps[0]["numel"],
+           "checkpoint_leaves_equal": len(sizes), "ranks_s": ranks_s}
+    for j, r in enumerate(routes):
+        log(f"[{path}] step {j + 1}: the layout's reduced gradient vs the "
+            f"single process's plain route: loss relative "
+            f"{r['loss_rel_err']:.3e}, worst resolved leaf "
+            f"{r['worst_resolved_grad_rel_err']:.3e} "
+            f"({r['worst_resolved_grad_leaf']}), leaf counts {r['counts']}")
+    log(f"[{path}] {card}: CMPC_model 320x320 global bs={B} over {N_TP} "
+        f"ranks on one card (gloo) as data x model = {TP_SHAPE}, bf16 "
+        f"res4_blocks=23, min_dim 512 ({steps[0]['engaged']} "
+        f"leaves split): {TP_STEPS} steps, each step's gradient by "
+        f"check_train_routes' rule (above), losses {steps[0]['losses']} vs "
+        f"the single process's from each step's weights {single} "
+        f"(relative <= {max(errs):.3e} <= {DP_LOSS_TOL}), the single "
+        f"process's Adam fed the ranks' gradient bit-equal to their "
+        f"consolidated weights and moments after every step, the ranks of "
+        f"each model index holding bit-equal shards; MB per rank "
+        f"{json.dumps(steps[0]['mb'])} (want {json.dumps(TP_WANT_MB)}); "
+        f"rank step ms {[[round(t, 3) for t in s['times_ms']] for s in steps]}"
+        f", of which the gather of the engaged leaves "
+        f"{[[round(t, 3) for t in s['split_ms']['gather']] for s in steps]}"
+        f" and the update (reduce-scatter, Adam, all-gather, write-back) "
+        f"{[[round(t, 3) for t in s['split_ms']['update']] for s in steps]}"
+        f" (four ranks share one card: not scaling; phase 6's "
+        f"single-process bs={B} step {train_ms:.3f}); the consolidated "
+        f"checkpoint restored in one process bit-equal in all "
+        f"{len(sizes)} leaves, both moments and the frozen backbone; the "
+        f"ranks' work took {ranks_s:.1f} s")
+    return {path: (steps[0]["counts"], TP_STEPS, ms)}, out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4388,6 +4785,14 @@ def main():
                           train["median_ms"])
     paths.update(dp_paths)
     log(f"[phase 13] {time.perf_counter() - t13:.1f} s")
+    torch.cuda.empty_cache()
+    # phase 14: tensor parallelism and ZeRO
+    t14 = time.perf_counter()
+    tp_paths, tp = run_tp(torch, kernels, cmpc, build_trainer,
+                          compute_gradients, named_leaves, card,
+                          train["median_ms"])
+    paths.update(tp_paths)
+    log(f"[phase 14] {time.perf_counter() - t14:.1f} s")
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
@@ -4423,6 +4828,7 @@ def main():
     log(f"[int8] {json.dumps(int8)}")
     log(f"[vgg16_fcn] {json.dumps(vgg)}")
     log(f"[dp] {json.dumps(dp)}")
+    log(f"[tp] {json.dumps(tp)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

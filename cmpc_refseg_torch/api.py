@@ -10,6 +10,11 @@ reference name.
 >>> metrics = trainer.step(batch)       # one Adam update
 >>> trainer.train(reader, max_iter=1000)
 
+Under a process group, ``build_trainer(..., mesh=make_mesh((d, m)))``
+(``parallel/mesh.py``) lays the trainer out for tensor parallelism and
+ZeRO; its `step` then takes the rows of the rank's data slot
+(``shard_batch(batch, mesh)``).
+
 All run on CUDA unless the caller passes ``device="cpu"``; with no CUDA
 device and no explicit device, they raise.  The weights come from `seed`
 (and the embedding from `glove` [vocab_size, glove_dim] when given, as the
@@ -119,14 +124,17 @@ def build_service(name: str, *, seed: int = 0, glove=None, device=None,
 
 
 def build_trainer(name: str, *, seed: int = 0, glove=None, device=None,
-                  dtype=None, **overrides) -> Trainer:
+                  dtype=None, mesh=None, **overrides) -> Trainer:
     """A `Trainer` for variant `name` from parameters drawn from `seed` (the
     embedding from `glove` when given), on `device` (CUDA when None; raises
     without it).  `dtype` sets the compute dtype; the trainable weights and
-    Adam's moments stay float32."""
+    Adam's moments stay float32.  With `mesh` (``parallel.mesh.make_mesh``)
+    the state is laid out on it: the leaves whose output channels are at
+    least 512 wide stored split over its model axis, Adam sharded over its
+    world (``trainer.shard_train_state``)."""
     cfg = _config(name, dtype, overrides)
     return Trainer(cfg=cfg, state=create_train_state(
-        seed, cfg, glove, device=resolve_device(device)))
+        seed, cfg, glove, device=resolve_device(device), mesh=mesh))
 
 
 def get_segmentation_model(name: str, **kwargs) -> Model:

@@ -808,6 +808,43 @@ def convlstm_step_fused(p, x, c, h, *, use_kernels: bool = True):
     return new_c.reshape(b, hh, ww, cc), new_h.reshape(b, hh, ww, cc)
 
 
+# --- ConvGRU cell (util/cell.py:82-143), an alternative recurrent fuser ----
+# that no config calls; plain PyTorch, as the JAX package runs it in XLA
+
+def init_convgru(key, cfg):
+    """The ConvGRU's parameters, a numpy tree in the JAX package's layout:
+    the 1x1 gates kernel [1, 1, 2C, 2C] (r then u), the candidate's
+    [1, 1, 2C, C], and the layer norms of r, u and the candidate, C =
+    mlp_dim."""
+    c = cfg.mlp_dim
+    k1, k2 = split_stream(key, 2)
+    return {
+        "gates_kernel": glorot_uniform(k1, (1, 1, 2 * c, 2 * c)),
+        "cand_kernel": glorot_uniform(k2, (1, 1, 2 * c, c)),
+        "ln": [init_layer_norm(c) for _ in range(3)],
+    }
+
+
+def convgru_step(p, x, h):
+    """One ConvGRU step (util/cell.py:110-143, normalize=True): the gates
+    conv of [x, h], split into r and u, each whole-sample layer-normed
+    and through a sigmoid; the candidate conv of [x, r * h], layer-normed,
+    through tanh; h' = u * h + (1 - u) * candidate.  x, h [B, H, W, C];
+    the 1x1 convs are channel matmuls with f32 sums, their outputs in x's
+    dtype."""
+    dt = x.dtype
+    z = torch.cat([x, h], dim=-1)
+    y = _matmul_f32(z, p["gates_kernel"][0, 0].to(dt)).to(dt)
+    r, u = torch.chunk(y, 2, dim=-1)
+    ln = p["ln"]
+    r = torch.sigmoid(tf1_layer_norm(r, ln[0]["gamma"], ln[0]["beta"]))
+    u = torch.sigmoid(tf1_layer_norm(u, ln[1]["gamma"], ln[1]["beta"]))
+    z2 = torch.cat([x, r * h], dim=-1)
+    cand = _matmul_f32(z2, p["cand_kernel"][0, 0].to(dt)).to(dt)
+    cand = torch.tanh(tf1_layer_norm(cand, ln[2]["gamma"], ln[2]["beta"]))
+    return u * h + (1 - u) * cand
+
+
 def init_fusion_stack(key, cfg):
     """Two rounds of gated exchange over the levels + ConvLSTM fusion
     (CMPC_model.py:261-293)."""

@@ -22,6 +22,13 @@ paths of `optimizer.named_leaves`, read back with ``weights_only=True``:
 A step is written under a temporary name, flushed to disk and moved into
 place with ``os.replace``, so a kill in mid-save leaves no step behind
 that `latest_step` would take.
+
+A state laid out on a (data x model) layout (``TrainState.zero``) saves
+the same file one process writes: the segments of the master weights and
+of Adam's moments are gathered onto rank 0 alone (and the world's mean of
+the accumulators reduced there), and rank 0 writes.  Restored onto a
+layout, any such file (of one process, or of another layout) is cut into
+the target's shards and segment.
 """
 
 from __future__ import annotations
@@ -33,10 +40,11 @@ import sys
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from cmpc_refseg_torch.convert import to_device
 from cmpc_refseg_torch.models.model import prepare_backbone
-from cmpc_refseg_torch.train.optimizer import named_leaves
+from cmpc_refseg_torch.train.optimizer import named_leaves, rebuild
 
 FILE = "train_state.pt"
 # fields a checkpoint may be restored across: the batch, and the compute
@@ -96,28 +104,66 @@ def _flat(tree) -> dict:
             for path, leaf in named_leaves(tree)}
 
 
+def _optimizer_trees(state):
+    """(weights, exp_avg, exp_avg_sq, accum) as lists of full leaves in
+    `named_leaves` order (accum None without grad_accum), and Adam's
+    count: the state's own, or under a layout gathered onto rank 0 alone
+    (collective; accum the world's mean of the ranks' accumulators) and
+    None on the other ranks."""
+    if state.zero is not None:
+        return _gathered_trees(state)
+    weights = [p for _, p in named_leaves(state.trainable)]
+    adam = [state.optimizer.state.get(p, {}) for p in weights]
+    mu, nu = ([st[key] if st else torch.zeros_like(p)
+               for p, st in zip(weights, adam)]
+              for key in ("exp_avg", "exp_avg_sq"))
+    counts = [float(st["step"]) for st in adam if st]
+    accum = None
+    if state.cfg.grad_accum > 1:
+        accum = state.accum or [torch.zeros_like(p) for p in weights]
+    return weights, mu, nu, accum, counts[0] if counts else 0.0
+
+
+def _gathered_trees(state):
+    """`_optimizer_trees` of a state under a layout: the segments
+    gathered and the accumulators reduced onto rank 0 only."""
+    zero = state.zero
+    whole = zero.consolidate()
+    accum = None
+    if state.cfg.grad_accum > 1:
+        flat = zero.flatten(state.accum) if state.accum is not None else \
+            zero.master.new_zeros(zero.segment * zero.mesh.world_size)
+        dist.reduce(flat, dst=0)
+        accum = zero.unflatten(flat.div_(zero.mesh.world_size))
+    if whole is None:
+        return None
+    weights, mu, nu, count = whole
+    return weights, mu, nu, accum, count
+
+
 def save_checkpoint(directory: str, state, step: int,
                     max_to_keep: int = 4) -> None:
     """Write `state` (a TrainState) as step `step` under `directory`, then
-    remove all but the newest `max_to_keep` steps."""
-    leaves = list(named_leaves(state.trainable))
-    adam = [state.optimizer.state.get(p, {}) for _, p in leaves]
-    moments = {key: {_key(path): (st[key] if st else torch.zeros_like(p))
-                     .cpu()
-                     for (path, p), st in zip(leaves, adam)}
-               for key in ("exp_avg", "exp_avg_sq")}
-    counts = [float(st["step"]) for st in adam if st]
+    remove all but the newest `max_to_keep` steps.  A state under a layout
+    is gathered onto rank 0, which writes it; every rank must call this."""
+    trees = _optimizer_trees(state)
+    if trees is None:
+        return
+    weights, mu, nu, accum, count = trees
+    paths = [_key(path) for path, _ in named_leaves(state.trainable)]
+
+    def by_path(tensors):
+        # a copy each: a layout's leaves are views of one gathered vector,
+        # whose whole storage torch.save would write with each
+        return {path: t.detach().to("cpu", copy=True)
+                for path, t in zip(paths, tensors)}
     payload = {"config": _config_record(state.cfg), "step": int(state.step),
-               "adam_step": counts[0] if counts else 0.0,
-               "trainable": _flat(state.trainable), **moments,
+               "adam_step": count, "trainable": by_path(weights),
+               "exp_avg": by_path(mu), "exp_avg_sq": by_path(nu),
                "frozen": _flat(state.frozen_f32),
                "model_state": _flat(state.model_state)}
-    if state.cfg.grad_accum > 1:
-        payload["accum"] = {
-            _key(path): (torch.zeros_like(p) if state.accum is None
-                         else a).detach().cpu()
-            for (path, p), a in zip(leaves, state.accum or [None] *
-                                    len(leaves))}
+    if accum is not None:
+        payload["accum"] = by_path(accum)
     step_dir = os.path.join(directory, str(step))
     os.makedirs(step_dir, exist_ok=True)
     tmp = os.path.join(step_dir, f".{FILE}.tmp-{os.getpid()}")
@@ -174,8 +220,10 @@ def _load(template, saved: dict, what: str, device=None):
 def restore_checkpoint(directory: str, target, step: Optional[int] = None):
     """Load step `step` (the newest when None) into `target`, a TrainState
     of the same config up to RUNTIME_FIELDS, on the target's devices and
-    dtypes; returns `target`.  Its Adam then holds the saved moments and
-    count, so the next update is the one the saved state would make.
+    dtypes, and under the target's layout if it has one (cut into its
+    shards and segment; every rank reads the file); returns `target`.
+    Its Adam then holds the saved moments and count, so the next update
+    is the one the saved state would make.
     FileNotFoundError when there is no such step."""
     step = latest_step(directory) if step is None else step
     if step is None or not os.path.isfile(_step_file(directory, step)):
@@ -184,17 +232,32 @@ def restore_checkpoint(directory: str, target, step: Optional[int] = None):
     ck = torch.load(_step_file(directory, step), map_location="cpu",
                     weights_only=True)
     _check_config(ck["config"], target.cfg)
-    trainable = _load(target.trainable, ck["trainable"], "trainable",
-                      device="cpu")
-    moments = [dict(named_leaves(_load(target.trainable, ck[key], key)))
+    zero = target.zero
+    # a template of the full leaves (under a layout the stored ones are
+    # shards)
+    template = target.trainable if zero is None else rebuild(
+        target.trainable, [torch.empty(s, device="meta")
+                           for s in zero.shapes])
+    device = target.device
+    trainable = _load(template, ck["trainable"], "trainable", device="cpu")
+    moments = [dict(named_leaves(_load(template, ck[key], key,
+                                       device=device)))
                for key in ("exp_avg", "exp_avg_sq")]
-    with torch.no_grad():
-        for (path, p), (_, value) in zip(named_leaves(target.trainable),
-                                         named_leaves(trainable)):
-            p.copy_(value)
-            target.optimizer.state[p] = {
-                "step": torch.tensor(ck["adam_step"], dtype=torch.float32),
-                "exp_avg": moments[0][path], "exp_avg_sq": moments[1][path]}
+    if zero is not None:
+        weights = [v for _, v in named_leaves(trainable)]
+        zero.load(weights, *([m[p] for p, _ in named_leaves(template)]
+                             for m in moments), ck["adam_step"])
+        zero.write_back(target.trainable, zero.flatten(weights).to(device))
+    else:
+        with torch.no_grad():
+            for (path, p), (_, value) in zip(named_leaves(target.trainable),
+                                             named_leaves(trainable)):
+                p.copy_(value)
+                target.optimizer.state[p] = {
+                    "step": torch.tensor(ck["adam_step"],
+                                         dtype=torch.float32),
+                    "exp_avg": moments[0][path],
+                    "exp_avg_sq": moments[1][path]}
     target.frozen_f32 = _load(target.frozen_f32, ck["frozen"], "frozen",
                               device="cpu")
     target.frozen = {"backbone": prepare_backbone(
@@ -204,6 +267,6 @@ def restore_checkpoint(directory: str, target, step: Optional[int] = None):
                                "model_state")
     if target.cfg.grad_accum > 1:
         target.accum = [leaf for _, leaf in named_leaves(
-            _load(target.trainable, ck["accum"], "accum"))]
+            _load(template, ck["accum"], "accum", device=device))]
     target.step = ck["step"]
     return target

@@ -30,7 +30,7 @@ from cmpc_refseg_torch.ops.densecrf import refine_mask
 from cmpc_refseg_torch.ops.metrics import (EVAL_PRECISION_THRESHOLDS,
                                            SegEvalAccumulator,
                                            batched_mask_iu)
-from cmpc_refseg_torch.parallel.mesh import shard_batch
+from cmpc_refseg_torch.parallel.mesh import data_group, shard_batch
 from cmpc_refseg_torch.train.optimizer import named_leaves
 from cmpc_refseg_torch.train.trainer import device_image_prologue
 
@@ -188,7 +188,12 @@ def evaluate_sharded(cfg: ModelConfig, params, model_state, batch_iter, *,
     batches, each rank scores its rows of each batch by its rank in
     `mesh` (`shard_batch`) and the sums are all-reduced over `mesh`, so
     every rank returns what one device returns (I, U and the precision
-    counts equal; the IoU sum in another order)."""
+    counts equal; the IoU sum in another order).  Under a (data x model)
+    layout `mesh` is the layout (its data group is taken) or its data
+    group: a group holding two ranks of one data slot raises
+    (`data_group`), since it would count their rows twice."""
+    if mesh is not None:
+        mesh = data_group(mesh)
     dev = resolve_device(device)
     params = prepare_params(to_device(params, dev), cfg)
     model_state = to_device(model_state or {}, dev)

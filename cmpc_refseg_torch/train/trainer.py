@@ -24,10 +24,21 @@ reads `batch_size / R` rows a step, checks at start that the ranks hold
 the same weights, agrees on a preemption across the ranks, and logs and
 writes checkpoints on rank 0 only.
 
-Not ported: the JAX step's layout knobs (the flat master vector, the grad
-modes, the fused Adam, the XLA dW switch), which are TPU launch-count
-workarounds with the same math; tensor parallelism and ZeRO (ROADMAP
-queue 1, item 11).
+Tensor parallelism and ZeRO: under a (data x model) layout
+(``parallel/mesh.py::make_mesh``; `create_train_state(mesh=)` or
+`shard_train_state`) the state stores each leaf that `tp_shardings`
+engages as the rank's slice of it, the others whole, and holds Adam for
+its segment of the flat vector only (``optimizer.ZeroAdam``).  The step
+gathers the engaged leaves whole over the model group before its forward
+(storage sharded, compute replicated: every kernel runs on full weights),
+and at the micro-step that updates reduce-scatters the gradient over the
+world as a mean, steps Adam on the segment and all-gathers the segments.
+The m ranks of a data slot hold the same rows, so every mean over the
+world (gradients, metrics, the ASPP BN moments) is the data group's.
+
+Not ported: the JAX step's layout knobs (the grad modes, the fused Adam,
+the XLA dW switch), which are TPU launch-count workarounds with the same
+math.
 """
 
 from __future__ import annotations
@@ -46,13 +57,15 @@ from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR
 from cmpc_refseg_torch.models.model import (apply_model, compute_loss,
                                             init_model, init_model_state,
                                             prepare_backbone)
-from cmpc_refseg_torch.parallel.mesh import (agree_any, all_reduce_mean_,
+from cmpc_refseg_torch.parallel.mesh import (Mesh, agree_any,
+                                             all_reduce_mean_,
                                              check_replicated, distributed,
                                              is_primary_process,
-                                             local_batch_size)
+                                             local_batch_size, tp_shardings)
 from cmpc_refseg_torch.train.checkpoint import save_checkpoint
-from cmpc_refseg_torch.train.optimizer import (accumulate, make_optimizer,
-                                               merge_params, named_leaves,
+from cmpc_refseg_torch.train.optimizer import (ZeroAdam, accumulate,
+                                               make_optimizer, merge_params,
+                                               named_leaves,
                                                partition_params,
                                                polynomial_lr, scale_bias_grads)
 from cmpc_refseg_torch.utils.moving_average import MovingAverage
@@ -71,7 +84,10 @@ class TrainState:
     multiscore decoder); `step`: micro-steps done, as the JAX state counts
     them (updates done = step // grad_accum); `accum`: with grad_accum > 1,
     the running mean of this update's micro-step gradients, one tensor per
-    trainable leaf (None before the first micro-step)."""
+    trainable leaf (None before the first micro-step); `zero`: under a
+    layout, its `ZeroAdam` (None otherwise): `trainable` then holds each
+    engaged leaf's shard, `optimizer` is Adam over the rank's segment, and
+    `accum` this rank's own running mean of full gradients."""
     cfg: ModelConfig
     trainable: dict
     frozen: dict
@@ -80,14 +96,18 @@ class TrainState:
     model_state: dict
     step: int = 0
     accum: Optional[list] = None
+    zero: Optional[ZeroAdam] = None
 
     @property
     def device(self) -> torch.device:
         return next(named_leaves(self.trainable))[1].device
 
     def params(self) -> dict:
-        """The full parameter tree (trainable merged with frozen)."""
-        return merge_params(self.trainable, self.frozen)
+        """The full parameter tree (trainable merged with frozen); under a
+        layout the engaged leaves gathered whole (a collective)."""
+        trainable = self.trainable if self.zero is None else \
+            self.zero.gather(self.trainable, requires_grad=False)
+        return merge_params(trainable, self.frozen)
 
 
 def train_state_from_params(params: dict, cfg: ModelConfig,
@@ -106,14 +126,44 @@ def train_state_from_params(params: dict, cfg: ModelConfig,
 
 
 def create_train_state(seed, cfg: ModelConfig, glove=None, *,
-                       device=None) -> TrainState:
+                       device=None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """TrainState from an int seed (the JAX package's init_model draws and
     initial BN statistics; the embedding from `glove` [vocab_size,
     glove_dim] when given), on `device` (CUDA when None; raises without
-    it)."""
-    return train_state_from_params(
+    it); laid out on `mesh` under the production rule when given
+    (`shard_train_state`)."""
+    state = train_state_from_params(
         init_model(seed, cfg, glove, device=device), cfg,
         init_model_state(cfg, device=device))
+    if mesh is not None:
+        shard_train_state(state, mesh)
+    return state
+
+
+def shard_train_state(state: TrainState, mesh: Mesh, *,
+                      min_dim: int = 512) -> TrainState:
+    """`state`, one process's state that every rank holds alike, laid out
+    on `mesh` in place: the leaves that `tp_shardings(min_dim=)` engages
+    stored as this rank's shards, Adam (its moments and count, if it has
+    stepped) kept for this rank's segment only (`ZeroAdam`); `accum` as
+    it is.  Returns `state`."""
+    if state.zero is not None:
+        raise ValueError("the state is laid out already")
+    named = list(named_leaves(state.trainable))
+    dims = [d for _, d in named_leaves(
+        tp_shardings(state.trainable, mesh, min_dim=min_dim))]
+    zero = ZeroAdam(state.cfg, mesh, [t for _, t in named], dims)
+    adam = [state.optimizer.state.get(t) for _, t in named]
+    if any(adam):
+        zero.load([t for _, t in named],
+                  *([st[k] for st in adam] for k in ("exp_avg",
+                                                     "exp_avg_sq")),
+                  float(adam[0]["step"]))
+    state.trainable = zero.shard_tree(state.trainable)
+    state.optimizer = zero.optimizer
+    state.zero = zero
+    return state
 
 
 def aug_generator(step: int) -> torch.Generator:
@@ -189,11 +239,13 @@ def device_clip_prologue(batch: dict, device, cfg: ModelConfig) -> dict:
 
 
 def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
-                      use_kernels: bool = True):
-    """Forward (train mode), loss and backward of one batch: leaves every
-    trainable tensor's gradient in .grad (the conv biases' doubled) and the
-    new BN moving statistics in `state.model_state` (no gradient), and
-    returns (loss_total, metrics), detached.  `use_kernels=False` runs the
+                      use_kernels: bool = True, trainable=None):
+    """Forward (train mode), loss and backward of one batch on the full
+    trainable tree `trainable` (the state's own when None; a state under
+    a layout stores shards, so it needs `state.zero.gather(...)`'s tree):
+    leaves every leaf's gradient in its .grad (the conv biases' doubled)
+    and the new BN moving statistics in `state.model_state` (no
+    gradient), and returns (loss_total, metrics), detached.  `use_kernels=False` runs the
     plain PyTorch versions of the kernels under autograd (the reference
     the kernel route is held against).  A video config's batch goes
     through `device_clip_prologue`, and its metrics have no 'train_mIoU'
@@ -204,16 +256,22 @@ def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
         b = device_image_prologue(batch, state.device)
     if cfg.is_aug and not cfg.video:
         b["im"] = brightness_aug(aug_generator(state.step), b["im"])
-    params = state.params()
+    if trainable is None:
+        if state.zero is not None:
+            raise ValueError("a state under a layout stores shards: pass "
+                             "trainable=state.zero.gather(state.trainable)")
+        trainable = state.trainable
+    params = merge_params(trainable, state.frozen)
     outputs = apply_model(params, cfg, b, model_state=state.model_state,
                           train=True, use_kernels=use_kernels)
     state.model_state = outputs.model_state
     total, metrics = compute_loss(outputs, b["target"], cfg, params,
                                   label_bbox=b.get("label_bbox"),
                                   true_bbox=b.get("true_bbox"))
-    state.optimizer.zero_grad(set_to_none=True)
+    for _, leaf in named_leaves(trainable):
+        leaf.grad = None
     total.backward()
-    scale_bias_grads(state.trainable)
+    scale_bias_grads(trainable)
     if cfg.video:
         return total.detach(), {k: v.detach() for k, v in metrics.items()}
     with torch.no_grad():
@@ -232,8 +290,8 @@ def reduce_gradients(state: TrainState) -> None:
         all_reduce_mean_(p.grad for _, p in named_leaves(state.trainable))
 
 
-def make_train_step(cfg: ModelConfig, *, use_kernels: bool = True
-                    ) -> Callable:
+def make_train_step(cfg: ModelConfig, *,
+                    use_kernels: bool = True) -> Callable:
     """(state, batch) -> metrics: one update of `state` in place.
 
     batch: 'im_u8' [B,H,W,3] uint8 RGB and 'target_u8' [B,H,W,1] uint8 (or
@@ -258,29 +316,43 @@ def make_train_step(cfg: ModelConfig, *, use_kernels: bool = True
     Under a process group the batch is this rank's rows of the global
     batch: the update's gradient is averaged over the ranks (one flat
     all-reduce, at the micro-step that updates) and so are the metrics,
-    which are then the global batch's."""
+    which are then the global batch's.
+
+    A state laid out on a layout (`state.zero`) steps under it: the batch
+    is the rows of this rank's data slot (`shard_batch(batch, mesh)`), the
+    forward runs on the engaged leaves gathered whole, and the update is
+    `ZeroAdam.update` (a reduce-scatter of the gradient over the world,
+    Adam on the segment, an all-gather)."""
     schedule = polynomial_lr(cfg)
     k = cfg.grad_accum
 
     def train_step(state: TrainState, batch: dict) -> dict:
+        trainable = state.trainable if state.zero is None else \
+            state.zero.gather(state.trainable)
         _, metrics = compute_gradients(state, cfg, batch,
-                                       use_kernels=use_kernels)
+                                       use_kernels=use_kernels,
+                                       trainable=trainable)
         lr = schedule(state.step // k)
+        leaves = [p for _, p in named_leaves(trainable)]
+        grads = [p.grad for p in leaves]
         emit = True
         if k > 1:
-            leaves = [p for _, p in named_leaves(state.trainable)]
             if state.accum is None:
                 state.accum = [torch.zeros_like(p) for p in leaves]
             mini = state.step % k
             with torch.no_grad():
-                for acc, p in zip(state.accum, leaves):
-                    accumulate(acc, p.grad, mini)
+                for acc, g in zip(state.accum, grads):
+                    accumulate(acc, g, mini)
             emit = mini == k - 1
             if emit:
-                for acc, p in zip(state.accum, leaves):
-                    p.grad = acc.clone()
+                grads = [acc.clone() for acc in state.accum]
+                for acc in state.accum:
                     acc.zero_()
-        if emit:
+        if emit and state.zero is not None:
+            state.zero.update(state.trainable, grads, lr)
+        elif emit:
+            for p, g in zip(leaves, grads):
+                p.grad = g
             reduce_gradients(state)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
@@ -354,10 +426,19 @@ def train_loop(cfg: ModelConfig, reader, *, max_iter: int,
     `reader` (its shard of the data), the ranks must start from the same
     weights (checked), a preemption of any rank stops all at the same
     iteration, and only rank 0 prints, logs and writes checkpoints;
-    `val_fn` runs on every rank."""
+    `val_fn` runs on every rank.
+
+    A `state` laid out on a layout (`create_train_state(mesh=)`) trains
+    under it: each rank reads `batch_size / d` rows a step, d the data
+    axis, and the m ranks of a data slot must read the same rows (their
+    readers the same shard); the ranks of a model index must start from
+    the same shards (checked); a checkpoint gathers the sharded state on
+    every rank while rank 0 writes it."""
     if state is None:
         state = create_train_state(seed, cfg, glove, device=device)
-    check_replicated(leaf for _, leaf in named_leaves(state.trainable))
+    mesh = state.zero.mesh if state.zero is not None else None
+    check_replicated((leaf for _, leaf in named_leaves(state.trainable)),
+                     group=mesh.data if mesh is not None else None)
     step_fn = make_train_step(cfg)
     with PreemptionGuard() as guard:
         return _train_iters(cfg, reader, state, step_fn, guard,
@@ -371,13 +452,17 @@ def train_loop(cfg: ModelConfig, reader, *, max_iter: int,
 def _train_iters(cfg, reader, state, step_fn, guard, *, max_iter, log_every,
                  snapshot_every, checkpoint_dir, logger, start_iter, val_fn,
                  val_every):
-    local_bs = local_batch_size(cfg.batch_size)
+    sharded = state.zero is not None
+    local_bs = local_batch_size(cfg.batch_size, state.zero.mesh.data
+                                if sharded else None)
     primary = is_primary_process()
+    # a sharded state's checkpoint is gathered on every rank
+    saves = primary or sharded
     time_avg = MovingAverage(100)
     last = time.time()
     for it in range(start_iter, max_iter):
         if agree_any(guard.fired):
-            if checkpoint_dir and primary:
+            if checkpoint_dir and saves:
                 save_checkpoint(checkpoint_dir, state, it)
             if primary:
                 print(f"preempted at iter {it}: "
@@ -403,7 +488,7 @@ def _train_iters(cfg, reader, state, step_fn, guard, *, max_iter, log_every,
             if logger is not None and primary:
                 logger.log(it + 1, {f"val_{k}": float(v)
                                     for k, v in val_metrics.items()})
-        if checkpoint_dir and snapshot_every and primary \
+        if checkpoint_dir and snapshot_every and saves \
                 and (it + 1) % snapshot_every == 0:
             save_checkpoint(checkpoint_dir, state, it + 1)
     return state

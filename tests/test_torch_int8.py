@@ -26,7 +26,12 @@ seed) and the jitted forward's sigm by up to ~7e-4 from JAX's own op by
 op forward, which the port matches.
 - `PredictService(quantize=True)` without and with calibration images
   against JAX's: prob within atol 1e-4.
+
+The JAX services are built in threads while the op-by-op references
+run.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -78,8 +83,39 @@ def _unit(tree, path):
     return tree
 
 
+def _calibration_images():
+    return [np.random.default_rng(i).standard_normal(
+        (1, 32, 32, 3)).astype(np.float32) * 50 for i in range(2)]
+
+
+def _request():
+    return (np.random.default_rng(0).integers(0, 256, (40, 56, 3),
+                                              dtype=np.uint8),
+            "the red man on the left")
+
+
+def _jax_service_prob(calibrated):
+    """JAX's `PredictService(quantize=True)` answer to `_request`, without
+    or with calibration images."""
+    jcfg = jget("CMPC_model", **TINY)
+    jp, js = jinit(0, jcfg)
+    jsvc = jserver.PredictService(
+        jcfg, jp, js, VOCAB, quantize=True,
+        calibration_images=_calibration_images() if calibrated else None)
+    return jsvc.predict(*_request())[0]
+
+
 @pytest.fixture(scope="module")
-def backbones():
+def jax_services():
+    """The JAX services' answers, computed in two threads while the
+    op-by-op references below run (XLA compiles without the GIL, and
+    `jax.disable_jit` holds in its own thread only)."""
+    with ThreadPoolExecutor(2) as pool:
+        yield {c: pool.submit(_jax_service_prob, c) for c in (False, True)}
+
+
+@pytest.fixture(scope="module")
+def backbones(jax_services):
     """JAX's f32 and quantized backbones from seed 0, the port's own
     quantization of the f32 one (prepared), and two calibration images."""
     p = jbb.init_backbone(0, RES4)
@@ -186,10 +222,13 @@ def test_calibration_matches_jax(backbones):
         assert abs(got[p] - w) <= 1e-6 * w, p
 
 
-def test_quantized_flagship_forward_matches_jax(monkeypatch):
+def test_quantized_flagship_forward_matches_jax(monkeypatch, jax_services):
     """JAX's int8 backbone runs op by op, as in the tests above; its head
     runs jitted on those taps (the head has no int8 codes to flip, and
     op by op it costs ~4x the time)."""
+    # the services' threads call JAX's apply_backbone, patched below
+    for future in jax_services.values():
+        future.result()
     jcfg, tcfg = jget("CMPC_model", **TINY), tget("CMPC_model", **TINY)
     jp, js = jinit(0, jcfg)
     rng = np.random.default_rng(2)
@@ -222,21 +261,15 @@ def test_quantized_flagship_forward_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("calibrated", [False, True])
-def test_quantized_service_matches_jax(rng, calibrated):
-    jcfg, tcfg = jget("CMPC_model", **TINY), tget("CMPC_model", **TINY)
-    jp, js = jinit(0, jcfg)
-    images = [np.random.default_rng(i).standard_normal(
-        (1, 32, 32, 3)).astype(np.float32) * 50 for i in range(2)] \
-        if calibrated else None
-    jsvc = jserver.PredictService(jcfg, jp, js, VOCAB, quantize=True,
-                                  calibration_images=images)
-    tsvc = tserver.PredictService(tcfg, tinit(0, tcfg, device="cpu"), VOCAB,
-                                  device="cpu", quantize=True,
-                                  calibration_images=images)
+def test_quantized_service_matches_jax(jax_services, calibrated):
+    tcfg = tget("CMPC_model", **TINY)
+    tsvc = tserver.PredictService(
+        tcfg, tinit(0, tcfg, device="cpu"), VOCAB, device="cpu",
+        quantize=True,
+        calibration_images=_calibration_images() if calibrated else None)
     assert ("x_scale" in tsvc.params["backbone"]["res5c"]["branch2c"]) \
         == calibrated
-    img = rng.integers(0, 256, (40, 56, 3), dtype=np.uint8)
-    want, _ = jsvc.predict(img, "the red man on the left")
-    prob, mask = tsvc.predict(img, "the red man on the left")
+    want = jax_services[calibrated].result()
+    prob, mask = tsvc.predict(*_request())
     assert prob.shape == mask.shape == (40, 56)
     np.testing.assert_allclose(prob, want, rtol=0, atol=1e-4)

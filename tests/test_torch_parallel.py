@@ -36,6 +36,7 @@ import io
 import multiprocessing as mp
 import os
 import socket
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -65,47 +66,63 @@ METRICS = ("loss_main", "loss_c5", "loss_c4", "loss_cls_all", "loss_reg",
            "loss_total", "train_mIoU", "learning_rate")
 
 
-def _gather(results, n=WORLD, timeout=TIMEOUT):
-    """The n ranks' results, by rank; a rank's error fails the test."""
-    got = {}
-    for _ in range(n):
-        rank, out = results.get(timeout=timeout)
-        if isinstance(out, tuple) and out[0] == "error":
-            pytest.fail(f"rank {rank}:\n{out[1]}")
-        got[rank] = out
-    return [got[r] for r in range(n)]
+class World:
+    """n spawned ranks (`worker.serve`) in one gloo world through a file://
+    rendezvous under `root`: world(command, **kw) -> the ranks' results,
+    or `submit` now and `collect` later, so that this process works
+    meanwhile.  Several commands may be in flight: each rank answers its
+    commands in order, so `collect` returns the oldest one's results."""
 
+    def __init__(self, root, n):
+        ctx = mp.get_context("spawn")
+        self.n = n
+        self.queues = [ctx.Queue() for _ in range(n)]
+        self.results = ctx.Queue()
+        self.answers = [[] for _ in range(n)]
+        self.procs = [ctx.Process(target=worker.serve,
+                                  args=(r, n, str(root / "init"),
+                                        self.queues[r], self.results))
+                      for r in range(n)]
+        for p in self.procs:
+            p.start()
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    """A 2-rank gloo world for the module: run(command, **kw) -> the ranks'
-    results."""
-    ctx = mp.get_context("spawn")
-    init = tmp_path_factory.mktemp("rdzv") / "init"
-    queues = [ctx.Queue() for _ in range(WORLD)]
-    results = ctx.Queue()
-    procs = [ctx.Process(target=worker.serve,
-                         args=(r, WORLD, str(init), queues[r], results))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-
-    def run(command, **kw):
-        for q in queues:
+    def submit(self, command, **kw):
+        for q in self.queues:
             q.put((command, kw))
-        return _gather(results)
 
-    try:
-        yield run
-    finally:
-        for q in queues:
+    def collect(self):
+        """The ranks' results of the oldest command not collected, by rank,
+        each awaited within TIMEOUT; a rank's error fails the test."""
+        while not all(self.answers):
+            rank, out = self.results.get(timeout=TIMEOUT)
+            if isinstance(out, tuple) and out[0] == "error":
+                pytest.fail(f"rank {rank}:\n{out[1]}")
+            self.answers[rank].append(out)
+        return [a.pop(0) for a in self.answers]
+
+    def __call__(self, command, **kw):
+        self.submit(command, **kw)
+        return self.collect()
+
+    def close(self):
+        for q in self.queues:
             q.put(None)
-        for p in procs:
+        for p in self.procs:
             p.join(timeout=30)
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
-        assert not any(p.is_alive() for p in procs)
+        assert not any(p.is_alive() for p in self.procs)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """A 2-rank gloo world for the module."""
+    ranks = World(tmp_path_factory.mktemp("rdzv"), WORLD)
+    try:
+        yield ranks
+    finally:
+        ranks.close()
 
 
 def _jax_steps(name, geo, batches):
@@ -127,20 +144,41 @@ def _jax_steps(name, geo, batches):
     return snaps, metrics
 
 
-@pytest.fixture(scope="module", params=CONFIGS)
-def dp_steps(request, world):
-    """Two JAX steps at the global batch; the DP first step from seed 0 and
-    second from the JAX state after the first."""
-    name = request.param
-    rng = np.random.default_rng(4)
-    tcfg = tget(name, **GEO)
-    batches = [_batch(tcfg, rng) for _ in range(2)]
-    snaps, jmetrics = _jax_steps(name, GEO, batches)
-    first = world("train", name=name, geo=GEO, batches=batches[:1])
-    second = world("train", name=name, geo=GEO, batches=batches[1:],
-                   start=snaps[1])
-    return {"snaps": snaps, "jmetrics": jmetrics, "cfg": tcfg,
-            "ranks": [tuple(r[0] for r in run) for run in (first, second)]}
+@pytest.fixture(scope="module")
+def dp_runs(world):
+    """For each config, two JAX steps at the global batch; the DP first
+    step from seed 0 and second from the JAX state after the first.  The
+    ranks take both first steps while JAX compiles both configs' steps
+    here, one run per config, each in a thread (XLA compiles without the
+    GIL)."""
+    batches, refs = {}, {}
+    for name in CONFIGS:
+        rng = np.random.default_rng(4)
+        batches[name] = [_batch(tget(name, **GEO), rng) for _ in range(2)]
+        world.submit("train", name=name, geo=GEO, batches=batches[name][:1])
+
+    def reference(name):
+        refs[name] = _jax_steps(name, GEO, batches[name])
+    threads = [threading.Thread(target=reference, args=(name,))
+               for name in CONFIGS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    first = {name: world.collect() for name in CONFIGS}
+    for name in CONFIGS:
+        world.submit("train", name=name, geo=GEO,
+                     batches=batches[name][1:], start=refs[name][0][1])
+    return {name: {"snaps": refs[name][0], "jmetrics": refs[name][1],
+                   "cfg": tget(name, **GEO),
+                   "ranks": [tuple(r[0] for r in run)
+                             for run in (first[name], world.collect())]}
+            for name in CONFIGS}
+
+
+@pytest.fixture(params=CONFIGS)
+def dp_steps(request, dp_runs):
+    return dp_runs[request.param]
 
 
 def _assert_ranks_equal(ranks):
@@ -238,8 +276,9 @@ def test_dp_steps_match_single_process(world, name, overrides):
     cfg = tget(name, **geo)
     rng = np.random.default_rng(6)
     batches = [_batch(cfg, rng) for _ in range(2)]
-    ranks = world("train", name=name, geo=geo, batches=batches)
+    world.submit("train", name=name, geo=geo, batches=batches)
     want = _single_process(cfg, batches)
+    ranks = world.collect()
     lr = cfg.start_lr
     got_prev = {p: np.zeros_like(w) for p, w in want[0]["leaves"].items()}
     resolved = {p: np.ones(w.shape, bool) for p, w in
@@ -295,6 +334,7 @@ def test_evaluate_sharded_equals_one_device(world):
     geo = {**GEO, "batch_size": 4}
     cfg = tget("CMPC_model", **geo)
     batches = _eval_batches(cfg)
+    world.submit("evaluate", name="CMPC_model", geo=geo, batches=batches)
     params = init_model(0, cfg, device="cpu")
     state = init_model_state(cfg, device="cpu")
     want = tev.evaluate_sharded(cfg, params, state, iter(batches),
@@ -313,8 +353,7 @@ def test_evaluate_sharded_equals_one_device(world):
         near = float((up - tev.SCORE_THRESHOLD).abs().min())
         margin = near if i == 0 else min(margin, near)
     assert margin > 10 * moved
-    for got in world("evaluate", name="CMPC_model", geo=geo,
-                     batches=batches):
+    for got in world.collect():
         assert got["n"] == want["n"] == 12
         for k in ("overall_iou",) + tuple(k for k in want
                                           if k.startswith("prec@")):
@@ -329,11 +368,12 @@ def test_evaluate_sharded_over_a_group_of_one(world):
     geo = {**GEO, "batch_size": 4}
     cfg = tget("CMPC_model", **geo)
     batches = _eval_batches(cfg)
+    world.submit("evaluate", name="CMPC_model", geo=geo, batches=batches,
+                 own_group=True)
     want = tev.evaluate_sharded(cfg, init_model(0, cfg, device="cpu"),
                                 init_model_state(cfg, device="cpu"),
                                 iter(batches), device="cpu")
-    assert world("evaluate", name="CMPC_model", geo=geo, batches=batches,
-                 own_group=True) == [want, want]
+    assert world.collect() == [want, want]
 
 
 def test_preemption_agreed_across_ranks(world):
@@ -367,12 +407,12 @@ def test_cli_distributed_two_ranks(world, tmp_path):
                 "-ckpt_dir", os.path.join(root, f"ckpt_{tag}"),
                 "-log_dir", os.path.join(root, f"logs_{tag}"),
                 "-device", "cpu"] + COMMON[:-2] + TINY_ARGS + list(extra)
-    steps = world("cli", argvs=[argv(f"dp{r}", ["-distributed", "-mesh",
-                                                 "2"]) for r in range(WORLD)],
-                  port=_free_port(), init_file=os.path.join(root, "init"))
-    assert steps == [2, 2]
+    world.submit("cli", argvs=[argv(f"dp{r}", ["-distributed", "-mesh",
+                                               "2"]) for r in range(WORLD)],
+                 port=_free_port(), init_file=os.path.join(root, "init"))
     with contextlib.redirect_stdout(io.StringIO()):
         tcli.main(argv("one"))
+    assert world.collect() == [2, 2]
     assert sorted(os.listdir(os.path.join(root, "ckpt_dp0"))) == ["1", "2"]
     assert not os.path.exists(os.path.join(root, "ckpt_dp1"))
     assert not os.path.exists(os.path.join(root, "logs_dp1"))

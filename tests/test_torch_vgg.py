@@ -4,6 +4,8 @@ init), and every named activation of a 1x64x64 image within 1e-4 of its
 largest entry (float32 convs summing in other orders; fc6 sums 25088
 products)."""
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,14 +22,22 @@ NAMES = ("conv1_1", "conv1_2", "pool1", "conv2_1", "conv2_2", "pool2",
          "conv4_3", "conv5_1", "conv5_2", "conv5_3", "fc6", "fc7", "fc8")
 
 
+def _jax_side(im):
+    params = jvgg.init_vgg16_fcn(0)
+    return params, {k: np.asarray(v) for k, v in
+                    jvgg.apply_vgg16_fcn(params, jnp.asarray(im)).items()}
+
+
 @pytest.fixture(scope="module")
 def forwards():
-    want_p = jvgg.init_vgg16_fcn(0)
-    got_p = tvgg.init_vgg16_fcn(0)
+    """Both packages' parameters and activations; JAX's in a thread beside
+    the port's (numpy's draws and XLA's compiles run without the GIL)."""
     im = np.random.default_rng(0).standard_normal((1, 64, 64, 3)).astype(
         np.float32) * 50
-    want = {k: np.asarray(v) for k, v in
-            jvgg.apply_vgg16_fcn(want_p, jnp.asarray(im)).items()}
+    with ThreadPoolExecutor(1) as pool:
+        jax_side = pool.submit(_jax_side, im)
+        got_p = tvgg.init_vgg16_fcn(0)
+        want_p, want = jax_side.result()
     params = vgg16_fcn_from_jax(got_p, device="cpu")
     with torch.inference_mode():
         got = {k: v.numpy() for k, v in

@@ -1,5 +1,6 @@
-"""The ranks of tests/test_torch_parallel.py: spawned processes that import
-torch and the port only (the JAX references run in the test's process).
+"""The ranks of tests/test_torch_parallel.py and tests/test_torch_tp.py:
+spawned processes that import torch and the port only (the JAX
+references run in the test's process).
 
 `serve` joins a gloo group through a file:// rendezvous and runs the
 commands it is sent (`COMMANDS`), putting (rank, result) on the result
@@ -80,10 +81,11 @@ class _SignalReader:
     """Seeded collated batches; on rank `victim` the `at`-th read sends
     this process SIGTERM, as a scheduler preempting one rank would."""
 
-    def __init__(self, cfg, victim, at):
+    def __init__(self, cfg, victim, at, seed=None):
         from cmpc_refseg_torch.parallel.mesh import process_index
         self.cfg, self.reads = cfg, 0
-        self.rng = np.random.default_rng(5 + process_index())
+        self.rng = np.random.default_rng(
+            5 + (process_index() if seed is None else seed))
         self.kill = process_index() == victim
         self.at = at
 
@@ -136,8 +138,134 @@ def cli(argvs, port, init_file):
                                device="cpu")
 
 
+def _numpy(tensors, paths):
+    return {p: t.detach().cpu().numpy().copy() for p, t in zip(paths, tensors)}
+
+
+def _tp_record(state, paths, reduced):
+    """The layout's state as one process would hold it (collective; rank
+    0 gets it and returns it): weights, Adam's moments and count,
+    and the update's reduced gradient by path; and this rank's own
+    storage: its stored leaves, the segment's and the moments' sizes."""
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+    zero = state.zero
+    whole = zero.consolidate()
+    adam = state.optimizer.state.get(zero.master, {})
+    # the entries of this rank's segment past the flat vector's end
+    pad = slice(max(0, zero.numel - zero.mesh.rank * zero.segment), None)
+    out = {"stored": {p: t.detach().numpy().copy()
+                      for p, t in named_leaves(state.trainable)},
+           "segment": zero.master.numel(),
+           "pad": [t.detach()[pad].abs().sum().item()
+                   for t in (zero.master, *zero.moments()[:2])],
+           "moment_sizes": [adam[k].numel() for k in ("exp_avg",
+                                                      "exp_avg_sq")
+                            if k in adam],
+           "model_state": _leaves(state.model_state), "step": state.step}
+    if whole is not None:
+        weights, mu, nu, count = whole
+        out.update(leaves=_numpy(weights, paths), exp_avg=_numpy(mu, paths),
+                   exp_avg_sq=_numpy(nu, paths), adam_step=count,
+                   grad=None if reduced is None else _numpy(
+                       state.zero.unflatten(reduced), paths))
+    return out
+
+
+def tp_train(name, geo, batches, start=None, shape=(2, 2), min_dim=16,
+             restore=None, save=None, report_start=False):
+    """Steps of config `name` on a (data x model) layout of the world
+    (`shape`), each rank on its data slot's rows of the global `batches`,
+    from seed 0 or a JAX snapshot `start` laid out by
+    `shard_train_state`, or restored from the checkpoint directory
+    `restore`.  Per step (after the state at the start, with
+    `report_start`): `_tp_record`, with the mean gradient the update took
+    (None at a micro-step that updates nothing), the metrics, and the
+    ranks of this rank's data and model groups.  With `save`, the state
+    after the steps is checkpointed there (rank 0 writes)."""
+    import torch.distributed as dist
+
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.parallel.mesh import (all_gather_flat, make_mesh,
+                                                 shard_batch)
+    from cmpc_refseg_torch.train.checkpoint import (restore_checkpoint,
+                                                    save_checkpoint)
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+    from cmpc_refseg_torch.train.trainer import (make_train_step,
+                                                 shard_train_state)
+    cfg = get_config(name, **geo)
+    mesh = make_mesh(shape)
+    state = shard_train_state(_state(cfg, start), mesh, min_dim=min_dim)
+    if restore is not None:
+        restore_checkpoint(restore, state)
+    paths = [p for p, _ in named_leaves(state.trainable)]
+    segments = []
+    state.optimizer.register_step_pre_hook(
+        lambda *_: segments.append(state.zero.master.grad.clone()))
+    step = make_train_step(cfg)
+    groups = {"data": dist.get_process_group_ranks(mesh.data),
+              "model": dist.get_process_group_ranks(mesh.model)
+              if mesh.model is not None else [mesh.rank]}
+    out = [_tp_record(state, paths, None)] if report_start else []
+    for batch in batches:
+        done = len(segments)
+        metrics = step(state, shard_batch(batch, mesh))
+        reduced = all_gather_flat(segments[-1]) \
+            if len(segments) > done else None
+        out.append({**_tp_record(state, paths, reduced), "groups": groups,
+                    "metrics": {k: float(v) for k, v in metrics.items()}})
+    if save is not None:
+        save_checkpoint(save, state, state.step)
+    return out
+
+
+def tp_loop(name, geo, max_iter, checkpoint_dir, shape=(2, 2), min_dim=16):
+    """`train_loop` of a state laid out on `shape` from seed 0, the ranks
+    of a data slot reading the same rows (a reader seeded by the data
+    index), a snapshot at `max_iter`: `_tp_record` of the state after."""
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.parallel.mesh import make_mesh
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+    from cmpc_refseg_torch.train.trainer import (create_train_state,
+                                                 shard_train_state,
+                                                 train_loop)
+    cfg = get_config(name, **geo)
+    mesh = make_mesh(shape)
+    state = shard_train_state(create_train_state(0, cfg, device="cpu"),
+                              mesh, min_dim=min_dim)
+    reader = _SignalReader(cfg, victim=-1, at=0, seed=mesh.data_index)
+    state = train_loop(cfg, reader, max_iter=max_iter, state=state,
+                       log_every=1000, snapshot_every=max_iter,
+                       checkpoint_dir=checkpoint_dir)
+    return _tp_record(state, [p for p, _ in named_leaves(state.trainable)],
+                      None)
+
+
+def tp_evaluate(name, geo, batches, shape=(2, 2)):
+    """`evaluate_sharded` of seed-0 weights over the world of a layout
+    (which must raise) and over its data group: ('raised', results)."""
+    import torch.distributed as dist
+
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.models.model import init_model, init_model_state
+    from cmpc_refseg_torch.parallel.mesh import make_mesh
+    from cmpc_refseg_torch.train.evaluator import evaluate_sharded
+    cfg = get_config(name, **geo)
+    mesh = make_mesh(shape)
+    params = init_model(0, cfg, device="cpu")
+    model_state = init_model_state(cfg, device="cpu")
+    try:
+        evaluate_sharded(cfg, params, model_state, iter(batches),
+                         mesh=dist.group.WORLD, device="cpu")
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    return raised, evaluate_sharded(cfg, params, model_state, iter(batches),
+                                    mesh=mesh, device="cpu")
+
+
 COMMANDS = {"train": train, "evaluate": evaluate, "preempt": preempt,
-            "cli": cli}
+            "cli": cli, "tp_train": tp_train, "tp_loop": tp_loop,
+            "tp_evaluate": tp_evaluate}
 
 
 def gpu_step(rank, init_file, geo, batch, results):
