@@ -197,7 +197,26 @@ Phases, each fatal on failure:
     consolidated checkpoint restored in one process, every leaf
     bit-equal.  The ranks' launches are held at `accum_train_bs4`'s
     shapes;
-15. the kernels' share of each path's run, the `kernels` JSON line (each
+15. the VOC backbone pretraining pipeline, the convergence proof and the
+    visualisation tool (`run_voc_phase`): ResNet-101 with the 21-class
+    VOC head through `tools.pretrain_backbone.run_train` (the `--mode
+    train` main) on fabricated VOC-style JPEG / palette PNG pairs of
+    VOC's sizes, 321x321 crops, bs=10: SGD over every conv in bf16 and
+    f32 (one warm-up, 5 timed steps), `--train-msc` and head-only Adam in
+    bf16 (3); ms/step, images/s and peak GB of each; the bf16 loss and
+    every gradient against f32's from the same weights and batch (medians
+    over the weights and NOISE_DRAWS draws, against f32's own response
+    to draws of the weights at bf16's rounding), and a second
+    SGD step replayed bit for bit; `--mode eval` single-scale and `--msc`
+    over 8 images (ms per image; the card's confusion matrix against
+    the host's) and `--mode infer`; res4_blocks 2 at crop 65, f32,
+    against the port on the CPU (losses, the step-2 snapshot by the
+    step rule, `eval_forward`'s logits); the convergence proof for 20
+    steps (finite hold-out IoU, launches as 20 train_bs8 steps and 2
+    forwards); `tools.visualize` over 4 samples of phase 11's set from
+    its snapshot (every file, the sigm PNGs equal to `colorize` of
+    Model.forward's sigm);
+16. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -212,6 +231,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -344,6 +364,40 @@ TP_ENGAGED = 51
 TP_WANT_MB = {"adam_moments": 2 * 76_055_608 * 4 / N_TP / 1e6,
               "master_segment": 76_055_608 * 4 / N_TP / 1e6,
               "engaged_storage": 49_962_000 * 4 / TP_SHAPE[1] / 1e6}
+# phase 15: the VOC backbone pretraining pipeline at full width
+# (ResNet-101, 21 classes, 321x321 crops, bs=10) on fabricated VOC-style
+# JPEG / palette PNG pairs of VOC's typical sizes (h, w), the convergence
+# proof (short) and the visualisation tool
+VOC_CLASSES, VOC_BS, VOC_CROP = 21, 10, 321
+VOC_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333), (366, 500),
+             (500, 400), (281, 500), (375, 500))
+N_VOC_TRAIN = 20
+N_VOC_STEPS = 5              # timed SGD steps after one warm-up
+N_VOC_SHORT = 3              # timed --train-msc / head-only Adam steps
+# the recipe's lr (2.5e-4, x10 / x20 for the head) is set for an ImageNet
+# backbone; from random weights SGD diverges in 3 steps (to NaN: the
+# seeded weights' three-scale loss, the calibrated weights' bf16 SGD, on
+# the card, PERF.md section 6), so the phase trains at 1/100 of it
+VOC_LR = 2.5e-6
+VOC_LOSS_TOL = 1e-2          # the bf16 step's loss vs f32's, relative
+# bf16 vs f32 gradients: bf16 rounds each conv's input and weight to 2^-9
+# relative, and through ResNet-101's 100 ReLUs such a change moves the deep
+# leaves' gradients far more than the rounding itself (a pre-activation
+# within it of 0 takes the other branch).  The f32 gradient's own response
+# to draws of the weights times (1 + 2^-9 N(0, 1)) measures that: per leaf,
+# the median of ||g_bf16 - g_32|| over the weights and NOISE_DRAWS draws
+# must be within VOC_NOISE_FACTOR x the median of ||g_32(draw) -
+# g_32(weights)|| (PERF.md section 2)
+VOC_DRAW_EPS, VOC_NOISE_FACTOR = 2.0 ** -9, 3.0
+VOC_CPU_TOL = 1e-4           # card vs CPU at the reduced geometry, f32
+VOC_SMALL_RES4, VOC_SMALL_CROP, VOC_SMALL_BS = 2, 65, 2
+# the step rule of tests/test_torch_pretrain.py on one run: a leaf's error
+# over its largest update; head leaves 1e-4, backbone leaves 5e-2 (a ReLU
+# input within rounding of 0 takes the other branch on one device)
+VOC_HEAD_TOL, VOC_RELU_FLIP_TOL = 1e-4, 5e-2
+CONV_ARGS = ("--steps", "20", "--pool", "32", "--holdout", "16",
+             "--eval-every", "20")
+N_VIS = 4
 REPLACES = {
     "mutan_fused": "cmpc_refseg_tpu/ops/pallas_kernels.py:98",
     "mutan_fwd_residual": "cmpc_refseg_tpu/ops/pallas_kernels.py:332",
@@ -2803,7 +2857,7 @@ def serve_once(torch, requests, argv):
     return out
 
 
-def run_cli_phase(torch, kernels, cmpc, card, train_ms, eval_sps):
+def run_cli_phase(torch, kernels, cmpc, card, train_ms, eval_sps, root):
     """Phase 11: the flagship through the port's command line at 320x320,
     bs=8, bf16, full depth, on `cli_dataset`: `cli.main -m train` 20
     steps with a snapshot every 10, then `-resume` to 30 (it must start at
@@ -2820,9 +2874,10 @@ def run_cli_phase(torch, kernels, cmpc, card, train_ms, eval_sps):
     loaded back, its masks within SIGM_TOL of the plain route's.  The
     CLI's launches are counted and held at the shapes of the phase-3 path
     each shares (CLI_PATHS).  `train_ms` and `eval_sps` are phase 6's
-    step ms and phase 8's samples/s, printed beside."""
+    step ms and phase 8's samples/s, printed beside.  The dataset and the
+    snapshots stay under `root` (a directory the caller removes), for
+    phase 15's visualisation."""
     import os
-    import tempfile
 
     from cmpc_refseg_torch import api, cli
     from cmpc_refseg_torch.data.reader import NpzReader
@@ -2840,224 +2895,223 @@ def run_cli_phase(torch, kernels, cmpc, card, train_ms, eval_sps):
     log(f"[cli] host libraries: {json.dumps(libs)}")
     has_pil, has_cv2 = libs["PIL"] is not None, libs["cv2"] is not None
     paths, out = {}, {"host_libraries": libs}
-    with tempfile.TemporaryDirectory() as root:
-        ck = os.path.join(root, "ckpt")
-        common = ["-n", "CMPC_model", "-f", root, "-emb_dir", root,
-                  "-bs", str(B), "-ckpt_dir", ck,
-                  "-log_dir", os.path.join(root, "logs")]
-        train_argv = ["-m", "train", "-d", "unc", "-t", "train", "-s", "10",
-                      "-workers", "1"] + common
-        cfg, _ = cli.make_config(cli.build_argparser().parse_args(
-            train_argv), torch.device(DEV))
-        check_config(cfg, "CMPC_model", "cli")
-        t0 = time.perf_counter()
-        cli_dataset(root, cfg.vocab_size, cfg.glove_dim)
-        out["dataset_s"] = time.perf_counter() - t0
+    ck = os.path.join(root, "ckpt")
+    common = ["-n", "CMPC_model", "-f", root, "-emb_dir", root,
+              "-bs", str(B), "-ckpt_dir", ck,
+              "-log_dir", os.path.join(root, "logs")]
+    train_argv = ["-m", "train", "-d", "unc", "-t", "train", "-s", "10",
+                  "-workers", "1"] + common
+    cfg, _ = cli.make_config(cli.build_argparser().parse_args(
+        train_argv), torch.device(DEV))
+    check_config(cfg, "CMPC_model", "cli")
+    t0 = time.perf_counter()
+    cli_dataset(root, cfg.vocab_size, cfg.glove_dim)
+    out["dataset_s"] = time.perf_counter() - t0
 
-        # train 20 steps, then resume to 30
+    # train 20 steps, then resume to 30
+    kernels.reset_launch_counts()
+    with timed_steps(torch) as first:
+        _, text, wall = run_cli(cli.main, train_argv + ["-st", "20"])
+    if latest_step(ck) != 20 or len(first["ends"]) != 20 \
+            or "GloVe embedding not found" in text:
+        fail(f"cli: the 20-step run: latest snapshot "
+             f"{latest_step(ck)}, {len(first['ends'])} steps (and the "
+             f"GloVe table must load): {text[-300:]!r}")
+    with timed_steps(torch) as resumed:
+        state, text, wall_resume = run_cli(
+            cli.main, train_argv + ["-st", "30", "-resume"])
+    counts = kernels.launch_counts()
+    check_counts(counts, expected_launches(cmpc, B, train=True), 30,
+                 "cli_train_bs8")
+    if f"resumed from {ck} at step 20" not in text or \
+            latest_step(ck) != 30 or state.step != 30:
+        fail(f"cli: the resumed run: {text[-300:]!r}, latest "
+             f"snapshot {latest_step(ck)}, step {state.step}")
+    del state
+    step_ms = laps_ms(first)
+    ms = statistics.median(step_ms)
+    resume_ms = statistics.median(laps_ms(resumed))
+    nbytes = os.path.getsize(os.path.join(ck, "30", FILE))
+    paths["cli_train_bs8"] = (counts, 30, ms)
+
+    # the resumed first step against Trainer.step from step 20
+    batch, loss = resumed["first"]
+    st = create_train_state(0, cfg, device=DEV)
+    restore_checkpoint(ck, st, 20)
+    ref = float(api.Trainer(cfg=cfg, state=st).step(batch)["loss_total"])
+    loss_err = abs(loss - ref) / abs(ref)
+    if not loss_err <= TRAIN_LOSS_TOL:
+        fail(f"cli: the resumed run's first loss {loss!r} vs "
+             f"Trainer.step's {ref!r}: relative {loss_err:.3e} > "
+             f"{TRAIN_LOSS_TOL}")
+    # control: the same loop over 10 of the dataset's batches held in
+    # memory (no reader thread)
+    collator = cli.NpzCollator(NpzReader(
+        os.path.join(root, "unc", "train_batch"), "unc_train"))
+    held = [collator.read_collated(B) for _ in range(10)]
+    with timed_steps(torch) as mem:
+        train_loop(cfg, MemoryReader(held), max_iter=st.step + 10,
+                   state=st, start_iter=st.step)
+    memory_ms = statistics.median(laps_ms(mem))
+    restore_checkpoint(ck, st, 30)
+    torch.cuda.empty_cache()
+
+    # test from step 30
+    real_evaluate, eval_s = ev.evaluate, []
+
+    def timed_evaluate(*a, **kw):
+        t0 = time.perf_counter()
+        r = real_evaluate(*a, **kw)
+        eval_s.append(time.perf_counter() - t0)
+        return r
+    test_argv = ["-m", "test", "-d", "unc", "-t", "val"] + common
+    kernels.reset_launch_counts()
+    ev.evaluate = timed_evaluate
+    try:
+        printed, text, test_wall = run_cli(cli.main, test_argv)
+    finally:
+        ev.evaluate = real_evaluate
+    eval_counts = kernels.launch_counts()
+    forwards = -(-N_EVAL // B)
+    check_counts(eval_counts, expected_launches(cmpc, B), forwards,
+                 "cli_eval_bs8")
+    paths["cli_eval_bs8"] = (eval_counts, forwards,
+                             eval_s[0] * 1e3 / forwards)
+    t0 = time.perf_counter()
+    samples = list(cli.npz_eval_samples(root, "unc", "val", cfg))
+    host_ms = (time.perf_counter() - t0) * 1e3 / N_EVAL
+    t0 = time.perf_counter()
+    direct = ev.evaluate(cfg, st.params(), st.model_state, iter(samples),
+                         device=DEV)["no_crf"]
+    memory_sps = N_EVAL / (time.perf_counter() - t0)
+    del samples
+    shown = {k: float(v) for k, v in re.findall(
+        r"^(overall IoU|mean IoU|precision@[\d.]+) = ([-\d.]+)", text,
+        re.M)}
+    want = {"overall IoU": direct["overall_iou"],
+            "mean IoU": direct["mean_iou"],
+            **{f"precision@{k[5:]}": v for k, v in direct.items()
+               if k.startswith("prec@")}}
+    iou_err = max((abs(shown[k] - v) for k, v in want.items()
+                   if k in shown), default=math.inf)
+    if set(shown) != set(want) or not iou_err <= IOU_TOL \
+            or direct["n"] != N_EVAL:
+        fail(f"cli: the CLI printed {shown}, evaluate gives {want} "
+             f"over {direct['n']} samples")
+
+    # the readers alone
+    npz = NpzReader(os.path.join(root, "unc", "train_batch"),
+                    "unc_train")
+    rates = {"npz_1_thread": reader_rate(npz.read, N_CLI_TRAIN, B)}
+    refvos_ms = None
+    if has_pil:
+        t0 = time.perf_counter()
+        im_dir, mask_dir, meta = refvos_tree(root, cfg.vocab_size)
+        out["refvos_tree_s"] = time.perf_counter() - t0
+        vocab = os.path.join(root, "vocab.txt")
+        for fast in (False, True) if has_cv2 else (False,):
+            for workers in (1, 8):
+                r = RefVOSReader(im_dir, mask_dir, meta, vocab,
+                                 num_workers=workers,
+                                 prefetch_num=4 * workers,
+                                 fast_decode=fast)
+                kind = "thread" if workers == 1 else "procs"
+                try:
+                    rates[f"refvos_{'fast' if fast else 'pil'}_"
+                          f"{workers}_{kind}"] = reader_rate(
+                              r.read_batch, N_REFVOS, 2 * workers)
+                finally:
+                    r.close()
         kernels.reset_launch_counts()
-        with timed_steps(torch) as first:
-            _, text, wall = run_cli(cli.main, train_argv + ["-st", "20"])
-        if latest_step(ck) != 20 or len(first["ends"]) != 20 \
-                or "GloVe embedding not found" in text:
-            fail(f"cli: the 20-step run: latest snapshot "
-                 f"{latest_step(ck)}, {len(first['ends'])} steps (and the "
-                 f"GloVe table must load): {text[-300:]!r}")
-        with timed_steps(torch) as resumed:
-            state, text, wall_resume = run_cli(
-                cli.main, train_argv + ["-st", "30", "-resume"])
-        counts = kernels.launch_counts()
-        check_counts(counts, expected_launches(cmpc, B, train=True), 30,
-                     "cli_train_bs8")
-        if f"resumed from {ck} at step 20" not in text or \
-                latest_step(ck) != 30 or state.step != 30:
-            fail(f"cli: the resumed run: {text[-300:]!r}, latest "
-                 f"snapshot {latest_step(ck)}, step {state.step}")
-        del state
-        step_ms = laps_ms(first)
-        ms = statistics.median(step_ms)
-        resume_ms = statistics.median(laps_ms(resumed))
-        nbytes = os.path.getsize(os.path.join(ck, "30", FILE))
-        paths["cli_train_bs8"] = (counts, 30, ms)
+        with timed_steps(torch) as rv:
+            run_cli(cli.main, [
+                "-m", "train", "-d", "refvos", "-n", "CMPC_model",
+                "-im_dir", im_dir, "-mask_dir", mask_dir, "-meta", meta,
+                "-vocab", vocab, "-emb", "Gref", "-emb_dir", root,
+                "-bs", str(B), "-st", "10", "-s", "0", "-workers", "8",
+                "-ckpt_dir", os.path.join(root, "ck_refvos"),
+                "-log_dir", os.path.join(root, "logs_refvos")])
+        rv_counts = kernels.launch_counts()
+        check_counts(rv_counts, expected_launches(cmpc, B, train=True),
+                     10, "cli_refvos_train_bs8")
+        refvos_ms = statistics.median(laps_ms(rv))
+        paths["cli_refvos_train_bs8"] = (rv_counts, 10, refvos_ms)
+    else:
+        log("[cli] PIL does not import here: the RefVOS readers, "
+            "the -d refvos CLI run and the HTTP round trip did not run")
 
-        # the resumed first step against Trainer.step from step 20
-        batch, loss = resumed["first"]
-        st = create_train_state(0, cfg, device=DEV)
-        restore_checkpoint(ck, st, 20)
-        ref = float(api.Trainer(cfg=cfg, state=st).step(batch)["loss_total"])
-        loss_err = abs(loss - ref) / abs(ref)
-        if not loss_err <= TRAIN_LOSS_TOL:
-            fail(f"cli: the resumed run's first loss {loss!r} vs "
-                 f"Trainer.step's {ref!r}: relative {loss_err:.3e} > "
-                 f"{TRAIN_LOSS_TOL}")
-        # control: the same loop over 10 of the dataset's batches held in
-        # memory (no reader thread)
-        collator = cli.NpzCollator(NpzReader(
-            os.path.join(root, "unc", "train_batch"), "unc_train"))
-        held = [collator.read_collated(B) for _ in range(10)]
-        with timed_steps(torch) as mem:
-            train_loop(cfg, MemoryReader(held), max_iter=st.step + 10,
-                       state=st, start_iter=st.step)
-        memory_ms = statistics.median(laps_ms(mem))
-        restore_checkpoint(ck, st, 30)
-        torch.cuda.empty_cache()
-
-        # test from step 30
-        real_evaluate, eval_s = ev.evaluate, []
-
-        def timed_evaluate(*a, **kw):
-            t0 = time.perf_counter()
-            r = real_evaluate(*a, **kw)
-            eval_s.append(time.perf_counter() - t0)
-            return r
-        test_argv = ["-m", "test", "-d", "unc", "-t", "val"] + common
+    # serve step 30 over HTTP; a PredictService on the same state
+    requests = request_set(np, cfg.vocab_size)[1:3]
+    serving = None
+    if has_pil:
         kernels.reset_launch_counts()
-        ev.evaluate = timed_evaluate
-        try:
-            printed, text, test_wall = run_cli(cli.main, test_argv)
-        finally:
-            ev.evaluate = real_evaluate
-        eval_counts = kernels.launch_counts()
-        forwards = -(-N_EVAL // B)
-        check_counts(eval_counts, expected_launches(cmpc, B), forwards,
-                     "cli_eval_bs8")
-        paths["cli_eval_bs8"] = (eval_counts, forwards,
-                                 eval_s[0] * 1e3 / forwards)
-        t0 = time.perf_counter()
-        samples = list(cli.npz_eval_samples(root, "unc", "val", cfg))
-        host_ms = (time.perf_counter() - t0) * 1e3 / N_EVAL
-        t0 = time.perf_counter()
-        direct = ev.evaluate(cfg, st.params(), st.model_state, iter(samples),
-                             device=DEV)["no_crf"]
-        memory_sps = N_EVAL / (time.perf_counter() - t0)
-        del samples
-        shown = {k: float(v) for k, v in re.findall(
-            r"^(overall IoU|mean IoU|precision@[\d.]+) = ([-\d.]+)", text,
-            re.M)}
-        want = {"overall IoU": direct["overall_iou"],
-                "mean IoU": direct["mean_iou"],
-                **{f"precision@{k[5:]}": v for k, v in direct.items()
-                   if k.startswith("prec@")}}
-        iou_err = max((abs(shown[k] - v) for k, v in want.items()
-                       if k in shown), default=math.inf)
-        if set(shown) != set(want) or not iou_err <= IOU_TOL \
-                or direct["n"] != N_EVAL:
-            fail(f"cli: the CLI printed {shown}, evaluate gives {want} "
-                 f"over {direct['n']} samples")
+        replies = serve_once(torch, requests, [
+            "-ckpt_dir", ck, "-vocab", os.path.join(root, "vocab.txt"),
+            "-emb", "Gref", "-emb_dir", root, "-port", "0"])
+        srv_counts = kernels.launch_counts()
+        check_counts(srv_counts, expected_launches(cmpc, 1),
+                     1 + len(requests), "cli_serving_bs1")
+        paths["cli_serving_bs1"] = (srv_counts, 1 + len(requests),
+                                    replies[-1][2])
+        svc = PredictService(cfg, st.params(), load_vocab_dict_from_file(
+            os.path.join(root, "vocab.txt")),
+            model_state=st.model_state, device=DEV)
+        serving = []
+        for (image, expr), (reply, mask, req_ms) in zip(requests,
+                                                        replies):
+            prob, want_mask = svc.predict(image, expr)
+            near = np.abs(prob - 0.5) <= SIGM_TOL
+            differ = int(((mask != want_mask) & ~near).sum())
+            if mask.shape != image.shape[:2] or differ or \
+                    abs(reply["prob_max"] - float(prob.max())) > SIGM_TOL:
+                fail(f"cli: POST /predict's mask {mask.shape} "
+                     f"differs from PredictService's at {differ} pixels "
+                     f"away from the threshold; prob_max "
+                     f"{reply['prob_max']} vs {float(prob.max())}")
+            serving.append({
+                "request_ms": req_ms,
+                "server_latency_ms": reply["latency_ms"],
+                "mask_pixels_differ": int((mask != want_mask).sum()),
+                "prob_max": reply["prob_max"]})
+        del svc
 
-        # the readers alone
-        npz = NpzReader(os.path.join(root, "unc", "train_batch"),
-                        "unc_train")
-        rates = {"npz_1_thread": reader_rate(npz.read, N_CLI_TRAIN, B)}
-        refvos_ms = None
-        if has_pil:
-            t0 = time.perf_counter()
-            im_dir, mask_dir, meta = refvos_tree(root, cfg.vocab_size)
-            out["refvos_tree_s"] = time.perf_counter() - t0
-            vocab = os.path.join(root, "vocab.txt")
-            for fast in (False, True) if has_cv2 else (False,):
-                for workers in (1, 8):
-                    r = RefVOSReader(im_dir, mask_dir, meta, vocab,
-                                     num_workers=workers,
-                                     prefetch_num=4 * workers,
-                                     fast_decode=fast)
-                    kind = "thread" if workers == 1 else "procs"
-                    try:
-                        rates[f"refvos_{'fast' if fast else 'pil'}_"
-                              f"{workers}_{kind}"] = reader_rate(
-                                  r.read_batch, N_REFVOS, 2 * workers)
-                    finally:
-                        r.close()
-            kernels.reset_launch_counts()
-            with timed_steps(torch) as rv:
-                run_cli(cli.main, [
-                    "-m", "train", "-d", "refvos", "-n", "CMPC_model",
-                    "-im_dir", im_dir, "-mask_dir", mask_dir, "-meta", meta,
-                    "-vocab", vocab, "-emb", "Gref", "-emb_dir", root,
-                    "-bs", str(B), "-st", "10", "-s", "0", "-workers", "8",
-                    "-ckpt_dir", os.path.join(root, "ck_refvos"),
-                    "-log_dir", os.path.join(root, "logs_refvos")])
-            rv_counts = kernels.launch_counts()
-            check_counts(rv_counts, expected_launches(cmpc, B, train=True),
-                         10, "cli_refvos_train_bs8")
-            refvos_ms = statistics.median(laps_ms(rv))
-            paths["cli_refvos_train_bs8"] = (rv_counts, 10, refvos_ms)
-        else:
-            log("[cli] PIL does not import here: the RefVOS readers, "
-                "the -d refvos CLI run and the HTTP round trip did not run")
-
-        # serve step 30 over HTTP; a PredictService on the same state
-        requests = request_set(np, cfg.vocab_size)[1:3]
-        serving = None
-        if has_pil:
-            kernels.reset_launch_counts()
-            replies = serve_once(torch, requests, [
-                "-ckpt_dir", ck, "-vocab", os.path.join(root, "vocab.txt"),
-                "-emb", "Gref", "-emb_dir", root, "-port", "0"])
-            srv_counts = kernels.launch_counts()
-            check_counts(srv_counts, expected_launches(cmpc, 1),
-                         1 + len(requests), "cli_serving_bs1")
-            paths["cli_serving_bs1"] = (srv_counts, 1 + len(requests),
-                                        replies[-1][2])
-            svc = PredictService(cfg, st.params(), load_vocab_dict_from_file(
-                os.path.join(root, "vocab.txt")),
-                model_state=st.model_state, device=DEV)
-            serving = []
-            for (image, expr), (reply, mask, req_ms) in zip(requests,
-                                                            replies):
-                prob, want_mask = svc.predict(image, expr)
-                near = np.abs(prob - 0.5) <= SIGM_TOL
-                differ = int(((mask != want_mask) & ~near).sum())
-                if mask.shape != image.shape[:2] or differ or \
-                        abs(reply["prob_max"] - float(prob.max())) > SIGM_TOL:
-                    fail(f"cli: POST /predict's mask {mask.shape} "
-                         f"differs from PredictService's at {differ} pixels "
-                         f"away from the threshold; prob_max "
-                         f"{reply['prob_max']} vs {float(prob.max())}")
-                serving.append({
-                    "request_ms": req_ms,
-                    "server_latency_ms": reply["latency_ms"],
-                    "mask_pixels_differ": int((mask != want_mask).sum()),
-                    "prob_max": reply["prob_max"]})
-            del svc
-
-        # export at bs=1, loaded back, against the plain route
-        path = os.path.join(root, "predict.pt2")
-        cfg1 = cfg.replace(batch_size=1)
-        t0 = time.perf_counter()
-        export.export_program(cfg1, st.params(), st.model_state, path)
-        export_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        program = export.load_program(path)
-        load_s = time.perf_counter() - t0
-        feed = make_batch(cfg1, 1, seed=21)
-        args = (torch.as_tensor(feed["im"], device=DEV),
-                torch.as_tensor(feed["words"], device=DEV),
-                torch.as_tensor(feed["seq_len"], device=DEV))
-        kernels.reset_launch_counts()
-        with torch.inference_mode():
-            got = program(*args)
-            if any(kernels.launch_counts().values()):
-                fail(f"cli: the exported program launched the port's "
-                     f"kernels: {kernels.launch_counts()}")
-            prepared = prepare_params(st.params(), cfg1)
-            batch1 = {"im": args[0], "words": args[1], "seq_len": args[2]}
-            plain = apply_model(prepared, cfg1, batch1,
-                                model_state=st.model_state,
-                                use_kernels=False).sigm[..., 0]
-            kernel = apply_model(prepared, cfg1, batch1,
-                                 model_state=st.model_state).sigm[..., 0]
-            program_ms = wall_ms(torch, lambda: program(*args))
-            plain_ms = wall_ms(torch, lambda: apply_model(
-                prepared, cfg1, batch1, model_state=st.model_state,
-                use_kernels=False))
-        export_err = (got.float() - plain.float()).abs().max().item()
-        if got.shape != (1, H_IMG, H_IMG) or not export_err <= SIGM_TOL:
-            fail(f"cli: the exported program's masks "
-                 f"{tuple(got.shape)} differ from the plain route's by "
-                 f"{export_err:.3e} > {SIGM_TOL}")
-        export_bytes = os.path.getsize(path)
-        del program, prepared, st
+    # export at bs=1, loaded back, against the plain route
+    path = os.path.join(root, "predict.pt2")
+    cfg1 = cfg.replace(batch_size=1)
+    t0 = time.perf_counter()
+    export.export_program(cfg1, st.params(), st.model_state, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = export.load_program(path)
+    load_s = time.perf_counter() - t0
+    feed = make_batch(cfg1, 1, seed=21)
+    args = (torch.as_tensor(feed["im"], device=DEV),
+            torch.as_tensor(feed["words"], device=DEV),
+            torch.as_tensor(feed["seq_len"], device=DEV))
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = program(*args)
+        if any(kernels.launch_counts().values()):
+            fail(f"cli: the exported program launched the port's "
+                 f"kernels: {kernels.launch_counts()}")
+        prepared = prepare_params(st.params(), cfg1)
+        batch1 = {"im": args[0], "words": args[1], "seq_len": args[2]}
+        plain = apply_model(prepared, cfg1, batch1,
+                            model_state=st.model_state,
+                            use_kernels=False).sigm[..., 0]
+        kernel = apply_model(prepared, cfg1, batch1,
+                             model_state=st.model_state).sigm[..., 0]
+        program_ms = wall_ms(torch, lambda: program(*args))
+        plain_ms = wall_ms(torch, lambda: apply_model(
+            prepared, cfg1, batch1, model_state=st.model_state,
+            use_kernels=False))
+    export_err = (got.float() - plain.float()).abs().max().item()
+    if got.shape != (1, H_IMG, H_IMG) or not export_err <= SIGM_TOL:
+        fail(f"cli: the exported program's masks "
+             f"{tuple(got.shape)} differ from the plain route's by "
+             f"{export_err:.3e} > {SIGM_TOL}")
+    export_bytes = os.path.getsize(path)
+    del program, prepared, st
     summary = {
         **out, "train_ms_steps_2_20": step_ms, "train_ms": ms,
         "trainer_step_ms_phase6": train_ms, "resume_ms": resume_ms,
@@ -4635,6 +4689,528 @@ def run_tp(torch, kernels, cmpc, build_trainer, compute_gradients,
     return {path: (steps[0]["counts"], TP_STEPS, ms)}, out
 
 
+def voc_dataset(root, n, seed):
+    """n fabricated VOC-style pairs under `root`, of VOC_SIZES in turn:
+    JPEG images (smooth content, quality 90) and palette PNG labels (the VOC
+    colormap) of 1-3 class boxes, each inside a 5-pixel band of 255 (VOC's
+    void boundary); returns the list's lines."""
+    import os
+
+    import cv2
+    from PIL import Image
+
+    from cmpc_refseg_torch.tools.voc import make_voc_colormap
+    rng = np.random.default_rng(seed)
+    palette = make_voc_colormap().reshape(-1).tolist()
+    lines = []
+    for i in range(n):
+        h, w = VOC_SIZES[i % len(VOC_SIZES)]
+        small = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), np.uint8)
+        im = cv2.resize(small, (w, h), interpolation=cv2.INTER_LINEAR)
+        lb = np.zeros((h, w), np.uint8)
+        for _ in range(int(rng.integers(1, 4))):
+            bh, bw = rng.integers(h // 6, h // 2), rng.integers(w // 6, w // 2)
+            y, x = rng.integers(0, h - bh), rng.integers(0, w - bw)
+            lb[y:y + bh, x:x + bw] = 255
+            lb[y + 5:y + bh - 5, x + 5:x + bw - 5] = rng.integers(
+                1, VOC_CLASSES)
+        cv2.imwrite(os.path.join(root, f"im{i}.jpg"), im,
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+        label = Image.fromarray(lb, mode="P")
+        label.putpalette(palette)
+        label.save(os.path.join(root, f"lb{i}.png"))
+        lines.append(f"im{i}.jpg lb{i}.png")
+    return lines
+
+
+def voc_calibrated_weights(torch, pb, root, lines, path):
+    """Seeded weights with a trained backbone's activation scale, saved as a
+    snapshot at `path`: every conv unit's folded BN set from its output's
+    per-channel mean and variance over VOC_BS fabricated crops (scale
+    1 / sqrt(var + 1e-3), offset -mean * scale: `fold_bn` of the data's
+    statistics, unit by unit in forward order), and the head scaled to
+    logits of unit deviation.  From the seed's identity BN the residual
+    stream grows through ResNet-101's 33 blocks and the CE starts at ~21
+    (ln 21 = 3.04); calibrated, the pre-activations have a trained net's
+    scale, which the bf16 gradient check reads its rounding against."""
+    import os
+
+    from cmpc_refseg_torch.models import backbone as bb
+    from cmpc_refseg_torch.ops.layers import conv2d_nchw
+    from cmpc_refseg_torch.tools.voc import augment_pair, load_pair
+    rng = np.random.default_rng(0)
+    ims = []
+    for line in lines[:VOC_BS]:
+        im, lb = load_pair(*(os.path.join(root, p) for p in line.split()))
+        ims.append(augment_pair(rng, im, lb, VOC_CROP, VOC_CROP,
+                                scale=False, mirror=False)[0])
+    params = pb.params_to_torch(pb.init_numpy(0, RES4, VOC_CLASSES),
+                                device=DEV)
+    real = bb._conv_bn
+
+    def calibrating(unit, x, *, stride=1, dilation=1, **kw):
+        y = conv2d_nchw(x, unit["w"], stride=stride, dilation=dilation)
+        var, mean = torch.var_mean(y, dim=(0, 2, 3))
+        unit["scale"].copy_(torch.rsqrt(var + 1e-3))
+        unit["offset"].copy_(-mean * unit["scale"])
+        return real(unit, x, stride=stride, dilation=dilation, **kw)
+    bb._conv_bn = calibrating
+    try:
+        with torch.no_grad():
+            c5 = bb.apply_backbone(params["backbone"], torch.as_tensor(
+                np.stack(ims), device=DEV), taps=("c5",),
+                res4_blocks=RES4)["c5"]
+            std = pb.apply_voc_head(params["head"], c5).std()
+            for unit in params["head"].values():
+                unit["w"].div_(std)
+    finally:
+        bb._conv_bn = real
+    pb.save_params(os.path.dirname(path), 0, params)
+    os.replace(os.path.join(os.path.dirname(path), "model_step0.npz"), path)
+    return {"c5_std": c5.std().item(), "logit_std_before": std.item()}
+
+
+@contextlib.contextmanager
+def timed_voc_steps(torch, pb):
+    """For the enclosed runs, `VocTrainer.step` is wrapped: each step ends
+    in a synchronize and records its device-synchronous ms; the first
+    step's batch is kept."""
+    real = pb.VocTrainer.step
+    rec = {"ms": [], "batch": None}
+
+    def step(self, im, labels):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, im, labels)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        if rec["batch"] is None:
+            rec["batch"] = (im.clone(), labels.clone())
+        return out
+    pb.VocTrainer.step = step
+    try:
+        yield rec
+    finally:
+        pb.VocTrainer.step = real
+
+
+def voc_train_run(torch, pb, argv, n_steps, what):
+    """`pb.run_train` of `argv` for 1 + n_steps steps on the card (the
+    first a warm-up): its per-step losses, the steps' ms (the timed ones'
+    median and range), images/s, the loop's ms per step (host laps, the
+    data loading included), peak GB and the first batch."""
+    args = pb.build_argparser().parse_args(
+        list(argv) + ["--num-steps", str(1 + n_steps)])
+    losses, laps = [], []
+
+    def on_step(it, trainer, loss, ce):
+        losses.append(float(loss))
+        laps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with timed_voc_steps(torch, pb) as rec:
+        pb.run_train(args, on_step=on_step)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if len(losses) != 1 + n_steps or not all(map(math.isfinite, losses)):
+        fail(f"voc {what}: losses {losses}")
+    ms = rec["ms"][1:]
+    out = {"median_ms": statistics.median(ms), "min_ms": min(ms),
+           "max_ms": max(ms),
+           "images_per_s": args.batch_size * 1e3 / statistics.median(ms),
+           "loop_ms": statistics.median(
+               (b - a) * 1e3 for a, b in zip(laps[1:], laps[2:])),
+           "peak_gb": peak, "losses": losses}
+    log(f"[voc] {what}: {out['median_ms']:.3f} ms/step (steps 2-"
+        f"{1 + n_steps}: {min(ms):.3f}-{max(ms):.3f}), "
+        f"{out['images_per_s']:.1f} images/s, the loop {out['loop_ms']:.3f}"
+        f" ms/step with the data, peak {peak:.2f} GB, losses {losses}")
+    return out, rec["batch"]
+
+
+def voc_grad_check(torch, pb, argv, batch):
+    """The bf16 step against the f32 one from the same weights and batch:
+    the loss within VOC_LOSS_TOL relative; each trainable leaf's gradient
+    read at the weights and at NOISE_DRAWS draws of them times (1 +
+    VOC_DRAW_EPS N(0, 1)), the same for both: the median of ||g_bf16 -
+    g_32|| within VOC_NOISE_FACTOR x the median of ||g_32(draw) -
+    g_32(weights)||, and at the weights ||g_bf16|| within half and twice
+    ||g_32|| > 0.  Then two bf16 SGD steps, and the second replayed from
+    the weights and momentum before it with the step's own gradients:
+    m' = 0.9 m + g, w' = w - lr (1 - count / num_steps)^power x mult m',
+    bit-equal to the step's weights and momentum."""
+    args = pb.build_argparser().parse_args(list(argv) + ["--num-steps",
+                                                         "1000"])
+    dev = torch.device(DEV)
+    params = pb.init_params(args, dev)
+    cfg = pb.train_config(args)
+    bf16 = pb.VocTrainer(params, {**cfg, "compute_dtype": torch.bfloat16})
+    f32 = pb.VocTrainer(pb.init_params(args, dev),
+                        {**cfg, "compute_dtype": None})
+    leaves = [leaf for _, leaf in bf16.named]
+    twins = [leaf for _, leaf in f32.named]
+    saved = [leaf.detach().clone() for leaf in leaves]
+    im, labels = batch
+
+    def draw(i):
+        with torch.no_grad():
+            gen = torch.Generator(device=DEV).manual_seed(i)
+            for a, b, old in zip(leaves, twins, saved):
+                a.copy_(old)
+                if i:
+                    a.mul_(1 + VOC_DRAW_EPS * torch.randn(
+                        a.shape, generator=gen, device=DEV))
+                b.copy_(a)
+
+    def grads(trainer):
+        for leaf in (leaf for _, leaf in trainer.named):
+            leaf.grad = None
+        loss, _ = trainer.loss(im, labels)
+        loss.backward()
+        return loss.item(), [leaf.grad.double() for _, leaf in trainer.named]
+
+    errs, noise, losses = [], [], []
+    try:
+        for i in range(NOISE_DRAWS + 1):
+            draw(i)
+            lb, gb = grads(bf16)
+            lf, gf = grads(f32)
+            if i == 0:
+                g0, norms = gf, [(a.norm().item(), b.norm().item())
+                                 for a, b in zip(gb, gf)]
+            else:
+                noise.append([(a - b).norm().item() for a, b in zip(gf, g0)])
+            losses.append((lb, lf))
+            errs.append([(a - b).norm().item() for a, b in zip(gb, gf)])
+    finally:
+        draw(0)
+    names = ["/".join(p) for p, _ in bf16.named]
+    rows = []
+    for j, name in enumerate(names):
+        err = statistics.median(e[j] for e in errs)
+        nz = statistics.median(n[j] for n in noise)
+        nb, nf = norms[j]
+        rows.append({"leaf": name, "err": err / nf, "noise": nz / nf,
+                     "ratio": err / max(nz, 1e-30),
+                     "ok": nf > 0 and 0.5 <= nb / nf <= 2
+                     and err <= VOC_NOISE_FACTOR * nz})
+    loss_err = abs(losses[0][0] - losses[0][1]) / abs(losses[0][1])
+    worst = max(rows, key=lambda r: r["ratio"])
+    by = {r["leaf"]: r for r in rows}
+    log(f"[voc] bf16 vs f32 gradients of {len(rows)} leaves, medians over "
+        f"the weights and {NOISE_DRAWS} draws x (1 + 2^-9 N(0, 1)), over "
+        f"||g_32||: conv1 {by['backbone/conv1/w']['err']:.3e} (f32's own "
+        f"response {by['backbone/conv1/w']['noise']:.3e}), res5c/branch2c "
+        f"{by['backbone/res5c/branch2c/w']['err']:.3e} "
+        f"({by['backbone/res5c/branch2c/w']['noise']:.3e}), head/c0/w "
+        f"{by['head/c0/w']['err']:.3e} ({by['head/c0/w']['noise']:.3e}); "
+        f"largest ratio {worst['ratio']:.3f} ({worst['leaf']}, bound "
+        f"{VOC_NOISE_FACTOR}); loss bf16 {losses[0][0]!r} vs f32 "
+        f"{losses[0][1]!r} (relative {loss_err:.3e})")
+    if not loss_err <= VOC_LOSS_TOL:
+        fail(f"voc: the bf16 loss {losses[0][0]!r} vs f32 {losses[0][1]!r}: "
+             f"relative {loss_err:.3e} > {VOC_LOSS_TOL}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"voc: bf16 gradients of {len(bad)} leaves beyond "
+             f"{VOC_NOISE_FACTOR}x the f32 response, first {bad[0]}")
+    # the replay of a second step
+    bf16.step(im, labels)
+    mom = [bf16.optimizer.state[leaf]["momentum_buffer"].clone()
+           for leaf in leaves]
+    before = [leaf.detach().clone() for leaf in leaves]
+    count = bf16.count
+    bf16.step(im, labels)
+    lr = cfg["lr"] * (1.0 - count / cfg["num_steps"]) ** cfg["power"]
+    bad = []
+    for (path, leaf), w, m in zip(bf16.named, before, mom):
+        m2 = m.mul(cfg["momentum"]).add_(leaf.grad)
+        want = w.add(m2, alpha=-lr * pb.lr_mult(path))
+        if not (torch.equal(want, leaf.detach()) and torch.equal(
+                m2, bf16.optimizer.state[leaf]["momentum_buffer"])):
+            bad.append("/".join(path))
+    if bad:
+        fail(f"voc: the replayed SGD update differs from the step's in "
+             f"{len(bad)} leaves, first {bad[0]}")
+    out = {"leaves": len(rows), "largest_ratio": worst["ratio"],
+           "largest_ratio_leaf": worst["leaf"],
+           "err_conv1": by["backbone/conv1/w"]["err"],
+           "noise_conv1": by["backbone/conv1/w"]["noise"],
+           "err_worst": max(r["err"] for r in rows),
+           "err_head_worst": max(r["err"] for r in rows
+                                 if r["leaf"].startswith("head")),
+           "bf16_vs_f32_loss_rel": loss_err, "replay_bit_equal": True}
+    del bf16, f32, params
+    return out
+
+
+def voc_eval_check(torch, pb, argv, msc):
+    """`--mode eval` over the VOC_SIZES images, single-scale or msc: ms per
+    image (host laps, decode and padding included) and the confusion
+    matrix counted on the card against one recomputed on the host from the
+    same argmax and labels."""
+    preds, laps = [], []
+
+    def on_pred(i, pred, gt):
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        preds.append((pred.cpu().numpy(), gt.cpu().numpy()))
+    real, got = pb.confusion, []
+
+    def confusion(*a, **kw):
+        got.append(real(*a, **kw))
+        return got[-1]
+    pb.confusion = confusion
+    args = pb.build_argparser().parse_args(list(argv) + (
+        ["--msc"] if msc else []))
+    t0 = time.perf_counter()
+    try:
+        miou = pb.run_eval(args, on_pred=on_pred)
+    finally:
+        pb.confusion = real
+    n = VOC_CLASSES
+    host = np.zeros((n, n), np.int64)
+    for pred, gt in preds:
+        valid = gt < n
+        host += np.bincount(gt[valid] * n + pred[valid],
+                            minlength=n * n).reshape(n, n)
+    card_conf = got[0].cpu().numpy()
+    if len(preds) != len(VOC_SIZES) or not np.array_equal(card_conf, host):
+        fail(f"voc eval (msc={msc}): the card's confusion matrix differs from "
+             f"the host's over {len(preds)} images")
+    ms = [(b - a) * 1e3 for a, b in zip([t0] + laps[:-1], laps)]
+    return {"ms_per_image": statistics.median(ms[1:]), "first_ms": ms[0],
+            "miou": miou, "pixels": int(host.sum())}
+
+
+def voc_step_errors(got, want, before):
+    """tests/test_torch_pretrain.py's step rule on one run, per leaf of the
+    snapshots (keystr -> HWIO array): the error over the leaf's largest
+    update; a leaf that does not move must be equal."""
+    out = {}
+    for name, w in want.items():
+        delta = np.abs(w - before[name]).max()
+        if not delta:
+            out[name] = 0.0 if np.array_equal(got[name], w) else math.inf
+            continue
+        out[name] = float(np.abs(got[name] - w).max() / (
+            delta + 2.0 ** -23 * np.abs(w).max()))
+    return out
+
+
+def voc_cpu_check(torch, pb, common, root, image):
+    """The reduced geometry (res4_blocks VOC_SMALL_RES4, crop
+    VOC_SMALL_CROP, batch VOC_SMALL_BS) in f32 on the card against the
+    port's CPU run from the same weights: 2 train steps' losses within
+    VOC_CPU_TOL relative, the step-2 snapshots by the step rule, and
+    `eval_forward`'s logits of `image` (padded to its bucket) from that
+    snapshot, msc off and on, within VOC_CPU_TOL of the largest."""
+    import os
+
+    from cmpc_refseg_torch.tools.voc import load_image, pad_to_bucket
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+    small = list(common) + [
+        "--mode", "train", "--res4-blocks", str(VOC_SMALL_RES4),
+        "--crop-size", str(VOC_SMALL_CROP), "--batch-size",
+        str(VOC_SMALL_BS), "--num-steps", "2", "--save-every", "1000"]
+    losses, snaps = {}, {}
+    for dev in (DEV, "cpu"):
+        snap = os.path.join(root, f"small_{dev}")
+        args = pb.build_argparser().parse_args(small + [
+            "--snapshot-dir", snap, "--device", dev])
+        losses[dev] = []
+        pb.run_train(args, on_step=lambda it, tr, loss, ce, d=dev:
+                     losses[d].append(float(loss)))
+        with np.load(os.path.join(snap, "model_step2.npz")) as z:
+            snaps[dev] = {k: z[k] for k in z.files}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[DEV],
+                                                      losses["cpu"]))
+    if len(losses[DEV]) != 2 or not loss_err <= VOC_CPU_TOL:
+        fail(f"voc small: card losses {losses[DEV]} vs CPU {losses['cpu']}")
+    init = {pb.keystr(p): v for p, v in named_leaves(pb.init_numpy(
+        0, VOC_SMALL_RES4, VOC_CLASSES))}
+    errors = voc_step_errors(snaps[DEV], snaps["cpu"], init)
+    bad = [(n, e) for n, e in errors.items() if not e <= (
+        VOC_HEAD_TOL if n.startswith("['head']") else VOC_RELU_FLIP_TOL)]
+    if set(errors) != set(init) or bad:
+        fail(f"voc small: the card's step-2 snapshot against the CPU's: "
+             f"{bad[:3]}")
+    pim, _ = pad_to_bucket(load_image(image))
+    logits = {}
+    for dev in (DEV, "cpu"):
+        tree = pb.load_params_npz(
+            os.path.join(root, f"small_{DEV}", "model_step2.npz"),
+            pb.init_numpy(0, VOC_SMALL_RES4, VOC_CLASSES))
+        params = pb.params_to_torch(tree, device=dev)
+        x = torch.as_tensor(pim[None], device=dev)
+        with torch.inference_mode():
+            logits[dev] = [pb.eval_forward(params, x, VOC_CLASSES,
+                                           VOC_SMALL_RES4, msc=m).cpu()
+                           for m in (False, True)]
+    logit_err = [compare(torch, a, b, VOC_CPU_TOL, f"voc small eval_forward "
+                         f"msc={m}") for a, b, m in zip(
+                             logits[DEV], logits["cpu"], (False, True))]
+    return {"loss_rel": loss_err, "losses": losses[DEV],
+            "worst_head_leaf": max(e for n, e in errors.items()
+                                   if n.startswith("['head']")),
+            "worst_backbone_leaf": max(e for n, e in errors.items()
+                                       if not n.startswith("['head']")),
+            "eval_forward_err": logit_err}
+
+
+def run_convergence_short(torch, kernels, cmpc, root):
+    """The convergence proof's main, short (CONV_ARGS), its record under
+    `root`: a finite hold-out IoU, and the flagship's kernels launched as
+    phase 3's train_bs8 and forward predict: CONV steps train steps and
+    holdout / bs=8 forwards."""
+    import os
+
+    from cmpc_refseg_torch.tools import convergence_proof as cp
+    args = cp.build_argparser().parse_args(list(CONV_ARGS))
+    path = os.path.join(root, "convergence.json")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cp.main(list(CONV_ARGS) + ["--out", path, "--device", DEV])
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    train = expected_launches(cmpc, args.batch_size, train=True)
+    forward = expected_launches(cmpc, args.batch_size)
+    forwards = args.holdout // args.batch_size
+    check_counts(counts, {k: args.steps * train[k] + forwards * forward[k]
+                          for k in train}, 1, "convergence proof")
+    with open(path) as f:
+        rec = json.load(f)
+    if not math.isfinite(rec["value"]) or rec != res or \
+            [c["step"] for c in rec["curve"]] != [args.steps]:
+        fail(f"convergence proof: record {rec}")
+    return {"holdout_iou": rec["value"], "wall_s": wall,
+            "train_s": rec["wall_clock_s"], "launches": counts}
+
+
+def run_visualize_check(torch, cli_root):
+    """tools/visualize.py's main over N_VIS samples of phase 11's `unc` val
+    set from phase 11's newest snapshot: every file written, and each
+    sample's sigm PNG equal to `colorize` of Model.forward's sigm."""
+    import os
+
+    from PIL import Image
+
+    from cmpc_refseg_torch import cli
+    from cmpc_refseg_torch.tools import visualize as vis
+    out_dir = os.path.join(cli_root, "visualize")
+    argv = ["-d", "unc", "-t", "val", "-f", cli_root, "-ckpt_dir",
+            os.path.join(cli_root, "ckpt"), "-out", out_dir, "-max",
+            str(N_VIS), "-device", DEV]
+    t0 = time.perf_counter()
+    n = vis.main(argv)
+    wall = time.perf_counter() - t0
+    kinds = ["sigm.png", "overlay.png", "parse.json"] + [
+        f"{k}_{lv}.png" for k in ("up", "gw") for lv in ("c3", "c4", "c5")]
+    want = {f"{i:05d}_{k}" for i in range(N_VIS) for k in kinds}
+    if n != N_VIS or set(os.listdir(out_dir)) != want:
+        fail(f"visualize: {n} samples, files {sorted(os.listdir(out_dir))}")
+    cfg, model = vis.load_model(vis.build_argparser().parse_args(argv))
+    for i, sample in zip(range(N_VIS), cli.npz_eval_samples(
+            cli_root, "unc", "val", cfg)):
+        out = model.forward({k: sample[k] for k in ("im", "words",
+                                                     "seq_len")})
+        png = np.asarray(Image.open(os.path.join(out_dir,
+                                                 f"{i:05d}_sigm.png")))
+        if not np.array_equal(png, vis.colorize(
+                out.sigm[0, :, :, 0].float().cpu().numpy())):
+            fail(f"visualize: sample {i}'s sigm PNG is not colorize of "
+                 "Model.forward's sigm")
+    return {"samples": n, "files": len(want), "wall_s": wall}
+
+
+def run_voc_phase(torch, kernels, cmpc, card, cli_root):
+    """Phase 15: the VOC pretraining pipeline through the port's
+    tools/pretrain_backbone.py main (`run_train` / `run_eval` /
+    `--mode infer`) at full width on fabricated VOC-style data, the
+    reduced geometry against the CPU, the convergence proof (short) and
+    the visualisation tool (`cli_root`: phase 11's dataset and
+    snapshots)."""
+    import os
+    import tempfile
+
+    import cv2
+
+    from cmpc_refseg_torch.tools import pretrain_backbone as pb
+    from cmpc_refseg_torch.tools.voc import make_voc_colormap
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        lines = voc_dataset(root, N_VOC_TRAIN, 15)
+        lists = {}
+        for name, part in (("train", lines), ("val",
+                                              lines[:len(VOC_SIZES)])):
+            lists[name] = os.path.join(root, f"{name}.txt")
+            with open(lists[name], "w") as f:
+                f.write("\n".join(part) + "\n")
+        init = os.path.join(root, "calibrated.npz")
+        out["calibration"] = voc_calibrated_weights(torch, pb, root, lines,
+                                                    init)
+        common = ["--data-dir", root, "--num-classes", str(VOC_CLASSES),
+                  "--seed", "0", "--print-every", "100000", "--device", DEV]
+        full = common + ["--mode", "train", "--data-list", lists["train"],
+                         "--batch-size", str(VOC_BS),
+                         "--crop-size", str(VOC_CROP), "--restore", init,
+                         "--learning-rate", str(VOC_LR)]
+        runs = {}
+        runs["sgd_bf16"], batch = voc_train_run(
+            torch, pb, full + ["--bf16"], N_VOC_STEPS, "SGD --scope all bf16")
+        torch.cuda.empty_cache()
+        runs["sgd_f32"], _ = voc_train_run(torch, pb, full, N_VOC_STEPS,
+                                           "SGD --scope all f32")
+        torch.cuda.empty_cache()
+        runs["msc_bf16"], _ = voc_train_run(
+            torch, pb, full + ["--bf16", "--train-msc"], N_VOC_SHORT,
+            "SGD --train-msc bf16")
+        torch.cuda.empty_cache()
+        runs["adam_head_bf16"], _ = voc_train_run(
+            torch, pb, full + ["--bf16", "--scope", "head", "--opt", "adam"],
+            N_VOC_SHORT, "head-only Adam bf16")
+        torch.cuda.empty_cache()
+        out["train"] = runs
+        out["grads"] = voc_grad_check(torch, pb, full, batch)
+        torch.cuda.empty_cache()
+        ev = common + ["--mode", "eval", "--data-list", lists["val"],
+                       "--restore", init]
+        out["eval"] = voc_eval_check(torch, pb, ev, False)
+        out["eval_msc"] = voc_eval_check(torch, pb, ev, True)
+        image = os.path.join(root, "im0.jpg")
+        png = os.path.join(root, "pred.png")
+        t1 = time.perf_counter()
+        pred = pb.main(common + ["--mode", "infer", "--image", image,
+                                 "--out", png, "--restore", init])
+        out["infer_s"] = time.perf_counter() - t1
+        if pred.shape != VOC_SIZES[0] or not np.array_equal(
+                cv2.imread(png), make_voc_colormap()[pred][:, :, ::-1]):
+            fail(f"voc infer: prediction {pred.shape} and its PNG")
+        log(f"[voc] eval of {len(VOC_SIZES)} images: "
+            f"{out['eval']['ms_per_image']:.3f} ms per image, msc "
+            f"{out['eval_msc']['ms_per_image']:.3f} (median of images 2-"
+            f"{len(VOC_SIZES)}, decode and padding included); the card's "
+            f"confusion matrices equal the host's; infer {out['infer_s']:.2f}"
+            f" s for one image")
+        torch.cuda.empty_cache()
+        out["small_vs_cpu"] = voc_cpu_check(torch, pb, common + [
+            "--data-list", lists["train"]], root, image)
+        log(f"[voc] res4_blocks {VOC_SMALL_RES4}, crop {VOC_SMALL_CROP}, "
+            f"bs={VOC_SMALL_BS}, f32: card vs CPU {json.dumps(out['small_vs_cpu'])}")
+        torch.cuda.empty_cache()
+        out["convergence"] = run_convergence_short(torch, kernels, cmpc,
+                                                   root)
+        torch.cuda.empty_cache()
+    out["visualize"] = run_visualize_check(torch, cli_root)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[voc] {card}: convergence proof {' '.join(CONV_ARGS)}: hold-out "
+        f"IoU {out['convergence']['holdout_iou']}, {out['convergence']['wall_s']:.1f} s; "
+        f"visualize {N_VIS} samples {out['visualize']['wall_s']:.1f} s; "
+        f"phase 15 {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4760,10 +5336,13 @@ def main():
         card)
     paths.update(accum_paths)
     torch.cuda.empty_cache()
-    # phase 11: the command lines
+    # phase 11: the command lines (their dataset and snapshots stay for
+    # phase 15)
+    cli_root = tempfile.TemporaryDirectory()
     cli_paths, cli_phase = run_cli_phase(torch, kernels, cmpc, card,
                                          train["median_ms"],
-                                         evaluation["samples_per_s"])
+                                         evaluation["samples_per_s"],
+                                         cli_root.name)
     paths.update(cli_paths)
     torch.cuda.empty_cache()
     # phase 12: the video model and the post-processing
@@ -4793,6 +5372,13 @@ def main():
                           train["median_ms"])
     paths.update(tp_paths)
     log(f"[phase 14] {time.perf_counter() - t14:.1f} s")
+    torch.cuda.empty_cache()
+    # phase 15: the VOC pretraining pipeline, the convergence proof and the
+    # visualisation tool
+    t15 = time.perf_counter()
+    voc = run_voc_phase(torch, kernels, cmpc, card, cli_root.name)
+    cli_root.cleanup()
+    log(f"[phase 15] {time.perf_counter() - t15:.1f} s")
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
@@ -4829,6 +5415,7 @@ def main():
     log(f"[vgg16_fcn] {json.dumps(vgg)}")
     log(f"[dp] {json.dumps(dp)}")
     log(f"[tp] {json.dumps(tp)}")
+    log(f"[voc] {json.dumps(voc)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

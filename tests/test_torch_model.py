@@ -307,13 +307,15 @@ def test_unported_variant_raises():
 
 
 def test_port_imports_nothing_of_jax():
-    """The port and its chip smoke test stand alone: no jax import and no
-    reference to the JAX package (chip_smoke.py's JSON line may name the
-    TPU kernel each kernel replaces)."""
-    banned = re.compile(r"^\s*(import|from)\s+jax\b|cmpc_refseg_tpu", re.M)
+    """The port, its chip smoke test and its quickstart stand alone: no jax
+    import, no reference to the JAX package (chip_smoke.py's JSON line may
+    name the TPU kernel each kernel replaces) and no import of the
+    repository's tools/ (the JAX package's programs)."""
+    banned = re.compile(r"^\s*(import|from)\s+jax\b|cmpc_refseg_tpu"
+                        r"|^\s*(import|from)\s+tools\b", re.M)
     replaces = re.compile(r'"cmpc_refseg_tpu/ops/pallas_kernels\.py:\d+"')
     files = sorted((REPO / "cmpc_refseg_torch").rglob("*.py")) \
-        + [REPO / "chip_smoke.py"]
+        + [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
     assert len(files) > 10
     offenders = [str(f.relative_to(REPO)) for f in files
                  if banned.search(replaces.sub("", f.read_text()))]
