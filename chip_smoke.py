@@ -216,7 +216,20 @@ Phases, each fatal on failure:
     forwards); `tools.visualize` over 4 samples of phase 11's set from
     its snapshot (every file, the sigm PNGs equal to `colorize` of
     Model.forward's sigm);
-16. the kernels' share of each path's run, the `kernels` JSON line (each
+16. the reference-checkpoint path without JAX (`run_reference_phase`):
+    seeded reference-named tensors (`tools.convert_tf_checkpoint.
+    reference_tensors`) of the flagship and CMPCv4_model at full width
+    through `convert_tensors` onto the card (wall s, bytes), each
+    converted model's bs=8 forward through `api.Model` against the plain
+    route (v4's converted BN statistics are the file's and the ones the
+    forward reads); `tools.parity_rehearsal.run(from_tensors=True,
+    full_width=True)` over its 8 COCO-size images (the save's ms
+    and bytes, `cli -m test -c` samples/s, then without -c), the
+    checkpoint's weights bit-equal to the conversion, the printed table
+    (without and with the CRF) within IOU_TOL of `evaluate(use_crf=True)`
+    on those weights and batches; launches held at forward_bs8, v4_bs8
+    and eval_bs8;
+17. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -316,7 +329,12 @@ CLI_PATHS = {"cli_train_bs8": "train_bs8",
              f"cli_dp_train_bs{B // 2}": f"accum_train_bs{B // 2}",
              # phase 14: a rank's step runs the flagship on its data
              # slot's 4 rows, on full weights gathered from the shards
-             f"tp_train_bs{B // 2}": f"accum_train_bs{B // 2}"}
+             f"tp_train_bs{B // 2}": f"accum_train_bs{B // 2}",
+             # phase 16: converted weights leave the shapes alone
+             "converted_flagship_bs8": "forward_bs8",
+             "converted_v4_bs8": "v4_bs8",
+             "rehearsal_eval_bs8": "eval_bs8",
+             "rehearsal_eval_nocrf_bs8": "eval_bs8"}
 IOU_TOL = 1e-5               # the CLI's printout vs `evaluate`'s results
 # phase 12, the video model and post-processing: its config; the fake A2D
 # npz set (16-frame 320x320 clips; the test samples at A2D_EMPTY have empty
@@ -398,6 +416,11 @@ VOC_HEAD_TOL, VOC_RELU_FLIP_TOL = 1e-4, 5e-2
 CONV_ARGS = ("--steps", "20", "--pool", "32", "--holdout", "16",
              "--eval-every", "20")
 N_VIS = 4
+# phase 16: the reference-checkpoint path: fabricated reference-named
+# tensors (`reference_tensors`, seeded) converted at full width, and the
+# parity rehearsal with --from-tensors (the card has no TensorFlow) over
+# its 8 fabricated images of COCO's sizes, one bs=8 batch
+REFERENCE = (("flagship", "CMPC_model"), ("v4", "CMPCv4_model"))
 REPLACES = {
     "mutan_fused": "cmpc_refseg_tpu/ops/pallas_kernels.py:98",
     "mutan_fwd_residual": "cmpc_refseg_tpu/ops/pallas_kernels.py:332",
@@ -3565,6 +3588,9 @@ def tree_bytes(tree):
         if isinstance(node, dict):
             for v in node.values():
                 walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
         else:
             st = node.untyped_storage()
             seen[st.data_ptr()] = st.nbytes()
@@ -5211,6 +5237,231 @@ def run_voc_phase(torch, kernels, cmpc, card, cli_root):
     return out
 
 
+def converted_forward(torch, kernels, cmpc, ctc, tag, name):
+    """Phase 16's conversion of config `name`: `reference_tensors` at full
+    width through `convert_tensors` onto the card (wall s, bytes), then
+    its bs=8 forward through `api.Model` on the kernel route, counted,
+    against the plain route as phase 4 holds the flagship's; for the ASPP
+    decoder, the converted BN moving statistics are the model state the
+    forward reads (equal to the file's, and the initial statistics give
+    other masks).  Returns (the summary, the paths entry, the raw
+    converted params)."""
+    from cmpc_refseg_torch.api import Model
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.models.model import (apply_model,
+                                                init_model_state,
+                                                prepare_params)
+
+    overrides = {"batch_size": B, "compute_dtype": "bfloat16"}
+    t0 = time.perf_counter()
+    tensors = ctc.reference_tensors(get_config(name, **overrides))
+    fabricate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, params, state = ctc.convert_tensors(tensors.__getitem__, name,
+                                             overrides, device=DEV)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    check_config(cfg, name, f"converted {name}")
+    nbytes = tree_bytes(params) + tree_bytes(state)
+    model = Model(cfg=cfg, params=prepare_params(params, cfg),
+                  model_state=state, device=torch.device(DEV))
+    feed = {k: torch.as_tensor(v, device=DEV)
+            for k, v in make_batch(cfg, B, seed=16).items()}
+    model.forward(feed)                       # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.forward(feed)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    check_counts(counts, config_launches(cmpc, cfg, B), 1,
+                 f"converted_{tag}_bs{B}")
+    with torch.inference_mode():
+        ref = apply_model(model.params, cfg, feed, model_state=state,
+                          use_kernels=False)
+    err = check_forward(torch, cfg, out, ref, B, f"converted {name}")
+    rec = {"config": name, "fabricate_s": fabricate_s,
+           "convert_wall_s": convert_s, "converted_bytes": nbytes,
+           "reference_tensors": len(tensors),
+           "reference_bytes": sum(v.nbytes for v in tensors.values()),
+           "forward_ms": ms, "sigm_vs_plain_max_abs": err,
+           "sigm_mean": out.sigm.float().mean().item(),
+           "sigm_std": out.sigm.float().std().item(), "launches": counts}
+    if cfg.decoder == "aspp_v3plus":
+        scopes = {**{("aspp", k): v for k, v in ctc.ASPP_SCOPES.items()},
+                  **{("decoder", k): v
+                     for k, v in ctc.DECODER_BN_SCOPES.items()}}
+        for (part, key), sc in scopes.items():
+            for stat, tf_name in (("mean", "moving_mean"),
+                                  ("var", "moving_variance")):
+                want = tensors[f"{ctc.SCOPE}/{sc}/BatchNorm/{tf_name}"]
+                for got, what in ((state, "converted"),
+                                  (out.model_state, "the forward's")):
+                    if not np.array_equal(
+                            got[part][key][stat].cpu().numpy(), want):
+                        fail(f"converted {name}: {what} {part}/{key} "
+                             f"{stat} is not the file's {tf_name}")
+        with torch.inference_mode():
+            moved = apply_model(model.params, cfg, feed,
+                                model_state=init_model_state(cfg,
+                                                             device=DEV))
+        rec["sigm_initial_statistics_max_abs"] = (
+            moved.sigm - out.sigm).abs().max().item()
+        if not rec["sigm_initial_statistics_max_abs"] > SIGM_TOL:
+            fail(f"converted {name}: the initial BN statistics give the "
+                 f"converted statistics' masks within "
+                 f"{rec['sigm_initial_statistics_max_abs']:.3e}: the "
+                 "forward does not read the model state")
+    log(f"[reference] converted {name}: reference_tensors "
+        f"{fabricate_s:.2f} s ({rec['reference_tensors']} tensors, "
+        f"{rec['reference_bytes']} bytes), convert_tensors onto the card "
+        f"{convert_s:.2f} s ({nbytes} bytes); bs={B} bf16 forward "
+        f"{ms:.3f} ms, sigm vs plain max abs {err:.3e} <= {SIGM_TOL}, sigm "
+        f"mean {rec['sigm_mean']:.4f} std {rec['sigm_std']:.4f}"
+        + (f", vs the initial BN statistics "
+           f"{rec['sigm_initial_statistics_max_abs']:.3e}"
+           if "sigm_initial_statistics_max_abs" in rec else ""))
+    del model, out, ref, tensors
+    return rec, (counts, 1, ms), params
+
+
+def run_reference_phase(torch, kernels, cmpc, card, eval_sps):
+    """Phase 16: the reference-checkpoint path without JAX.  The flagship
+    and CMPCv4_model converted from fabricated reference-named tensors at
+    full width (`converted_forward`), then the parity rehearsal
+    (`tools.parity_rehearsal.run(from_tensors=True, full_width=True)`)
+    over its 8 COCO-size images: layout, batches, conversion on
+    the host, step 0 saved, `cli -m test -d unc -c` on the card; the
+    checkpoint's weights bit-equal to the flagship's conversion above, the printed table (without and with the CRF) within IOU_TOL of
+    `evaluate(use_crf=True)` on those weights and batches, and the CLI
+    again without -c.  `eval_sps` is phase 8's samples/s, printed
+    beside."""
+    import os
+
+    from cmpc_refseg_torch import cli
+    from cmpc_refseg_torch.config import get_config
+    from cmpc_refseg_torch.tools import convert_tf_checkpoint as ctc
+    from cmpc_refseg_torch.tools import parity_rehearsal as pr
+    from cmpc_refseg_torch.train import evaluator as ev
+    from cmpc_refseg_torch.train.checkpoint import FILE
+    from cmpc_refseg_torch.train.optimizer import named_leaves
+
+    t_phase = time.perf_counter()
+    n_images = len(pr.COCO_SIZES)
+    if n_images != B:
+        fail(f"reference: the rehearsal's {n_images} images are not one "
+             f"bs={B} batch (eval_bs8's shapes)")
+    paths, out = {}, {}
+    flagship = None
+    for tag, name in REFERENCE:
+        out[tag], paths[f"converted_{tag}_bs{B}"], params = \
+            converted_forward(torch, kernels, cmpc, ctc, tag, name)
+        if tag == "flagship":
+            flagship = params
+        del params
+        torch.cuda.empty_cache()
+
+    real_evaluate, eval_s = ev.evaluate, []
+
+    def timed_evaluate(*a, **kw):
+        t0 = time.perf_counter()
+        r = real_evaluate(*a, **kw)
+        eval_s.append(time.perf_counter() - t0)
+        return r
+    with tempfile.TemporaryDirectory() as root:
+        ev.evaluate = timed_evaluate
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rh = pr.run(root, from_tensors=True, full_width=True)
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            check_counts(counts, expected_launches(cmpc, B), 1,
+                         "rehearsal_eval_bs8")
+            paths["rehearsal_eval_bs8"] = (counts, 1, eval_s[-1] * 1e3)
+            geometry = get_config(pr.MODEL)
+            argv = ["-m", "test", "-d", "unc", "-t", "val", "-n", pr.MODEL,
+                    "-f", rh.batches, "-ckpt_dir", rh.ckpt_dir,
+                    "-emb_dir", os.path.join(root, "data"), "-bs", str(B),
+                    "-T", str(geometry.num_steps), "-H", str(geometry.H),
+                    "-W", str(geometry.W)]
+            kernels.reset_launch_counts()
+            _, text, nocrf_wall = run_cli(cli.main, argv)
+            nocrf_counts = kernels.launch_counts()
+            check_counts(nocrf_counts, expected_launches(cmpc, B), 1,
+                         "rehearsal_eval_nocrf_bs8")
+            paths["rehearsal_eval_nocrf_bs8"] = (nocrf_counts, 1,
+                                                 eval_s[-1] * 1e3)
+        finally:
+            ev.evaluate = real_evaluate
+        nocrf = pr.parse_table(text)
+        if nocrf.get("no_crf") != rh.table["no_crf"] or "crf" in nocrf:
+            fail(f"reference: the CLI without -c printed {nocrf}, with -c "
+                 f"{rh.table}")
+        # the checkpoint holds the flagship's conversion
+        saved = torch.load(os.path.join(rh.ckpt_dir, "0", FILE),
+                           map_location="cpu", weights_only=True, mmap=True)
+        weights = dict(named_leaves(flagship))
+        held = {**saved["trainable"], **saved["frozen"]}
+        differ = [p for p, v in held.items()
+                  if not torch.equal(v, weights[p].cpu())]
+        if differ or held.keys() != weights.keys():
+            fail(f"reference: the rehearsal's checkpoint differs from the "
+                 f"conversion at {differ[:5]}")
+        ckpt_bytes = os.path.getsize(os.path.join(rh.ckpt_dir, "0", FILE))
+        del saved
+        cfg, _ = cli.make_config(cli.build_argparser().parse_args(argv),
+                                 torch.device(DEV))
+        check_config(cfg, pr.MODEL, "rehearsal")
+        samples = list(cli.npz_eval_samples(rh.batches, "unc", "val", cfg))
+        t0 = time.perf_counter()
+        direct = ev.evaluate(cfg, flagship, {}, iter(samples), use_crf=True,
+                             device=DEV)
+        direct_s = time.perf_counter() - t0
+    iou_err = 0.0
+    for section, r in direct.items():
+        want = {"overall IoU": r["overall_iou"], "mean IoU": r["mean_iou"],
+                **{f"precision@{k[5:]}": v for k, v in r.items()
+                   if k.startswith("prec@")}}
+        shown = rh.table.get(section, {})
+        if set(shown) != set(want) or r["n"] != n_images:
+            fail(f"reference: the rehearsal printed {shown} for {section}, "
+                 f"evaluate gives {want} over {r['n']} samples")
+        iou_err = max([iou_err] + [abs(shown[k] - v)
+                                   for k, v in want.items()])
+    if set(direct) != set(rh.table) or not iou_err <= IOU_TOL:
+        fail(f"reference: the rehearsal printed {rh.table}, evaluate gives "
+             f"{direct} (max abs {iou_err:.3e} > {IOU_TOL})")
+    del flagship
+    out["rehearsal"] = {
+        "images": n_images, "wall_s": wall, "steps_s": rh.seconds,
+        "save_ms": rh.seconds["save"] * 1e3, "checkpoint_bytes": ckpt_bytes,
+        "cli_crf_wall_s": rh.seconds["evaluate"],
+        "cli_crf_samples_per_s": n_images / rh.seconds["evaluate"],
+        "evaluate_crf_s": eval_s[0],
+        "cli_nocrf_wall_s": nocrf_wall,
+        "cli_nocrf_samples_per_s": n_images / nocrf_wall,
+        "evaluate_nocrf_s": eval_s[1],
+        "direct_evaluate_crf_s": direct_s,
+        "eval_samples_per_s_phase8": eval_sps, "table": rh.table,
+        "printed_vs_evaluate_max_abs": iou_err}
+    out["phase_s"] = time.perf_counter() - t_phase
+    r = out["rehearsal"]
+    log(f"[reference] {card}: parity rehearsal --from-tensors --full-width "
+        f"over {n_images} COCO-size images: {wall:.1f} s (steps "
+        f"{json.dumps({k: round(v, 3) for k, v in rh.seconds.items()})}); "
+        f"step 0 saved in {r['save_ms']:.1f} ms ({ckpt_bytes} bytes); "
+        f"cli -m test -c {r['cli_crf_samples_per_s']:.2f} samples/s "
+        f"({r['cli_crf_wall_s']:.2f} s, evaluate {eval_s[0]:.2f} s), "
+        f"without -c {r['cli_nocrf_samples_per_s']:.2f} samples/s "
+        f"({nocrf_wall:.2f} s, evaluate {eval_s[1]:.2f} s) vs phase 8's "
+        f"evaluate {eval_sps:.1f}; printed table within {iou_err:.1e} of "
+        f"evaluate's: {json.dumps(rh.table)}; phase 16 "
+        f"{out['phase_s']:.1f} s")
+    return paths, out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5379,6 +5630,12 @@ def main():
     voc = run_voc_phase(torch, kernels, cmpc, card, cli_root.name)
     cli_root.cleanup()
     log(f"[phase 15] {time.perf_counter() - t15:.1f} s")
+    torch.cuda.empty_cache()
+    # phase 16: the reference-checkpoint path and the parity rehearsal
+    ref_paths, reference = run_reference_phase(
+        torch, kernels, cmpc, card, evaluation["samples_per_s"])
+    paths.update(ref_paths)
+    log(f"[phase 16] {reference['phase_s']:.1f} s")
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
@@ -5416,6 +5673,7 @@ def main():
     log(f"[dp] {json.dumps(dp)}")
     log(f"[tp] {json.dumps(tp)}")
     log(f"[voc] {json.dumps(voc)}")
+    log(f"[reference] {json.dumps(reference)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

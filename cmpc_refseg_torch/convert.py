@@ -107,15 +107,34 @@ def params_from_npz(path, cfg: ModelConfig, *, device=None) -> dict:
     with np.load(path) as npz:
         for name in npz.files:
             keys = [k if k else int(i) for k, i in _KEY.findall(name)]
-            if not keys or "".join(
-                    f"['{k}']" if isinstance(k, str) else f"[{k}]"
-                    for k in keys) != name:
+            if not keys or keystr(keys) != name:
                 raise ValueError(f"{path}: {name!r} is not a tree path")
             node = tree
             for k in keys[:-1]:
                 node = node.setdefault(k, {})
             node[keys[-1]] = npz[name]
     return params_from_jax(_lists(tree), cfg, device=device)
+
+
+def keystr(path) -> str:
+    """A tree path (dict keys and list indices) as ``jax.tree_util.keystr``
+    prints it: ``['backbone']['conv1']['w']``, a list index as ``[0]``."""
+    return "".join(f"['{k}']" if isinstance(k, str) else f"[{k}]"
+                   for k in path)
+
+
+def npz_arrays(tree, path=()) -> dict:
+    """{keystr(path): array} of each leaf of a numpy parameter tree in the
+    JAX layout: the .npz that tools/convert_tf_checkpoint.py writes, which
+    `params_from_npz` reads."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {keystr(path): np.asarray(tree)}
+    return {k: v for key, node in items
+            for k, v in npz_arrays(node, path + (key,)).items()}
 
 
 def _lists(node):

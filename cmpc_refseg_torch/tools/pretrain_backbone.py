@@ -71,7 +71,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cmpc_refseg_torch.convert import backbone_from_jax, resolve_device
+from cmpc_refseg_torch.convert import (backbone_from_jax, keystr,
+                                       resolve_device)
 from cmpc_refseg_torch.models.backbone import apply_backbone, init_backbone
 from cmpc_refseg_torch.ops.layers import split_stream, xavier_conv_init
 from cmpc_refseg_torch.ops.resize import resize_bilinear
@@ -126,11 +127,6 @@ def params_to_torch(tree: dict, *, device=None) -> dict:
                                   device=device)}
             for k, u in tree["head"].items()}
     return {"backbone": backbone, "head": head}
-
-
-def keystr(path) -> str:
-    """``jax.tree_util.keystr`` of a path of dict keys."""
-    return "".join(f"['{k}']" for k in path)
 
 
 def to_disk(path, tensor) -> np.ndarray:
