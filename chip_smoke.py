@@ -36,10 +36,18 @@ Phases, each fatal on failure:
     rows cross samples) with C = 72 and a sample whose v rows are zero;
     the ConvLSTM raw kernel at B*N = 75 with 25-row samples, C = 12 and
     500; and `cmpc.apply_mutan` at the HSV configs' K = 1011, which it
-    pads to 1016, against its plain route).  Each path's record carries
+    pads to 1016, against its plain route).  The wide forms at the widths
+    past their main kernels (`wide_edge_inputs`: the affinity at A = 2056,
+    the SE sum at C = 1032, graph_msg and graph_update at C = 4104,
+    graph_msg at C = 4096 with T = 300, the dz pass at C = 4104 with 5
+    heads and C = 1030 with 8), each of which must launch its wrapper's
+    wide form, and mutan_fused at C = 4104 and the ConvLSTM pair at CM =
+    1032 on their main kernels.  Each path's record carries
     its widths: C = v_emb_dim, K, A = the affinity width, CM = mlp_dim
     (1000 / 1008 / 1000 / 500 for most configs; the HSV configs' K 1016;
-    BERT's 1024 / 1032 / 512 / 512);
+    BERT's 1024 / 1032 / 512 / 512; phase 17's 4104 / 4112 / 4104 / 1032)
+    and its form (main, or wide on phase 17's paths, where every wrapper
+    with a wide form must take it and no registry path may);
  4. forward: build_model("CMPC_model") on CUDA at 320x320, bs=8, bf16,
     full depth.  Launch counts are reset just before the timed forwards and
     read just after (the counts the path needs per forward, see
@@ -229,7 +237,14 @@ Phases, each fatal on failure:
     (without and with the CRF) within IOU_TOL of `evaluate(use_crf=True)`
     on those weights and batches; launches held at forward_bs8, v4_bs8
     and eval_bs8;
-17. the kernels' share of each path's run, the `kernels` JSON line (each
+17. the flagship widened past every main kernel's bound
+    (`run_wide_phase`: v_emb_dim 4104, so C = A = 4104, and mlp_dim 1032)
+    at 320x320, bs=2, bf16, full depth: one forward, whose affinity,
+    message, update and SE sum launches all go to their wide forms
+    (counted), sigm against the plain route by phase 4's rule, its ms,
+    peak GB and device time by kernel; the train step held by phase 6's
+    rule (`check_train_routes`) and one timed step, the dz pass wide too;
+18. the kernels' share of each path's run, the `kernels` JSON line (each
     record's launches are its path's count), the nvidia-smi line and the
     final JSON line.  The edge records go to their own log line, not into
     the `kernels` line: they are on no path.
@@ -276,11 +291,25 @@ GLOVE_SEED = 11              # the synthetic GloVe table of phase 9
 PLUS = (("v6plus", "CMPCv6_plus_model", {}), ("v5plus", "CMPCv5_plus_model",
                                               {}))
 ODD_C, ODD_A, ODD_CM = 1001, 1003, 502   # phase 10's odd widths
+# phase 17: the flagship widened past every main kernel's bound (A = C =
+# 4104 > 2048 and 4096, CM = 1032 > 1024), so each wrapper with a wide form
+# launches it on its real call path
+WIDE_CFG = {"v_emb_dim": 4104, "mlp_dim": 1032}
+WIDE_B = 2
+WIDE_FORMS = ("spa_affinity_grouped", "graph_msg", "graph_update_grouped",
+              "se_sum")               # and mutan_bwd_dz in a train step
+WIDE_KERNELS = ("aff_wide_proj_kernel", "aff_wide_norm_kernel",
+                "aff_wide_words_kernel", "aff_wide_softmax_kernel",
+                "se_wide_kernel", "se_wide_norm_kernel",
+                "graph_msg_wide_kernel", "graph_update_wide_kernel",
+                "dz_wide_rows_kernel", "dz_wide_cols_kernel",
+                "dz_wide_finish_kernel")
 PORT_KERNELS = ("convlstm_gates_kernel", "convlstm_raw_kernel",
                 "graph_msg_kernel", "graph_update_kernel",
                 "mutan_heads_kernel", "mutan_norm_kernel", "mutan_dz_kernel",
                 "mutan_dz_finalize_kernel", "mutan_dw_kernel",
-                "mutan_dw_sum_kernel", "se_sum_kernel", "spa_affinity_kernel")
+                "mutan_dw_sum_kernel", "se_sum_kernel", "spa_affinity_kernel",
+                *WIDE_KERNELS)
 N_FWD = 5
 SIGM_TOL = 2e-2
 # kernel outputs against the plain version, as a share of the largest entry
@@ -611,7 +640,10 @@ def path_specs(get_config):
     step, CMPCv4_model's bs=8 conv5 step and CMPC_model's grad_accum=2
     bs=4 micro-steps; the video model's forwards of 1 and 8 clips and its
     bs=8 train step; a data-parallel rank's CMPCv4_model step and
-    flagship evaluation at half of bs=8."""
+    flagship evaluation at half of bs=8; phase 17's widened flagship
+    (WIDE_CFG) forward and train step at WIDE_B, whose specs say `wide`:
+    there every wrapper with a wide form must launch it, elsewhere none
+    may."""
     flag = get_config("CMPC_model")
     specs = {"forward_bs8": path_spec(flag, B),
              "serving_bs1": path_spec(flag, 1),
@@ -647,6 +679,10 @@ def path_specs(get_config):
     # on each rank's half of a bs=8 batch (the flagship's step: CLI_PATHS)
     specs[f"v4_dp_train_bs{B // 2}"] = path_spec(v4, B // 2, train=True)
     specs[f"dp_eval_bs{B // 2}"] = path_spec(flag, B // 2)
+    wide = get_config("CMPC_model", **WIDE_CFG)
+    specs[f"wide_bs{WIDE_B}"] = {**path_spec(wide, WIDE_B), "wide": True}
+    specs[f"wide_train_bs{WIDE_B}"] = {
+        **path_spec(wide, WIDE_B, train=True), "wide": True}
     return specs
 
 
@@ -853,9 +889,15 @@ def check_kernels(torch, kernels, cmpc, dev, specs):
             what = f"{name} at {path}"
             tol = KERNEL_TOL.get(name, default_tol)
             torch.cuda.synchronize()
+            wide_before = getattr(wrapper, "wide_launches", None)
             got = wrapper(*args, **kw)
             want = plain(*args, **kw)
             torch.cuda.synchronize()
+            form = "main" if wide_before is None or \
+                wrapper.wide_launches == wide_before else "wide"
+            if (form == "wide") != (spec.get("wide", False)
+                                    and wide_before is not None):
+                fail(f"{what}: the {form} form launched")
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             errs, stats = [], {}
@@ -893,7 +935,8 @@ def check_kernels(torch, kernels, cmpc, dev, specs):
                     torch, lambda: wrapper(*args, **kw))
                 scratch = kernels.mutan_bwd_dz_scratch(
                     rows, rows // bk, spec["c"], HEADS)[0]
-                extra["grid"] = (scratch - bk + 1) // 2
+                if form == "main":
+                    extra["grid"] = (scratch - bk + 1) // 2
             if name == "convlstm_raw":   # one statistics slot per block
                 extra["grid"] = slots * bk
             rec = {
@@ -903,7 +946,7 @@ def check_kernels(torch, kernels, cmpc, dev, specs):
                           **({"others": others} if others else {}),
                           **({"masked": kw["masked"]} if "masked" in kw
                              else {})},
-                "route": "cuda", "source": SOURCES[name],
+                "route": "cuda", "form": form, "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": None,
                 "max_abs_err": max(e for e, _ in errs),
                 "max_norm_err": max(n for _, n in errs),
@@ -924,10 +967,11 @@ def check_kernels(torch, kernels, cmpc, dev, specs):
                     if matmul_ms is not None else "no product")
             if extra:
                 prod += f"; {json.dumps(extra)}"
-            form = (f", {others} other(s)" if others else "") + (
+            shape = (f", {others} other(s)" if others else "") + (
                 "" if kw.get("masked", True) else ", unmasked")
-            log(f"[kernels] {name} at {path} (batch {bk}, {rows} rows, "
-                f"{groups} weight group(s){form}, C={spec['c']} K={spec['k']} "
+            log(f"[kernels] {name} at {path} ({form} form, batch {bk}, "
+                f"{rows} rows, "
+                f"{groups} weight group(s){shape}, C={spec['c']} K={spec['k']} "
                 f"A={spec['a']} CM={spec['cm']}): max abs err {rec['max_abs_err']:.3e} (norm "
                 f"{rec['max_norm_err']:.3e} <= {tol:.0e}){stats_note}; "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {prod}, bound "
@@ -1064,6 +1108,84 @@ def edge_inputs(torch, kernels, dev):
     ]
 
 
+def wide_edge_inputs(torch, kernels, dev):
+    """The wide forms at tests/test_torch_wide.py's widths, as (wrapper
+    name, record tag, args, kwargs); a tag that starts with ':wide' must
+    launch the wrapper's wide form: the affinity at A = 2056 (l2n and
+    masked, and neither) on 3 samples of 75 rows, C = EDGE_C, T = EDGE_T;
+    the SE sum at C = 1032 with 2 others on 3 samples of 25 rows;
+    graph_msg at C = 4104 (T = EDGE_T) and at C = 4096 with T = 300, and
+    graph_update at C = 4104 on the first's msg; the dz pass at C = 4104
+    with 5 heads and at C = 1030 with 8, on 2 samples of 75 rows.  Then the
+    kernels that list no width bound, at the widened flagship's widths on
+    their main kernels: mutan_fused at C = 4104 (K = 4112) and the
+    ConvLSTM gates and raw kernels at CM = 1032."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    f32, bf = torch.float32, torch.bfloat16
+    wc, wa, wcm = WIDE_CFG["v_emb_dim"], 2056, WIDE_CFG["mlp_dim"]
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    b, n = 3, 75
+    mask = torch.zeros(b, 1, EDGE_T, device=dev)
+    mask[:, :, :30] = 1
+
+    def affinity(l2n, masked):
+        return ((randn(b, n, EDGE_C), randn(EDGE_C, wa, scale=EDGE_C ** -0.5),
+                 randn(wa, scale=0.1), randn(b, EDGE_T, wa, scale=wa ** -0.5),
+                 torch.rand(b, 1, EDGE_T, generator=g, device=dev), mask),
+                {"scale": EDGE_C ** 0.5, "l2n": l2n, "masked": masked})
+
+    def msg_args(bb, t, c):
+        return (torch.softmax(randn(bb, n, t, dtype=f32), -1).to(bf),
+                randn(bb, t, c))
+
+    wide_msg = msg_args(b, EDGE_T, wc)
+    msg, st = kernels.graph_msg_plain(*wide_msg)
+    update = (randn(b, n, wc), msg, st, randn(wc, wc, scale=wc ** -0.5),
+              randn(wc, scale=0.1), 1 + randn(wc, scale=0.1, dtype=f32),
+              randn(wc, scale=0.1, dtype=f32))
+
+    def dz_args(c, heads):
+        return ((torch.tanh(randn(2 * n, heads * c, dtype=f32)).to(bf),
+                 torch.tanh(randn(2, heads * c, dtype=f32)),
+                 randn(2 * n, c, scale=0.1)),
+                {"heads": heads, "rows_per_sample": n})
+
+    se_n = 25
+    se = (randn(b, se_n, wcm), [randn(b, se_n, wcm) for _ in range(2)],
+          [torch.sigmoid(randn(b, wcm, dtype=f32)).to(bf) for _ in range(2)],
+          [randn(wcm, wcm, scale=wcm ** -0.5) for _ in range(2)],
+          [randn(wcm, scale=0.1) for _ in range(2)])
+    k = wc + 8
+    mutan = ((randn(2 * n, k), randn(k, HEADS * wc, scale=k ** -0.5),
+              randn(HEADS * wc, scale=0.1, dtype=f32),
+              torch.tanh(randn(2, HEADS * wc, dtype=f32))),
+             {"heads": HEADS, "rows_per_sample": n})
+    gates_args = (*(randn(b, se_n, wcm) for _ in range(3)),
+                  randn(2 * wcm, 4 * wcm, scale=wcm ** -0.5),
+                  randn(se_n, wcm, scale=0.1), randn(se_n, wcm, scale=0.1))
+    gates, gst = kernels.convlstm_gates_plain(*gates_args)
+    raw = (gates, randn(b, se_n, wcm), randn(se_n, wcm, scale=0.1), gst,
+           1 + randn(5, wcm, scale=0.1, dtype=f32),
+           randn(5, wcm, scale=0.1, dtype=f32))
+    return [
+        ("spa_affinity", ":wide-A2056-l2n", *affinity(True, True)),
+        ("spa_affinity", ":wide-A2056", *affinity(False, False)),
+        ("se_sum", f":wide-C{wcm}", se, {}),
+        ("graph_msg", f":wide-C{wc}", wide_msg, {}),
+        ("graph_msg", ":wide-C4096-T300", msg_args(1, 300, 4096), {}),
+        ("graph_update", f":wide-C{wc}", update, {}),
+        ("mutan_bwd_dz", f":wide-C{wc}-5heads", *dz_args(wc, HEADS)),
+        ("mutan_bwd_dz", ":wide-C1030-8heads", *dz_args(1030, 8)),
+        ("mutan_fused", f":C{wc}", *mutan),
+        ("convlstm_gates", f":CM{wcm}", gates_args, {}),
+        ("convlstm_raw", f":CM{wcm}", raw, {}),
+    ]
+
+
 def mutan_k_edge(torch, cmpc, dev):
     """`cmpc.apply_mutan` at the HSV configs' K = 1000 + 11 = 1011, which
     it pads to 1016 for the kernel, on a bs=8 40x40 level against its plain
@@ -1106,14 +1228,22 @@ def mutan_k_edge(torch, cmpc, dev):
 def check_edges(torch, kernels, cmpc, dev):
     """Each wgmma kernel at its edge shapes against its plain version (and
     dW against torch.mm), with the path records' tolerances (statistics
-    partials as in phase 3); and `mutan_k_edge`."""
+    partials as in phase 3), the wide forms at `wide_edge_inputs`' shapes
+    (each must have launched its wide form, and no other edge a wide one);
+    and `mutan_k_edge`."""
     records = []
-    for name, tag, args, kw in edge_inputs(torch, kernels, dev):
+    for name, tag, args, kw in (edge_inputs(torch, kernels, dev)
+                                + wide_edge_inputs(torch, kernels, dev)):
         wrapper = getattr(kernels, name)
         tol = KERNEL_TOL.get(name, 1e-2)
+        wide_before = getattr(wrapper, "wide_launches", 0)
         got = wrapper(*args, **kw)
         want = kernels.PLAIN[wrapper](*args, **kw)
         torch.cuda.synchronize()
+        wide = getattr(wrapper, "wide_launches", 0) > wide_before
+        if wide != tag.startswith(":wide"):
+            fail(f"{name}@edge{tag}: the {'wide' if wide else 'main'} form "
+                 "launched")
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         errs = [compare(torch, a, b, tol, f"{name} at the edge output {i}")
@@ -1344,11 +1474,20 @@ def config_launches(cmpc, cfg, batch, train=False):
                              cfg.num_graph_conv, cfg.sent_fusion)
 
 
-def check_counts(counts, expected, runs, what):
+def check_counts(counts, expected, runs, what, wide=()):
+    """The launches of `runs` runs of a path against `expected`, and the
+    wide forms' launches since the counts were last reset (main resets
+    them after the edge records): none on a registry path; on phase 17's,
+    every launch of each wrapper named in `wide` and no other."""
+    from cmpc_refseg_torch.ops import kernels
     for name, n in counts.items():
         if n != expected[name] * runs:
             fail(f"{what}: {name} launched {n} times in {runs} runs, "
                  f"expected {expected[name] * runs}")
+    for name, n in kernels.wide_launch_counts().items():
+        if n != (counts[name] if name in wide else 0):
+            fail(f"{what}: {n} of {counts.get(name)} launches of {name} went "
+                 "to its wide form")
 
 
 def bert_text(cfg, rng, lens):
@@ -5462,6 +5601,104 @@ def run_reference_phase(torch, kernels, cmpc, card, eval_sps):
     return paths, out
 
 
+def run_wide_phase(torch, kernels, cmpc, build_model, build_trainer,
+                   apply_model, compute_gradients, named_leaves, card):
+    """Phase 17: the flagship widened to WIDE_CFG (v_emb_dim 4104, so A = C
+    = 4104; mlp_dim 1032) at 320x320, bs=WIDE_B, bf16, full depth, where
+    every wrapper with a wide form launches it on its real call path: one
+    forward (launches counted, each of WIDE_FORMS all wide; ms, peak GB,
+    the device split by kernel) and sigm against the plain route (phase
+    4's rule); then the train step, held by check_train_routes' rule on
+    one batch, and one timed step (the dz pass wide as well)."""
+    t0 = time.perf_counter()
+    path, train_path = f"wide_bs{WIDE_B}", f"wide_train_bs{WIDE_B}"
+    model = build_model("CMPC_model", device=DEV, dtype="bfloat16",
+                        batch_size=WIDE_B, **WIDE_CFG)
+    cfg = model.cfg
+    if (cfg.H, cfg.res4_blocks, cfg.v_emb_dim, cfg.mlp_dim) != (
+            H_IMG, RES4, WIDE_CFG["v_emb_dim"], WIDE_CFG["mlp_dim"]) or \
+            not cmpc.pack_levels(WIDE_B, len(cfg.levels)):
+        fail(f"unexpected widened config {cfg}")
+    feed = {k: torch.as_tensor(v, device=DEV)
+            for k, v in make_batch(cfg, WIDE_B, seed=3).items()}
+    model.forward(feed)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = model.forward(feed)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t1) * 1e3
+    counts, wide = kernels.launch_counts(), kernels.wide_launch_counts()
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts(counts, expected_launches(cmpc, WIDE_B), 1, path,
+                 wide=WIDE_FORMS)
+    with torch.inference_mode():
+        ref = apply_model(model.params, cfg, feed, use_kernels=False)
+    sigm_err = check_forward(torch, cfg, out, ref, WIDE_B, path)
+    del ref
+    split = device_split_ms(torch, lambda: model.forward(feed), reps=3)
+    wide_ms = sum(ms for name, ms in split.items()
+                  if name.split("<")[0] in WIDE_KERNELS)
+    log(f"[{path}] {card}: CMPC_model{WIDE_CFG} 320x320 bs={WIDE_B} bf16 "
+        f"res4_blocks=23: {fwd_ms:.3f} ms/batch (one run), peak memory "
+        f"{fwd_peak:.2f} GB; sigm vs plain max abs {sigm_err:.3e} <= "
+        f"{SIGM_TOL}; launches {counts}, of them wide {wide}; the wide "
+        f"forms' kernels {wide_ms:.3f} ms of the forward's device time "
+        f"{sum(split.values()):.3f} ms")
+    log(f"[{path}] device ms by kernel: {json.dumps(split)}")
+    del model, out
+    torch.cuda.empty_cache()
+
+    trainer = build_trainer("CMPC_model", device=DEV, dtype="bfloat16",
+                            batch_size=WIDE_B, **WIDE_CFG)
+    reference = build_trainer("CMPC_model", device=DEV, dtype="float32",
+                              batch_size=WIDE_B, **WIDE_CFG)
+    batches = [train_batch(trainer.cfg, WIDE_B, i) for i in range(2)]
+    routes = check_train_routes(torch, trainer, reference, compute_gradients,
+                                named_leaves, batches[0])
+    del reference
+    torch.cuda.empty_cache()
+    trainer.step(batches[0])                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    metrics = trainer.step(batches[1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3
+    train_counts = kernels.launch_counts()
+    train_wide = kernels.wide_launch_counts()
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts(train_counts, config_launches(cmpc, cfg, WIDE_B, train=True),
+                 1, train_path, wide=(*WIDE_FORMS, "mutan_bwd_dz"))
+    loss = float(metrics["loss_total"])
+    if not math.isfinite(loss):
+        fail(f"{train_path}: non-finite loss {loss}")
+    log(f"[{train_path}] {card}: {step_ms:.3f} ms/step (one step), peak "
+        f"memory {step_peak:.2f} GB, loss {loss:.4f}; kernel vs plain route "
+        f"on one batch: loss relative error {routes['loss_rel_err']:.3e} <= "
+        f"{TRAIN_LOSS_TOL}; worst resolved gradient "
+        f"{routes['worst_resolved_grad_rel_err']:.3e} <= {TRAIN_GRAD_TOL} "
+        f"({routes['worst_resolved_grad_leaf']}); leaf counts "
+        f"{routes['counts']}; launches {train_counts}, of them wide "
+        f"{train_wide}")
+    del trainer
+    torch.cuda.empty_cache()
+    summary = {"forward_ms": fwd_ms, "forward_peak_gb": fwd_peak,
+               "sigm_err": sigm_err, "wide_launches": wide,
+               "wide_kernels_ms": wide_ms, "device_ms": sum(split.values()),
+               "step_ms": step_ms, "step_peak_gb": step_peak, "loss": loss,
+               "train_wide_launches": train_wide,
+               **{k: v for k, v in routes.items()
+                  if k != "unresolved_leaves"},
+               "held_to_noise": [r["leaf"] for r in
+                                 routes["unresolved_leaves"]],
+               "phase_s": time.perf_counter() - t0}
+    return {path: (counts, 1, fwd_ms),
+            train_path: (train_counts, 1, step_ms)}, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5499,6 +5736,7 @@ def main():
                             path_specs(get_config))
     edges = check_edges(torch, kernels, cmpc, torch.device(DEV))
     edges += odd_width_edges(torch, kernels, cmpc, torch.device(DEV))
+    kernels.reset_launch_counts()   # from here on only phase 17 goes wide
     torch.cuda.empty_cache()
     # path -> (launch counts of its runs, runs, ms per run)
     paths = run_forward(torch, kernels, cmpc, build_model, apply_model, card)
@@ -5636,6 +5874,13 @@ def main():
         torch, kernels, cmpc, card, evaluation["samples_per_s"])
     paths.update(ref_paths)
     log(f"[phase 16] {reference['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    # phase 17: the flagship widened past every main kernel's bound
+    wide_paths, widened = run_wide_phase(
+        torch, kernels, cmpc, build_model, build_trainer, apply_model,
+        compute_gradients, named_leaves, card)
+    paths.update(wide_paths)
+    log(f"[phase 17] {widened['phase_s']:.1f} s")
     for rec in records:
         counts, runs, _ = paths[rec["path"]]
         rec["launches"], rec["runs"] = counts[rec["kernel"]], runs
@@ -5674,6 +5919,7 @@ def main():
     log(f"[tp] {json.dumps(tp)}")
     log(f"[voc] {json.dumps(voc)}")
     log(f"[reference] {json.dumps(reference)}")
+    log(f"[widened] {json.dumps(widened)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -741,3 +741,169 @@ extern "C" int cmpc_graph_update(const void* x, const void* msg, const void* sta
       static_cast<float>(N) * static_cast<float>(width), B / groups);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// The wide forms.  No TPU kernel of their own: the Pallas blocks span the
+// whole row at any C and T.  Simple tiled products (csrc/wide.cuh), a
+// block per 64 x 64 output tile of one sample; each block writes its own
+// statistics slot (sum, sum of squares of its rounded outputs, summed over
+// its threads in a fixed order), so the statistics keep the [B, parts, 2]
+// layout with parts = cmpc_graph_wide_parts(N, C).
+//  - msg, where the message kernel's plan does not fit (C > kMsgMaxC, or
+//    C * T past its shared memory): the tile of w_aff[s] @ pooled[s],
+//    rounded to bf16.  The product has no reduction over C.
+//  - update, for C > kUpdMaxC, where LN1's affine [2][C] no longer fits
+//    shared memory: the A operand y = relu(bf16(x + bf16(LN1(msg)))) is
+//    formed as each 32-column step of it is loaded, reading gamma and beta
+//    of those columns from device memory, so nothing is staged per C.
+// Bound on the card: operations at such widths (the [B*N, C] x [C, C]
+// product of the update; the message's [N, T] x [T, C] per sample).
+// ---------------------------------------------------------------------------
+#include "wide.cuh"
+
+namespace cmpc {
+
+// 8 entries of y = relu(bf16(x + bf16((msg - mean) * inv * g1 + b1))) at
+// row r, columns k .. k + 7 of one sample (C a multiple of 8, x and msg
+// 16-byte aligned), zero past the rows and C.
+struct GraphYLoad {
+  const bf16* x;
+  const bf16* msg;
+  const float* g1;
+  const float* b1;
+  int rows, C;
+  float mean, inv;
+  __device__ uint4 operator()(int r, int k) const {
+    if (r >= rows || k >= C) return zero_vec();
+    const size_t o = static_cast<size_t>(r) * C + k;
+    float xf[8], mf[8], y[8];
+    load_bf<8>(x + o, xf);
+    load_bf<8>(msg + o, mf);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float ln = round_bf((mf[e] - mean) * inv * g1[k + e] + b1[k + e]);
+      y[e] = fmaxf(round_bf(xf[e] + ln), 0.f);
+    }
+    return pack_bf<8>(y);
+  }
+};
+
+// The block's (sum, sum of squares) into its slot of `stats` [B, parts, 2].
+__device__ __forceinline__ void wide_stats(float sum, float sumsq, float* stats, int s,
+                                           float* red) {
+  sum = block_sum(sum, red);
+  sumsq = block_sum(sumsq, red);
+  if (threadIdx.x == 0) {
+    const size_t part =
+        (static_cast<size_t>(s) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    stats[part * 2] = sum;
+    stats[part * 2 + 1] = sumsq;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+graph_msg_wide_kernel(const bf16* __restrict__ w_aff, const bf16* __restrict__ pooled,
+                      bf16* __restrict__ msg, float* __restrict__ stats, int N, int C, int T,
+                      bool avec) {
+  __shared__ WideSmem sm;
+  __shared__ float red[kWideThreads / 32];
+  const int c0 = blockIdx.x * kWideTile, row0 = blockIdx.y * kWideTile, s = blockIdx.z;
+  const size_t srow = static_cast<size_t>(s) * N;
+  const RowsLoad wa{w_aff + srow * T, T, N, T, avec};
+  const RowsLoad pb{pooled + static_cast<size_t>(s) * T * C, C, T, C, true};
+  wide_product<false>(sm, wa, pb, row0, c0, T);
+  float sum = 0.f, sumsq = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
+    const int row = row0 + r, col = c0 + j;
+    if (row >= N || col >= C) continue;
+    const float v = round_bf(sm.c[r][j]);
+    msg[(srow + row) * C + col] = f2bf(v);
+    sum += v;
+    sumsq += v * v;
+  }
+  wide_stats(sum, sumsq, stats, s, red);
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+graph_update_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ msg,
+                         const float* __restrict__ stats1, int parts1,
+                         const bf16* __restrict__ w, const bf16* __restrict__ bias,
+                         const float* __restrict__ g1, const float* __restrict__ b1,
+                         bf16* __restrict__ z, float* __restrict__ stats2, int N, int C,
+                         float cnt, int per_group) {
+  __shared__ WideSmem sm;
+  __shared__ float red[kWideThreads / 32];
+  const int c0 = blockIdx.x * kWideTile, row0 = blockIdx.y * kWideTile, s = blockIdx.z;
+  const int grp = s / per_group;
+  const size_t srow = static_cast<size_t>(s) * N;
+  float sa = 0.f, sb = 0.f;
+  for (int j = 0; j < parts1; ++j) {
+    sa += stats1[(static_cast<size_t>(s) * parts1 + j) * 2];
+    sb += stats1[(static_cast<size_t>(s) * parts1 + j) * 2 + 1];
+  }
+  const float mean = sa / cnt;
+  const float inv = rsqrtf(fmaxf(sb / cnt - mean * mean, 0.f) + 1e-12f);
+  const GraphYLoad ya{x + srow * C, msg + srow * C, g1 + static_cast<size_t>(grp) * C,
+                      b1 + static_cast<size_t>(grp) * C, N, C, mean, inv};
+  const RowsLoad wb{w + static_cast<size_t>(grp) * C * C, C, C, C, true};
+  wide_product<false>(sm, ya, wb, row0, c0, C);
+  const bf16* bg = bias + static_cast<size_t>(grp) * C;
+  float sum = 0.f, sumsq = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
+    const int row = row0 + r, col = c0 + j;
+    if (row >= N || col >= C) continue;
+    const float v = round_bf(round_bf(sm.c[r][j]) + bf2f(bg[col]));
+    z[(srow + row) * C + col] = f2bf(v);
+    sum += v;
+    sumsq += v * v;
+  }
+  wide_stats(sum, sumsq, stats2, s, red);
+}
+
+}  // namespace cmpc
+
+// Statistics slots per sample of the wide forms: one per 64 x 64 tile.
+extern "C" int cmpc_graph_wide_parts(int N, int C) {
+  return cmpc::wide_tiles(N) * cmpc::wide_tiles(C);
+}
+
+// The contract of cmpc_graph_msg for any C (a multiple of 8) and T >= 1,
+// with stats [B, cmpc_graph_wide_parts(N, C), 2]; pooled 16-byte aligned.
+extern "C" int cmpc_graph_msg_wide(const void* w_aff, const void* pooled, void* msg,
+                                   void* stats, int B, int N, int C, int T, void* stream) {
+  using namespace cmpc;
+  if (B < 1 || N < 1 || T < 1 || C % 8 || C < 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(pooled)) return static_cast<int>(cudaErrorMisalignedAddress);
+  graph_msg_wide_kernel<<<dim3(wide_tiles(C), wide_tiles(N), B), kWideThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(w_aff), static_cast<const bf16*>(pooled),
+      static_cast<bf16*>(msg), static_cast<float*>(stats), N, C, T,
+      T % 8 == 0 && aligned16(w_aff));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The contract of cmpc_graph_update for any C (a multiple of 8), with
+// stats2 [B, cmpc_graph_wide_parts(N, C), 2]; x, msg and w 16-byte aligned.
+extern "C" int cmpc_graph_update_wide(const void* x, const void* msg, const void* stats1,
+                                      int parts1, const void* w, const void* bias,
+                                      const void* g1, const void* b1, void* z, void* stats2,
+                                      int B, int N, int C, int width, int groups,
+                                      void* stream) {
+  using namespace cmpc;
+  if (groups < 1 || B % groups || N < 1 || C % 8 || C < 8 || width < 1 || width > C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(x) || !aligned16(msg) || !aligned16(w))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  graph_update_wide_kernel<<<dim3(wide_tiles(C), wide_tiles(N), B), kWideThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(msg),
+      static_cast<const float*>(stats1), parts1, static_cast<const bf16*>(w),
+      static_cast<const bf16*>(bias), static_cast<const float*>(g1),
+      static_cast<const float*>(b1), static_cast<bf16*>(z), static_cast<float*>(stats2), N, C,
+      static_cast<float>(N) * static_cast<float>(width), B / groups);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -613,3 +613,165 @@ extern "C" int cmpc_mutan_dw(const void* x, const void* dz, void* dw, void* part
                                          static_cast<float4*>(dw), n4, splits);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// The dz pass's wide form, for the shapes dz_plan refuses (heads * VEC
+// accumulators past a thread's budget, C / VEC past 32 kDzMaxWarps, or the
+// ring past shared memory): any heads <= 8 and even C.  No TPU kernel of
+// its own: the Pallas kernel's block spans the whole row at any C.  The
+// row norm and gy are the only reductions over a row, two scalars, so they
+// are carried in device memory:
+//  1. a block per row sweeps its C columns: sq = sum y^2 and sum g * y;
+//     it stores r = rsqrt(max(sq, 1e-12)) and gy = r * sum g * y (0 where
+//     sq <= 1e-12, so that dy = g * r there);
+//  2. a thread per column c of every head, a block per (128 columns,
+//     sample, share of the sample's rows): it rebuilds y from v and lang,
+//     writes dz_h, and keeps its dlang and db sums in registers, which go
+//     to per-(sample, share) slots of the scratch;
+//  3. a thread per column of heads * C adds the slots in a fixed order:
+//     dlang per sample, db over all.
+// The scratch ([2 slots + ceil(2 M / (heads C)), heads C] f32,
+// `cmpc_mutan_dz_wide_shares`) holds both slot sets, then (r, gy) per row.
+// Bound on the card: bytes (v read twice, dz written once).
+// ---------------------------------------------------------------------------
+namespace cmpc {
+
+constexpr int kDzWideCols = 128;     // columns of a block of pass 2
+constexpr int kDzWideTarget = 264;   // pass 2's blocks to aim for: two per SM
+constexpr int kDzWideMaxHeads = 8;
+
+__global__ void __launch_bounds__(256)
+dz_wide_rows_kernel(const bf16* __restrict__ v, const float* __restrict__ lang,
+                    const bf16* __restrict__ g, float* __restrict__ rs, int C, int N,
+                    int heads) {
+  __shared__ float red[8];
+  const int row = blockIdx.x, s = row / N, W = heads * C;
+  const bf16* vr = v + static_cast<size_t>(row) * W;
+  const float* l = lang + static_cast<size_t>(s) * W;
+  const bf16* gr = g + static_cast<size_t>(row) * C;
+  float sq = 0.f, gty = 0.f;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float acc = 0.f;
+    for (int h = 0; h < heads; ++h) acc += bf2f(vr[h * C + c]) * l[h * C + c];
+    const float y = tanhf(acc);
+    sq += y * y;
+    gty += bf2f(gr[c]) * y;
+  }
+  sq = block_sum(sq, red);
+  gty = block_sum(gty, red);
+  if (threadIdx.x == 0) {
+    const float r = rsqrtf(fmaxf(sq, 1e-12f));
+    rs[2 * static_cast<size_t>(row)] = r;
+    rs[2 * static_cast<size_t>(row) + 1] = sq > 1e-12f ? gty * r : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kDzWideCols)
+dz_wide_cols_kernel(const bf16* __restrict__ v, const float* __restrict__ lang,
+                    const bf16* __restrict__ g, const float* __restrict__ rs,
+                    bf16* __restrict__ dz, float* __restrict__ part_dl,
+                    float* __restrict__ part_db, int C, int N, int heads, int shares) {
+  const int c = blockIdx.x * kDzWideCols + threadIdx.x;
+  if (c >= C) return;
+  const int s = blockIdx.y / shares, sh = blockIdx.y % shares;
+  const int chunk = (N + shares - 1) / shares;
+  const int n0 = sh * chunk, n1 = min(N, n0 + chunk);
+  const int W = heads * C;
+  float l[kDzWideMaxHeads], dl[kDzWideMaxHeads], db[kDzWideMaxHeads];
+#pragma unroll
+  for (int h = 0; h < kDzWideMaxHeads; ++h) {
+    l[h] = h < heads ? lang[static_cast<size_t>(s) * W + h * C + c] : 0.f;
+    dl[h] = db[h] = 0.f;
+  }
+  for (int n = n0; n < n1; ++n) {
+    const size_t row = static_cast<size_t>(s) * N + n;
+    const float r = rs[2 * row], gy = rs[2 * row + 1];
+    float vv[kDzWideMaxHeads];
+    float acc = 0.f;
+#pragma unroll
+    for (int h = 0; h < kDzWideMaxHeads; ++h) {
+      vv[h] = h < heads ? bf2f(v[row * W + h * C + c]) : 0.f;
+      if (h < heads) acc += vv[h] * l[h];
+    }
+    const float y = tanhf(acc), out = y * r;
+    const float dy = (bf2f(g[row * C + c]) - out * gy) * r;
+    const float dacc = dy * (1.f - y * y);
+#pragma unroll
+    for (int h = 0; h < kDzWideMaxHeads; ++h) {
+      if (h >= heads) continue;
+      const float d = dacc * l[h] * (1.f - vv[h] * vv[h]);
+      dz[row * W + h * C + c] = f2bf(d);
+      dl[h] += dacc * vv[h];
+      db[h] += d;
+    }
+  }
+  const size_t slot = (static_cast<size_t>(s) * shares + sh) * W;
+#pragma unroll
+  for (int h = 0; h < kDzWideMaxHeads; ++h)
+    if (h < heads) {
+      part_dl[slot + h * C + c] = dl[h];
+      part_db[slot + h * C + c] = db[h];
+    }
+}
+
+__global__ void __launch_bounds__(256)
+dz_wide_finish_kernel(const float* __restrict__ part_dl, const float* __restrict__ part_db,
+                      float* __restrict__ dlang, float* __restrict__ db, int W, int B,
+                      int shares) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  float tdb = 0.f;
+  for (int s = 0; s < B; ++s) {
+    float tdl = 0.f;
+    for (int sh = 0; sh < shares; ++sh) {
+      const size_t slot = (static_cast<size_t>(s) * shares + sh) * W + w;
+      tdl += part_dl[slot];
+      tdb += part_db[slot];
+    }
+    dlang[static_cast<size_t>(s) * W + w] = tdl;
+  }
+  db[w] = tdb;
+}
+
+}  // namespace cmpc
+
+// Shares of each sample's N rows that the wide dz pass splits over its
+// blocks (M = B * N rows of heads * C columns), so that about
+// kDzWideTarget blocks run; its scratch is [2 B shares + ceil(2 M /
+// (heads C)), heads C] f32.
+extern "C" int cmpc_mutan_dz_wide_shares(int M, int C, int N) {
+  using namespace cmpc;
+  const long long cols = (C + kDzWideCols - 1) / kDzWideCols;
+  const long long blocks = cols * (M / N);
+  const long long want = (kDzWideTarget + blocks - 1) / blocks;
+  return static_cast<int>(want < 1 ? 1 : want > N ? N : want);
+}
+
+// The contract of cmpc_mutan_bwd_dz for any heads <= 8 and even C, with
+// `part` the scratch above.
+extern "C" int cmpc_mutan_bwd_dz_wide(const void* v, const void* lang, const void* g,
+                                      void* dz, void* part, void* dlang, void* db, int M,
+                                      int C, int N, int heads, void* stream) {
+  using namespace cmpc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (heads < 1 || heads > kDzWideMaxHeads || C < 2 || C % 2 || N < 1 || M < 1 || M % N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int B = M / N, W = heads * C;
+  const int shares = cmpc_mutan_dz_wide_shares(M, C, N);
+  float* part_dl = static_cast<float*>(part);
+  float* part_db = part_dl + static_cast<size_t>(B) * shares * W;
+  float* rs = part_db + static_cast<size_t>(B) * shares * W;
+  dz_wide_rows_kernel<<<M, 256, 0, s>>>(static_cast<const bf16*>(v),
+                                        static_cast<const float*>(lang),
+                                        static_cast<const bf16*>(g), rs, C, N, heads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dz_wide_cols_kernel<<<dim3((C + kDzWideCols - 1) / kDzWideCols, B * shares), kDzWideCols, 0,
+                        s>>>(static_cast<const bf16*>(v), static_cast<const float*>(lang),
+                             static_cast<const bf16*>(g), rs, static_cast<bf16*>(dz), part_dl,
+                             part_db, C, N, heads, shares);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  dz_wide_finish_kernel<<<(W + 255) / 256, 256, 0, s>>>(
+      part_dl, part_db, static_cast<float*>(dlang), static_cast<float*>(db), W, B, shares);
+  return static_cast<int>(cudaGetLastError());
+}

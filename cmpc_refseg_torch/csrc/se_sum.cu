@@ -257,3 +257,109 @@ extern "C" int cmpc_se_sum(const void* feat, const void* const* others,
                                              static_cast<const bf16*>(feat), args, k,
                                              static_cast<bf16*>(out), M, N, C));
 }
+
+// ---------------------------------------------------------------------------
+// The wide form, for C > kSeMaxCluster * kSeBN (1024): a row no longer fits
+// one cluster, so its l2norm cannot be summed over DSMEM.  No TPU kernel of
+// its own: the Pallas kernel's block spans the whole row at any C.  Two
+// launches (csrc/wide.cuh):
+//  1. per 64 x 64 tile of the output: for each other i, the tile of
+//     o_i @ W_i, then the same roundings as above folded into a running
+//     sum held in registers (bf16 values), which goes to `out` in bf16,
+//     and each row's sum of squares of the tile's 64 columns to a partial
+//     [M, C/64];
+//  2. a warp per row: the partials added in order, out = bf16(out *
+//     rsqrt(max(sum, 1e-12))) in place.
+// Bound on the card: operations at such widths (the k products of
+// [M, C] x [C, C]).
+// ---------------------------------------------------------------------------
+#include "wide.cuh"
+
+namespace cmpc {
+
+__global__ void __launch_bounds__(kWideThreads)
+se_wide_kernel(const bf16* __restrict__ feat, SeOthers others, int k, bf16* __restrict__ out,
+               float* __restrict__ sq_part, int M, int N, int C, bool vec) {
+  __shared__ WideSmem sm;
+  const int ct = blockIdx.x, c0 = ct * kWideTile, row0 = blockIdx.y * kWideTile;
+  float run[kWidePerThread];
+#pragma unroll
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int e = threadIdx.x + i * kWideThreads, row = row0 + e / kWideTile;
+    const int col = c0 + e % kWideTile;
+    run[i] = row < M && col < C ? bf2f(feat[static_cast<size_t>(row) * C + col]) : 0.f;
+  }
+  for (int o = 0; o < k; ++o) {
+    const RowsLoad oa{others.o[o], C, M, C, vec};
+    const RowsLoad wb{others.w[o], C, C, C, vec};
+    wide_product<false>(sm, oa, wb, row0, c0, C);
+#pragma unroll
+    for (int i = 0; i < kWidePerThread; ++i) {
+      const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
+      const int row = row0 + r, col = c0 + j;
+      if (row >= M || col >= C) continue;
+      const float t = round_bf(round_bf(sm.c[r][j]) + bf2f(others.b[o][col]));
+      const float gate = bf2f(others.g[o][static_cast<size_t>(row / N) * C + col]);
+      run[i] = round_bf(run[i] + round_bf(fmaxf(t, 0.f) * gate));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
+    const int row = row0 + r, col = c0 + j;
+    if (row < M && col < C) out[static_cast<size_t>(row) * C + col] = f2bf(run[i]);
+    sm.c[r][j] = run[i] * run[i];   // zero past M and C
+  }
+  __syncthreads();
+  if (threadIdx.x < kWideTile && row0 + threadIdx.x < M)
+    sq_part[static_cast<size_t>(row0 + threadIdx.x) * gridDim.x + ct] =
+        wide_row_sum(sm, threadIdx.x);
+}
+
+__global__ void __launch_bounds__(256)
+se_wide_norm_kernel(bf16* __restrict__ out, const float* __restrict__ sq_part, int M, int C,
+                    int tiles) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  float t = 0.f;
+  for (int j = 0; j < tiles; ++j) t += sq_part[static_cast<size_t>(row) * tiles + j];
+  const float inv = rsqrtf(fmaxf(t, 1e-12f));
+  bf16* p = out + static_cast<size_t>(row) * C;
+  for (int c = lane; c < C; c += 32) p[c] = f2bf(bf2f(p[c]) * inv);
+}
+
+}  // namespace cmpc
+
+// Bytes of the wide form's scratch: the row norms' partials [M, C/64] f32.
+extern "C" long long cmpc_se_sum_wide_scratch(int M, int C) {
+  return static_cast<long long>(M) * cmpc::wide_tiles(C) * sizeof(float);
+}
+
+// The contract of cmpc_se_sum for any C (a multiple of 4), with `scratch`
+// of cmpc_se_sum_wide_scratch(M, C) bytes.
+extern "C" int cmpc_se_sum_wide(const void* feat, const void* const* others,
+                                const void* const* ws, const void* const* bs,
+                                const void* const* gates, int k, void* out, void* scratch,
+                                int M, int N, int C, void* stream) {
+  using namespace cmpc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || k > kSeMaxOthers || C % 4 || C < 4 || M < 1 || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SeOthers args{};
+  bool vec = C % 8 == 0;
+  for (int i = 0; i < k; ++i) {
+    args.o[i] = static_cast<const bf16*>(others[i]);
+    args.w[i] = static_cast<const bf16*>(ws[i]);
+    args.b[i] = static_cast<const bf16*>(bs[i]);
+    args.g[i] = static_cast<const bf16*>(gates[i]);
+    vec = vec && aligned16(others[i]) && aligned16(ws[i]);
+  }
+  float* sq_part = static_cast<float*>(scratch);
+  se_wide_kernel<<<dim3(wide_tiles(C), wide_tiles(M)), kWideThreads, 0, s>>>(
+      static_cast<const bf16*>(feat), args, k, static_cast<bf16*>(out), sq_part, M, N, C, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  se_wide_norm_kernel<<<(M + 7) / 8, 256, 0, s>>>(static_cast<bf16*>(out), sq_part, M, C,
+                                                   wide_tiles(C));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -430,3 +430,189 @@ extern "C" int cmpc_spa_affinity(const void* x, const void* wg, const void* bg,
   return launch_affinity<false, false>(x_map, wg_map, wt_map, bg, rel, mask, w_out,
                                        affi_out, stats, B, N, C, A, T, groups, scale, s);
 }
+
+// ---------------------------------------------------------------------------
+// The wide form, for A > kAffMaxCluster * kAffBN (2048): the projection
+// columns of a row no longer fit one cluster, so the l2n row norm cannot
+// be summed over DSMEM.  No TPU kernel of its own: the Pallas kernel's
+// block spans the whole row at any A.  Four launches (csrc/wide.cuh):
+//  1. the projection, 64 x 64 tiles of x[s] @ Wg[group]: g = bf16(bf16(acc)
+//     + bg) to a bf16 scratch [B*N, A] and, with L2N, each row's sum of
+//     squares of its 64 rounded columns to a partial [B*N, A/64];
+//  2. with L2N, per row: the partials added in order, g = bf16(g /
+//     sqrt(max(sum, 1e-12))) in place (the plain version's rounding: the
+//     norm in f32, then one bf16 rounding);
+//  3. the word affinities, 64-row x 64-word tiles of g[s] @ wt[s]^T, times
+//     rel / scale, to affi_out;
+//  4. per 64-row block of a sample: each row's softmax over the words (a
+//     warp per row) to w_out, and the block's column partials (max over its
+//     rows, sum of exp(affi - max)) to stats in the main kernel's layout,
+//     which the wrapper finalises as before.
+// Bound on the card: operations (the projection, as the main kernel's).
+// ---------------------------------------------------------------------------
+#include "wide.cuh"
+
+namespace cmpc {
+
+template <bool L2N>
+__global__ void __launch_bounds__(kWideThreads)
+aff_wide_proj_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
+                     const bf16* __restrict__ bg, bf16* __restrict__ gt,
+                     float* __restrict__ sq_part, int N, int C, int A, int per_group) {
+  __shared__ WideSmem sm;
+  const int ct = blockIdx.x, row0 = blockIdx.y * kWideTile, s = blockIdx.z;
+  const int c0 = ct * kWideTile, grp = s / per_group;
+  const size_t srow = static_cast<size_t>(s) * N;
+  const RowsLoad xa{x + srow * C, C, N, C, true};
+  const RowsLoad wb{wg + static_cast<size_t>(grp) * C * A, A, C, A, true};
+  wide_product<false>(sm, xa, wb, row0, c0, C);
+#pragma unroll 4
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
+    const int row = row0 + r, col = c0 + j;
+    float g = 0.f;
+    if (row < N && col < A) {
+      g = round_bf(round_bf(sm.c[r][j]) + bf2f(bg[static_cast<size_t>(grp) * A + col]));
+      gt[(srow + row) * A + col] = f2bf(g);
+    }
+    sm.c[r][j] = g * g;
+  }
+  if (!L2N) return;
+  __syncthreads();
+  if (threadIdx.x < kWideTile && row0 + threadIdx.x < N)
+    sq_part[(srow + row0 + threadIdx.x) * gridDim.x + ct] = wide_row_sum(sm, threadIdx.x);
+}
+
+// A warp per row of g [rows, A]: its norm from the `tiles` partials.
+__global__ void __launch_bounds__(256)
+aff_wide_norm_kernel(bf16* __restrict__ gt, const float* __restrict__ sq_part, int rows,
+                     int A, int tiles) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float t = 0.f;
+  for (int j = 0; j < tiles; ++j) t += sq_part[static_cast<size_t>(row) * tiles + j];
+  const float inv = 1.f / sqrtf(fmaxf(t, 1e-12f));
+  bf16* p = gt + static_cast<size_t>(row) * A;
+  for (int a = lane; a < A; a += 32) p[a] = f2bf(bf2f(p[a]) * inv);
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+aff_wide_words_kernel(const bf16* __restrict__ gt, const bf16* __restrict__ wt,
+                      const float* __restrict__ rel, float* __restrict__ affi_out, int N,
+                      int A, int T, float scale) {
+  __shared__ WideSmem sm;
+  const int t0 = blockIdx.x * kWideTile, row0 = blockIdx.y * kWideTile, s = blockIdx.z;
+  const size_t srow = static_cast<size_t>(s) * N;
+  const RowsLoad ga{gt + srow * A, A, N, A, true};
+  const RowsLoad wb{wt + static_cast<size_t>(s) * T * A, A, T, A, true};   // [T][A]: B^T
+  wide_product<true>(sm, ga, wb, row0, t0, A);
+#pragma unroll 4
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
+    const int row = row0 + r, t = t0 + j;
+    if (row < N && t < T)
+      affi_out[(srow + row) * T + t] = rel[static_cast<size_t>(s) * T + t] * (sm.c[r][j] / scale);
+  }
+}
+
+template <bool MASKED>
+__global__ void __launch_bounds__(256)
+aff_wide_softmax_kernel(const float* __restrict__ affi, const float* __restrict__ mask,
+                        float* __restrict__ w_out, float* __restrict__ stats, int N, int T) {
+  const int rb = blockIdx.x, s = blockIdx.y, row0 = rb * kWideTile;
+  const int nrows = min(kWideTile, N - row0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* mk = mask + static_cast<size_t>(s) * T;
+  const float* a0 = affi + (static_cast<size_t>(s) * N + row0) * T;
+  float* w0 = w_out + (static_cast<size_t>(s) * N + row0) * T;
+  auto logit = [&](const float* a, int t) {
+    return MASKED ? mk[t] * a[t] + (1.f - mk[t]) * (-FLT_MAX) : a[t];
+  };
+  for (int r = warp; r < nrows; r += 8) {
+    const float* a = a0 + static_cast<size_t>(r) * T;
+    float m = -INFINITY;
+    for (int t = lane; t < T; t += 32) m = fmaxf(m, logit(a, t));
+    m = warp_max(m);
+    float l = 0.f;
+    for (int t = lane; t < T; t += 32) l += expf(logit(a, t) - m);
+    const float inv_l = 1.f / warp_sum(l);
+    for (int t = lane; t < T; t += 32)
+      w0[static_cast<size_t>(r) * T + t] =
+          MASKED ? expf(logit(a, t) - m) * inv_l : mk[t] * (expf(a[t] - m) * inv_l);
+  }
+  float* st = stats + (static_cast<size_t>(s) * gridDim.x + rb) * 2 * T;
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    float m = -INFINITY;
+    for (int r = 0; r < nrows; ++r) m = fmaxf(m, a0[static_cast<size_t>(r) * T + t]);
+    float l = 0.f;
+    for (int r = 0; r < nrows; ++r) l += expf(a0[static_cast<size_t>(r) * T + t] - m);
+    st[t] = m;
+    st[T + t] = l;
+  }
+}
+
+inline size_t aff_wide_g_bytes(int B, int N, int A) {
+  return (static_cast<size_t>(B) * N * A * sizeof(bf16) + 15) / 16 * 16;
+}
+
+}  // namespace cmpc
+
+extern "C" int cmpc_spa_affinity_wide_row_blocks(int N) { return cmpc::wide_tiles(N); }
+
+// Bytes of the wide form's scratch: g [B*N, A] bf16, then the row norms'
+// partials [B*N, A/64] f32.
+extern "C" long long cmpc_spa_affinity_wide_scratch(int B, int N, int A) {
+  using namespace cmpc;
+  return static_cast<long long>(aff_wide_g_bytes(B, N, A) +
+                                static_cast<size_t>(B) * N * wide_tiles(A) * sizeof(float));
+}
+
+// The contract of cmpc_spa_affinity for any A (a multiple of 8), with
+// stats [B, cmpc_spa_affinity_wide_row_blocks(N), 2, T] and `scratch` of
+// cmpc_spa_affinity_wide_scratch(B, N, A) bytes, 16-byte aligned.
+extern "C" int cmpc_spa_affinity_wide(const void* x, const void* wg, const void* bg,
+                                      const void* wt, const void* rel, const void* mask,
+                                      void* w_out, void* affi_out, void* stats, void* scratch,
+                                      int B, int N, int C, int A, int T, int groups,
+                                      float scale, int l2n, int masked, void* stream) {
+  using namespace cmpc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || N < 1 || T < 1 || groups < 1 || B % groups || C % 8 || A % 8 || A < 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(x) || !aligned16(wg) || !aligned16(wt) || !aligned16(scratch))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  bf16* gt = static_cast<bf16*>(scratch);
+  float* sq_part = reinterpret_cast<float*>(static_cast<unsigned char*>(scratch) +
+                                            aff_wide_g_bytes(B, N, A));
+  const dim3 proj(wide_tiles(A), wide_tiles(N), B);
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* wgb = static_cast<const bf16*>(wg);
+  const auto* bgb = static_cast<const bf16*>(bg);
+  if (l2n)
+    aff_wide_proj_kernel<true><<<proj, kWideThreads, 0, s>>>(xb, wgb, bgb, gt, sq_part, N, C,
+                                                             A, B / groups);
+  else
+    aff_wide_proj_kernel<false><<<proj, kWideThreads, 0, s>>>(xb, wgb, bgb, gt, sq_part, N, C,
+                                                              A, B / groups);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (l2n) {
+    const int rows = B * N;
+    aff_wide_norm_kernel<<<(rows + 7) / 8, 256, 0, s>>>(gt, sq_part, rows, A, wide_tiles(A));
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  aff_wide_words_kernel<<<dim3(wide_tiles(T), wide_tiles(N), B), kWideThreads, 0, s>>>(
+      gt, static_cast<const bf16*>(wt), static_cast<const float*>(rel),
+      static_cast<float*>(affi_out), N, A, T, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 rows_grid(wide_tiles(N), B);
+  if (masked)
+    aff_wide_softmax_kernel<true><<<rows_grid, 256, 0, s>>>(
+        static_cast<const float*>(affi_out), static_cast<const float*>(mask),
+        static_cast<float*>(w_out), static_cast<float*>(stats), N, T);
+  else
+    aff_wide_softmax_kernel<false><<<rows_grid, 256, 0, s>>>(
+        static_cast<const float*>(affi_out), static_cast<const float*>(mask),
+        static_cast<float*>(w_out), static_cast<float*>(stats), N, T);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of device pointers
 # C signatures: name -> (argtypes, restype)
 SIGNATURES = {
@@ -37,12 +38,18 @@ SIGNATURES = {
     "mutan_bwd": {
         "cmpc_mutan_bwd_dz": ([_P] * 7 + [_I] * 4 + [_P], _I),
         "cmpc_mutan_dz_blocks": ([_I] * 3, _I),
+        "cmpc_mutan_bwd_dz_wide": ([_P] * 7 + [_I] * 4 + [_P], _I),
+        "cmpc_mutan_dz_wide_shares": ([_I] * 3, _I),
         "cmpc_mutan_dw": ([_P] * 4 + [_I] * 3 + [_P], _I),
         "cmpc_mutan_dw_splits": ([_I], _I),
     },
     "spa_affinity": {
         "cmpc_spa_affinity": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
         "cmpc_spa_affinity_row_blocks": ([_I, _I], _I),
+        "cmpc_spa_affinity_wide": ([_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
+                                   _I),
+        "cmpc_spa_affinity_wide_row_blocks": ([_I], _I),
+        "cmpc_spa_affinity_wide_scratch": ([_I] * 3, _L),
     },
     "graph_conv": {
         "cmpc_graph_msg": ([_P] * 4 + [_I] * 4 + [_P], _I),
@@ -50,9 +57,16 @@ SIGNATURES = {
         "cmpc_graph_msg_smem": ([_I, _I], _I),
         "cmpc_graph_update": ([_P] * 3 + [_I] + [_P] * 6 + [_I] * 5 + [_P], _I),
         "cmpc_graph_update_parts": ([_I, _I], _I),
+        "cmpc_graph_msg_wide": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "cmpc_graph_update_wide": ([_P] * 3 + [_I] + [_P] * 6 + [_I] * 5
+                                   + [_P], _I),
+        "cmpc_graph_wide_parts": ([_I, _I], _I),
     },
     "se_sum": {
         "cmpc_se_sum": ([_P] + [_PP] * 4 + [_I, _P] + [_I] * 3 + [_P], _I),
+        "cmpc_se_sum_wide": ([_P] + [_PP] * 4 + [_I, _P, _P] + [_I] * 3
+                             + [_P], _I),
+        "cmpc_se_sum_wide_scratch": ([_I, _I], _L),
     },
     "convlstm": {
         "cmpc_convlstm_gates": ([_P] * 8 + [_I] * 3 + [_P], _I),

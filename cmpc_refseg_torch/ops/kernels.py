@@ -10,6 +10,15 @@ C++ for sm_90a under ``csrc/`` (built by ``ops/build.py``) and has here:
   kernel or raises);
 - a launch count (``wrapper.launches``), raised by one per kernel launch.
 
+The wrappers of five kernels also have a wide form, hand-written in the
+same source file, which they launch exactly where the main kernel refuses
+the shape: a row
+wider than the affinity's or the SE sum's cluster covers, a graph width
+past the update's or the message's shared memory, a dz row past its ring.
+A wide launch counts in the wrapper's ``launches`` like any other, and
+also in its ``wide_launches`` (`wide_launch_counts`), so a run can show
+which form it took.
+
 Which TPU kernel each replaces, what bounds it on the card and what its
 design does about that is noted at the top of its source file.
 """
@@ -23,6 +32,13 @@ import torch
 from cmpc_refseg_torch.ops import build
 
 _LN_EPS = 1e-12
+# the widths past which the main kernels refuse a shape and the wrappers
+# launch the wide forms (csrc/spa_affinity.cu kAffMaxCluster * kAffBN,
+# csrc/se_sum.cu kSeMaxCluster * kSeBN, csrc/graph_conv.cu kUpdMaxC; the
+# message and dz kernels' plans are asked of their libraries)
+AFFINITY_MAX_A = 2048
+SE_SUM_MAX_C = 1024
+UPDATE_MAX_C = 4096
 
 
 def _on_cpu(*tensors) -> bool:
@@ -204,17 +220,23 @@ def mutan_bwd_dz_plain(v, lang, g, *, heads: int, rows_per_sample: int):
 
 def mutan_bwd_dz_scratch(m: int, rows_per_sample: int, c: int,
                          heads: int) -> tuple:
-    """Shape of the dz kernel's f32 scratch for m rows of heads * c columns:
-    one dlang slot per (block, sample) it holds and one db slot per block,
-    so it is bounded by the grid (sized to the card), not by m.  Needs the
-    card; raises where the kernel does not take the shape."""
-    blocks = build.library("mutan_bwd").cmpc_mutan_dz_blocks(m, c, heads)
-    if blocks < 1:
-        raise ValueError(f"mutan_bwd_dz: C={c}, heads={heads}: the dz kernel "
-                         "takes heads <= 8 and C <= 1024, or C <= 2048 where "
-                         "C % 4 == 0, or C <= 4096 where C % 8 == 0 and "
-                         "heads <= 5, with heads * C within its ring")
-    return (2 * blocks + m // rows_per_sample - 1, heads * c)
+    """Shape of the dz pass's f32 scratch for m rows of heads * c columns.
+    The main kernel's: one dlang slot per (block, sample) it holds and one
+    db slot per block, so it is bounded by the grid (sized to the card),
+    not by m.  Where that kernel does not take the shape (heads * C past
+    its ring), the wide form's: a dlang and a db slot per (sample, share of
+    its rows), then the per-row norm and gy.  Needs the card; raises for
+    heads outside 1..8 or an odd C."""
+    if not 1 <= heads <= 8 or c < 2 or c % 2:
+        raise ValueError(f"mutan_bwd_dz: C={c}, heads={heads}: the dz pass "
+                         "takes 1 to 8 heads of an even C")
+    lib = build.library("mutan_bwd")
+    blocks = lib.cmpc_mutan_dz_blocks(m, c, heads)
+    if blocks >= 1:
+        return (2 * blocks + m // rows_per_sample - 1, heads * c)
+    shares = lib.cmpc_mutan_dz_wide_shares(m, c, rows_per_sample)
+    wd = heads * c
+    return (2 * (m // rows_per_sample) * shares + -(-2 * m // wd), wd)
 
 
 def mutan_bwd_dz(v, lang, g, *, heads: int, rows_per_sample: int):
@@ -239,16 +261,20 @@ def mutan_bwd_dz(v, lang, g, *, heads: int, rows_per_sample: int):
     dz = torch.empty((m, wd), dtype=torch.bfloat16, device=v.device)
     dlang = torch.empty((bsz, wd), dtype=torch.float32, device=v.device)
     db = torch.empty((wd,), dtype=torch.float32, device=v.device)
-    rc = lib.cmpc_mutan_bwd_dz(v.data_ptr(), lang.data_ptr(), g.data_ptr(),
-                               dz.data_ptr(), part.data_ptr(),
-                               dlang.data_ptr(), db.data_ptr(), m, c,
-                               rows_per_sample, heads, _stream())
+    # heads * C past the main kernel's ring: the wide form
+    wide = lib.cmpc_mutan_dz_blocks(m, c, heads) < 1
+    launch = lib.cmpc_mutan_bwd_dz_wide if wide else lib.cmpc_mutan_bwd_dz
+    rc = launch(v.data_ptr(), lang.data_ptr(), g.data_ptr(), dz.data_ptr(),
+                part.data_ptr(), dlang.data_ptr(), db.data_ptr(), m, c,
+                rows_per_sample, heads, _stream())
     build.check(lib, rc, "mutan_bwd_dz")
     mutan_bwd_dz.launches += 1
+    mutan_bwd_dz.wide_launches += wide
     return dz, dlang, db
 
 
 mutan_bwd_dz.launches = 0
+mutan_bwd_dz.wide_launches = 0
 
 
 def mutan_dw_plain(x, dz):
@@ -341,27 +367,33 @@ def _affinity_launch(x, wgs, bgs, wt, rel, mask, *, scale, l2n, masked):
     _expect("rel", rel, torch.float32, (bsz, 1, t))
     _expect("mask", mask, torch.float32, (bsz, 1, t))
     _multiple_of(8, C=c, A=a)
-    if a > 2048:
-        raise ValueError(f"A={a}: the affinity kernel's cluster of 8 blocks "
-                         "covers at most 2048 projection columns")
     _aligned16(x=x, wg=wgs, wt=wt)
     lib = build.library("spa_affinity")
-    blocks = lib.cmpc_spa_affinity_row_blocks(n, a)
+    # past one cluster's 8 x 256 columns: the wide form (csrc/spa_affinity.cu)
+    wide = a > AFFINITY_MAX_A
+    blocks = (lib.cmpc_spa_affinity_wide_row_blocks(n) if wide else
+              lib.cmpc_spa_affinity_row_blocks(n, a))
     w_out = torch.empty((bsz, n, t), dtype=torch.float32, device=x.device)
     affi = torch.empty((bsz, n, t), dtype=torch.float32, device=x.device)
     stats = torch.empty((bsz, blocks, 2, t), dtype=torch.float32,
                         device=x.device)
-    rc = lib.cmpc_spa_affinity(x.data_ptr(), wgs.data_ptr(), bgs.data_ptr(),
-                               wt.data_ptr(), rel.data_ptr(), mask.data_ptr(),
-                               w_out.data_ptr(), affi.data_ptr(),
-                               stats.data_ptr(), bsz, n, c, a, t, groups,
-                               float(scale), int(l2n), int(masked), _stream())
+    ptrs = (x.data_ptr(), wgs.data_ptr(), bgs.data_ptr(), wt.data_ptr(),
+            rel.data_ptr(), mask.data_ptr(), w_out.data_ptr(),
+            affi.data_ptr(), stats.data_ptr())
+    rest = (bsz, n, c, a, t, groups, float(scale), int(l2n), int(masked),
+            _stream())
+    if wide:
+        scratch = torch.empty(lib.cmpc_spa_affinity_wide_scratch(bsz, n, a),
+                              dtype=torch.uint8, device=x.device)
+        rc = lib.cmpc_spa_affinity_wide(*ptrs, scratch.data_ptr(), *rest)
+    else:
+        rc = lib.cmpc_spa_affinity(*ptrs, *rest)
     build.check(lib, rc, "spa_affinity")
     col_max = stats[:, :, 0].amax(dim=1, keepdim=True)       # [B, 1, T]
     col_sum = torch.sum(stats[:, :, 1] * torch.exp(stats[:, :, 0] - col_max),
                         dim=1, keepdim=True)
     v_aff = mask * (torch.exp(affi - col_max) / col_sum)
-    return w_out, v_aff
+    return (w_out, v_aff), wide
 
 
 def spa_affinity(x, wg, bg, wt, rel, mask, *, scale: float, l2n: bool,
@@ -372,13 +404,15 @@ def spa_affinity(x, wg, bg, wt, rel, mask, *, scale: float, l2n: bool,
     if _on_cpu(x, wg, bg, wt, rel, mask):
         return spa_affinity_plain(x, wg, bg, wt, rel, mask, scale=scale,
                                   l2n=l2n, masked=masked)
-    out = _affinity_launch(x, wg[None], bg[None], wt, rel, mask, scale=scale,
-                           l2n=l2n, masked=masked)
+    out, wide = _affinity_launch(x, wg[None], bg[None], wt, rel, mask,
+                                 scale=scale, l2n=l2n, masked=masked)
     spa_affinity.launches += 1
+    spa_affinity.wide_launches += wide
     return out
 
 
 spa_affinity.launches = 0
+spa_affinity.wide_launches = 0
 
 
 def spa_affinity_grouped(x, wgs, bgs, wt, rel, mask, *, scale: float,
@@ -388,13 +422,15 @@ def spa_affinity_grouped(x, wgs, bgs, wt, rel, mask, *, scale: float,
     if _on_cpu(x, wgs, bgs, wt, rel, mask):
         return spa_affinity_grouped_plain(x, wgs, bgs, wt, rel, mask,
                                           scale=scale, l2n=l2n, masked=masked)
-    out = _affinity_launch(x, wgs, bgs, wt, rel, mask, scale=scale, l2n=l2n,
-                           masked=masked)
+    out, wide = _affinity_launch(x, wgs, bgs, wt, rel, mask, scale=scale,
+                                 l2n=l2n, masked=masked)
     spa_affinity_grouped.launches += 1
+    spa_affinity_grouped.wide_launches += wide
     return out
 
 
 spa_affinity_grouped.launches = 0
+spa_affinity_grouped.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -461,23 +497,24 @@ def graph_msg(w_aff, pooled):
     _multiple_of(8, C=c)
     _aligned16(w_aff=w_aff, pooled=pooled)
     lib = build.library("graph_conv")
-    if not lib.cmpc_graph_msg_smem(c, t):
-        raise ValueError(f"graph_msg: C={c}, T={t} do not fit the message "
-                         "kernel's shared memory (rows of msg staged whole: "
-                         "C <= 4096, and C * T bounded)")
-    parts = lib.cmpc_graph_msg_parts(n)
+    # rows of msg staged whole (C <= 4096, C * T bounded), or the wide form
+    wide = not lib.cmpc_graph_msg_smem(c, t)
+    parts = (lib.cmpc_graph_wide_parts(n, c) if wide else
+             lib.cmpc_graph_msg_parts(n))
     msg = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=w_aff.device)
     stats = torch.empty((bsz, parts, 2), dtype=torch.float32,
                         device=w_aff.device)
-    rc = lib.cmpc_graph_msg(w_aff.data_ptr(), pooled.data_ptr(),
-                            msg.data_ptr(), stats.data_ptr(), bsz, n, c, t,
-                            _stream())
+    launch = lib.cmpc_graph_msg_wide if wide else lib.cmpc_graph_msg
+    rc = launch(w_aff.data_ptr(), pooled.data_ptr(), msg.data_ptr(),
+                stats.data_ptr(), bsz, n, c, t, _stream())
     build.check(lib, rc, "graph_msg")
     graph_msg.launches += 1
+    graph_msg.wide_launches += wide
     return msg, stats
 
 
 graph_msg.launches = 0
+graph_msg.wide_launches = 0
 
 
 def graph_update_plain(x, msg, stats1, w, b, g1, b1, *, width=None):
@@ -521,34 +558,36 @@ def _update_launch(x, msg, stats1, ws, bs, g1s, b1s, width):
     _expect("g1", g1s, torch.float32, (groups, c))
     _expect("b1", b1s, torch.float32, (groups, c))
     _multiple_of(8, C=c)
-    if c > 4096:
-        raise ValueError(f"C={c}: the update kernel stages the layer norm's "
-                         "affine of at most 4096 columns in shared memory")
     _aligned16(x=x, msg=msg, w=ws)
     lib = build.library("graph_conv")
-    parts = lib.cmpc_graph_update_parts(n, c)
+    # LN1's affine of at most 4096 columns in shared memory, or the wide form
+    wide = c > UPDATE_MAX_C
+    parts = (lib.cmpc_graph_wide_parts(n, c) if wide else
+             lib.cmpc_graph_update_parts(n, c))
     z = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=x.device)
     stats = torch.empty((bsz, parts, 2), dtype=torch.float32, device=x.device)
-    rc = lib.cmpc_graph_update(x.data_ptr(), msg.data_ptr(), stats1.data_ptr(),
-                               parts1, ws.data_ptr(), bs.data_ptr(),
-                               g1s.data_ptr(), b1s.data_ptr(), z.data_ptr(),
-                               stats.data_ptr(), bsz, n, c, _width(c, width),
-                               groups, _stream())
+    launch = lib.cmpc_graph_update_wide if wide else lib.cmpc_graph_update
+    rc = launch(x.data_ptr(), msg.data_ptr(), stats1.data_ptr(), parts1,
+                ws.data_ptr(), bs.data_ptr(), g1s.data_ptr(), b1s.data_ptr(),
+                z.data_ptr(), stats.data_ptr(), bsz, n, c, _width(c, width),
+                groups, _stream())
     build.check(lib, rc, "graph_update")
-    return z, stats
+    return (z, stats), wide
 
 
 def graph_update(x, msg, stats1, w, b, g1, b1, *, width=None):
     """Wrapper of the update kernel; same contract as `graph_update_plain`."""
     if _on_cpu(x, msg, stats1, w, b, g1, b1):
         return graph_update_plain(x, msg, stats1, w, b, g1, b1, width=width)
-    out = _update_launch(x, msg, stats1, w[None], b[None], g1[None], b1[None],
-                         width)
+    out, wide = _update_launch(x, msg, stats1, w[None], b[None], g1[None],
+                               b1[None], width)
     graph_update.launches += 1
+    graph_update.wide_launches += wide
     return out
 
 
 graph_update.launches = 0
+graph_update.wide_launches = 0
 
 
 def graph_update_grouped(x, msg, stats1, ws, bs, g1s, b1s, *, width=None):
@@ -557,12 +596,14 @@ def graph_update_grouped(x, msg, stats1, ws, bs, g1s, b1s, *, width=None):
     if _on_cpu(x, msg, stats1, ws, bs, g1s, b1s):
         return graph_update_grouped_plain(x, msg, stats1, ws, bs, g1s, b1s,
                                           width=width)
-    out = _update_launch(x, msg, stats1, ws, bs, g1s, b1s, width)
+    out, wide = _update_launch(x, msg, stats1, ws, bs, g1s, b1s, width)
     graph_update_grouped.launches += 1
+    graph_update_grouped.wide_launches += wide
     return out
 
 
 graph_update_grouped.launches = 0
+graph_update_grouped.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -608,20 +649,27 @@ def se_sum(feat, others, gates, ws, bs):
         _expect(f"ws[{i}]", ws[i], torch.bfloat16, (c, c))
         _expect(f"bs[{i}]", bs[i], torch.bfloat16, (c,))
     _multiple_of(4, C=c)
-    if c > 1024:
-        raise ValueError(f"C={c}: the SE-sum kernel's cluster covers rows of "
-                         "at most 1024 columns")
     lib = build.library("se_sum")
     out = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=feat.device)
-    rc = lib.cmpc_se_sum(feat.data_ptr(), _pointers(others), _pointers(ws),
-                         _pointers(bs), _pointers(gates), k, out.data_ptr(),
-                         bsz * n, n, c, _stream())
+    ptrs = (feat.data_ptr(), _pointers(others), _pointers(ws), _pointers(bs),
+            _pointers(gates), k, out.data_ptr())
+    # rows past one cluster's 8 x 128 columns: the wide form
+    wide = c > SE_SUM_MAX_C
+    if wide:
+        scratch = torch.empty(lib.cmpc_se_sum_wide_scratch(bsz * n, c),
+                              dtype=torch.uint8, device=feat.device)
+        rc = lib.cmpc_se_sum_wide(*ptrs, scratch.data_ptr(), bsz * n, n, c,
+                                  _stream())
+    else:
+        rc = lib.cmpc_se_sum(*ptrs, bsz * n, n, c, _stream())
     build.check(lib, rc, "se_sum")
     se_sum.launches += 1
+    se_sum.wide_launches += wide
     return out
 
 
 se_sum.launches = 0
+se_sum.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -754,10 +802,21 @@ PLAIN = {mutan_fused: mutan_plain,
          convlstm_raw: convlstm_raw_plain}
 
 
+WIDE = (mutan_bwd_dz, spa_affinity, spa_affinity_grouped, graph_msg,
+        graph_update, graph_update_grouped, se_sum)
+
+
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def wide_launch_counts() -> dict:
+    """The launches of each wrapper that went to its wide form."""
+    return {k.__name__: k.wide_launches for k in WIDE}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in WIDE:
+        k.wide_launches = 0

@@ -9,9 +9,11 @@ the JAX package's serving/export.py).
 - `export_program` / `load_program`: a `torch.export` program of it at a
   static batch, saved with `torch.export.save` (the counterparts of
   `export_stablehlo` / `load_stablehlo`).
-
-The TF SavedModel export (`export_savedmodel`, jax2tf there) has no bridge
-from torch without ONNX and is not ported (ROADMAP queue 1).
+- `export_savedmodel`: that program, traced in float32 on the CPU, lowered
+  op by op into a `tf.function` (`serving/tf_lowering.py`) and saved as a
+  TF SavedModel with the reference's `predict_images` signature (its
+  `sequence_lenghts` typo kept, for drop-in TF-Serving compatibility);
+  TensorFlow is needed on the exporting host only, and is imported there.
 """
 
 from __future__ import annotations
@@ -59,11 +61,9 @@ class _Predict(torch.nn.Module):
         return self.predict(images, sentences, sequence_lengths)
 
 
-def export_program(cfg: ModelConfig, params: dict, model_state, path: str,
-                   batch_size: int = 1) -> str:
-    """`torch.export` `make_predict_fn` at `batch_size` on the parameters'
-    device and save the program to `path` (`torch.export.save`); the
-    weights are constants of the program."""
+def _trace(cfg: ModelConfig, params: dict, model_state, batch_size: int):
+    """`torch.export` of `make_predict_fn` at `batch_size` on the
+    parameters' device; the weights are constants of the program."""
     predict = make_predict_fn(cfg, params, model_state)
     dev = next(iter(params["levels"].values()))["mutan"]["vis_trans"]["DW"] \
         .device
@@ -75,10 +75,65 @@ def export_program(cfg: ModelConfig, params: dict, model_state, path: str,
         torch.ones((batch_size,), dtype=torch.int64, device=dev),
     )
     with torch.no_grad():
-        program = torch.export.export(_Predict(predict), example)
+        return torch.export.export(_Predict(predict), example)
+
+
+def export_program(cfg: ModelConfig, params: dict, model_state, path: str,
+                   batch_size: int = 1) -> str:
+    """`torch.export` `make_predict_fn` at `batch_size` on the parameters'
+    device and save the program to `path` (`torch.export.save`); the
+    weights are constants of the program."""
+    program = _trace(cfg, params, model_state, batch_size)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.export.save(program, path)
     return path
+
+
+def _cpu_f32(tree):
+    """A tree with every tensor detached, on the CPU, floating ones in
+    float32."""
+    if isinstance(tree, dict):
+        return {k: _cpu_f32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cpu_f32(v) for v in tree]
+    t = tree.detach().cpu()
+    return t.float() if t.is_floating_point() else t
+
+
+def export_savedmodel(cfg: ModelConfig, params: dict, model_state,
+                      export_dir: str, batch_size: int = 1) -> str:
+    """TF SavedModel at `export_dir` with the reference's `predict_images`
+    signature: images f32 [B, H, W, 3], sentences int32 [B, T] and
+    sequence_lenghts int32 [B] (sic) -> masks [B, H, W], B = `batch_size`.
+    The plain route is traced in float32 on the CPU (parameters on the card
+    are copied) and lowered op by op into TensorFlow, its weights saved as
+    variables.  Returns `export_dir`.  A video config exports its image
+    forward (one image per sentence), as the JAX package's exporter does:
+    JAX's `apply_model` never dispatches to the video model.  A BERT config
+    takes BERT features, not token ids, and raises ValueError (JAX's
+    exporter fails there too)."""
+    if cfg.text_encoder == "bert":
+        raise ValueError(f"{cfg.variant}: a BERT config takes BERT features "
+                         "[B, T, 768]; the predict_images signature takes "
+                         "token ids")
+    import tensorflow as tf
+
+    from cmpc_refseg_torch.serving import tf_lowering
+
+    cfg = cfg.replace(compute_dtype="float32", video=False)
+    program = _trace(cfg, _cpu_f32(params), _cpu_f32(model_state or {}),
+                     batch_size)
+    module = tf_lowering.lower(program, [
+        tf.TensorSpec([batch_size, cfg.H, cfg.W, 3], tf.float32,
+                      name="images"),
+        tf.TensorSpec([batch_size, cfg.num_steps], tf.int32,
+                      name="sentences"),
+        tf.TensorSpec([batch_size], tf.int32,
+                      name="sequence_lenghts"),  # sic: the reference's typo
+    ])
+    tf.saved_model.save(module, export_dir, signatures={
+        "predict_images": module.predict.get_concrete_function()})
+    return export_dir
 
 
 def load_program(path: str):

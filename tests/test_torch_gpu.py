@@ -465,16 +465,141 @@ def test_graph_msg_takes_wide_rows(cuda, c, t):
     _close("graph_msg", got, want, 75 * c)
 
 
+def _wide_call(name, args, kw=None):
+    """One wrapper call that must go to the wrapper's wide form: its
+    launches and wide launches each up by one; (kernel, plain) outputs."""
+    kw = kw or {}
+    wrapper = getattr(kernels, name)
+    before = (wrapper.launches, wrapper.wide_launches)
+    got = wrapper(*args, **kw)
+    want = kernels.PLAIN[wrapper](*args, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.wide_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    return got, want
+
+
 @pytest.mark.gpu
-def test_graph_msg_raises_where_the_plan_does_not_fit(cuda):
-    """C = 4096 with T = 300 (or C past 4096) does not fit in shared
-    memory: the wrapper raises rather than launch."""
+@pytest.mark.parametrize("b,n,c,t", [(1, 16, 4096, 300), (2, 75, 4104, 20),
+                                     (3, 100, 4104, 17)])
+def test_graph_msg_wide_form_where_the_plan_does_not_fit(cuda, b, n, c, t):
+    """C = 4096 with T = 300 (or C past 4096) does not fit the message
+    kernel's shared memory: the wrapper launches the wide form, which
+    agrees with the plain version (msg and its statistics, one slot per
+    64 x 64 tile); T = 17 leaves w_aff rows 2-byte aligned."""
     lib = build.library("graph_conv")
     assert lib.cmpc_graph_msg_smem(1000, 20) > 0
     assert lib.cmpc_graph_msg_smem(4096, 300) == 0
     assert lib.cmpc_graph_msg_smem(4104, 1) == 0
-    with pytest.raises(ValueError, match="do not fit"):
-        kernels.graph_msg(*_msg_args(cuda, 1, 16, 300, 4096))
+    got, want = _wide_call("graph_msg", _msg_args(cuda, b, n, t, c))
+    assert got[1].shape == (b, lib.cmpc_graph_wide_parts(n, c), 2)
+    _close("graph_msg", got, want, n * c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a", [2056, 4104])
+@pytest.mark.parametrize("l2n,masked", [(False, True), (False, False),
+                                        (True, False), (True, True)])
+@pytest.mark.parametrize("groups", [0, 3])
+def test_affinity_wide_form_matches_plain_version(cuda, groups, l2n, masked,
+                                                  a):
+    """A past the 2048 columns one cluster of 8 x 256 covers: the wide
+    form (the l2n row norm from per-tile partials), both forms, 3 samples
+    of 100 rows (a 64-row tile past each sample), C = 72, T = 40."""
+    args = _affinity_args(cuda, 3, 100, 72, a, 40, groups)
+    name = "spa_affinity_grouped" if groups else "spa_affinity"
+    got, want = _wide_call(name, args, {"scale": 72 ** 0.5, "l2n": l2n,
+                                        "masked": masked})
+    _close(name, got, want, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1028, 1032, 4104])
+@pytest.mark.parametrize("b,n,k", [(1, 25, 1), (3, 100, 2), (2, 75, 4)])
+def test_se_sum_wide_form_matches_plain_version(cuda, b, n, k, c):
+    """C past the 1024 columns one cluster of 8 x 128 covers: the wide
+    form, with 1, 2 and 4 others; C = 1028 has 8-byte rows (element loads),
+    1032 and 4104 16-byte rows."""
+    got, want = _wide_call("se_sum", _se_args(cuda, b, n, c, k))
+    _close("se_sum", got, want, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [0, 3])
+@pytest.mark.parametrize("n", [75, 100])
+def test_graph_update_wide_form_matches_plain_version(cuda, n, groups):
+    """C = 4104, past the 4096 columns of LN1's affine that the update
+    kernel stages: the wide form, both forms, 6 samples of n rows, and
+    its statistics one slot per 64 x 64 tile."""
+    args = _update_args(cuda, 6, n, 4104, groups)
+    name = "graph_update_grouped" if groups else "graph_update"
+    got, want = _wide_call(name, args)
+    assert got[1].shape == (6, build.library("graph_conv")
+                            .cmpc_graph_wide_parts(n, 4104), 2)
+    _close(name, got, want, n * 4104)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c,heads", [(2, 100, 4104, 5), (3, 25, 1030, 8),
+                                         (1, 41, 2002, 5), (2, 64, 4098, 2)])
+def test_mutan_bwd_dz_wide_form_matches_plain_version(cuda, b, n, c, heads):
+    """heads * C past the dz kernel's ring: the wide form (dz, dlang, db)
+    against the plain version; C = 1030 with 8 heads and 2002 with 5 take
+    4-byte rows, and the scratch shape is the wide form's."""
+    v = torch.tanh(_rnd(cuda, b * n, heads * c, dtype=torch.float32))
+    args = (v.to(torch.bfloat16),
+            torch.tanh(_rnd(cuda, b, heads * c, dtype=torch.float32)),
+            _rnd(cuda, b * n, c, scale=0.1))
+    kw = {"heads": heads, "rows_per_sample": n}
+    lib = build.library("mutan_bwd")
+    assert lib.cmpc_mutan_dz_blocks(b * n, c, heads) == 0
+    shares = lib.cmpc_mutan_dz_wide_shares(b * n, c, n)
+    assert kernels.mutan_bwd_dz_scratch(b * n, n, c, heads) == (
+        2 * b * shares + -(-2 * b * n // (heads * c)), heads * c)
+    got, want = _wide_call("mutan_bwd_dz", args, kw)
+    _close("mutan_bwd_dz", got, want, None)
+
+
+@pytest.mark.gpu
+def test_registry_shapes_take_the_main_kernels(cuda):
+    """At the registry's widths (C = 1000, A = 1000, CM = 500; BERT's 1024,
+    512, 512) every wrapper launches its main kernel, with the plan or
+    cluster it took before the wide forms, and so do the widest shapes the
+    main kernels take (A = 2048, CM = 1024, C = 4096 with T = 20): no wide
+    launch."""
+    aff = build.library("spa_affinity")
+    assert aff.cmpc_spa_affinity_row_blocks(1600, 1000) == 13 * 4
+    assert aff.cmpc_spa_affinity_row_blocks(1600, 512) == 13 * 2
+    graph = build.library("graph_conv")
+    assert graph.cmpc_graph_msg_smem(1000, 20) > 0
+    assert graph.cmpc_graph_msg_smem(1024, 20) > 0
+    assert graph.cmpc_graph_update_parts(1600, 1000) == 13 * 4
+    assert build.library("mutan_bwd").cmpc_mutan_dz_blocks(
+        8 * 1600, 1000, 5) >= 1
+    kernels.reset_launch_counts()
+    for name in ("mutan_bwd_dz", "spa_affinity", "spa_affinity_grouped",
+                 "graph_msg", "graph_update", "graph_update_grouped"):
+        args, kw, _ = _inputs(cuda, name)
+        getattr(kernels, name)(*args, **kw)
+    for c, a in ((1000, 1000), (1024, 512)):
+        kernels.spa_affinity(*_affinity_args(cuda, 1, 1600, c, a, 20, 0),
+                             scale=c ** 0.5, l2n=True, masked=True)
+        kernels.graph_msg(*_msg_args(cuda, 3, 1600, 20, c))
+        kernels.graph_update_grouped(*_update_args(cuda, 3, 1600, c, 3))
+        kernels.mutan_bwd_dz(*_dz_args(cuda, 1, 1600, c)[0], heads=5,
+                             rows_per_sample=1600)
+    for cm in (500, 512):
+        kernels.se_sum(*_se_args(cuda, 1, 1600, cm, 2))
+    # the widest shapes each main kernel takes
+    kernels.spa_affinity(*_affinity_args(cuda, 1, 100, 72, 2048, 20, 0),
+                         scale=8.0, l2n=True, masked=True)
+    kernels.se_sum(*_se_args(cuda, 1, 100, 1024, 2))
+    kernels.graph_update(*_update_args(cuda, 1, 100, 4096, 0))
+    kernels.graph_msg(*_msg_args(cuda, 1, 100, 20, 4096))
+    torch.cuda.synchronize()
+    assert set(kernels.wide_launch_counts().values()) == {0}
+    launched = kernels.launch_counts()
+    assert all(launched[name] for name in kernels.wide_launch_counts())
 
 
 @pytest.mark.gpu
