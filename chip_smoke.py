@@ -37,13 +37,14 @@ Phases, each fatal on failure:
     the ConvLSTM raw kernel at B*N = 75 with 25-row samples, C = 12 and
     500; and `cmpc.apply_mutan` at the HSV configs' K = 1011, which it
     pads to 1016, against its plain route).  The wide forms at the widths
-    past their main kernels (`wide_edge_inputs`: the affinity at A = 2056,
-    the SE sum at C = 1032, graph_msg and graph_update at C = 4104,
-    graph_msg at C = 4096 with T = 300, the dz pass at C = 4104 with 5
-    heads and C = 1030 with 8), each of which must launch its wrapper's
-    wide form, and mutan_fused at C = 4104 and the ConvLSTM pair at CM =
-    1032 on their main kernels.  Each path's record carries
-    its widths: C = v_emb_dim, K, A = the affinity width, CM = mlp_dim
+    past their main kernels (`wide_edge_inputs`: the affinity at A = 2056
+    in all four l2n / masked combinations and grouped at A = 4104 with G =
+    3 and 2, the SE sum at C = 1032, graph_msg at C = 4104, graph_update
+    there with G = 1, 3 and 2, graph_msg at C = 4096 with T = 300, the dz
+    pass at C = 4104 with 5 heads and C = 1030 with 8), each of which must
+    launch its wrapper's wide form, and mutan_fused at C = 4104 and the
+    ConvLSTM pair at CM = 1032 on their main kernels.  Each path's record
+    carries its widths: C = v_emb_dim, K, A = the affinity width, CM = mlp_dim
     (1000 / 1008 / 1000 / 500 for most configs; the HSV configs' K 1016;
     BERT's 1024 / 1032 / 512 / 512; phase 17's 4104 / 4112 / 4104 / 1032)
     and its form (main, or wide on phase 17's paths, where every wrapper
@@ -298,10 +299,9 @@ WIDE_CFG = {"v_emb_dim": 4104, "mlp_dim": 1032}
 WIDE_B = 2
 WIDE_FORMS = ("spa_affinity_grouped", "graph_msg", "graph_update_grouped",
               "se_sum")               # and mutan_bwd_dz in a train step
-WIDE_KERNELS = ("aff_wide_proj_kernel", "aff_wide_norm_kernel",
-                "aff_wide_words_kernel", "aff_wide_softmax_kernel",
+WIDE_KERNELS = ("aff_wide_tma_proj_kernel", "aff_wide_tma_words_kernel",
                 "se_wide_kernel", "se_wide_norm_kernel",
-                "graph_msg_wide_kernel", "graph_update_wide_kernel",
+                "graph_msg_wide_kernel", "graph_update_wide_tma_kernel",
                 "dz_wide_rows_kernel", "dz_wide_cols_kernel",
                 "dz_wide_finish_kernel")
 PORT_KERNELS = ("convlstm_gates_kernel", "convlstm_raw_kernel",
@@ -1111,15 +1111,19 @@ def edge_inputs(torch, kernels, dev):
 def wide_edge_inputs(torch, kernels, dev):
     """The wide forms at tests/test_torch_wide.py's widths, as (wrapper
     name, record tag, args, kwargs); a tag that starts with ':wide' must
-    launch the wrapper's wide form: the affinity at A = 2056 (l2n and
-    masked, and neither) on 3 samples of 75 rows, C = EDGE_C, T = EDGE_T;
-    the SE sum at C = 1032 with 2 others on 3 samples of 25 rows;
-    graph_msg at C = 4104 (T = EDGE_T) and at C = 4096 with T = 300, and
-    graph_update at C = 4104 on the first's msg; the dz pass at C = 4104
-    with 5 heads and at C = 1030 with 8, on 2 samples of 75 rows.  Then the
-    kernels that list no width bound, at the widened flagship's widths on
-    their main kernels: mutan_fused at C = 4104 (K = 4112) and the
-    ConvLSTM gates and raw kernels at CM = 1032."""
+    launch the wrapper's wide form: the affinity at A = 2056 in all four
+    (l2n, masked) combinations, and grouped at A = 4104 with G = 3 (l2n,
+    masked) and G = 2 (neither), on 6 samples (3 at G = 1) of 75 rows (a
+    64-row tile past each sample's first, a 128-row projection tile half
+    empty), C = EDGE_C, T = EDGE_T (two 32-word chunks); the SE sum at C =
+    1032 with 2 others on 3 samples of 25 rows; graph_msg at C = 4104 (T =
+    EDGE_T) and at C = 4096 with T = 300, and graph_update at C = 4104 on
+    the first's msg (G = 1), grouped at G = 3 and 2 on 6 samples of 75
+    rows (C = 4104 ends in an 8-column K step and W box); the dz pass at C
+    = 4104 with 5 heads and at C = 1030 with 8, on 2 samples of 75 rows.
+    Then the kernels that list no width bound, at the widened flagship's
+    widths on their main kernels: mutan_fused at C = 4104 (K = 4112) and
+    the ConvLSTM gates and raw kernels at CM = 1032."""
     g = torch.Generator(device=dev).manual_seed(17)
     f32, bf = torch.float32, torch.bfloat16
     wc, wa, wcm = WIDE_CFG["v_emb_dim"], 2056, WIDE_CFG["mlp_dim"]
@@ -1129,13 +1133,18 @@ def wide_edge_inputs(torch, kernels, dev):
             dtype)
 
     b, n = 3, 75
-    mask = torch.zeros(b, 1, EDGE_T, device=dev)
+    mask = torch.zeros(2 * b, 1, EDGE_T, device=dev)
     mask[:, :, :30] = 1
 
-    def affinity(l2n, masked):
-        return ((randn(b, n, EDGE_C), randn(EDGE_C, wa, scale=EDGE_C ** -0.5),
-                 randn(wa, scale=0.1), randn(b, EDGE_T, wa, scale=wa ** -0.5),
-                 torch.rand(b, 1, EDGE_T, generator=g, device=dev), mask),
+    def affinity(l2n, masked, a=wa, groups=0):
+        bb = 2 * b if groups else b
+        lead = (groups,) if groups else ()
+        return ((randn(bb, n, EDGE_C),
+                 randn(*lead, EDGE_C, a, scale=EDGE_C ** -0.5),
+                 randn(*lead, a, scale=0.1),
+                 randn(bb, EDGE_T, a, scale=a ** -0.5),
+                 torch.rand(bb, 1, EDGE_T, generator=g, device=dev),
+                 mask[:bb]),
                 {"scale": EDGE_C ** 0.5, "l2n": l2n, "masked": masked})
 
     def msg_args(bb, t, c):
@@ -1147,6 +1156,14 @@ def wide_edge_inputs(torch, kernels, dev):
     update = (randn(b, n, wc), msg, st, randn(wc, wc, scale=wc ** -0.5),
               randn(wc, scale=0.1), 1 + randn(wc, scale=0.1, dtype=f32),
               randn(wc, scale=0.1, dtype=f32))
+
+    def update_grouped(groups):
+        m, s = kernels.graph_msg_plain(*msg_args(2 * b, EDGE_T, wc))
+        return (randn(2 * b, n, wc), m, s,
+                randn(groups, wc, wc, scale=wc ** -0.5),
+                randn(groups, wc, scale=0.1),
+                1 + randn(groups, wc, scale=0.1, dtype=f32),
+                randn(groups, wc, scale=0.1, dtype=f32))
 
     def dz_args(c, heads):
         return ((torch.tanh(randn(2 * n, heads * c, dtype=f32)).to(bf),
@@ -1174,10 +1191,18 @@ def wide_edge_inputs(torch, kernels, dev):
     return [
         ("spa_affinity", ":wide-A2056-l2n", *affinity(True, True)),
         ("spa_affinity", ":wide-A2056", *affinity(False, False)),
+        ("spa_affinity", ":wide-A2056-l2n-unmasked", *affinity(True, False)),
+        ("spa_affinity", ":wide-A2056-masked", *affinity(False, True)),
+        ("spa_affinity_grouped", f":wide-A{wc}-G3-l2n",
+         *affinity(True, True, wc, 3)),
+        ("spa_affinity_grouped", f":wide-A{wc}-G2",
+         *affinity(False, False, wc, 2)),
         ("se_sum", f":wide-C{wcm}", se, {}),
         ("graph_msg", f":wide-C{wc}", wide_msg, {}),
         ("graph_msg", ":wide-C4096-T300", msg_args(1, 300, 4096), {}),
         ("graph_update", f":wide-C{wc}", update, {}),
+        ("graph_update_grouped", f":wide-C{wc}-G3", update_grouped(3), {}),
+        ("graph_update_grouped", f":wide-C{wc}-G2", update_grouped(2), {}),
         ("mutan_bwd_dz", f":wide-C{wc}-5heads", *dz_args(wc, HEADS)),
         ("mutan_bwd_dz", ":wide-C1030-8heads", *dz_args(1030, 8)),
         ("mutan_fused", f":C{wc}", *mutan),

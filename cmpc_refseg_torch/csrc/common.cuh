@@ -122,6 +122,9 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return total;
 }
 
+// Whether a device pointer is 16-byte aligned (TMA and bulk copies need it).
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 // Error codes at or above this are kTmapError + the CUresult of a refused
 // cuTensorMapEncodeTiled (csrc/hopper.cuh).
 constexpr int kTmapError = 20000;

@@ -58,6 +58,10 @@
 // block.  Clusters of 4 blocks multicasting the x and msg boxes measured
 // 7% slower at bs=64 (4-block clusters of one block per SM keep only 120
 // of the 132 SMs busy; PERF.md).
+// Past C = kUpdMaxC (4096), where LN1's affine [2][C] f32 no longer fits
+// beside the ring, the wide form (graph_update_wide_tma_kernel) runs the
+// same design with each K step's 64 columns of gamma and beta carried in
+// the ring beside x, msg and W; its statistics take the same layout.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -447,16 +451,23 @@ constexpr int kUpdTile = kUpdBM * kSwizzleBytes;       // [128][64] bf16: x or m
 constexpr int kUpdStage = 2 * kUpdTile + (kUpdBN / kChunk) * kUpdBox;
 constexpr int kUpdSmem = 1024 + kUpdStages * kUpdStage;   // + the LN1 affine [2][C] f32
 constexpr int kUpdMaxC = 4096;
+// The wide instance's LN1 affine: one stage's 64 columns of gamma, then of
+// beta, f32, a slot per stage past the ring
+constexpr int kUpdAffSlot = 2 * kTileK * static_cast<int>(sizeof(float));
+constexpr int kUpdWideSmem = kUpdSmem + kUpdStages * kUpdAffSlot;
 
-__global__ void __launch_bounds__(kUpdThreads, 1)
-graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
-                    const __grid_constant__ CUtensorMap msg_map,
-                    const __grid_constant__ CUtensorMap w_map,
-                    const __grid_constant__ CUtensorMap z_map,
-                    const float* __restrict__ stats1, int parts1,
-                    const bf16* __restrict__ bias, const float* __restrict__ g1,
-                    const float* __restrict__ b1, float* __restrict__ stats2, int N,
-                    int C, float cnt, int per_group) {
+// The update of one block.  RING = false (graph_update_kernel, C <=
+// kUpdMaxC): LN1's affine [2][C] of the weight group is staged whole in
+// shared memory before the main loop.  RING = true (the wide form, any C):
+// thread 0 bulk-copies each K step's 64 columns of gamma and beta into a
+// slot of the stage beside the x, msg and W boxes, completing on the same
+// barrier, so nothing in shared memory grows with C.
+template <bool RING>
+__device__ __forceinline__ void graph_update_block(
+    const CUtensorMap& x_map, const CUtensorMap& msg_map, const CUtensorMap& w_map,
+    const CUtensorMap& z_map, const float* __restrict__ stats1, int parts1,
+    const bf16* __restrict__ bias, const float* __restrict__ g1, const float* __restrict__ b1,
+    float* __restrict__ stats2, int N, int C, float cnt, int per_group) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kUpdStages], empty[kUpdStages];
   __shared__ float red[8][2];
@@ -479,12 +490,22 @@ graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
 
   // thread 0 also issues the TMA loads: stage it % kUpdStages receives the
   // x and msg boxes of the row tile (two of 64 rows each) and the four W
-  // boxes of the block's columns
+  // boxes of the block's columns (and with RING its columns of gamma and
+  // beta: 32-byte multiples, as C is a multiple of 8)
+  unsigned char* aff_ring = smem + kUpdStages * kUpdStage;   // RING: [stage][2][64] f32
   auto issue = [&](int it) {
     const int q = it % kUpdStages;
     unsigned char* st = smem + q * kUpdStage;
     const int k0 = it * kTileK;
-    mbar_arrive_expect_tx(&full[q], kUpdStage);
+    if constexpr (RING) {
+      const uint32_t ab = static_cast<uint32_t>(min(kTileK, C - k0)) * sizeof(float);
+      const size_t e0 = static_cast<size_t>(grp) * C + k0;
+      mbar_arrive_expect_tx(&full[q], kUpdStage + 2 * ab);
+      bulk_load(aff_ring + q * kUpdAffSlot, g1 + e0, ab, &full[q]);
+      bulk_load(aff_ring + q * kUpdAffSlot + kUpdAffSlot / 2, b1 + e0, ab, &full[q]);
+    } else {
+      mbar_arrive_expect_tx(&full[q], kUpdStage);
+    }
 #pragma unroll
     for (int b = 0; b < 4; ++b)
       tma_load_3d(st + b * kUpdBox, b < 2 ? &x_map : &msg_map, &full[q], k0,
@@ -503,16 +524,35 @@ graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
   // tensor cores work on this stage: thread wtid rewrites the 16-byte
   // group wtid % 8 of rows wtid / 8 + 16 i, i < 4, which holds columns
   // k0 + 8 kq ... + 7 in every stage (kq below; zero past C).  The LN1
-  // affine of the weight group is staged in shared memory.
+  // affine of the weight group is staged in shared memory (RING: in the
+  // stage's slot).
   const int wg = warp / 4, wl = warp % 4, wtid = threadIdx.x % 128;
   const uint32_t base = smem_u32(smem);
   float* affine = reinterpret_cast<float*>(smem + kUpdStages * kUpdStage);   // [2][C]
-  for (int c = threadIdx.x; c < C; c += 256) {
-    affine[c] = g1[static_cast<size_t>(grp) * C + c];
-    affine[C + c] = b1[static_cast<size_t>(grp) * C + c];
+  if constexpr (!RING) {
+    for (int c = threadIdx.x; c < C; c += 256) {
+      affine[c] = g1[static_cast<size_t>(grp) * C + c];
+      affine[C + c] = b1[static_cast<size_t>(grp) * C + c];
+    }
   }
   float mean, inv;
-  {
+  if constexpr (RING) {
+    // msg's statistics from the message's wide form hold a slot per 64 x
+    // 64 tile (1625 a sample at N = 1600, C = 4104): the threads sum
+    // strided shares, each warp its lanes', then every thread the 8 warps'
+    // in order (the same bits in every thread)
+    float sa = 0.f, sb = 0.f;
+    for (int j = threadIdx.x; j < parts1; j += kUpdThreads) {
+      sa += stats1[(static_cast<size_t>(s) * parts1 + j) * 2];
+      sb += stats1[(static_cast<size_t>(s) * parts1 + j) * 2 + 1];
+    }
+    sa = warp_sum(sa);
+    sb = warp_sum(sb);
+    if (lane == 0) {
+      red[warp][0] = sa;
+      red[warp][1] = sb;
+    }
+  } else {
     float sa = 0.f, sb = 0.f;
     for (int j = 0; j < parts1; ++j) {
       sa += stats1[(static_cast<size_t>(s) * parts1 + j) * 2];
@@ -521,12 +561,28 @@ graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
     mean = sa / cnt;
     inv = rsqrtf(fmaxf(sb / cnt - mean * mean, 0.f) + 1e-12f);
   }
-  named_bar_sync(3, 256);   // the affine is staged
+  named_bar_sync(3, 256);   // the affine is staged (RING: the warps' sums)
+  if constexpr (RING) {
+    float sa = 0.f, sb = 0.f;
+    for (int w = 0; w < kUpdThreads / 32; ++w) {
+      sa += red[w][0];
+      sb += red[w][1];
+    }
+    mean = sa / cnt;
+    inv = rsqrtf(fmaxf(sb / cnt - mean * mean, 0.f) + 1e-12f);
+  }
   const int kq = (wtid % 8) ^ ((wtid / 8) % 8);
   const int xoff = (wg * 64 + wtid / 8) * kSwizzleBytes + 16 * (wtid % 8);
   auto transform = [&](int it) {
     unsigned char* xs = smem + (it % kUpdStages) * kUpdStage + xoff;
     const int k = it * kTileK + 8 * kq;
+    // gamma and beta of columns k ...: from the staged row, or the slot
+    const float* gam = affine + k;
+    const float* bet = affine + C + k;
+    if constexpr (RING) {
+      gam = reinterpret_cast<const float*>(aff_ring + (it % kUpdStages) * kUpdAffSlot) + 8 * kq;
+      bet = gam + kTileK;
+    }
     const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -541,8 +597,8 @@ graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float2 m = __bfloat1622float2(bits_bf2(mw[e]));
-          const float2 ga = *reinterpret_cast<const float2*>(affine + k + 2 * e);
-          const float2 be = *reinterpret_cast<const float2*>(affine + C + k + 2 * e);
+          const float2 ga = *reinterpret_cast<const float2*>(gam + 2 * e);
+          const float2 be = *reinterpret_cast<const float2*>(bet + 2 * e);
           const __nv_bfloat162 ln = __floats2bfloat162_rn((m.x - mean) * inv * ga.x + be.x,
                                                           (m.y - mean) * inv * ga.y + be.y);
           yw[e] = bf2_bits(__hmax2(__hadd2(bits_bf2(xw[e]), ln), zero2));
@@ -643,6 +699,34 @@ graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
   if (wtid == 0) bulk_wait_read();   // the stores have read shared memory
 }
 
+__global__ void __launch_bounds__(kUpdThreads, 1)
+graph_update_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap msg_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap z_map,
+                    const float* __restrict__ stats1, int parts1,
+                    const bf16* __restrict__ bias, const float* __restrict__ g1,
+                    const float* __restrict__ b1, float* __restrict__ stats2, int N,
+                    int C, float cnt, int per_group) {
+  graph_update_block<false>(x_map, msg_map, w_map, z_map, stats1, parts1, bias, g1, b1, stats2,
+                            N, C, cnt, per_group);
+}
+
+// The wide form (C > kUpdMaxC): the same pipeline, LN1's affine carried in
+// the ring (graph_update_block<true>).
+__global__ void __launch_bounds__(kUpdThreads, 1)
+graph_update_wide_tma_kernel(const __grid_constant__ CUtensorMap x_map,
+                             const __grid_constant__ CUtensorMap msg_map,
+                             const __grid_constant__ CUtensorMap w_map,
+                             const __grid_constant__ CUtensorMap z_map,
+                             const float* __restrict__ stats1, int parts1,
+                             const bf16* __restrict__ bias, const float* __restrict__ g1,
+                             const float* __restrict__ b1, float* __restrict__ stats2, int N,
+                             int C, float cnt, int per_group) {
+  graph_update_block<true>(x_map, msg_map, w_map, z_map, stats1, parts1, bias, g1, b1, stats2,
+                           N, C, cnt, per_group);
+}
+
 }  // namespace cmpc
 
 extern "C" int cmpc_graph_msg_parts(int N) {
@@ -697,24 +781,19 @@ extern "C" int cmpc_graph_msg(const void* w_aff, const void* pooled, void* msg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, msg [B*N, C] bf16; stats1 [B, parts1, 2] f32 (graph_msg's); w
-// [G, C, C], bias [G, C] bf16; g1, b1 [G, C] f32 (LN1 affine) -> z [B*N, C]
-// bf16 and stats2 [B, update_parts, 2] f32.  G divides B; sample s uses
-// group s / (B / G).  x, msg, w and z 16-byte aligned, C a multiple of 8
-// (TMA strides) and at most kUpdMaxC (the LN1 affine in shared memory).
-// LN1 counts N * width elements per sample: columns width..C-1 are zero
-// padding (zero in msg, g1 and b1), which adds nothing to the sums.
-extern "C" int cmpc_graph_update(const void* x, const void* msg, const void* stats1,
-                                 int parts1, const void* w, const void* bias,
-                                 const void* g1, const void* b1, void* z, void* stats2,
-                                 int B, int N, int C, int width, int groups, void* stream) {
-  using namespace cmpc;
-  if (groups < 1 || B % groups || C % 8 || C > kUpdMaxC || width < 1 || width > C)
-    return static_cast<int>(cudaErrorInvalidValue);
+namespace cmpc {
+
+// The update's tensor maps and launch, for either kernel: x, msg and z
+// [B][N][C] innermost first (a row tile's boxes read zero past its sample),
+// w [G][C][C]; boxes of 64 x 64.
+template <class Kernel>
+int launch_update(Kernel kernel, int smem, const void* x, const void* msg,
+                  const void* stats1, int parts1, const void* w, const void* bias,
+                  const void* g1, const void* b1, void* z, void* stats2, int B, int N, int C,
+                  int width, int groups, void* stream) {
   const uint64_t bf = sizeof(bf16);
   CUtensorMap x_map, msg_map, w_map, z_map;
   const uint32_t box[3] = {kChunk, 64, 1};
-  // [B][N][C] innermost first: a row tile's boxes read zero past its sample
   const uint64_t x_dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(N),
                               static_cast<uint64_t>(B)};
   const uint64_t x_strides[2] = {C * bf, static_cast<uint64_t>(N) * C * bf};
@@ -729,12 +808,11 @@ extern "C" int cmpc_graph_update(const void* x, const void* msg, const void* sta
   if (rc) return rc;
   rc = encode_tmap(&z_map, z, 3, x_dims, x_strides, box);
   if (rc) return rc;
-  const int smem = kUpdSmem + 2 * C * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      graph_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((C + kUpdBN - 1) / kUpdBN, (N + kUpdBM - 1) / kUpdBM, B);
-  graph_update_kernel<<<grid, kUpdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kUpdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x_map, msg_map, w_map, z_map, static_cast<const float*>(stats1), parts1,
       static_cast<const bf16*>(bias), static_cast<const float*>(g1),
       static_cast<const float*>(b1), static_cast<float*>(stats2), N, C,
@@ -742,51 +820,60 @@ extern "C" int cmpc_graph_update(const void* x, const void* msg, const void* sta
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace cmpc
+
+// x, msg [B*N, C] bf16; stats1 [B, parts1, 2] f32 (graph_msg's); w
+// [G, C, C], bias [G, C] bf16; g1, b1 [G, C] f32 (LN1 affine) -> z [B*N, C]
+// bf16 and stats2 [B, cmpc_graph_update_parts(N, C), 2] f32.  G divides B;
+// sample s uses group s / (B / G).  x, msg, w and z 16-byte aligned, C a
+// multiple of 8 (TMA strides) and at most kUpdMaxC (the LN1 affine in
+// shared memory).  LN1 counts N * width elements per sample: columns
+// width..C-1 are zero padding (zero in msg, g1 and b1), which adds nothing
+// to the sums.
+extern "C" int cmpc_graph_update(const void* x, const void* msg, const void* stats1,
+                                 int parts1, const void* w, const void* bias,
+                                 const void* g1, const void* b1, void* z, void* stats2,
+                                 int B, int N, int C, int width, int groups, void* stream) {
+  using namespace cmpc;
+  if (groups < 1 || B % groups || C % 8 || C > kUpdMaxC || width < 1 || width > C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_update(graph_update_kernel, kUpdSmem + 2 * C * static_cast<int>(sizeof(float)),
+                       x, msg, stats1, parts1, w, bias, g1, b1, z, stats2, B, N, C, width,
+                       groups, stream);
+}
+
+// The contract of cmpc_graph_update for any C (a multiple of 8), the
+// statistics in the same layout; g1 and b1 16-byte aligned too (their
+// 64-column slices are bulk copies).
+extern "C" int cmpc_graph_update_wide(const void* x, const void* msg, const void* stats1,
+                                      int parts1, const void* w, const void* bias,
+                                      const void* g1, const void* b1, void* z, void* stats2,
+                                      int B, int N, int C, int width, int groups,
+                                      void* stream) {
+  using namespace cmpc;
+  if (groups < 1 || B % groups || N < 1 || C % 8 || C < 8 || width < 1 || width > C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(g1) || !aligned16(b1)) return static_cast<int>(cudaErrorMisalignedAddress);
+  return launch_update(graph_update_wide_tma_kernel, kUpdWideSmem, x, msg, stats1, parts1, w,
+                       bias, g1, b1, z, stats2, B, N, C, width, groups, stream);
+}
+
 // ---------------------------------------------------------------------------
-// The wide forms.  No TPU kernel of their own: the Pallas blocks span the
-// whole row at any C and T.  Simple tiled products (csrc/wide.cuh), a
-// block per 64 x 64 output tile of one sample; each block writes its own
-// statistics slot (sum, sum of squares of its rounded outputs, summed over
-// its threads in a fixed order), so the statistics keep the [B, parts, 2]
-// layout with parts = cmpc_graph_wide_parts(N, C).
-//  - msg, where the message kernel's plan does not fit (C > kMsgMaxC, or
-//    C * T past its shared memory): the tile of w_aff[s] @ pooled[s],
-//    rounded to bf16.  The product has no reduction over C.
-//  - update, for C > kUpdMaxC, where LN1's affine [2][C] no longer fits
-//    shared memory: the A operand y = relu(bf16(x + bf16(LN1(msg)))) is
-//    formed as each 32-column step of it is loaded, reading gamma and beta
-//    of those columns from device memory, so nothing is staged per C.
-// Bound on the card: operations at such widths (the [B*N, C] x [C, C]
-// product of the update; the message's [N, T] x [T, C] per sample).
+// The message's wide form, where its plan does not fit (C > kMsgMaxC, or C *
+// T past its shared memory).  No TPU kernel of its own: the Pallas block
+// spans the whole row at any C and T.  A simple tiled product
+// (csrc/wide.cuh), a block per 64 x 64 output tile of one sample: the tile
+// of w_aff[s] @ pooled[s], rounded to bf16 (no reduction over C).  Each
+// block writes its own statistics slot (sum, sum of squares of its rounded
+// outputs, summed over its threads in a fixed order), so the statistics
+// keep the [B, parts, 2] layout with parts = cmpc_graph_wide_parts(N, C).
+// Bound on the card: bytes (the [B*N, C] store; the product is [N, T] x
+// [T, C] per sample).  The update's wide form is graph_update_wide_tma_kernel
+// above.
 // ---------------------------------------------------------------------------
 #include "wide.cuh"
 
 namespace cmpc {
-
-// 8 entries of y = relu(bf16(x + bf16((msg - mean) * inv * g1 + b1))) at
-// row r, columns k .. k + 7 of one sample (C a multiple of 8, x and msg
-// 16-byte aligned), zero past the rows and C.
-struct GraphYLoad {
-  const bf16* x;
-  const bf16* msg;
-  const float* g1;
-  const float* b1;
-  int rows, C;
-  float mean, inv;
-  __device__ uint4 operator()(int r, int k) const {
-    if (r >= rows || k >= C) return zero_vec();
-    const size_t o = static_cast<size_t>(r) * C + k;
-    float xf[8], mf[8], y[8];
-    load_bf<8>(x + o, xf);
-    load_bf<8>(msg + o, mf);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float ln = round_bf((mf[e] - mean) * inv * g1[k + e] + b1[k + e]);
-      y[e] = fmaxf(round_bf(xf[e] + ln), 0.f);
-    }
-    return pack_bf<8>(y);
-  }
-};
 
 // The block's (sum, sum of squares) into its slot of `stats` [B, parts, 2].
 __device__ __forceinline__ void wide_stats(float sum, float sumsq, float* stats, int s,
@@ -826,47 +913,10 @@ graph_msg_wide_kernel(const bf16* __restrict__ w_aff, const bf16* __restrict__ p
   wide_stats(sum, sumsq, stats, s, red);
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-graph_update_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ msg,
-                         const float* __restrict__ stats1, int parts1,
-                         const bf16* __restrict__ w, const bf16* __restrict__ bias,
-                         const float* __restrict__ g1, const float* __restrict__ b1,
-                         bf16* __restrict__ z, float* __restrict__ stats2, int N, int C,
-                         float cnt, int per_group) {
-  __shared__ WideSmem sm;
-  __shared__ float red[kWideThreads / 32];
-  const int c0 = blockIdx.x * kWideTile, row0 = blockIdx.y * kWideTile, s = blockIdx.z;
-  const int grp = s / per_group;
-  const size_t srow = static_cast<size_t>(s) * N;
-  float sa = 0.f, sb = 0.f;
-  for (int j = 0; j < parts1; ++j) {
-    sa += stats1[(static_cast<size_t>(s) * parts1 + j) * 2];
-    sb += stats1[(static_cast<size_t>(s) * parts1 + j) * 2 + 1];
-  }
-  const float mean = sa / cnt;
-  const float inv = rsqrtf(fmaxf(sb / cnt - mean * mean, 0.f) + 1e-12f);
-  const GraphYLoad ya{x + srow * C, msg + srow * C, g1 + static_cast<size_t>(grp) * C,
-                      b1 + static_cast<size_t>(grp) * C, N, C, mean, inv};
-  const RowsLoad wb{w + static_cast<size_t>(grp) * C * C, C, C, C, true};
-  wide_product<false>(sm, ya, wb, row0, c0, C);
-  const bf16* bg = bias + static_cast<size_t>(grp) * C;
-  float sum = 0.f, sumsq = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < kWidePerThread; ++i) {
-    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
-    const int row = row0 + r, col = c0 + j;
-    if (row >= N || col >= C) continue;
-    const float v = round_bf(round_bf(sm.c[r][j]) + bf2f(bg[col]));
-    z[(srow + row) * C + col] = f2bf(v);
-    sum += v;
-    sumsq += v * v;
-  }
-  wide_stats(sum, sumsq, stats2, s, red);
-}
-
 }  // namespace cmpc
 
-// Statistics slots per sample of the wide forms: one per 64 x 64 tile.
+// Statistics slots per sample of the message's wide form: one per 64 x 64
+// tile.
 extern "C" int cmpc_graph_wide_parts(int N, int C) {
   return cmpc::wide_tiles(N) * cmpc::wide_tiles(C);
 }
@@ -883,27 +933,5 @@ extern "C" int cmpc_graph_msg_wide(const void* w_aff, const void* pooled, void* 
       static_cast<const bf16*>(w_aff), static_cast<const bf16*>(pooled),
       static_cast<bf16*>(msg), static_cast<float*>(stats), N, C, T,
       T % 8 == 0 && aligned16(w_aff));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The contract of cmpc_graph_update for any C (a multiple of 8), with
-// stats2 [B, cmpc_graph_wide_parts(N, C), 2]; x, msg and w 16-byte aligned.
-extern "C" int cmpc_graph_update_wide(const void* x, const void* msg, const void* stats1,
-                                      int parts1, const void* w, const void* bias,
-                                      const void* g1, const void* b1, void* z, void* stats2,
-                                      int B, int N, int C, int width, int groups,
-                                      void* stream) {
-  using namespace cmpc;
-  if (groups < 1 || B % groups || N < 1 || C % 8 || C < 8 || width < 1 || width > C)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!aligned16(x) || !aligned16(msg) || !aligned16(w))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  graph_update_wide_kernel<<<dim3(wide_tiles(C), wide_tiles(N), B), kWideThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(msg),
-      static_cast<const float*>(stats1), parts1, static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<const float*>(g1),
-      static_cast<const float*>(b1), static_cast<bf16*>(z), static_cast<float*>(stats2), N, C,
-      static_cast<float>(N) * static_cast<float>(width), B / groups);
   return static_cast<int>(cudaGetLastError());
 }

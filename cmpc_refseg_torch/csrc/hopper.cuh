@@ -21,8 +21,9 @@
 //   m64n256k16 bf16 products with f32 accumulators, trans-a / trans-b as
 //   immediates, and m64n32k16 with A from registers;
 // - setmaxnreg, to move registers from a producer to consumer warpgroups;
-// - the warp-level bf16 product mma.sync m16n8k16 and its transposed
-//   ldmatrix feed (graph_conv.cu's message kernel);
+// - the warp-level bf16 product mma.sync m16n8k16 and its ldmatrix feeds,
+//   plain and transposed (graph_conv.cu's message kernel, the word product
+//   of spa_affinity.cu's wide form);
 // - a host helper that encodes a CUtensorMap (cuTensorMapEncodeTiled, a
 //   driver-API symbol fetched through the runtime, so no -lcuda).
 //
@@ -462,6 +463,16 @@ __device__ __forceinline__ void mma_stage(float (&d)[N / 2], uint64_t desc_a,
 // [k][n] tile so loaded is the B operand of mma_m16n8k16.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// The same, not transposed: register m of lane l receives elements
+// 2 (l % 4) and 2 (l % 4) + 1 of row l / 4 of matrix m.  A [16 rows][16]
+// tile so loaded (matrices: rows 0-7 and 8-15 of the first 8 columns, then
+// of the next 8) is the A operand of mma_m16n8k16; an [8 n][16 k] tile
+// (matrices: the first 8 k, then the next 8) its B operand (b0, b1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
 }
 

@@ -346,6 +346,37 @@ spa_affinity_kernel(const __grid_constant__ CUtensorMap x_map,
 
 inline int affinity_cluster(int A) { return (A + kAffBN - 1) / kAffBN; }
 
+// The tensor maps of both forms: x [B][N][C] and, with `g`, the wide form's
+// scratch g [B][N][A] innermost first (a row tile's boxes read zero past
+// its sample, and its stores stop there), wg [G][C][A], boxes of 64 x 64;
+// wt [B][T][A], boxes of 64 columns x 32 words.
+inline int affinity_maps(CUtensorMap* x_map, CUtensorMap* wg_map, CUtensorMap* wt_map,
+                         CUtensorMap* g_map, const void* x, const void* wg, const void* wt,
+                         const void* g, int B, int N, int C, int A, int T, int groups) {
+  const uint64_t bf = sizeof(bf16);
+  const uint32_t box[3] = {kChunk, 64, 1};
+  const uint64_t x_dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(N),
+                              static_cast<uint64_t>(B)};
+  const uint64_t x_strides[2] = {C * bf, static_cast<uint64_t>(N) * C * bf};
+  int rc = encode_tmap(x_map, x, 3, x_dims, x_strides, box);
+  if (rc) return rc;
+  const uint64_t wg_dims[3] = {static_cast<uint64_t>(A), static_cast<uint64_t>(C),
+                               static_cast<uint64_t>(groups)};
+  const uint64_t wg_strides[2] = {A * bf, static_cast<uint64_t>(C) * A * bf};
+  rc = encode_tmap(wg_map, wg, 3, wg_dims, wg_strides, box);
+  if (rc) return rc;
+  const uint64_t wt_dims[3] = {static_cast<uint64_t>(A), static_cast<uint64_t>(T),
+                               static_cast<uint64_t>(B)};
+  const uint64_t wt_strides[2] = {A * bf, static_cast<uint64_t>(T) * A * bf};
+  const uint32_t wt_box[3] = {kChunk, kAffWords, 1};
+  rc = encode_tmap(wt_map, wt, 3, wt_dims, wt_strides, wt_box);
+  if (rc || g == nullptr) return rc;
+  const uint64_t g_dims[3] = {static_cast<uint64_t>(A), static_cast<uint64_t>(N),
+                              static_cast<uint64_t>(B)};
+  const uint64_t g_strides[2] = {A * bf, static_cast<uint64_t>(N) * A * bf};
+  return encode_tmap(g_map, g, 3, g_dims, g_strides, box);
+}
+
 template <bool L2N, bool MASKED>
 int launch_affinity(const CUtensorMap& x_map, const CUtensorMap& wg_map,
                     const CUtensorMap& wt_map, const void* bg, const void* rel,
@@ -398,25 +429,9 @@ extern "C" int cmpc_spa_affinity(const void* x, const void* wg, const void* bg,
   if (T < 1 || groups < 1 || B % groups || C % 8 || A % 8 ||
       A > kAffMaxCluster * kAffBN)
     return static_cast<int>(cudaErrorInvalidValue);
-  const uint64_t bf = sizeof(bf16);
   CUtensorMap x_map, wg_map, wt_map;
-  const uint32_t box[3] = {kChunk, 64, 1};
-  // [B][N][C] innermost first: a row tile's boxes read zero past its sample
-  const uint64_t x_dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(N),
-                              static_cast<uint64_t>(B)};
-  const uint64_t x_strides[2] = {C * bf, static_cast<uint64_t>(N) * C * bf};
-  int rc = encode_tmap(&x_map, x, 3, x_dims, x_strides, box);
-  if (rc) return rc;
-  const uint64_t wg_dims[3] = {static_cast<uint64_t>(A), static_cast<uint64_t>(C),
-                               static_cast<uint64_t>(groups)};
-  const uint64_t wg_strides[2] = {A * bf, static_cast<uint64_t>(C) * A * bf};
-  rc = encode_tmap(&wg_map, wg, 3, wg_dims, wg_strides, box);
-  if (rc) return rc;
-  const uint64_t wt_dims[3] = {static_cast<uint64_t>(A), static_cast<uint64_t>(T),
-                               static_cast<uint64_t>(B)};
-  const uint64_t wt_strides[2] = {A * bf, static_cast<uint64_t>(T) * A * bf};
-  const uint32_t wt_box[3] = {kChunk, kAffWords, 1};
-  rc = encode_tmap(&wt_map, wt, 3, wt_dims, wt_strides, wt_box);
+  const int rc =
+      affinity_maps(&x_map, &wg_map, &wt_map, nullptr, x, wg, wt, nullptr, B, N, C, A, T, groups);
   if (rc) return rc;
   if (l2n && masked)
     return launch_affinity<true, true>(x_map, wg_map, wt_map, bg, rel, mask, w_out,
@@ -432,122 +447,383 @@ extern "C" int cmpc_spa_affinity(const void* x, const void* wg, const void* bg,
 }
 
 // ---------------------------------------------------------------------------
-// The wide form, for A > kAffMaxCluster * kAffBN (2048): the projection
-// columns of a row no longer fit one cluster, so the l2n row norm cannot
-// be summed over DSMEM.  No TPU kernel of its own: the Pallas kernel's
-// block spans the whole row at any A.  Four launches (csrc/wide.cuh):
-//  1. the projection, 64 x 64 tiles of x[s] @ Wg[group]: g = bf16(bf16(acc)
-//     + bg) to a bf16 scratch [B*N, A] and, with L2N, each row's sum of
-//     squares of its 64 rounded columns to a partial [B*N, A/64];
-//  2. with L2N, per row: the partials added in order, g = bf16(g /
-//     sqrt(max(sum, 1e-12))) in place (the plain version's rounding: the
-//     norm in f32, then one bf16 rounding);
-//  3. the word affinities, 64-row x 64-word tiles of g[s] @ wt[s]^T, times
-//     rel / scale, to affi_out;
-//  4. per 64-row block of a sample: each row's softmax over the words (a
-//     warp per row) to w_out, and the block's column partials (max over its
-//     rows, sum of exp(affi - max)) to stats in the main kernel's layout,
-//     which the wrapper finalises as before.
-// Bound on the card: operations (the projection, as the main kernel's).
+// The wide form, for A > kAffMaxCluster * kAffBN (2048): a row's projection
+// columns no longer fit one cluster, so the l2n row norm cannot be summed
+// over DSMEM and g cannot stay in registers.  No TPU kernel of its own: the
+// Pallas kernel's block spans the whole row at any A.  Two launches:
+//  1. aff_wide_tma_proj_kernel, the main kernel's projection without a
+//     cluster: a block owns 128 rows of one sample x 256 columns of A; a
+//     producer warp keeps a 4-stage TMA ring of the x tile and the Wg
+//     boxes full, two consumer warpgroups run m64n256k16 wgmmas.  The
+//     epilogue writes g = bf16(bf16(acc) + bg) to a bf16 scratch [B][N][A]
+//     by TMA stores (staged swizzled in the freed ring) and, with L2N, each
+//     row's sum of squares of its 256 rounded columns to a partial [B*N,
+//     ceil(A / 256)] (a quad shuffle: no atomics).
+//  2. aff_wide_tma_words_kernel, per 64-row tile of a sample: the row norms
+//     from the partials, added in order; then g streamed by TMA in 64-column
+//     boxes beside wt[s]'s [32 words x 64] boxes through a 6-stage ring.
+//     Four consumer warps of 16 rows read their A fragments by ldmatrix,
+//     apply the norm and round to bf16 there (the plain version's rounding:
+//     the norm in f32, one bf16 rounding), so g is never rewritten, and run
+//     the word product as mma.sync m16n8k16, 32 words at a time (g
+//     streamed again for each further 32 words).  From the fragment: affi =
+//     rel * (raw / scale) to affi_out, the row softmax (max and sum over a
+//     row's 4 lanes, online across word chunks; the earlier chunks' words
+//     re-read at the end) to w_out, and the tile's column partials (max over
+//     its rows, sum of exp(affi - max); over the warp's lanes, then the 4
+//     warps in order) to stats in the main kernel's layout, which the
+//     wrapper finalises as before.
+// Bound on the card: operations (the projection, as the main kernel's).  g
+// crosses device memory twice (written, read once per 32 words): 2 x B*N*A
+// bf16, 157 MB at B*N = 9600 and A = 4104, ~47 us at 3.35 TB/s beside the
+// projection's ~330 us.
 // ---------------------------------------------------------------------------
-#include "wide.cuh"
 
 namespace cmpc {
 
+constexpr int kAwRows = 64;                            // rows per words block
+constexpr int kAwWarps = kAwRows / 16;                 // consumer warps
+constexpr int kAwThreads = 32 * (kAwWarps + 1);        // + the producer warp
+constexpr int kAwStages = 6;
+constexpr int kAwGBox = kAwRows * kSwizzleBytes;       // g [64 rows][64 columns]
+constexpr int kAwWtBox = kAffWords * kSwizzleBytes;    // wt [32 words][64 columns]
+constexpr int kAwStage = kAwGBox + kAwWtBox;
+constexpr int kAwSmem = 1024 + kAwStages * kAwStage;
+constexpr int kAwProjSmem = 1024 + kAffStages * kAffStage;
+static_assert(kAwStage % 1024 == 0 && kAwGBox % 1024 == 0, "swizzle atoms stay aligned");
+
+// blockIdx.x: the 256-column slice of A, y: the 128-row tile of sample z.
+// Warps 0-7: the consumer warpgroups; lane 0 of warp 8 the producer.
 template <bool L2N>
-__global__ void __launch_bounds__(kWideThreads)
-aff_wide_proj_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
-                     const bf16* __restrict__ bg, bf16* __restrict__ gt,
-                     float* __restrict__ sq_part, int N, int C, int A, int per_group) {
-  __shared__ WideSmem sm;
-  const int ct = blockIdx.x, row0 = blockIdx.y * kWideTile, s = blockIdx.z;
-  const int c0 = ct * kWideTile, grp = s / per_group;
-  const size_t srow = static_cast<size_t>(s) * N;
-  const RowsLoad xa{x + srow * C, C, N, C, true};
-  const RowsLoad wb{wg + static_cast<size_t>(grp) * C * A, A, C, A, true};
-  wide_product<false>(sm, xa, wb, row0, c0, C);
-#pragma unroll 4
-  for (int i = 0; i < kWidePerThread; ++i) {
-    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
-    const int row = row0 + r, col = c0 + j;
-    float g = 0.f;
-    if (row < N && col < A) {
-      g = round_bf(round_bf(sm.c[r][j]) + bf2f(bg[static_cast<size_t>(grp) * A + col]));
-      gt[(srow + row) * A + col] = f2bf(g);
-    }
-    sm.c[r][j] = g * g;
-  }
-  if (!L2N) return;
-  __syncthreads();
-  if (threadIdx.x < kWideTile && row0 + threadIdx.x < N)
-    sq_part[(srow + row0 + threadIdx.x) * gridDim.x + ct] = wide_row_sum(sm, threadIdx.x);
-}
-
-// A warp per row of g [rows, A]: its norm from the `tiles` partials.
-__global__ void __launch_bounds__(256)
-aff_wide_norm_kernel(bf16* __restrict__ gt, const float* __restrict__ sq_part, int rows,
-                     int A, int tiles) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  float t = 0.f;
-  for (int j = 0; j < tiles; ++j) t += sq_part[static_cast<size_t>(row) * tiles + j];
-  const float inv = 1.f / sqrtf(fmaxf(t, 1e-12f));
-  bf16* p = gt + static_cast<size_t>(row) * A;
-  for (int a = lane; a < A; a += 32) p[a] = f2bf(bf2f(p[a]) * inv);
-}
-
-__global__ void __launch_bounds__(kWideThreads)
-aff_wide_words_kernel(const bf16* __restrict__ gt, const bf16* __restrict__ wt,
-                      const float* __restrict__ rel, float* __restrict__ affi_out, int N,
-                      int A, int T, float scale) {
-  __shared__ WideSmem sm;
-  const int t0 = blockIdx.x * kWideTile, row0 = blockIdx.y * kWideTile, s = blockIdx.z;
-  const size_t srow = static_cast<size_t>(s) * N;
-  const RowsLoad ga{gt + srow * A, A, N, A, true};
-  const RowsLoad wb{wt + static_cast<size_t>(s) * T * A, A, T, A, true};   // [T][A]: B^T
-  wide_product<true>(sm, ga, wb, row0, t0, A);
-#pragma unroll 4
-  for (int i = 0; i < kWidePerThread; ++i) {
-    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
-    const int row = row0 + r, t = t0 + j;
-    if (row < N && t < T)
-      affi_out[(srow + row) * T + t] = rel[static_cast<size_t>(s) * T + t] * (sm.c[r][j] / scale);
-  }
-}
-
-template <bool MASKED>
-__global__ void __launch_bounds__(256)
-aff_wide_softmax_kernel(const float* __restrict__ affi, const float* __restrict__ mask,
-                        float* __restrict__ w_out, float* __restrict__ stats, int N, int T) {
-  const int rb = blockIdx.x, s = blockIdx.y, row0 = rb * kWideTile;
-  const int nrows = min(kWideTile, N - row0);
+__global__ void __launch_bounds__(kAffThreads, 1)
+aff_wide_tma_proj_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap wg_map,
+                         const __grid_constant__ CUtensorMap g_map,
+                         const bf16* __restrict__ bg, float* __restrict__ sq_part, int N,
+                         int C, int A, int per_group) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kAffStages], empty[kAffStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int ct = blockIdx.x, rb = blockIdx.y, s = blockIdx.z;
+  const int a0 = ct * kAffBN, row0 = rb * kAffBM;
+  const int grp = s / per_group;
+  const int ktiles = (C + kTileK - 1) / kTileK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* mk = mask + static_cast<size_t>(s) * T;
-  const float* a0 = affi + (static_cast<size_t>(s) * N + row0) * T;
-  float* w0 = w_out + (static_cast<size_t>(s) * N + row0) * T;
-  auto logit = [&](const float* a, int t) {
-    return MASKED ? mk[t] * a[t] + (1.f - mk[t]) * (-FLT_MAX) : a[t];
-  };
-  for (int r = warp; r < nrows; r += 8) {
-    const float* a = a0 + static_cast<size_t>(r) * T;
-    float m = -INFINITY;
-    for (int t = lane; t < T; t += 32) m = fmaxf(m, logit(a, t));
-    m = warp_max(m);
-    float l = 0.f;
-    for (int t = lane; t < T; t += 32) l += expf(logit(a, t) - m);
-    const float inv_l = 1.f / warp_sum(l);
-    for (int t = lane; t < T; t += 32)
-      w0[static_cast<size_t>(r) * T + t] =
-          MASKED ? expf(logit(a, t) - m) * inv_l : mk[t] * (expf(a[t] - m) * inv_l);
+
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kAffStages; ++q) {
+      mbar_init(&full[q], 1);
+      mbar_init(&empty[q], 2);   // both consumer warpgroups
+    }
+    mbar_fence_init();
   }
-  float* st = stats + (static_cast<size_t>(s) * gridDim.x + rb) * 2 * T;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    float m = -INFINITY;
-    for (int r = 0; r < nrows; ++r) m = fmaxf(m, a0[static_cast<size_t>(r) * T + t]);
-    float l = 0.f;
-    for (int r = 0; r < nrows; ++r) l += expf(a0[static_cast<size_t>(r) * T + t] - m);
-    st[t] = m;
-    st[T + t] = l;
+  __syncthreads();
+
+  if (warp == 8) {   // the producer: stage it % kAffStages gets K step it
+    if (lane == 0) {
+      tma_prefetch(&x_map);
+      tma_prefetch(&wg_map);
+      for (int it = 0; it < ktiles; ++it) {
+        const int q = it % kAffStages;
+        if (it >= kAffStages) mbar_wait(&empty[q], ((it / kAffStages) - 1) & 1);
+        unsigned char* st = smem + q * kAffStage;
+        const int k0 = it * kTileK;
+        mbar_arrive_expect_tx(&full[q], kAffStage);
+#pragma unroll
+        for (int b = 0; b < kAffBM / 64; ++b)
+          tma_load_3d(st + b * kAffBox, &x_map, &full[q], k0, row0 + 64 * b, s);
+#pragma unroll
+        for (int j = 0; j < kAffBN / kChunk; ++j)
+          tma_load_3d(st + kAffXBytes + j * kAffBox, &wg_map, &full[q], a0 + j * kChunk, k0,
+                      grp);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, wl = warp % 4, wtid = threadIdx.x % 128;
+  const uint32_t base = smem_u32(smem);
+  constexpr uint32_t kStepB = (16 * kSwizzleBytes) >> 4;   // 16 rows of K
+  float acc[kAffBN / 2];
+  for (int it = 0; it < ktiles; ++it) {
+    const int q = it % kAffStages;
+    mbar_wait(&full[q], (it / kAffStages) & 1);
+    const uint32_t a = base + q * kAffStage + wg * kAffBox;
+    const uint32_t b = base + q * kAffStage + kAffXBytes;
+    wgmma_fence();
+    mma_stage<kAffBN, 0, 1>(acc, sw128_desc(a, 16, 1024), sw128_desc(b, kAffBox, 1024), 2,
+                            kStepB, it == 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (it > 0 && wtid == 0) mbar_arrive(&empty[(it - 1) % kAffStages]);   // stage it - 1 is read
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  named_bar_sync(1, 256);   // both warpgroups are done reading the ring
+
+  // g = bf16(bf16(acc) + bg), zero past A: register 4 j + 2 hf + e holds
+  // row r_lo + 8 hf, column a0 + 8 j + 2 (lane % 4) + e.  g goes through
+  // the ring as four [128 x 64] swizzled sub-tiles, written by TMA stores
+  // (rows past N and columns past A clipped).
+  const int r_lo = wg * 64 + wl * 16 + lane / 4;
+  const int col_t = a0 + 2 * (lane % 4);
+  const bf16* bgg = bg + static_cast<size_t>(grp) * A;
+  float sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r_lo + 8 * hf;
+    unsigned char* grow = smem + r * kSwizzleBytes + 4 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < kAffBN / 8; ++j) {
+      const int col = col_t + 8 * j;
+      const float2 bb = ld_bf2(bgg + min(col, A - 2));
+      const float g0 = col < A ? round_bf(round_bf(acc[4 * j + 2 * hf]) + bb.x) : 0.f;
+      const float g1 = col < A ? round_bf(round_bf(acc[4 * j + 2 * hf + 1]) + bb.y) : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(grow + (j / 8) * kAffXBytes +
+                                         (((j % 8) ^ (r % 8)) << 4)) =
+          __floats2bfloat162_rn(g0, g1);
+      sq[hf] += g0 * g0 + g1 * g1;
+    }
+  }
+  fence_proxy_async();
+  named_bar_sync(2 + wg, 128);
+  if (wtid == 0 && row0 + 64 * wg < N) {
+    for (int j = 0; j < kAffBN / kChunk && a0 + j * kChunk < A; ++j)
+      tma_store_3d(&g_map, smem + j * kAffXBytes + wg * kAffBox, a0 + j * kChunk,
+                   row0 + 64 * wg, s);
+    bulk_commit();
+  }
+  if (L2N) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float v = sq[hf];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const int row = row0 + r_lo + 8 * hf;
+      if (lane % 4 == 0 && row < N)
+        sq_part[(static_cast<size_t>(s) * N + row) * gridDim.x + ct] = v;
+    }
+  }
+  if (wtid == 0) bulk_wait_read();   // the stores have read shared memory
+}
+
+// blockIdx.x: the 64-row tile of sample y.  Warps 0-3 consume (warp w:
+// rows 16 w ... + 15 of the tile), lane 0 of warp 4 produces: step it =
+// tc * atiles + kt loads g's columns 64 kt ... (rows past N and columns
+// past A zero) and wt[s]'s words 32 tc ... of those columns (zero past T).
+template <bool L2N, bool MASKED>
+__global__ void __launch_bounds__(kAwThreads)
+aff_wide_tma_words_kernel(const __grid_constant__ CUtensorMap g_map,
+                          const __grid_constant__ CUtensorMap wt_map,
+                          const float* __restrict__ sq_part, int parts,
+                          const float* __restrict__ rel, const float* __restrict__ mask,
+                          float* __restrict__ w_out, float* __restrict__ affi_out,
+                          float* __restrict__ stats, int N, int A, int T, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kAwStages], empty[kAwStages];
+  __shared__ float col_s[kAwWarps][kAffWords][2];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int rb = blockIdx.x, s = blockIdx.y, row0 = rb * kAwRows;
+  const int atiles = (A + kChunk - 1) / kChunk;
+  const int tchunks = (T + kAffWords - 1) / kAffWords;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kAwStages; ++q) {
+      mbar_init(&full[q], 1);
+      mbar_init(&empty[q], kAwWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kAwWarps) {   // the producer
+    if (lane == 0) {
+      tma_prefetch(&g_map);
+      tma_prefetch(&wt_map);
+      for (int it = 0; it < tchunks * atiles; ++it) {
+        const int q = it % kAwStages, tc = it / atiles, kt = it % atiles;
+        if (it >= kAwStages) mbar_wait(&empty[q], ((it / kAwStages) - 1) & 1);
+        unsigned char* st = smem + q * kAwStage;
+        mbar_arrive_expect_tx(&full[q], kAwStage);
+        tma_load_3d(st, &g_map, &full[q], kt * kChunk, row0, s);
+        tma_load_3d(st + kAwGBox, &wt_map, &full[q], kt * kChunk, tc * kAffWords, s);
+      }
+    }
+    return;
+  }
+
+  // Lane (gq, c) = (lane / 4, lane % 4) holds rows r[0] = row0 + 16 warp +
+  // gq and r[1] = r[0] + 8, words 8 nt + 2c + e of each chunk (nt < 4, e <
+  // 2): acc[nt][2 hf + e] is row r[hf].
+  const int gq = lane / 4, c = lane % 4;
+  const int rows[2] = {row0 + 16 * warp + gq, row0 + 16 * warp + gq + 8};
+  float inv[2] = {1.f, 1.f};
+  if (L2N) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (rows[hf] >= N) continue;
+      const float* p = sq_part + (static_cast<size_t>(s) * N + rows[hf]) * parts;
+      float t = 0.f;
+      for (int j = 0; j < parts; ++j) t += p[j];
+      inv[hf] = 1.f / sqrtf(fmaxf(t, 1e-12f));
+    }
+  }
+  // ldmatrix addresses (128-byte swizzle: 16-byte group q of row r at q ^
+  // (r % 8), and r % 8 = lane % 8 here).  A: lane l gives row 16 warp + 8
+  // ((l / 8) % 2) + l % 8 of group 2 kk + l / 16; B: word 8 (l / 16) + l % 8
+  // (+ 16 for the second pair of n8 tiles) of group 2 kk + (l / 8) % 2.
+  const uint32_t a_row = (16 * warp + 8 * ((lane / 8) % 2) + lane % 8) * kSwizzleBytes;
+  const uint32_t b_row = (8 * (lane / 16) + lane % 8) * kSwizzleBytes;
+  const int a_grp = lane / 16, b_grp = (lane / 8) % 2, sw = lane % 8;
+  auto scaled = [&](uint32_t v, float f) {   // a bf16 pair times f, rounded to bf16
+    const float2 x = __bfloat1622float2(bits_bf2(v));
+    return bf2_bits(__floats2bfloat162_rn(x.x * f, x.y * f));
+  };
+  const float* rel_s = rel + static_cast<size_t>(s) * T;
+  const float* mask_s = mask + static_cast<size_t>(s) * T;
+  float row_m[2] = {-INFINITY, -INFINITY}, row_l[2] = {0.f, 0.f};
+  int it = 0;
+  for (int tc = 0; tc < tchunks; ++tc) {
+    float acc[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    for (int kt = 0; kt < atiles; ++kt, ++it) {
+      const int q = it % kAwStages;
+      mbar_wait(&full[q], (it / kAwStages) & 1);
+      const uint32_t ga = smem_u32(smem + q * kAwStage);
+      const uint32_t wb = ga + kAwGBox;
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, ga + a_row + (((2 * kk + a_grp) ^ sw) << 4));
+        if (L2N) {
+          a[0] = scaled(a[0], inv[0]);
+          a[1] = scaled(a[1], inv[1]);
+          a[2] = scaled(a[2], inv[0]);
+          a[3] = scaled(a[3], inv[1]);
+        }
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr) {
+          uint32_t b[4];
+          ldmatrix_x4(b, wb + b_row + pr * 16 * kSwizzleBytes + (((2 * kk + b_grp) ^ sw) << 4));
+          mma_m16n8k16(acc[2 * pr], a, b[0], b[1]);
+          mma_m16n8k16(acc[2 * pr + 1], a, b[2], b[3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[q]);   // this warp is done with the stage
+    }
+
+    // affi, the row softmax's running (max, sum) and the column partials
+    // of this chunk's words, from the fragment
+    const bool last = tc + 1 == tchunks;
+    float affi[2][8], z[2][8], rl[8], mk[8];
+    bool word[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = tc * kAffWords + 8 * (i / 2) + 2 * c + i % 2;
+      word[i] = t < T;
+      rl[i] = word[i] ? rel_s[t] : 0.f;
+      mk[i] = word[i] ? mask_s[t] : 0.f;
+    }
+    float m_old[2], m_new[2], l_new[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        affi[hf][i] = rl[i] * (acc[i / 2][2 * hf + i % 2] / scale);
+        z[hf][i] = MASKED ? mk[i] * affi[hf][i] + (1.f - mk[i]) * (-FLT_MAX) : affi[hf][i];
+        if (word[i]) mx = fmaxf(mx, z[hf][i]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      m_old[hf] = row_m[hf];
+      m_new[hf] = fmaxf(m_old[hf], mx);
+      float l = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        z[hf][i] = word[i] ? expf(z[hf][i] - m_new[hf]) : 0.f;   // now e
+        l += z[hf][i];
+      }
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      l_new[hf] = l + row_l[hf] * expf(m_old[hf] - m_new[hf]);
+      row_m[hf] = m_new[hf];
+      row_l[hf] = l_new[hf];
+      if (rows[hf] < N) {
+        const size_t o = (static_cast<size_t>(s) * N + rows[hf]) * T + tc * kAffWords + 2 * c;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (!word[i]) continue;
+          const size_t oi = o + 8 * (i / 2) + i % 2;
+          affi_out[oi] = affi[hf][i];
+          if (last)
+            w_out[oi] = MASKED ? z[hf][i] / l_new[hf] : mk[i] * (z[hf][i] / l_new[hf]);
+        }
+      }
+    }
+    // the column partials: over the warp's 16 rows (lanes of equal c), then
+    // over the 4 warps in order by warp 0
+    float cm[8], cs[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (rows[hf] < N) m = fmaxf(m, affi[hf][i]);
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float sum = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (rows[hf] < N) sum += expf(affi[hf][i] - m);
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      cm[i] = m;
+      cs[i] = sum;
+    }
+    if (gq == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        col_s[warp][8 * (i / 2) + 2 * c + i % 2][0] = cm[i];
+        col_s[warp][8 * (i / 2) + 2 * c + i % 2][1] = cs[i];
+      }
+    }
+    named_bar_sync(1, 32 * kAwWarps);
+    const int t = tc * kAffWords + lane;
+    if (warp == 0 && t < T) {
+      float m = -INFINITY;
+      for (int w = 0; w < kAwWarps; ++w) m = fmaxf(m, col_s[w][lane][0]);
+      float sum = 0.f;
+      for (int w = 0; w < kAwWarps; ++w)
+        if (col_s[w][lane][1] > 0.f) sum += col_s[w][lane][1] * expf(col_s[w][lane][0] - m);
+      float* st = stats + (static_cast<size_t>(s) * gridDim.x + rb) * 2 * T;
+      st[t] = m;
+      st[T + t] = sum;
+    }
+    named_bar_sync(1, 32 * kAwWarps);   // col_s is free for the next chunk
+  }
+
+  // the row softmax of the earlier chunks' words, from the affi this
+  // thread stored
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (rows[hf] >= N) continue;
+    const float inv_l = 1.f / row_l[hf];
+    const size_t o = (static_cast<size_t>(s) * N + rows[hf]) * T;
+    for (int tc = 0; tc + 1 < tchunks; ++tc)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int t = tc * kAffWords + 8 * (i / 2) + 2 * c + i % 2;
+        const float a = affi_out[o + t];
+        const float mk = mask_s[t];
+        w_out[o + t] = MASKED ? expf(mk * a + (1.f - mk) * (-FLT_MAX) - row_m[hf]) * inv_l
+                              : mk * (expf(a - row_m[hf]) * inv_l);
+      }
   }
 }
 
@@ -555,16 +831,43 @@ inline size_t aff_wide_g_bytes(int B, int N, int A) {
   return (static_cast<size_t>(B) * N * A * sizeof(bf16) + 15) / 16 * 16;
 }
 
+template <bool L2N, bool MASKED>
+int launch_affinity_wide(const CUtensorMap& x_map, const CUtensorMap& wg_map,
+                         const CUtensorMap& g_map, const CUtensorMap& wt_map, const void* bg,
+                         const void* rel, const void* mask, void* w_out, void* affi_out,
+                         void* stats, float* sq_part, int B, int N, int C, int A, int T,
+                         int groups, float scale, cudaStream_t s) {
+  const auto proj = aff_wide_tma_proj_kernel<L2N>;
+  const auto words = aff_wide_tma_words_kernel<L2N, MASKED>;
+  cudaError_t err =
+      cudaFuncSetAttribute(proj, cudaFuncAttributeMaxDynamicSharedMemorySize, kAwProjSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(words, cudaFuncAttributeMaxDynamicSharedMemorySize, kAwSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int slices = (A + kAffBN - 1) / kAffBN;
+  proj<<<dim3(slices, (N + kAffBM - 1) / kAffBM, B), kAffThreads, kAwProjSmem, s>>>(
+      x_map, wg_map, g_map, static_cast<const bf16*>(bg), sq_part, N, C, A, B / groups);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  words<<<dim3((N + kAwRows - 1) / kAwRows, B), kAwThreads, kAwSmem, s>>>(
+      g_map, wt_map, sq_part, slices, static_cast<const float*>(rel),
+      static_cast<const float*>(mask), static_cast<float*>(w_out), static_cast<float*>(affi_out),
+      static_cast<float*>(stats), N, A, T, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace cmpc
 
-extern "C" int cmpc_spa_affinity_wide_row_blocks(int N) { return cmpc::wide_tiles(N); }
+extern "C" int cmpc_spa_affinity_wide_row_blocks(int N) {
+  return (N + cmpc::kAwRows - 1) / cmpc::kAwRows;
+}
 
 // Bytes of the wide form's scratch: g [B*N, A] bf16, then the row norms'
-// partials [B*N, A/64] f32.
+// partials [B*N, ceil(A / 256)] f32.
 extern "C" long long cmpc_spa_affinity_wide_scratch(int B, int N, int A) {
   using namespace cmpc;
-  return static_cast<long long>(aff_wide_g_bytes(B, N, A) +
-                                static_cast<size_t>(B) * N * wide_tiles(A) * sizeof(float));
+  return static_cast<long long>(aff_wide_g_bytes(B, N, A) + static_cast<size_t>(B) * N *
+                                                                ((A + kAffBN - 1) / kAffBN) *
+                                                                sizeof(float));
 }
 
 // The contract of cmpc_spa_affinity for any A (a multiple of 8), with
@@ -581,38 +884,25 @@ extern "C" int cmpc_spa_affinity_wide(const void* x, const void* wg, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(x) || !aligned16(wg) || !aligned16(wt) || !aligned16(scratch))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  bf16* gt = static_cast<bf16*>(scratch);
+  CUtensorMap x_map, wg_map, wt_map, g_map;
+  const int rc =
+      affinity_maps(&x_map, &wg_map, &wt_map, &g_map, x, wg, wt, scratch, B, N, C, A, T, groups);
+  if (rc) return rc;
   float* sq_part = reinterpret_cast<float*>(static_cast<unsigned char*>(scratch) +
                                             aff_wide_g_bytes(B, N, A));
-  const dim3 proj(wide_tiles(A), wide_tiles(N), B);
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* wgb = static_cast<const bf16*>(wg);
-  const auto* bgb = static_cast<const bf16*>(bg);
+  if (l2n && masked)
+    return launch_affinity_wide<true, true>(x_map, wg_map, g_map, wt_map, bg, rel, mask, w_out,
+                                            affi_out, stats, sq_part, B, N, C, A, T, groups,
+                                            scale, s);
   if (l2n)
-    aff_wide_proj_kernel<true><<<proj, kWideThreads, 0, s>>>(xb, wgb, bgb, gt, sq_part, N, C,
-                                                             A, B / groups);
-  else
-    aff_wide_proj_kernel<false><<<proj, kWideThreads, 0, s>>>(xb, wgb, bgb, gt, sq_part, N, C,
-                                                              A, B / groups);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (l2n) {
-    const int rows = B * N;
-    aff_wide_norm_kernel<<<(rows + 7) / 8, 256, 0, s>>>(gt, sq_part, rows, A, wide_tiles(A));
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  aff_wide_words_kernel<<<dim3(wide_tiles(T), wide_tiles(N), B), kWideThreads, 0, s>>>(
-      gt, static_cast<const bf16*>(wt), static_cast<const float*>(rel),
-      static_cast<float*>(affi_out), N, A, T, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const dim3 rows_grid(wide_tiles(N), B);
+    return launch_affinity_wide<true, false>(x_map, wg_map, g_map, wt_map, bg, rel, mask,
+                                             w_out, affi_out, stats, sq_part, B, N, C, A, T,
+                                             groups, scale, s);
   if (masked)
-    aff_wide_softmax_kernel<true><<<rows_grid, 256, 0, s>>>(
-        static_cast<const float*>(affi_out), static_cast<const float*>(mask),
-        static_cast<float*>(w_out), static_cast<float*>(stats), N, T);
-  else
-    aff_wide_softmax_kernel<false><<<rows_grid, 256, 0, s>>>(
-        static_cast<const float*>(affi_out), static_cast<const float*>(mask),
-        static_cast<float*>(w_out), static_cast<float*>(stats), N, T);
-  return static_cast<int>(cudaGetLastError());
+    return launch_affinity_wide<false, true>(x_map, wg_map, g_map, wt_map, bg, rel, mask,
+                                             w_out, affi_out, stats, sq_part, B, N, C, A, T,
+                                             groups, scale, s);
+  return launch_affinity_wide<false, false>(x_map, wg_map, g_map, wt_map, bg, rel, mask, w_out,
+                                            affi_out, stats, sq_part, B, N, C, A, T, groups,
+                                            scale, s);
 }

@@ -12,6 +12,8 @@
 // They are simple, not fast: a block of 4 warps owns one 64 x 64 output
 // tile, K advances 32 at a time through shared memory without a
 // pipeline, and the products run as WMMA m16n16k16 (bf16 in, f32 sums).
+// It no longer serves the graph update's and the affinity's wide forms,
+// which run TMA + wgmma designs in their own sources.
 #pragma once
 
 #include <mma.h>
@@ -122,7 +124,5 @@ __device__ __forceinline__ float wide_row_sum(const WideSmem& sm, int r) {
   for (int j = 0; j < kWideTile; ++j) t += sm.c[r][j];
   return t;
 }
-
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace cmpc

@@ -559,11 +559,14 @@ def _update_launch(x, msg, stats1, ws, bs, g1s, b1s, width):
     _expect("b1", b1s, torch.float32, (groups, c))
     _multiple_of(8, C=c)
     _aligned16(x=x, msg=msg, w=ws)
-    lib = build.library("graph_conv")
-    # LN1's affine of at most 4096 columns in shared memory, or the wide form
+    # LN1's affine of at most 4096 columns in shared memory, or the wide
+    # form, which bulk-copies each K step's columns of it (both forms write
+    # the statistics in one layout)
     wide = c > UPDATE_MAX_C
-    parts = (lib.cmpc_graph_wide_parts(n, c) if wide else
-             lib.cmpc_graph_update_parts(n, c))
+    if wide:
+        _aligned16(g1=g1s, b1=b1s)
+    lib = build.library("graph_conv")
+    parts = lib.cmpc_graph_update_parts(n, c)
     z = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=x.device)
     stats = torch.empty((bsz, parts, 2), dtype=torch.float32, device=x.device)
     launch = lib.cmpc_graph_update_wide if wide else lib.cmpc_graph_update

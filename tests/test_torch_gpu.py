@@ -497,18 +497,25 @@ def test_graph_msg_wide_form_where_the_plan_does_not_fit(cuda, b, n, c, t):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("a", [2056, 4104])
+@pytest.mark.parametrize("n,c,a,t", [(75, 72, 2056, 40), (75, 72, 4104, 40),
+                                     (100, 72, 4104, 20),
+                                     (1600, 4104, 4104, 20)])
 @pytest.mark.parametrize("l2n,masked", [(False, True), (False, False),
                                         (True, False), (True, True)])
-@pytest.mark.parametrize("groups", [0, 3])
+@pytest.mark.parametrize("groups", [0, 2, 3])
 def test_affinity_wide_form_matches_plain_version(cuda, groups, l2n, masked,
-                                                  a):
+                                                  n, c, a, t):
     """A past the 2048 columns one cluster of 8 x 256 covers: the wide
-    form (the l2n row norm from per-tile partials), both forms, 3 samples
-    of 100 rows (a 64-row tile past each sample), C = 72, T = 40."""
-    args = _affinity_args(cuda, 3, 100, 72, a, 40, groups)
+    form (the TMA + wgmma projection with per-block row-norm partials, then
+    the word product and both softmaxes), G = 1 (the ungrouped form), 2
+    and 3, on 6 samples: N = 75 and 100 leave a 64-row words tile and a
+    128-row projection tile past each sample's end, 1600 is phase 17's
+    (12.5 projection tiles, C = A = 4104); A = 2056 and 4104 end in an
+    8-column box past the last 64 and 256; T = 40 takes two 32-word
+    chunks."""
+    args = _affinity_args(cuda, 6, n, c, a, t, groups)
     name = "spa_affinity_grouped" if groups else "spa_affinity"
-    got, want = _wide_call(name, args, {"scale": 72 ** 0.5, "l2n": l2n,
+    got, want = _wide_call(name, args, {"scale": c ** 0.5, "l2n": l2n,
                                         "masked": masked})
     _close(name, got, want, None)
 
@@ -525,17 +532,25 @@ def test_se_sum_wide_form_matches_plain_version(cuda, b, n, k, c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("groups", [0, 3])
-@pytest.mark.parametrize("n", [75, 100])
+@pytest.mark.parametrize("groups", [0, 2, 3])
+@pytest.mark.parametrize("n", [75, 100, 1600])
 def test_graph_update_wide_form_matches_plain_version(cuda, n, groups):
     """C = 4104, past the 4096 columns of LN1's affine that the update
-    kernel stages: the wide form, both forms, 6 samples of n rows, and
-    its statistics one slot per 64 x 64 tile."""
+    kernel stages: the wide form (the update's pipeline with LN1's affine
+    carried in the ring), G = 1 (the ungrouped form), 2 and 3, 6 samples
+    of n rows (75 and 100 end in a part-filled 128-row tile, 1600 is
+    phase 17's), an 8-column last K step and W box; its statistics in the
+    main kernel's layout, one slot per 128 x 256 block.  msg's statistics
+    come as the message's wide form writes them, a slot per 64 x 64 tile
+    (1625 a sample at N = 1600), which the block sums over its threads."""
+    lib = build.library("graph_conv")
     args = _update_args(cuda, 6, n, 4104, groups)
+    slots = lib.cmpc_graph_wide_parts(n, 4104)
+    stats1 = (args[2] / slots).expand(-1, slots, -1).contiguous()
+    args = (*args[:2], stats1, *args[3:])
     name = "graph_update_grouped" if groups else "graph_update"
     got, want = _wide_call(name, args)
-    assert got[1].shape == (6, build.library("graph_conv")
-                            .cmpc_graph_wide_parts(n, 4104), 2)
+    assert got[1].shape == (6, lib.cmpc_graph_update_parts(n, 4104), 2)
     _close(name, got, want, n * 4104)
 
 
