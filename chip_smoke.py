@@ -25,8 +25,9 @@ Phases, each fatal on failure:
     too, at 1e-3); the least time the card could take at those shapes.
     The dz pass's record also splits its time between the dz kernel and
     the slot finalize (torch.profiler), and the dz and raw records give
-    their grids.  Then the kernels at small ragged shapes ("edge" records:
-    M, K, C and W off their tiles, tiles that straddle samples, C = 1000
+    their grids (the dz pass's wide form its row ranges).  Then the
+    kernels at small ragged shapes ("edge" records: M, K, C and W off
+    their tiles, tiles that straddle samples, C = 1000
     against the per-head edge of W's tensor map; the ConvLSTM gates and SE
     sum at an odd B*N = 75 with 25-row samples, and SE sum with 4 others;
     the grouped affinity and update at 3 samples of 75 rows, C = 72, A =
@@ -39,9 +40,10 @@ Phases, each fatal on failure:
     pads to 1016, against its plain route).  The wide forms at the widths
     past their main kernels (`wide_edge_inputs`: the affinity at A = 2056
     in all four l2n / masked combinations and grouped at A = 4104 with G =
-    3 and 2, the SE sum at C = 1032, graph_msg at C = 4104, graph_update
-    there with G = 1, 3 and 2, graph_msg at C = 4096 with T = 300, the dz
-    pass at C = 4104 with 5 heads and C = 1030 with 8), each of which must
+    3 and 2, the SE sum at C = 1032 and at C = 1028 (8-byte rows) with 1
+    and 4 others, graph_msg at C = 4104, graph_update there with G = 1, 3
+    and 2, graph_msg at C = 4096 with T = 300, the dz pass at C = 4104 with
+    5 heads, C = 1030 with 8 and C = 2002 with 5), each of which must
     launch its wrapper's wide form, and mutan_fused at C = 4104 and the
     ConvLSTM pair at CM = 1032 on their main kernels.  Each path's record
     carries its widths: C = v_emb_dim, K, A = the affinity width, CM = mlp_dim
@@ -300,10 +302,9 @@ WIDE_B = 2
 WIDE_FORMS = ("spa_affinity_grouped", "graph_msg", "graph_update_grouped",
               "se_sum")               # and mutan_bwd_dz in a train step
 WIDE_KERNELS = ("aff_wide_tma_proj_kernel", "aff_wide_tma_words_kernel",
-                "se_wide_kernel", "se_wide_norm_kernel",
+                "se_sum_wide_kernel", "se_sum_wide_norm_kernel",
                 "graph_msg_wide_kernel", "graph_update_wide_tma_kernel",
-                "dz_wide_rows_kernel", "dz_wide_cols_kernel",
-                "dz_wide_finish_kernel")
+                "dz_wide_scalars_kernel", "dz_wide_stream_kernel")
 PORT_KERNELS = ("convlstm_gates_kernel", "convlstm_raw_kernel",
                 "graph_msg_kernel", "graph_update_kernel",
                 "mutan_heads_kernel", "mutan_norm_kernel", "mutan_dz_kernel",
@@ -937,6 +938,10 @@ def check_kernels(torch, kernels, cmpc, dev, specs):
                     rows, rows // bk, spec["c"], HEADS)[0]
                 if form == "main":
                     extra["grid"] = (scratch - bk + 1) // 2
+                else:   # the wide form's row ranges
+                    extra["ranges"] = kernels.build.library(
+                        "mutan_bwd").cmpc_mutan_dz_wide_ranges(
+                            rows, spec["c"], HEADS)
             if name == "convlstm_raw":   # one statistics slot per block
                 extra["grid"] = slots * bk
             rec = {
@@ -1116,11 +1121,14 @@ def wide_edge_inputs(torch, kernels, dev):
     masked) and G = 2 (neither), on 6 samples (3 at G = 1) of 75 rows (a
     64-row tile past each sample's first, a 128-row projection tile half
     empty), C = EDGE_C, T = EDGE_T (two 32-word chunks); the SE sum at C =
-    1032 with 2 others on 3 samples of 25 rows; graph_msg at C = 4104 (T =
-    EDGE_T) and at C = 4096 with T = 300, and graph_update at C = 4104 on
-    the first's msg (G = 1), grouped at G = 3 and 2 on 6 samples of 75
-    rows (C = 4104 ends in an 8-column K step and W box); the dz pass at C
-    = 4104 with 5 heads and at C = 1030 with 8, on 2 samples of 75 rows.
+    1032 with 2 others and at C = 1028 (8-byte rows: 8-byte copies and
+    norm accesses, a 4-column last slice) with 1 and 4 others, on 3
+    samples of 25 rows (row tiles straddle samples); graph_msg at C = 4104
+    (T = EDGE_T) and at C = 4096 with T = 300, and graph_update at C =
+    4104 on the first's msg (G = 1), grouped at G = 3 and 2 on 6 samples
+    of 75 rows (C = 4104 ends in an 8-column K step and W box); the dz
+    pass at C = 4104 with 5 heads (16-byte rows), C = 1030 with 8 and C =
+    2002 with 5 (4-byte rows), on 2 samples of 75 rows.
     Then the kernels that list no width bound, at the widened flagship's
     widths on their main kernels: mutan_fused at C = 4104 (K = 4112) and
     the ConvLSTM gates and raw kernels at CM = 1032."""
@@ -1172,10 +1180,16 @@ def wide_edge_inputs(torch, kernels, dev):
                 {"heads": heads, "rows_per_sample": n})
 
     se_n = 25
-    se = (randn(b, se_n, wcm), [randn(b, se_n, wcm) for _ in range(2)],
-          [torch.sigmoid(randn(b, wcm, dtype=f32)).to(bf) for _ in range(2)],
-          [randn(wcm, wcm, scale=wcm ** -0.5) for _ in range(2)],
-          [randn(wcm, scale=0.1) for _ in range(2)])
+
+    def se_args(c, k):
+        return (randn(b, se_n, c), [randn(b, se_n, c) for _ in range(k)],
+                [torch.sigmoid(randn(b, c, dtype=f32)).to(bf)
+                 for _ in range(k)],
+                [randn(c, c, scale=c ** -0.5) for _ in range(k)],
+                [randn(c, scale=0.1) for _ in range(k)])
+
+    se = se_args(wcm, 2)
+
     k = wc + 8
     mutan = ((randn(2 * n, k), randn(k, HEADS * wc, scale=k ** -0.5),
               randn(HEADS * wc, scale=0.1, dtype=f32),
@@ -1208,6 +1222,9 @@ def wide_edge_inputs(torch, kernels, dev):
         ("mutan_fused", f":C{wc}", *mutan),
         ("convlstm_gates", f":CM{wcm}", gates_args, {}),
         ("convlstm_raw", f":CM{wcm}", raw, {}),
+        ("se_sum", ":wide-C1028-1other", se_args(1028, 1), {}),
+        ("se_sum", ":wide-C1028-4others", se_args(1028, 4), {}),
+        ("mutan_bwd_dz", ":wide-C2002-5heads", *dz_args(2002, HEADS)),
     ]
 
 

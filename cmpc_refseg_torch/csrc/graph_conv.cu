@@ -898,7 +898,7 @@ graph_msg_wide_kernel(const bf16* __restrict__ w_aff, const bf16* __restrict__ p
   const size_t srow = static_cast<size_t>(s) * N;
   const RowsLoad wa{w_aff + srow * T, T, N, T, avec};
   const RowsLoad pb{pooled + static_cast<size_t>(s) * T * C, C, T, C, true};
-  wide_product<false>(sm, wa, pb, row0, c0, T);
+  wide_product(sm, wa, pb, row0, c0, T);
   float sum = 0.f, sumsq = 0.f;
 #pragma unroll 4
   for (int i = 0; i < kWidePerThread; ++i) {

@@ -323,6 +323,19 @@ mutan_dz_finalize_kernel(const float* __restrict__ part_dl, const float* __restr
   }
 }
 
+// The finalize over the slots of `grid` dz blocks (part_dl [grid + M / N -
+// 1, W], part_db [grid, W]) into dlang [M / N, W] and db [W].
+inline cudaError_t launch_dz_finalize(const float* part_dl, const float* part_db, void* dlang,
+                                      void* db, int W, int M, int N, int grid,
+                                      cudaStream_t s) {
+  const int blocks = (W + kFinDlCols - 1) / kFinDlCols * (M / N) +
+                     (W + kFinDbCols - 1) / kFinDbCols;
+  mutan_dz_finalize_kernel<<<blocks, kFinThreads, 0, s>>>(
+      part_dl, part_db, static_cast<float*>(dlang), static_cast<float*>(db), W, M, N, grid,
+      M / N);
+  return cudaGetLastError();
+}
+
 using DzKernel = void (*)(const bf16*, const float*, const bf16*, bf16*, float*, float*, int,
                           int, int, int, int);
 
@@ -557,12 +570,7 @@ extern "C" int cmpc_mutan_bwd_dz(const void* v, const void* lang, const void* g,
       p.vbuf, p.gbuf);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int fin_blocks = (W + kFinDlCols - 1) / kFinDlCols * (M / N) +
-                         (W + kFinDbCols - 1) / kFinDbCols;
-  mutan_dz_finalize_kernel<<<fin_blocks, kFinThreads, 0, s>>>(
-      part_dl, part_db, static_cast<float*>(dlang), static_cast<float*>(db), W, M, N, p.grid,
-      M / N);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dz_finalize(part_dl, part_db, dlang, db, W, M, N, p.grid, s));
 }
 
 // The splits of the dW reduction over M that `cmpc_mutan_dw` runs: each
@@ -615,163 +623,355 @@ extern "C" int cmpc_mutan_dw(const void* x, const void* dz, void* dw, void* part
 }
 
 // ---------------------------------------------------------------------------
-// The dz pass's wide form, for the shapes dz_plan refuses (heads * VEC
-// accumulators past a thread's budget, C / VEC past 32 kDzMaxWarps, or the
-// ring past shared memory): any heads <= 8 and even C.  No TPU kernel of
-// its own: the Pallas kernel's block spans the whole row at any C.  The
-// row norm and gy are the only reductions over a row, two scalars, so they
-// are carried in device memory:
-//  1. a block per row sweeps its C columns: sq = sum y^2 and sum g * y;
-//     it stores r = rsqrt(max(sq, 1e-12)) and gy = r * sum g * y (0 where
-//     sq <= 1e-12, so that dy = g * r there);
-//  2. a thread per column c of every head, a block per (128 columns,
-//     sample, share of the sample's rows): it rebuilds y from v and lang,
-//     writes dz_h, and keeps its dlang and db sums in registers, which go
-//     to per-(sample, share) slots of the scratch;
-//  3. a thread per column of heads * C adds the slots in a fixed order:
-//     dlang per sample, db over all.
-// The scratch ([2 slots + ceil(2 M / (heads C)), heads C] f32,
-// `cmpc_mutan_dz_wide_shares`) holds both slot sets, then (r, gy) per row.
-// Bound on the card: bytes (v read twice, dz written once).
+// The dz pass's wide form, for the shapes dz_plan refuses (C / VEC past 32
+// kDzMaxWarps, or the ring past shared memory): any heads <= 8 and even C.
+// No TPU kernel of its own: the Pallas kernel's block spans the whole row
+// at any C.  The row norm and gy are the only reductions over a row, two
+// scalars, so they are carried in device memory.  Three launches:
+//  1. dz_wide_scalars_kernel, a warp per row (8 rows a block): each lane
+//     takes VEC adjacent columns of every head at a time (16-, 8- or
+//     4-byte loads), y = tanh(sum_h v_h lang_h), and the warp sums sq =
+//     sum y^2 and sum g y; it stores r = rsqrt(max(sq, 1e-12)) and gy = r *
+//     sum g y (0 where sq <= 1e-12, so that dy = g * r there);
+//  2. dz_wide_stream_kernel, the column stream: thread t owns VEC adjacent
+//     columns of every head (VEC the widest of 8, 4, 2 that divides C with
+//     heads * VEC <= kDzMaxVals accumulators) in one of `ranges` contiguous
+//     row ranges [b M / ranges, (b + 1) M / ranges), which may cross
+//     samples; each thread keeps kDzWideDepth of its rows' v, g and (r,
+//     gy) in flight by cp.async into its own slots of a shared-memory ring
+//     (one copy group a row, no barrier: only the thread reads its slots),
+//     so the bytes in flight do not cost registers; it writes dz_h with
+//     VEC-wide stores and keeps its dlang / db sums in registers (its lang
+//     slice waits in shared memory), written to the main kernel's slots:
+//     dlang at b + sample, db at b.  `ranges` fills the card: as many
+//     threads as one wave of blocks holds;
+//  3. mutan_dz_finalize_kernel, the main kernel's fixed-order slot sums.
+// The scratch (cmpc_mutan_dz_wide_ranges) is the main kernel's slot layout
+// for `ranges` blocks, then (r, gy) per row.  Bound on the card: bytes (v
+// and g read twice, dz written once).
 // ---------------------------------------------------------------------------
 namespace cmpc {
 
-constexpr int kDzWideCols = 128;     // columns of a block of pass 2
-constexpr int kDzWideTarget = 264;   // pass 2's blocks to aim for: two per SM
-constexpr int kDzWideMaxHeads = 8;
+constexpr int kDzWideRowWarps = 8;      // rows per block of the scalars pass
+constexpr int kDzWideThreads = 128;     // threads per block of the stream
+constexpr int kDzWideMinBlocks = 2;     // stream blocks per SM: a 255-register cap
+constexpr int kDzWideDepth = 4;         // rows of a stream thread in flight (cp.async)
 
-__global__ void __launch_bounds__(256)
-dz_wide_rows_kernel(const bf16* __restrict__ v, const float* __restrict__ lang,
-                    const bf16* __restrict__ g, float* __restrict__ rs, int C, int N,
-                    int heads) {
-  __shared__ float red[8];
-  const int row = blockIdx.x, s = row / N, W = heads * C;
+// VEC f32 from p (aligned to 4 VEC bytes, or 16 where VEC = 8).
+template <int VEC>
+__device__ __forceinline__ void load_f32(const float* p, float (&out)[VEC]) {
+  if constexpr (VEC == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    out[0] = a.x;
+    out[1] = a.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 a = reinterpret_cast<const float4*>(p)[q];
+      out[4 * q] = a.x;
+      out[4 * q + 1] = a.y;
+      out[4 * q + 2] = a.z;
+      out[4 * q + 3] = a.w;
+    }
+  }
+}
+
+template <int HEADS, int VEC>
+__global__ void __launch_bounds__(32 * kDzWideRowWarps)
+dz_wide_scalars_kernel(const bf16* __restrict__ v, const float* __restrict__ lang,
+                       const bf16* __restrict__ g, float* __restrict__ rs, int M, int C,
+                       int N) {
+  const int row = blockIdx.x * kDzWideRowWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const int W = HEADS * C;
   const bf16* vr = v + static_cast<size_t>(row) * W;
-  const float* l = lang + static_cast<size_t>(s) * W;
+  const float* l = lang + static_cast<size_t>(row / N) * W;
   const bf16* gr = g + static_cast<size_t>(row) * C;
   float sq = 0.f, gty = 0.f;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float acc = 0.f;
-    for (int h = 0; h < heads; ++h) acc += bf2f(vr[h * C + c]) * l[h * C + c];
-    const float y = tanhf(acc);
-    sq += y * y;
-    gty += bf2f(gr[c]) * y;
+#pragma unroll 2
+  for (int c = VEC * lane; c < C; c += 32 * VEC) {
+    BfBitsT<VEC> vb[HEADS];
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) vb[h] = *reinterpret_cast<const BfBitsT<VEC>*>(vr + h * C + c);
+    const BfBitsT<VEC> gb = *reinterpret_cast<const BfBitsT<VEC>*>(gr + c);
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) {
+      float vv[VEC], ll[VEC];
+      unpack_bf<VEC>(vb[h], vv);
+      load_f32<VEC>(l + h * C + c, ll);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] += vv[e] * ll[e];
+    }
+    float gg[VEC];
+    unpack_bf<VEC>(gb, gg);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float y = tanhf(acc[e]);
+      sq += y * y;
+      gty += gg[e] * y;
+    }
   }
-  sq = block_sum(sq, red);
-  gty = block_sum(gty, red);
-  if (threadIdx.x == 0) {
-    const float r = rsqrtf(fmaxf(sq, 1e-12f));
-    rs[2 * static_cast<size_t>(row)] = r;
-    rs[2 * static_cast<size_t>(row) + 1] = sq > 1e-12f ? gty * r : 0.f;
+  sq = warp_sum(sq);
+  gty = warp_sum(gty);
+  if (lane == 0) {
+    const float r = rsqrtf(fmaxf(sq, kNormEps));
+    *reinterpret_cast<float2*>(rs + 2 * static_cast<size_t>(row)) =
+        make_float2(r, sq > kNormEps ? gty * r : 0.f);
   }
 }
 
-__global__ void __launch_bounds__(kDzWideCols)
-dz_wide_cols_kernel(const bf16* __restrict__ v, const float* __restrict__ lang,
-                    const bf16* __restrict__ g, const float* __restrict__ rs,
-                    bf16* __restrict__ dz, float* __restrict__ part_dl,
-                    float* __restrict__ part_db, int C, int N, int heads, int shares) {
-  const int c = blockIdx.x * kDzWideCols + threadIdx.x;
-  if (c >= C) return;
-  const int s = blockIdx.y / shares, sh = blockIdx.y % shares;
-  const int chunk = (N + shares - 1) / shares;
-  const int n0 = sh * chunk, n1 = min(N, n0 + chunk);
-  const int W = heads * C;
-  float l[kDzWideMaxHeads], dl[kDzWideMaxHeads], db[kDzWideMaxHeads];
+// A copy of BYTES (4, 8 or 16) from global `src` to shared `dst` by
+// cp.async; the 16-byte copies bypass L1 (v and g are read once here).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_bytes(void* dst, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "n"(BYTES) : "memory");
+}
+
+// Dynamic shared memory of the stream: each thread's lang slice
+// [HEADS * VEC / 2] float pairs, then its ring of kDzWideDepth rows
+// ([HEADS + 1] vectors of VEC bf16: v's heads, then g) and their (r, gy);
+// every entry kDzWideThreads apart, so neighbouring threads touch
+// neighbouring addresses.
+template <int HEADS, int VEC>
+constexpr int dz_wide_smem() {
+  return kDzWideThreads *
+         (HEADS * VEC / 2 * 8 + kDzWideDepth * ((HEADS + 1) * 2 * VEC + 8));
+}
+
+template <int HEADS, int VEC>
+__global__ void __launch_bounds__(kDzWideThreads, kDzWideMinBlocks)
+dz_wide_stream_kernel(const bf16* __restrict__ v, const float* __restrict__ lang,
+                      const bf16* __restrict__ g, const float* __restrict__ rs,
+                      bf16* __restrict__ dz, float* __restrict__ part_dl,
+                      float* __restrict__ part_db, int M, int C, int N, int ranges) {
+  using Bits = BfBitsT<VEC>;
+  constexpr int T = kDzWideThreads, D = kDzWideDepth;
+  extern __shared__ __align__(16) unsigned char dz_wide_smem_raw[];
+  float2* lsm = reinterpret_cast<float2*>(dz_wide_smem_raw);               // [HEADS VEC / 2][T]
+  Bits* ring = reinterpret_cast<Bits*>(lsm + HEADS * VEC / 2 * T);         // [D][HEADS + 1][T]
+  float2* rgs = reinterpret_cast<float2*>(ring + D * (HEADS + 1) * T);     // [D][T]
+  const int tid = threadIdx.x;
+  const int cols = C / VEC;
+  const long long t = static_cast<long long>(blockIdx.x) * T + tid;
+  if (t >= static_cast<long long>(cols) * ranges) return;
+  const int b = static_cast<int>(t / cols), col = static_cast<int>(t % cols) * VEC;
+  const int row0 = static_cast<int>(static_cast<long long>(b) * M / ranges);
+  const int row1 = static_cast<int>(static_cast<long long>(b + 1) * M / ranges);
+  const int W = HEADS * C;
+  float dl[HEADS][VEC], db[HEADS][VEC];
 #pragma unroll
-  for (int h = 0; h < kDzWideMaxHeads; ++h) {
-    l[h] = h < heads ? lang[static_cast<size_t>(s) * W + h * C + c] : 0.f;
-    dl[h] = db[h] = 0.f;
-  }
-  for (int n = n0; n < n1; ++n) {
-    const size_t row = static_cast<size_t>(s) * N + n;
-    const float r = rs[2 * row], gy = rs[2 * row + 1];
-    float vv[kDzWideMaxHeads];
-    float acc = 0.f;
+  for (int h = 0; h < HEADS; ++h)
 #pragma unroll
-    for (int h = 0; h < kDzWideMaxHeads; ++h) {
-      vv[h] = h < heads ? bf2f(v[row * W + h * C + c]) : 0.f;
-      if (h < heads) acc += vv[h] * l[h];
+    for (int e = 0; e < VEC; ++e) dl[h][e] = db[h][e] = 0.f;
+  int cur = row0 / N;   // the sample of dl and of the lang slice
+  auto stage_lang = [&](int s) {
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) {
+      float ll[VEC];
+      load_f32<VEC>(lang + static_cast<size_t>(s) * W + h * C + col, ll);
+#pragma unroll
+      for (int q = 0; q < VEC / 2; ++q)
+        lsm[(h * VEC / 2 + q) * T + tid] = make_float2(ll[2 * q], ll[2 * q + 1]);
     }
-    const float y = tanhf(acc), out = y * r;
-    const float dy = (bf2f(g[row * C + c]) - out * gy) * r;
-    const float dacc = dy * (1.f - y * y);
+  };
+  auto lang_of = [&](int h, float (&ll)[VEC]) {
 #pragma unroll
-    for (int h = 0; h < kDzWideMaxHeads; ++h) {
-      if (h >= heads) continue;
-      const float d = dacc * l[h] * (1.f - vv[h] * vv[h]);
-      dz[row * W + h * C + c] = f2bf(d);
-      dl[h] += dacc * vv[h];
-      db[h] += d;
+    for (int q = 0; q < VEC / 2; ++q) {
+      const float2 a = lsm[(h * VEC / 2 + q) * T + tid];
+      ll[2 * q] = a.x;
+      ll[2 * q + 1] = a.y;
+    }
+  };
+  // row r's copies into ring slot q: one cp.async group a row
+  auto fetch = [&](int r, int q) {
+    const bf16* vr = v + static_cast<size_t>(r) * W + col;
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h)
+      cp_async_bytes<2 * VEC>(&ring[(q * (HEADS + 1) + h) * T + tid], vr + h * C);
+    cp_async_bytes<2 * VEC>(&ring[(q * (HEADS + 1) + HEADS) * T + tid],
+                            g + static_cast<size_t>(r) * C + col);
+    cp_async_bytes<8>(&rgs[q * T + tid], rs + 2 * static_cast<size_t>(r));
+  };
+  stage_lang(cur);
+#pragma unroll
+  for (int i = 0; i < D - 1; ++i) {
+    if (row0 + i < row1) fetch(row0 + i, i);
+    cp_async_commit();   // an empty group past the range keeps the count
+  }
+
+  for (int r = row0, q = 0; r < row1; ++r, q = q + 1 == D ? 0 : q + 1) {
+    // row r + D - 1 into the slot row r - 1 freed, then wait for row r
+    if (r + D - 1 < row1) fetch(r + D - 1, q == 0 ? D - 1 : q - 1);
+    cp_async_commit();
+    cp_async_wait<D - 1>();
+    if (r / N != cur) {
+      // a new sample: this range's dlang sums of the last one go to its slot
+#pragma unroll
+      for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          part_dl[static_cast<size_t>(b + cur) * W + h * C + col + e] = dl[h][e];
+          dl[h][e] = 0.f;
+        }
+      stage_lang(++cur);
+    }
+    Bits xv[HEADS];
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) xv[h] = ring[(q * (HEADS + 1) + h) * T + tid];
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) {
+      float vv[VEC], ll[VEC];
+      unpack_bf<VEC>(xv[h], vv);
+      lang_of(h, ll);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] += vv[e] * ll[e];
+    }
+    float gg[VEC], dacc[VEC];
+    unpack_bf<VEC>(ring[(q * (HEADS + 1) + HEADS) * T + tid], gg);
+    const float2 rg = rgs[q * T + tid];
+    const float rn = rg.x, gy = rg.y;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float y = tanhf(acc[e]);
+      const float dy = (gg[e] - y * rn * gy) * rn;
+      dacc[e] = dy * (1.f - y * y);
+    }
+    bf16* dzrow = dz + static_cast<size_t>(r) * W + col;
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) {
+      float vv[VEC], ll[VEC], d[VEC];
+      unpack_bf<VEC>(xv[h], vv);
+      lang_of(h, ll);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        d[e] = dacc[e] * ll[e] * (1.f - vv[e] * vv[e]);
+        dl[h][e] += dacc[e] * vv[e];
+        db[h][e] += d[e];
+      }
+      store_bf<VEC>(dzrow + h * C, d);
     }
   }
-  const size_t slot = (static_cast<size_t>(s) * shares + sh) * W;
+  cp_async_wait<0>();
 #pragma unroll
-  for (int h = 0; h < kDzWideMaxHeads; ++h)
-    if (h < heads) {
-      part_dl[slot + h * C + c] = dl[h];
-      part_db[slot + h * C + c] = db[h];
+  for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      part_dl[static_cast<size_t>(b + cur) * W + h * C + col + e] = dl[h][e];
+      part_db[static_cast<size_t>(b) * W + h * C + col + e] = db[h][e];
     }
 }
 
-__global__ void __launch_bounds__(256)
-dz_wide_finish_kernel(const float* __restrict__ part_dl, const float* __restrict__ part_db,
-                      float* __restrict__ dlang, float* __restrict__ db, int W, int B,
-                      int shares) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  float tdb = 0.f;
-  for (int s = 0; s < B; ++s) {
-    float tdl = 0.f;
-    for (int sh = 0; sh < shares; ++sh) {
-      const size_t slot = (static_cast<size_t>(s) * shares + sh) * W + w;
-      tdl += part_dl[slot];
-      tdb += part_db[slot];
-    }
-    dlang[static_cast<size_t>(s) * W + w] = tdl;
+using DzWideScalarsKernel = void (*)(const bf16*, const float*, const bf16*, float*, int, int,
+                                     int);
+using DzWideStreamKernel = void (*)(const bf16*, const float*, const bf16*, const float*,
+                                    bf16*, float*, float*, int, int, int, int);
+
+struct DzWidePlan {
+  DzWideScalarsKernel scalars;
+  DzWideStreamKernel stream;
+  int vec, smem, ranges;
+};
+
+template <int HEADS, int VEC>
+void dz_wide_kernels_if_fit(DzWidePlan& p) {
+  if constexpr (HEADS * VEC <= kDzMaxVals) {
+    p.scalars = dz_wide_scalars_kernel<HEADS, VEC>;
+    p.stream = dz_wide_stream_kernel<HEADS, VEC>;
+    p.smem = dz_wide_smem<HEADS, VEC>();
   }
-  db[w] = tdb;
+}
+
+template <int HEADS>
+void dz_wide_kernels_for(DzWidePlan& p) {
+  if (p.vec == 8)
+    dz_wide_kernels_if_fit<HEADS, 8>(p);
+  else if (p.vec == 4)
+    dz_wide_kernels_if_fit<HEADS, 4>(p);
+  else
+    dz_wide_kernels_if_fit<HEADS, 2>(p);
+}
+
+// The kernels, vector and row ranges for M rows of heads * C columns, or
+// ranges = 0 where the shape is not supported (heads outside 1..8, odd C).
+// The ranges give as many stream threads as one wave of blocks holds
+// on the card, at least one row each.
+inline DzWidePlan dz_wide_plan(int M, int C, int heads) {
+  DzWidePlan p{nullptr, nullptr, 0, 0, 0};
+  if (C < 2 || C % 2 || heads < 1 || heads > 8 || M < 1) return p;
+  for (int vec = 8; vec >= 2 && p.vec == 0; vec /= 2)
+    if (C % vec == 0 && heads * vec <= kDzMaxVals) p.vec = vec;
+  switch (heads) {
+    case 1: dz_wide_kernels_for<1>(p); break;
+    case 2: dz_wide_kernels_for<2>(p); break;
+    case 3: dz_wide_kernels_for<3>(p); break;
+    case 4: dz_wide_kernels_for<4>(p); break;
+    case 5: dz_wide_kernels_for<5>(p); break;
+    case 6: dz_wide_kernels_for<6>(p); break;
+    case 7: dz_wide_kernels_for<7>(p); break;
+    default: dz_wide_kernels_for<8>(p); break;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if (p.stream == nullptr || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaFuncSetAttribute(p.stream, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p.stream, kDzWideThreads, p.smem) !=
+          cudaSuccess ||
+      per_sm < 1)
+    return p;
+  const long long threads = static_cast<long long>(sms) * per_sm * kDzWideThreads;
+  const long long ranges = threads / (C / p.vec);
+  p.ranges = static_cast<int>(ranges < 1 ? 1 : ranges > M ? M : ranges);
+  return p;
 }
 
 }  // namespace cmpc
 
-// Shares of each sample's N rows that the wide dz pass splits over its
-// blocks (M = B * N rows of heads * C columns), so that about
-// kDzWideTarget blocks run; its scratch is [2 B shares + ceil(2 M /
-// (heads C)), heads C] f32.
-extern "C" int cmpc_mutan_dz_wide_shares(int M, int C, int N) {
-  using namespace cmpc;
-  const long long cols = (C + kDzWideCols - 1) / kDzWideCols;
-  const long long blocks = cols * (M / N);
-  const long long want = (kDzWideTarget + blocks - 1) / blocks;
-  return static_cast<int>(want < 1 ? 1 : want > N ? N : want);
+// The row ranges of the wide dz pass for M rows of heads * C columns (0
+// where it does not take the shape).  Its scratch `part` is [2 ranges +
+// M / N - 1 + ceil(2 M / (heads C)), heads * C] f32: the main kernel's
+// dlang and db slots for `ranges` blocks, then (r, gy) per row.
+extern "C" int cmpc_mutan_dz_wide_ranges(int M, int C, int heads) {
+  return cmpc::dz_wide_plan(M, C, heads).ranges;
 }
 
 // The contract of cmpc_mutan_bwd_dz for any heads <= 8 and even C, with
-// `part` the scratch above.
+// `part` the scratch above; v, g, dz and lang 16-byte aligned.
 extern "C" int cmpc_mutan_bwd_dz_wide(const void* v, const void* lang, const void* g,
                                       void* dz, void* part, void* dlang, void* db, int M,
                                       int C, int N, int heads, void* stream) {
   using namespace cmpc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (heads < 1 || heads > kDzWideMaxHeads || C < 2 || C % 2 || N < 1 || M < 1 || M % N)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const DzWidePlan p = dz_wide_plan(M, C, heads);
+  if (p.ranges < 1 || N < 1 || M % N) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(v) || !aligned16(g) || !aligned16(dz) || !aligned16(lang))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int B = M / N, W = heads * C;
-  const int shares = cmpc_mutan_dz_wide_shares(M, C, N);
   float* part_dl = static_cast<float*>(part);
-  float* part_db = part_dl + static_cast<size_t>(B) * shares * W;
-  float* rs = part_db + static_cast<size_t>(B) * shares * W;
-  dz_wide_rows_kernel<<<M, 256, 0, s>>>(static_cast<const bf16*>(v),
-                                        static_cast<const float*>(lang),
-                                        static_cast<const bf16*>(g), rs, C, N, heads);
+  float* part_db = part_dl + static_cast<size_t>(p.ranges + B - 1) * W;
+  float* rs = part_db + static_cast<size_t>(p.ranges) * W;
+  p.scalars<<<(M + kDzWideRowWarps - 1) / kDzWideRowWarps, 32 * kDzWideRowWarps, 0, s>>>(
+      static_cast<const bf16*>(v), static_cast<const float*>(lang),
+      static_cast<const bf16*>(g), rs, M, C, N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dz_wide_cols_kernel<<<dim3((C + kDzWideCols - 1) / kDzWideCols, B * shares), kDzWideCols, 0,
-                        s>>>(static_cast<const bf16*>(v), static_cast<const float*>(lang),
-                             static_cast<const bf16*>(g), rs, static_cast<bf16*>(dz), part_dl,
-                             part_db, C, N, heads, shares);
+  const long long threads = static_cast<long long>(C / p.vec) * p.ranges;
+  p.stream<<<static_cast<int>((threads + kDzWideThreads - 1) / kDzWideThreads), kDzWideThreads,
+             p.smem, s>>>(static_cast<const bf16*>(v), static_cast<const float*>(lang),
+                          static_cast<const bf16*>(g), rs, static_cast<bf16*>(dz), part_dl,
+                          part_db, M, C, N, p.ranges);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  dz_wide_finish_kernel<<<(W + 255) / 256, 256, 0, s>>>(
-      part_dl, part_db, static_cast<float*>(dlang), static_cast<float*>(db), W, B, shares);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_dz_finalize(part_dl, part_db, dlang, db, W, M, N, p.ranges, s));
 }

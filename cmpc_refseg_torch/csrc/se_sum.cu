@@ -55,10 +55,19 @@ struct SeOthers {
   const bf16* g[kSeMaxOthers];   // [B, C]
 };
 
-// blockIdx.x: the 128-column slice (the cluster's rank), y: the row tile.
-__global__ void __launch_bounds__(kSeThreads, 1)
-se_sum_kernel(const bf16* __restrict__ feat, SeOthers others, int k,
-              bf16* __restrict__ out, int M, int N, int C) {
+// The SE sum of one block.  blockIdx.x: the 128-column slice, y: the row
+// tile.  CLUSTER = true (se_sum_kernel, C <= 1024): the slices of a row
+// tile form one cluster (blockIdx.x is the rank) and the row norm is
+// summed over DSMEM.  CLUSTER = false (the wide form, any C): no cluster;
+// each row's sum of squares over the block's columns goes to its slot of
+// `sq_part` [M, gridDim.x] and the unnormalised bf16 sum to `out`, which
+// se_sum_wide_norm_kernel then scales.
+template <bool CLUSTER>
+__device__ __forceinline__ void se_sum_block(const bf16* __restrict__ feat,
+                                             SeOthers others, int k,
+                                             bf16* __restrict__ out,
+                                             float* __restrict__ sq_part, int M, int N,
+                                             int C) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kSeStages], empty[kSeStages];
   __shared__ float rowsq[kSeBM];
@@ -104,8 +113,10 @@ se_sum_kernel(const bf16* __restrict__ feat, SeOthers others, int k,
       }
       cp_async_commit();   // an empty group in the tail keeps the lag's count
     }
-    cluster_sync();   // the consumers' two cluster barriers below
-    cluster_sync();
+    if constexpr (CLUSTER) {
+      cluster_sync();   // the consumers' two cluster barriers below
+      cluster_sync();
+    }
     return;
   }
 
@@ -192,28 +203,69 @@ se_sum_kernel(const bf16* __restrict__ feat, SeOthers others, int k,
   for (int hf = 0; hf < 2; ++hf) {
     sq[hf] += __shfl_xor_sync(0xffffffffu, sq[hf], 1);
     sq[hf] += __shfl_xor_sync(0xffffffffu, sq[hf], 2);
-    if (lane % 4 == 0) rowsq[r_lo + 8 * hf] = sq[hf];
-  }
-
-  cluster_sync();   // every block's partials are written
-  const uint32_t blocks = cluster_blocks();
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = row0 + r_lo + 8 * hf;
-    float total = 0.f;
-    for (uint32_t rank = 0; rank < blocks; ++rank)
-      total += ld_cluster_f32(&rowsq[r_lo + 8 * hf], rank);
-    const float inv = rsqrtf(fmaxf(total, 1e-12f));
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < kSeBN / 8; ++j) {
-      const int col = col_t + 8 * j;
-      if (col >= C) continue;
-      const float2 v = __bfloat1622float2(sum[2 * j + hf]);
-      st_bf2(out + static_cast<size_t>(r) * C + col, v.x * inv, v.y * inv);
+    if constexpr (CLUSTER) {
+      if (lane % 4 == 0) rowsq[r_lo + 8 * hf] = sq[hf];
     }
   }
-  cluster_sync();   // no block exits while a peer may still read its partials
+
+  if constexpr (CLUSTER) {
+    cluster_sync();   // every block's partials are written
+    const uint32_t blocks = cluster_blocks();
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row0 + r_lo + 8 * hf;
+      float total = 0.f;
+      for (uint32_t rank = 0; rank < blocks; ++rank)
+        total += ld_cluster_f32(&rowsq[r_lo + 8 * hf], rank);
+      const float inv = rsqrtf(fmaxf(total, 1e-12f));
+      if (r >= M) continue;
+#pragma unroll
+      for (int j = 0; j < kSeBN / 8; ++j) {
+        const int col = col_t + 8 * j;
+        if (col >= C) continue;
+        const float2 v = __bfloat1622float2(sum[2 * j + hf]);
+        st_bf2(out + static_cast<size_t>(r) * C + col, v.x * inv, v.y * inv);
+      }
+    }
+    cluster_sync();   // no block exits while a peer may still read its partials
+  } else {
+    // this slice's slot of each row, and the unnormalised sum
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row0 + r_lo + 8 * hf;
+      if (r >= M) continue;
+      if (lane % 4 == 0) sq_part[static_cast<size_t>(r) * gridDim.x + blockIdx.x] = sq[hf];
+#pragma unroll
+      for (int j = 0; j < kSeBN / 8; ++j) {
+        const int col = col_t + 8 * j;
+        if (col < C)
+          *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * C + col) =
+              sum[2 * j + hf];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kSeThreads, 1)
+se_sum_kernel(const bf16* __restrict__ feat, SeOthers others, int k,
+              bf16* __restrict__ out, int M, int N, int C) {
+  se_sum_block<true>(feat, others, k, out, nullptr, M, N, C);
+}
+
+// The 128-column slices of a row.
+inline int se_slices(int C) { return (C + kSeBN - 1) / kSeBN; }
+
+// The kernels' argument of k host arrays of device pointers.
+inline SeOthers se_others(const void* const* others, const void* const* ws,
+                          const void* const* bs, const void* const* gates, int k) {
+  SeOthers args{};
+  for (int i = 0; i < k; ++i) {
+    args.o[i] = static_cast<const bf16*>(others[i]);
+    args.w[i] = static_cast<const bf16*>(ws[i]);
+    args.b[i] = static_cast<const bf16*>(bs[i]);
+    args.g[i] = static_cast<const bf16*>(gates[i]);
+  }
+  return args;
 }
 
 }  // namespace cmpc
@@ -229,18 +281,12 @@ extern "C" int cmpc_se_sum(const void* feat, const void* const* others,
   using namespace cmpc;
   if (k < 1 || k > kSeMaxOthers || C % 4 || C > kSeMaxCluster * kSeBN)
     return static_cast<int>(cudaErrorInvalidValue);
-  SeOthers args{};
-  for (int i = 0; i < k; ++i) {
-    args.o[i] = static_cast<const bf16*>(others[i]);
-    args.w[i] = static_cast<const bf16*>(ws[i]);
-    args.b[i] = static_cast<const bf16*>(bs[i]);
-    args.g[i] = static_cast<const bf16*>(gates[i]);
-  }
+  const SeOthers args = se_others(others, ws, bs, gates, k);
   cudaError_t err = cudaFuncSetAttribute(
       se_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSeSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // the blocks of a row tile form one cluster
-  const int slices = (C + kSeBN - 1) / kSeBN;
+  const int slices = se_slices(C);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(slices, (M + kSeBM - 1) / kSeBM, 1);
   cfg.blockDim = dim3(kSeThreads, 1, 1);
@@ -262,77 +308,57 @@ extern "C" int cmpc_se_sum(const void* feat, const void* const* others,
 // The wide form, for C > kSeMaxCluster * kSeBN (1024): a row no longer fits
 // one cluster, so its l2norm cannot be summed over DSMEM.  No TPU kernel of
 // its own: the Pallas kernel's block spans the whole row at any C.  Two
-// launches (csrc/wide.cuh):
-//  1. per 64 x 64 tile of the output: for each other i, the tile of
-//     o_i @ W_i, then the same roundings as above folded into a running
-//     sum held in registers (bf16 values), which goes to `out` in bf16,
-//     and each row's sum of squares of the tile's 64 columns to a partial
-//     [M, C/64];
-//  2. a warp per row: the partials added in order, out = bf16(out *
-//     rsqrt(max(sum, 1e-12))) in place.
+// launches:
+//  1. se_sum_wide_kernel, the main kernel's pipeline without the cluster
+//     (se_sum_block<false>): the same producer ring, m64n128 wgmma consumer
+//     and fragment epilogue, on ceil(C/128) column slices x ceil(M/64) row
+//     tiles; each row's quad-shuffled sum of squares over the block's 128
+//     columns goes to its slot of a [M, ceil(C/128)] f32 scratch, the
+//     unnormalised bf16 sum to `out`;
+//  2. se_sum_wide_norm_kernel, a warp per row: the row's slots added in
+//     slice order (deterministic, the cluster's rank order), then out =
+//     bf16(out * rsqrt(max(sum, 1e-12))) in place, 16-byte accesses where
+//     C % 8 == 0 (8-byte otherwise).
 // Bound on the card: operations at such widths (the k products of
 // [M, C] x [C, C]).
 // ---------------------------------------------------------------------------
-#include "wide.cuh"
-
 namespace cmpc {
 
-__global__ void __launch_bounds__(kWideThreads)
-se_wide_kernel(const bf16* __restrict__ feat, SeOthers others, int k, bf16* __restrict__ out,
-               float* __restrict__ sq_part, int M, int N, int C, bool vec) {
-  __shared__ WideSmem sm;
-  const int ct = blockIdx.x, c0 = ct * kWideTile, row0 = blockIdx.y * kWideTile;
-  float run[kWidePerThread];
-#pragma unroll
-  for (int i = 0; i < kWidePerThread; ++i) {
-    const int e = threadIdx.x + i * kWideThreads, row = row0 + e / kWideTile;
-    const int col = c0 + e % kWideTile;
-    run[i] = row < M && col < C ? bf2f(feat[static_cast<size_t>(row) * C + col]) : 0.f;
-  }
-  for (int o = 0; o < k; ++o) {
-    const RowsLoad oa{others.o[o], C, M, C, vec};
-    const RowsLoad wb{others.w[o], C, C, C, vec};
-    wide_product<false>(sm, oa, wb, row0, c0, C);
-#pragma unroll
-    for (int i = 0; i < kWidePerThread; ++i) {
-      const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
-      const int row = row0 + r, col = c0 + j;
-      if (row >= M || col >= C) continue;
-      const float t = round_bf(round_bf(sm.c[r][j]) + bf2f(others.b[o][col]));
-      const float gate = bf2f(others.g[o][static_cast<size_t>(row / N) * C + col]);
-      run[i] = round_bf(run[i] + round_bf(fmaxf(t, 0.f) * gate));
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kWidePerThread; ++i) {
-    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
-    const int row = row0 + r, col = c0 + j;
-    if (row < M && col < C) out[static_cast<size_t>(row) * C + col] = f2bf(run[i]);
-    sm.c[r][j] = run[i] * run[i];   // zero past M and C
-  }
-  __syncthreads();
-  if (threadIdx.x < kWideTile && row0 + threadIdx.x < M)
-    sq_part[static_cast<size_t>(row0 + threadIdx.x) * gridDim.x + ct] =
-        wide_row_sum(sm, threadIdx.x);
+constexpr int kSeNormWarps = 8;   // rows per block of the norm pass
+
+__global__ void __launch_bounds__(kSeThreads, 1)
+se_sum_wide_kernel(const bf16* __restrict__ feat, SeOthers others, int k,
+                   bf16* __restrict__ out, float* __restrict__ sq_part, int M, int N,
+                   int C) {
+  se_sum_block<false>(feat, others, k, out, sq_part, M, N, C);
 }
 
-__global__ void __launch_bounds__(256)
-se_wide_norm_kernel(bf16* __restrict__ out, const float* __restrict__ sq_part, int M, int C,
-                    int tiles) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+template <int VEC>
+__global__ void __launch_bounds__(32 * kSeNormWarps)
+se_sum_wide_norm_kernel(bf16* __restrict__ out, const float* __restrict__ sq_part, int M,
+                        int C, int slices) {
+  const int row = blockIdx.x * kSeNormWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= M) return;
-  float t = 0.f;
-  for (int j = 0; j < tiles; ++j) t += sq_part[static_cast<size_t>(row) * tiles + j];
-  const float inv = rsqrtf(fmaxf(t, 1e-12f));
+  const float* part = sq_part + static_cast<size_t>(row) * slices;
+  float total = 0.f;
+  for (int j = 0; j < slices; ++j) total += part[j];
+  const float inv = rsqrtf(fmaxf(total, 1e-12f));
   bf16* p = out + static_cast<size_t>(row) * C;
-  for (int c = lane; c < C; c += 32) p[c] = f2bf(bf2f(p[c]) * inv);
+  for (int c = VEC * lane; c < C; c += 32 * VEC) {
+    float v[VEC];
+    load_bf<VEC>(p + c, v);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] *= inv;
+    store_bf<VEC>(p + c, v);
+  }
 }
 
 }  // namespace cmpc
 
-// Bytes of the wide form's scratch: the row norms' partials [M, C/64] f32.
+// Bytes of the wide form's scratch: the row norms' partials [M, ceil(C/128)]
+// f32, a slot per 128-column slice.
 extern "C" long long cmpc_se_sum_wide_scratch(int M, int C) {
-  return static_cast<long long>(M) * cmpc::wide_tiles(C) * sizeof(float);
+  return static_cast<long long>(M) * cmpc::se_slices(C) * sizeof(float);
 }
 
 // The contract of cmpc_se_sum for any C (a multiple of 4), with `scratch`
@@ -345,21 +371,22 @@ extern "C" int cmpc_se_sum_wide(const void* feat, const void* const* others,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > kSeMaxOthers || C % 4 || C < 4 || M < 1 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  SeOthers args{};
-  bool vec = C % 8 == 0;
-  for (int i = 0; i < k; ++i) {
-    args.o[i] = static_cast<const bf16*>(others[i]);
-    args.w[i] = static_cast<const bf16*>(ws[i]);
-    args.b[i] = static_cast<const bf16*>(bs[i]);
-    args.g[i] = static_cast<const bf16*>(gates[i]);
-    vec = vec && aligned16(others[i]) && aligned16(ws[i]);
-  }
-  float* sq_part = static_cast<float*>(scratch);
-  se_wide_kernel<<<dim3(wide_tiles(C), wide_tiles(M)), kWideThreads, 0, s>>>(
-      static_cast<const bf16*>(feat), args, k, static_cast<bf16*>(out), sq_part, M, N, C, vec);
-  cudaError_t err = cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(out) % 8) return static_cast<int>(cudaErrorMisalignedAddress);
+  const SeOthers args = se_others(others, ws, bs, gates, k);
+  cudaError_t err = cudaFuncSetAttribute(
+      se_sum_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSeSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  se_wide_norm_kernel<<<(M + 7) / 8, 256, 0, s>>>(static_cast<bf16*>(out), sq_part, M, C,
-                                                   wide_tiles(C));
+  const int slices = se_slices(C);
+  float* sq_part = static_cast<float*>(scratch);
+  se_sum_wide_kernel<<<dim3(slices, (M + kSeBM - 1) / kSeBM), kSeThreads, kSeSmem, s>>>(
+      static_cast<const bf16*>(feat), args, k, static_cast<bf16*>(out), sq_part, M, N, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (M + kSeNormWarps - 1) / kSeNormWarps;
+  if (C % 8 == 0 && aligned16(out))
+    se_sum_wide_norm_kernel<8><<<blocks, 32 * kSeNormWarps, 0, s>>>(
+        static_cast<bf16*>(out), sq_part, M, C, slices);
+  else
+    se_sum_wide_norm_kernel<4><<<blocks, 32 * kSeNormWarps, 0, s>>>(
+        static_cast<bf16*>(out), sq_part, M, C, slices);
   return static_cast<int>(cudaGetLastError());
 }

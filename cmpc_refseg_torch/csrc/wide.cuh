@@ -1,19 +1,12 @@
-// Shared device code of the wide-row forms: a plain tiled bf16 product on
-// the tensor cores and the loaders of its operands.
-//
-// Each of spa_affinity.cu, se_sum.cu, graph_conv.cu and mutan_bwd.cu has a
-// wide form beside its main kernel, launched where that kernel refuses the
-// shape: a row wider than one thread-block cluster covers (the affinity's
-// and the SE sum's row norms), a width whose per-column tables or staged
-// rows do not fit shared memory (the graph update and message), or a row
-// past the dz ring.  These forms hold no row in shared memory: a
-// reduction over a whole row is carried in device memory as per-tile
-// partials that a second pass adds in a fixed order (deterministic).
-// They are simple, not fast: a block of 4 warps owns one 64 x 64 output
-// tile, K advances 32 at a time through shared memory without a
-// pipeline, and the products run as WMMA m16n16k16 (bf16 in, f32 sums).
-// It no longer serves the graph update's and the affinity's wide forms,
-// which run TMA + wgmma designs in their own sources.
+// Shared device code of the one wide-row form still built from a plain
+// tiled product: graph_conv.cu's graph_msg_wide_kernel, the message where
+// its plan does not fit shared memory (C > 4096, or C * T too large).  A
+// bf16 product on the tensor cores and the loader of its operands.  It is
+// simple, not fast: a block of 4 warps owns one 64 x 64 output tile, K
+// advances 32 at a time through shared memory without a pipeline, and the
+// products run as WMMA m16n16k16 (bf16 in, f32 sums).  The other wide
+// forms run their main kernel's pipeline in their own sources (the
+// affinity, the update, the SE sum) or a vector stream (the dz pass).
 #pragma once
 
 #include <mma.h>
@@ -59,11 +52,9 @@ struct RowsLoad {
 };
 
 // The 64 x 64 tile [r0, c0] of A @ B over K into sm.c (f32), for every
-// thread of the block.  A(r, k .. k + 7) gives 8 entries of A's row r;
-// B(k, j .. j + 7) 8 entries of B's row k, or with BT B's column j as
-// B(j, k .. k + 7) (B stored transposed, [columns][K]).  Both zero past
-// their bounds.
-template <bool BT, class ALoad, class BLoad>
+// thread of the block.  A(r, k .. k + 7) gives 8 entries of A's row r,
+// B(k, j .. j + 7) 8 entries of B's row k, both zero past their bounds.
+template <class ALoad, class BLoad>
 __device__ void wide_product(WideSmem& sm, const ALoad& A, const BLoad& B, int r0, int c0,
                              int K) {
   using namespace nvcuda;
@@ -80,16 +71,8 @@ __device__ void wide_product(WideSmem& sm, const ALoad& A, const BLoad& B, int r
       *reinterpret_cast<uint4*>(&sm.a[r][kc]) = A(r0 + r, k0 + kc);
     }
     for (int e = threadIdx.x; e < kWideK * kWideTile / 8; e += kWideThreads) {
-      if (!BT) {
-        const int k = e / (kWideTile / 8), jc = (e % (kWideTile / 8)) * 8;
-        *reinterpret_cast<uint4*>(&sm.b[k][jc]) = B(k0 + k, c0 + jc);
-      } else {
-        const int j = e / (kWideK / 8), kc = (e % (kWideK / 8)) * 8;
-        const uint4 v = B(c0 + j, k0 + kc);
-        const bf16* vb = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) sm.b[kc + i][j] = vb[i];
-      }
+      const int k = e / (kWideTile / 8), jc = (e % (kWideTile / 8)) * 8;
+      *reinterpret_cast<uint4*>(&sm.b[k][jc]) = B(k0 + k, c0 + jc);
     }
     __syncthreads();
 #pragma unroll
@@ -115,14 +98,6 @@ __device__ void wide_product(WideSmem& sm, const ALoad& A, const BLoad& B, int r
       wmma::store_matrix_sync(&sm.c[wr + 16 * i][wc + 16 * j], acc[i][j], kWideTile + 4,
                               wmma::mem_row_major);
   __syncthreads();
-}
-
-// Row r of the tile: the sum of sm.c[r][0 .. 63] in column order, by
-// thread r < 64 (after the caller's __syncthreads).
-__device__ __forceinline__ float wide_row_sum(const WideSmem& sm, int r) {
-  float t = 0.f;
-  for (int j = 0; j < kWideTile; ++j) t += sm.c[r][j];
-  return t;
 }
 
 }  // namespace cmpc

@@ -39,7 +39,7 @@ SIGNATURES = {
         "cmpc_mutan_bwd_dz": ([_P] * 7 + [_I] * 4 + [_P], _I),
         "cmpc_mutan_dz_blocks": ([_I] * 3, _I),
         "cmpc_mutan_bwd_dz_wide": ([_P] * 7 + [_I] * 4 + [_P], _I),
-        "cmpc_mutan_dz_wide_shares": ([_I] * 3, _I),
+        "cmpc_mutan_dz_wide_ranges": ([_I] * 3, _I),
         "cmpc_mutan_dw": ([_P] * 4 + [_I] * 3 + [_P], _I),
         "cmpc_mutan_dw_splits": ([_I], _I),
     },

@@ -12,12 +12,15 @@ C++ for sm_90a under ``csrc/`` (built by ``ops/build.py``) and has here:
 
 The wrappers of five kernels also have a wide form, hand-written in the
 same source file, which they launch exactly where the main kernel refuses
-the shape: a row
-wider than the affinity's or the SE sum's cluster covers, a graph width
-past the update's or the message's shared memory, a dz row past its ring.
-A wide launch counts in the wrapper's ``launches`` like any other, and
-also in its ``wide_launches`` (`wide_launch_counts`), so a run can show
-which form it took.
+the shape: a row wider than the affinity's or the SE sum's cluster covers,
+a graph width past the update's or the message's shared memory, a dz row
+past its ring.  The affinity's, the update's and the SE sum's run their
+main kernel's pipeline with the whole-row reduction carried in device
+memory, the dz pass's is a three-launch vector stream, and the message's
+is a simple tiled product (``csrc/wide.cuh``).  A wide launch counts in
+the wrapper's ``launches`` like any other, and also in its
+``wide_launches`` (`wide_launch_counts`), so a run can show which form it
+took.
 
 Which TPU kernel each replaces, what bounds it on the card and what its
 design does about that is noted at the top of its source file.
@@ -220,23 +223,23 @@ def mutan_bwd_dz_plain(v, lang, g, *, heads: int, rows_per_sample: int):
 
 def mutan_bwd_dz_scratch(m: int, rows_per_sample: int, c: int,
                          heads: int) -> tuple:
-    """Shape of the dz pass's f32 scratch for m rows of heads * c columns.
-    The main kernel's: one dlang slot per (block, sample) it holds and one
-    db slot per block, so it is bounded by the grid (sized to the card),
-    not by m.  Where that kernel does not take the shape (heads * C past
-    its ring), the wide form's: a dlang and a db slot per (sample, share of
-    its rows), then the per-row norm and gy.  Needs the card; raises for
+    """Shape of the dz pass's f32 scratch for m rows of heads * c columns:
+    one dlang slot per (block, sample) it holds and one db slot per block,
+    so it is bounded by the grid (sized to the card), not by m.  Where the
+    main kernel does not take the shape (heads * C past its ring), the wide
+    form's: the same slots for its row ranges (one wave of stream
+    threads), then the per-row norm and gy.  Needs the card; raises for
     heads outside 1..8 or an odd C."""
     if not 1 <= heads <= 8 or c < 2 or c % 2:
         raise ValueError(f"mutan_bwd_dz: C={c}, heads={heads}: the dz pass "
                          "takes 1 to 8 heads of an even C")
     lib = build.library("mutan_bwd")
+    wd, bsz = heads * c, m // rows_per_sample
     blocks = lib.cmpc_mutan_dz_blocks(m, c, heads)
     if blocks >= 1:
-        return (2 * blocks + m // rows_per_sample - 1, heads * c)
-    shares = lib.cmpc_mutan_dz_wide_shares(m, c, rows_per_sample)
-    wd = heads * c
-    return (2 * (m // rows_per_sample) * shares + -(-2 * m // wd), wd)
+        return (2 * blocks + bsz - 1, wd)
+    ranges = lib.cmpc_mutan_dz_wide_ranges(m, c, heads)
+    return (2 * ranges + bsz - 1 + -(-2 * m // wd), wd)
 
 
 def mutan_bwd_dz(v, lang, g, *, heads: int, rows_per_sample: int):
@@ -261,8 +264,11 @@ def mutan_bwd_dz(v, lang, g, *, heads: int, rows_per_sample: int):
     dz = torch.empty((m, wd), dtype=torch.bfloat16, device=v.device)
     dlang = torch.empty((bsz, wd), dtype=torch.float32, device=v.device)
     db = torch.empty((wd,), dtype=torch.float32, device=v.device)
-    # heads * C past the main kernel's ring: the wide form
+    # heads * C past the main kernel's ring: the wide form, whose vector
+    # loads of lang need it 16-byte aligned (a copy where it is not)
     wide = lib.cmpc_mutan_dz_blocks(m, c, heads) < 1
+    if wide and lang.data_ptr() % 16:
+        lang = lang.clone()
     launch = lib.cmpc_mutan_bwd_dz_wide if wide else lib.cmpc_mutan_bwd_dz
     rc = launch(v.data_ptr(), lang.data_ptr(), g.data_ptr(), dz.data_ptr(),
                 part.data_ptr(), dlang.data_ptr(), db.data_ptr(), m, c,

@@ -521,12 +521,16 @@ def test_affinity_wide_form_matches_plain_version(cuda, groups, l2n, masked,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [1028, 1032, 4104])
-@pytest.mark.parametrize("b,n,k", [(1, 25, 1), (3, 100, 2), (2, 75, 4)])
+@pytest.mark.parametrize("c", [1028, 1032, 2052, 4104])
+@pytest.mark.parametrize("b,n,k", [(1, 25, 1), (3, 100, 2), (2, 75, 4),
+                                   (2, 1600, 2)])
 def test_se_sum_wide_form_matches_plain_version(cuda, b, n, k, c):
     """C past the 1024 columns one cluster of 8 x 128 covers: the wide
-    form, with 1, 2 and 4 others; C = 1028 has 8-byte rows (element loads),
-    1032 and 4104 16-byte rows."""
+    form (the main pipeline without a cluster, row partials per 128-column
+    slice, a norm pass), with 1, 2 and 4 others; row tiles straddle
+    samples at N = 25, 100 and 75; (2, 1600, 2) at C = 1032 is phase 17's
+    shape.  C = 1028 has 8-byte rows (8-byte norm accesses, a 4-column
+    last slice), 1032, 2052 (17 slices) and 4104 16-byte rows."""
     got, want = _wide_call("se_sum", _se_args(cuda, b, n, c, k))
     _close("se_sum", got, want, None)
 
@@ -556,11 +560,17 @@ def test_graph_update_wide_form_matches_plain_version(cuda, n, groups):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,c,heads", [(2, 100, 4104, 5), (3, 25, 1030, 8),
-                                         (1, 41, 2002, 5), (2, 64, 4098, 2)])
+                                         (1, 41, 2002, 5), (2, 64, 4098, 2),
+                                         (2, 1600, 4104, 5),
+                                         (2, 1681, 2002, 5)])
 def test_mutan_bwd_dz_wide_form_matches_plain_version(cuda, b, n, c, heads):
     """heads * C past the dz kernel's ring: the wide form (dz, dlang, db)
-    against the plain version; C = 1030 with 8 heads and 2002 with 5 take
-    4-byte rows, and the scratch shape is the wide form's."""
+    against the plain version; C = 4104 with 5 heads takes 16-byte rows,
+    1030 with 8 and 2002 with 5 4-byte rows, 4098 with 2 8-byte rows;
+    (2, 1600, 4104, 5) is phase 17's shape, N = 1681 and 41 are odd row
+    counts a sample (row ranges cross samples).  The scratch holds the
+    main kernel's slots for the wide form's row ranges, then (r, gy) per
+    row."""
     v = torch.tanh(_rnd(cuda, b * n, heads * c, dtype=torch.float32))
     args = (v.to(torch.bfloat16),
             torch.tanh(_rnd(cuda, b, heads * c, dtype=torch.float32)),
@@ -568,10 +578,30 @@ def test_mutan_bwd_dz_wide_form_matches_plain_version(cuda, b, n, c, heads):
     kw = {"heads": heads, "rows_per_sample": n}
     lib = build.library("mutan_bwd")
     assert lib.cmpc_mutan_dz_blocks(b * n, c, heads) == 0
-    shares = lib.cmpc_mutan_dz_wide_shares(b * n, c, n)
+    ranges = lib.cmpc_mutan_dz_wide_ranges(b * n, c, heads)
+    assert 1 <= ranges <= b * n
     assert kernels.mutan_bwd_dz_scratch(b * n, n, c, heads) == (
-        2 * b * shares + -(-2 * b * n // (heads * c)), heads * c)
+        2 * ranges + b - 1 + -(-2 * b * n // (heads * c)), heads * c)
     got, want = _wide_call("mutan_bwd_dz", args, kw)
+    _close("mutan_bwd_dz", got, want, None)
+
+
+@pytest.mark.gpu
+def test_mutan_bwd_dz_wide_form_takes_a_misaligned_lang(cuda):
+    """The wide form reads lang in vectors of up to 16 bytes: a lang view
+    that starts 4 bytes past a 16-byte bound gives the bits an aligned
+    copy gives (the wrapper copies it)."""
+    b, n, c, heads = 2, 25, 4104, 5
+    v = torch.tanh(_rnd(cuda, b * n, heads * c, dtype=torch.float32))
+    buf = torch.tanh(_rnd(cuda, b * heads * c + 1, dtype=torch.float32))
+    lang = buf[1:].view(b, heads * c)
+    assert lang.data_ptr() % 16
+    args = (v.to(torch.bfloat16), lang, _rnd(cuda, b * n, c, scale=0.1))
+    kw = {"heads": heads, "rows_per_sample": n}
+    got, want = _wide_call("mutan_bwd_dz", args, kw)
+    again = kernels.mutan_bwd_dz(args[0], lang.clone(), args[2], **kw)
+    for a, w, r in zip(got, want, again):
+        assert torch.equal(a, r)
     _close("mutan_bwd_dz", got, want, None)
 
 

@@ -5,7 +5,8 @@ A variant is a list of (old, new) text edits to one csrc/*.cu source.  The
 tool compiles every variant of a group (one nvcc each, in parallel, with
 the flags of ops/build.py) into <out>/<group>/<variant>/, points the
 kernel's wrapper at each build in turn and times it with CUDA events
-(chip_smoke.gpu_ms) at the shapes of chip_smoke.kernel_inputs, with its
+(chip_smoke.gpu_ms) at the shapes chip_smoke.kernel_inputs gives it on
+the group's phase-3 paths (`path_specs`), with its
 largest error against the plain version (diagnostic variants compute
 something else, so theirs is large; statistics partials are compared
 summed over their slots).  The first variant, the committed source, runs
@@ -15,7 +16,7 @@ the designs measured against it.  For the groups in SASS_KERNEL the tool
 also counts the kernel's SASS opcodes in each build (cuobjdump): the
 tensor-core products (HMMA), TMA loads and stores (UTMALDG, UTMASTG).
 
-    python3 tools/kernel_variants.py dz|raw|msg [--out build/kernel_variants]
+    python3 tools/kernel_variants.py dz|raw|msg|se_wide|dz_wide [--out build/kernel_variants]
 
 Needs a CUDA GPU and nvcc; prints one line per shape and one JSON line.
 """
@@ -35,6 +36,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+from cmpc_refseg_torch.config import get_config  # noqa: E402
 from cmpc_refseg_torch.models import cmpc  # noqa: E402
 from cmpc_refseg_torch.ops import build, kernels  # noqa: E402
 
@@ -166,9 +168,28 @@ _MSG_SPLIT_STORES = [
     ("  if (threadIdx.x == 0) bulk_wait_read();   // the stores have read shared memory",
      "  bulk_wait_read();")]
 
-# group -> (source, wrapper, [(batch, train)], {variant: edits})
+# the SE sum's wide form: two blocks per SM (a 128-register cap)
+_SE_WIDE_TWO_PER_SM = [
+    ("__global__ void __launch_bounds__(kSeThreads, 1)\nse_sum_wide_kernel",
+     "__global__ void __launch_bounds__(kSeThreads, 2)\nse_sum_wide_kernel")]
+# the dz pass's wide form: no dz stores, or dz stored evict-first; the row
+# scalars' loads of v and g evict-first (ld.global.cs)
+_DZ_WIDE_NO_STORE = [("      store_bf<VEC>(dzrow + h * C, d);",
+                      "      if (C < 0) store_bf<VEC>(dzrow + h * C, d);")]
+_DZ_WIDE_STREAMING_STORES = [
+    ("      store_bf<VEC>(dzrow + h * C, d);",
+     "      __stcs(reinterpret_cast<BfBitsT<VEC>*>(dzrow + h * C), pack_bf<VEC>(d));")]
+_DZ_WIDE_SCALARS_STREAMING_LOADS = [
+    ("vb[h] = *reinterpret_cast<const BfBitsT<VEC>*>(vr + h * C + c);",
+     "vb[h] = __ldcs(reinterpret_cast<const BfBitsT<VEC>*>(vr + h * C + c));"),
+    ("const BfBitsT<VEC> gb = *reinterpret_cast<const BfBitsT<VEC>*>(gr + c);",
+     "const BfBitsT<VEC> gb = __ldcs(reinterpret_cast<const BfBitsT<VEC>*>(gr + c));")]
+_DZ_WIDE_SCALARS_UNROLL4 = [("#pragma unroll 2\n  for (int c = VEC * lane;",
+                             "#pragma unroll 4\n  for (int c = VEC * lane;")]
+
+# group -> (source, wrapper, [chip_smoke path], {variant: edits})
 GROUPS = {
-    "dz": ("mutan_bwd", "mutan_bwd_dz", [(8, True)], {
+    "dz": ("mutan_bwd", "mutan_bwd_dz", ["train_bs8"], {
         "final": [],
         "no compute (the ring's reads only)": _DZ_NO_COMPUTE,
         "no dz stores": _DZ_NO_STORE,
@@ -179,14 +200,16 @@ GROUPS = {
         "16-byte vectors, 4 consumer warps": _DZ_VEC8,
         "cp.async warp producer": _DZ_CP_ASYNC,
     }),
-    "raw": ("convlstm", "convlstm_raw", [(8, False), (1, False), (64, False)], {
+    "raw": ("convlstm", "convlstm_raw", ["forward_bs8", "serving_bs1",
+                                         "forward_bs64"], {
         "final": [],
         "no transcendental math": _RAW_NO_MATH,
         "two blocks per SM": _const("kRawBlocksPerSM", 3, 2),
         "four blocks per SM": _const("kRawBlocksPerSM", 3, 4),
         "f32 cell update": _RAW_F32_UPDATE,
     }),
-    "msg": ("graph_conv", "graph_msg", [(8, False), (1, False), (64, False)], {
+    "msg": ("graph_conv", "graph_msg", ["forward_bs8", "serving_bs1",
+                                        "forward_bs64"], {
         "final": [],
         "no msg stores": _MSG_NO_STORE,
         "no product": _MSG_NO_PRODUCT,
@@ -200,6 +223,21 @@ GROUPS = {
         "pooled streamed every tile (8 slots)": _const("kMsgMaxSlots", 64, 8),
         "16 consumer warps": _const("kMsgWarps", 8, 16),
         "rows stored in 64-column pieces": _MSG_SPLIT_STORES,
+    }),
+    "se_wide": ("se_sum", "se_sum", ["wide_bs2"], {
+        "final": [],
+        "two blocks per SM": _SE_WIDE_TWO_PER_SM,
+    }),
+    "dz_wide": ("mutan_bwd", "mutan_bwd_dz", ["wide_train_bs2"], {
+        "final": [],
+        "no dz stores": _DZ_WIDE_NO_STORE,
+        "dz stores evict-first (st.global.cs)": _DZ_WIDE_STREAMING_STORES,
+        "ring of 2 rows": _const("kDzWideDepth", 4, 2),
+        "ring of 6 rows": _const("kDzWideDepth", 4, 6),
+        "three stream blocks per SM": _const("kDzWideMinBlocks", 2, 3),
+        "scalars: 4 rows a block": _const("kDzWideRowWarps", 8, 4),
+        "scalars: loop unrolled 4": _DZ_WIDE_SCALARS_UNROLL4,
+        "scalars: v and g loads evict-first": _DZ_WIDE_SCALARS_STREAMING_LOADS,
     }),
 }
 # the kernel whose SASS opcodes (tensor-core products, TMA, shared-memory
@@ -297,14 +335,16 @@ def main():
     dev = torch.device("cuda")
     order = list(libs) + list(libs)[:1]
     results = []
-    for batch, train in cases:
-        inputs = chip_smoke.kernel_inputs(torch, kernels, cmpc, dev, batch,
-                                          train)
+    specs = chip_smoke.path_specs(get_config)
+    for path in cases:
+        spec = specs[path]
+        inputs = chip_smoke.kernel_inputs(torch, kernels, cmpc, dev, spec)
         fargs, kw, bk, groups = inputs[name]
         del inputs
         want = kernels.PLAIN[wrapper](*fargs, **kw)
-        bound_ms = chip_smoke.bound(*chip_smoke.kernel_cost(name, bk,
-                                                            groups))[0]
+        others = len(fargs[1]) if name == "se_sum" else 2
+        bound_ms = chip_smoke.bound(*chip_smoke.kernel_cost(
+            name, bk, groups, spec, others))[0]
         row = []
         for variant in order:
             build._loaded[src] = libs[variant]
@@ -319,10 +359,10 @@ def main():
                       for a, b in zip(got[:2], want[:2]))
             ms = chip_smoke.gpu_ms(torch, lambda: wrapper(*fargs, **kw))
             row.append({"variant": variant, "ms": ms, "norm_err": err})
-        print(f"[{card}] {name} batch {batch} (bound {bound_ms:.4f} ms): "
+        print(f"[{card}] {name} at {path} (bound {bound_ms:.4f} ms): "
               + "; ".join(f"{r['variant']} {r['ms']:.4f} ms (err "
                           f"{r['norm_err']:.1e})" for r in row), flush=True)
-        results.append({"batch": batch, "bound_ms": bound_ms, "runs": row})
+        results.append({"path": path, "bound_ms": bound_ms, "runs": row})
     build._loaded.pop(src, None)
     print(json.dumps({"card": card, "kernel": name, "results": results,
                       "sass": sass}))
