@@ -42,11 +42,12 @@ Phases, each fatal on failure:
     in all four l2n / masked combinations and grouped at A = 4104 with G =
     3 and 2, the SE sum at C = 1032 and at C = 1028 (8-byte rows) with 1
     and 4 others, graph_msg at C = 4104, graph_update there with G = 1, 3
-    and 2, graph_msg at C = 4096 with T = 300, the dz pass at C = 4104 with
-    5 heads, C = 1030 with 8 and C = 2002 with 5), each of which must
-    launch its wrapper's wide form, and mutan_fused at C = 4104 and the
-    ConvLSTM pair at CM = 1032 on their main kernels.  Each path's record
-    carries its widths: C = v_emb_dim, K, A = the affinity width, CM = mlp_dim
+    and 2, graph_msg at C = 4096 and 4104 with T = 300, the dz pass at
+    C = 4104 with 5 heads, C = 1030 with 8 and C = 2002 with 5), each of
+    which must launch its wrapper's wide form, and mutan_fused at C = 4104
+    and the ConvLSTM pair at CM = 1032 on their main kernels.  Each path's
+    record carries its widths: C = v_emb_dim, K, A = the affinity width,
+    CM = mlp_dim
     (1000 / 1008 / 1000 / 500 for most configs; the HSV configs' K 1016;
     BERT's 1024 / 1032 / 512 / 512; phase 17's 4104 / 4112 / 4104 / 1032)
     and its form (main, or wide on phase 17's paths, where every wrapper
@@ -1124,9 +1125,10 @@ def wide_edge_inputs(torch, kernels, dev):
     1032 with 2 others and at C = 1028 (8-byte rows: 8-byte copies and
     norm accesses, a 4-column last slice) with 1 and 4 others, on 3
     samples of 25 rows (row tiles straddle samples); graph_msg at C = 4104
-    (T = EDGE_T) and at C = 4096 with T = 300, and graph_update at C =
-    4104 on the first's msg (G = 1), grouped at G = 3 and 2 on 6 samples
-    of 75 rows (C = 4104 ends in an 8-column K step and W box); the dz
+    (T = EDGE_T), at C = 4096 with T = 300 and at C = 4104 with T = 300
+    (wide in both), and graph_update at C = 4104 on the first's msg (G =
+    1), grouped at G = 3 and 2 on 6 samples of 75 rows (C = 4104 ends in
+    an 8-column K step and W box); the dz
     pass at C = 4104 with 5 heads (16-byte rows), C = 1030 with 8 and C =
     2002 with 5 (4-byte rows), on 2 samples of 75 rows.
     Then the kernels that list no width bound, at the widened flagship's
@@ -1214,6 +1216,7 @@ def wide_edge_inputs(torch, kernels, dev):
         ("se_sum", f":wide-C{wcm}", se, {}),
         ("graph_msg", f":wide-C{wc}", wide_msg, {}),
         ("graph_msg", ":wide-C4096-T300", msg_args(1, 300, 4096), {}),
+        ("graph_msg", f":wide-C{wc}-T300", msg_args(1, 300, wc), {}),
         ("graph_update", f":wide-C{wc}", update, {}),
         ("graph_update_grouped", f":wide-C{wc}-G3", update_grouped(3), {}),
         ("graph_update_grouped", f":wide-C{wc}-G2", update_grouped(2), {}),

@@ -108,20 +108,6 @@ __device__ __forceinline__ float warp_sum4_spread(float a, float b, float c, flo
   return k;
 }
 
-// Sum `v` over the block in a fixed order (deterministic); every thread
-// gets the total.  `scratch` holds one float per warp.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int warps = blockDim.x / 32;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float total = 0.f;
-  for (int w = 0; w < warps; ++w) total += scratch[w];
-  return total;
-}
-
 // Whether a device pointer is 16-byte aligned (TMA and bulk copies need it).
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 

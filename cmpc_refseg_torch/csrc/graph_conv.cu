@@ -30,6 +30,22 @@
 // for bit).  Tried and slower (PERF.md): 2D box stores from per-warp
 // tiles, 16 consumer warps, 16-row tiles, one block per group, pooled
 // streamed per tile, squares on the tensor cores, sums on the f32 pipes.
+// Where the plan does not fit a row (C > kMsgMaxC, or C * T past shared
+// memory), the wide form (graph_msg_wide_kernel; no TPU kernel of its own:
+// the Pallas block spans the row at any C and T) runs the same pipeline
+// over column slices of at most kMsgSliceMax columns.  A work item is
+// (sample, slice, 32-row group); a block walks a contiguous range of them,
+// groups innermost, so a slice's boxes stay resident across the groups it
+// visits.  Each staged row goes out by its own 1-D bulk copy of the slice
+// (16-byte aligned: C % 8 == 0 and slices start at multiples of 64
+// columns) by a storer warp that the consumer warps hand each staged tile
+// by mbarriers, double-buffered; its statistics take one slot per (group,
+// slice), summed in the same fixed order.  Tried and slower (PERF.md):
+// the stores issued by a consumer warp after a block barrier, slices
+// capped at 512 or 768 columns, one staging buffer, slices innermost, the
+// chunks turned over the warps from tile to tile (sound only if every warp
+// waits on and releases every box of a slice: the warps drift up to two
+// tiles apart).
 //
 // graph_update replaces ::_graph_update_call, in both forms: one weight set,
 // or G groups (w [G, C, C], bias, g1, b1 [G, C]; sample s uses group
@@ -75,6 +91,12 @@ constexpr int kMsgMaxSlots = 64;              // pooled boxes in shared memory a
 constexpr int kMsgAStages = 4;                // tiles of w_aff rows in flight
 constexpr int kMsgMaxC = 4096;
 constexpr int kMsgSmemMax = 230400;           // dynamic shared memory (227 KB less static)
+constexpr int kMsgSliceMax = 1024;            // columns of a wide-form slice at most
+constexpr int kMsgWideThreads = kMsgThreads + 32;   // + the wide form's storer warp
+constexpr int kMsgMaxBufs = 2;                // staging buffers at most
+// the wide form's hand-off past its staging: staged / freed barriers per
+// buffer, then the warps' statistics per buffer [kMsgMaxBufs][kMsgWarps][2]
+constexpr int kMsgWideTail = 2 * kMsgMaxBufs * 8 + kMsgMaxBufs * kMsgWarps * 2 * 4;
 
 // How a launch lays out shared memory.  A row tile is mt m16 tiles: 32
 // rows (one statistics group) or, where two [32 x C] staging buffers do
@@ -87,29 +109,41 @@ constexpr int kMsgSmemMax = 230400;           // dynamic shared memory (227 KB l
 // way a slot serves one warp only, so a warp never waits on a slot two
 // loads ahead of it (an mbarrier's parity tells only one phase from the
 // next).  a_bytes: one stage of a tile's w_aff rows (16 mt T bf16, from
-// the 16-byte bound below them).  nbuf: msg staging buffers of [16 mt x
-// C] (two, so a tile's store drains while the next is formed, when they
-// fit).  smem = 0: C and T do not fit.
+// the 16-byte bound below them; 0: no stage, the rows are read from
+// device memory).  nbuf: msg staging buffers of [16 mt x pitch] (two, so
+// a tile's store drains while the next is formed, when they fit).  smem =
+// 0: the shape does not fit.  The main kernel's tiles span the row (width
+// = pitch = C, one slice); the wide form's span one of `slices` column
+// slices of `width` columns (a multiple of 64; the last may be part
+// filled), staged with rows of pitch = width + 8 bf16: 16 bytes past a
+// multiple of 128, so the 8 rows a warp's staging stores touch at once
+// fall in distinct banks; `tail` bytes past the staging hold the wide
+// form's hand-off to its storer warp.
 struct MsgPlan {
   int mt, kbox, kchunks, chunks, boxes, ring, a_bytes, nbuf, smem;
+  int width, pitch, slices;
 };
 
-inline MsgPlan msg_plan(int C, int T) {
+inline MsgPlan msg_layout(int width, int pitch, int T, bool a_stage, int tail) {
   MsgPlan p;
+  p.width = width;
+  p.pitch = pitch;
+  p.slices = 1;
   p.kbox = T < kMsgMaxK ? (T + 15) / 16 * 16 : kMsgMaxK;
   p.kchunks = (T + p.kbox - 1) / p.kbox;
-  p.chunks = (C + kChunk - 1) / kChunk;
+  p.chunks = (width + kChunk - 1) / kChunk;
   p.boxes = p.chunks * p.kchunks;
   const int box_bytes = p.kbox * kSwizzleBytes;
-  const int row = C * static_cast<int>(sizeof(bf16));
+  const int row = pitch * static_cast<int>(sizeof(bf16));
   auto a_bytes = [&](int mt) {
-    return (16 * mt * T * static_cast<int>(sizeof(bf16)) + 31) / 16 * 16;
+    return a_stage ? (16 * mt * T * static_cast<int>(sizeof(bf16)) + 31) / 16 * 16 : 0;
   };
-  p.mt = 1024 + kMsgAStages * a_bytes(2) + 2 * 32 * row + kMsgWarps * box_bytes <= kMsgSmemMax
+  p.mt = 1024 + tail + kMsgAStages * a_bytes(2) + 2 * 32 * row + kMsgWarps * box_bytes <=
+                 kMsgSmemMax
              ? 2 : 1;
   p.a_bytes = a_bytes(p.mt);
   const int stage = 16 * p.mt * row;
-  const int fixed = 1024 + kMsgAStages * p.a_bytes;
+  const int fixed = 1024 + tail + kMsgAStages * p.a_bytes;
   p.nbuf = fixed + 2 * stage + kMsgWarps * box_bytes <= kMsgSmemMax ? 2 : 1;
   int fit = (kMsgSmemMax - fixed - p.nbuf * stage) / box_bytes;
   fit = fit < kMsgMaxSlots ? fit : kMsgMaxSlots;
@@ -119,16 +153,59 @@ inline MsgPlan msg_plan(int C, int T) {
   return p;
 }
 
-// The row tiles of a block in order: tile i of group grp of sample s
-// holds rows grp * 32 + 16 mt i ... of sample s, if it starts below N.
+inline MsgPlan msg_plan(int C, int T) { return msg_layout(C, C, T, true, 0); }
+
+// The wide form's slices: the widest slice, up to kMsgSliceMax columns,
+// whose two [32 x width] staging buffers and resident boxes fit beside the
+// w_aff stages; where none does (large T), the widest that fits with
+// pooled streamed through the rings, then without the w_aff stages.  The
+// row is then cut into ceil(C / widest) slices, each as narrow as that
+// count allows (C = 4104, T = 20: 5 of 832 columns, the last 776; the
+// 1088 columns that fit there measured 2% slower, PERF.md).
+inline MsgPlan msg_wide_plan(int C, int T) {
+  const int cols = (C + kChunk - 1) / kChunk * kChunk;
+  auto at = [&](int w, bool a_stage) {
+    return msg_layout(w, w + 8, T, a_stage, kMsgWideTail);
+  };
+  auto resident = [](const MsgPlan& p) {
+    return p.smem > 0 && p.mt == 2 && p.nbuf == 2 && p.ring == 0;
+  };
+  auto fits = [](const MsgPlan& p) { return p.smem > 0; };
+  // the widest slice whose plan passes `ok` (64 columns if none does)
+  auto widest = [&](bool a_stage, auto ok) {
+    int w = cols < kMsgSliceMax ? cols : kMsgSliceMax;
+    while (w > kChunk && !ok(at(w, a_stage))) w -= kChunk;
+    return w;
+  };
+  bool a_stage = true;
+  int w = widest(true, resident);
+  if (!resident(at(w, true))) {
+    w = widest(true, fits);
+    a_stage = fits(at(w, true));
+    if (!a_stage) w = widest(false, fits);
+  }
+  const int slices = (C + w - 1) / w;
+  MsgPlan p = at(((C + slices - 1) / slices + kChunk - 1) / kChunk * kChunk, a_stage);
+  p.slices = slices;
+  return p;
+}
+
+// The row tiles of a block in order: tile i of group grp of sample s (and
+// with SLICED, of its column slice sl) holds rows grp * 32 + 16 mt i ...
+// of sample s, if it starts below N.  The groups are innermost.
 struct MsgTile {
-  int g, s, grp, i;   // g = s * parts + grp
-  __device__ void next(int parts, int N, int tile_rows) {
+  int g, s, grp, i, sl;   // g = (s * slices + sl) * parts + grp
+  template <bool SLICED>
+  __device__ void next(int parts, int slices, int N, int tile_rows) {
     if (++i < kMsgGroupRows / tile_rows && grp * kMsgGroupRows + i * tile_rows < N) return;
     i = 0;
     ++g;
     if (++grp == parts) {
       grp = 0;
+      if constexpr (SLICED) {
+        if (++sl < slices) return;
+        sl = 0;
+      }
       ++s;
     }
   }
@@ -141,11 +218,21 @@ struct MsgTile {
 // and not even 4-byte aligned at odd T), and it loads pooled's boxes by
 // TMA (once per sample while they stay resident, else for every tile).
 // The consumers release a box after its last use before the next load, a
-// w_aff stage after the tile.
-__global__ void __launch_bounds__(kMsgThreads, 1)
-graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restrict__ w_aff,
-                 bf16* __restrict__ msg, float* __restrict__ stats, int B, int N, int C,
-                 int T, MsgPlan plan) {
+// w_aff stage after the tile.  SLICED = false (graph_msg_kernel): a tile
+// spans the row, a block walks (sample, group) pairs and keeps a sample's
+// boxes, and thread 0 stores each staged tile after a barrier of the
+// consumer warps.  SLICED = true (the wide form): a tile spans one column
+// slice, a block walks (sample, slice, group) items, groups innermost,
+// and keeps a slice's boxes while it stays in that slice; a storer warp
+// (warp kMsgWarps + 1) takes each staged tile by an mbarrier and stores
+// its rows, lane r row r by its own bulk copy, so the consumer warps
+// never wait on one another.
+template <bool SLICED>
+__device__ __forceinline__ void graph_msg_block(const CUtensorMap& p_map,
+                                                const bf16* __restrict__ w_aff,
+                                                bf16* __restrict__ msg,
+                                                float* __restrict__ stats, int B, int N, int C,
+                                                int T, MsgPlan plan) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kMsgMaxSlots], empty[kMsgMaxSlots];
   __shared__ __align__(8) uint64_t a_full[kMsgAStages], a_empty[kMsgAStages];
@@ -154,12 +241,18 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int parts = (N + kMsgGroupRows - 1) / kMsgGroupRows;
-  const long long groups = static_cast<long long>(B) * parts;
+  const int slices = SLICED ? plan.slices : 1;
+  const long long groups = static_cast<long long>(B) * slices * parts;
   const int g0 = static_cast<int>(groups * blockIdx.x / gridDim.x);
   const int g1 = static_cast<int>(groups * (blockIdx.x + 1) / gridDim.x);
   const int tile_rows = 16 * plan.mt;
   const int box_bytes = plan.kbox * kSwizzleBytes;
   const bool stream = plan.ring > 0;   // reload the boxes every tile
+  const int pitch = SLICED ? plan.pitch : C;   // bf16 of a staged row
+  // the boxes a tile needs: its sample's (SLICED: its slice's), from
+  // column c0 on
+  auto panel = [&](const MsgTile& x) { return SLICED ? x.s * slices + x.sl : x.s; };
+  auto col0 = [&](const MsgTile& x) { return SLICED ? x.sl * plan.width : 0; };
 
   // warp w's boxes per tile, and its first slot
   auto boxes_of = [&](int w) {
@@ -186,6 +279,13 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
   };
   unsigned char* a_ring = smem + slots * box_bytes;
   bf16* staging = reinterpret_cast<bf16*>(a_ring + kMsgAStages * plan.a_bytes);
+  // SLICED: the storer warp's hand-off, past the staging buffers.  staged[b]:
+  // the consumer warps have staged buffer b (and their statistics); freed[b]:
+  // its stores have read it
+  uint64_t* staged = reinterpret_cast<uint64_t*>(
+      staging + plan.nbuf * static_cast<size_t>(tile_rows) * plan.pitch);
+  uint64_t* freed = staged + kMsgMaxBufs;
+  float* wred = reinterpret_cast<float*>(freed + kMsgMaxBufs);   // [buf][warp][2]
 
   // A tile's w_aff rows are elements [e0, e0 + 16 mt T) of w_aff; its stage
   // holds the bytes from the 16-byte bound below e0 up to the next 16-byte
@@ -204,7 +304,7 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
     bytes = hi > lo ? static_cast<uint32_t>(hi - lo) : 0u;
     return e0;
   };
-  const MsgTile start{g0, g0 / parts, g0 % parts, 0};
+  const MsgTile start{g0, g0 / (parts * slices), g0 % parts, 0, (g0 / parts) % slices};
 
   if (threadIdx.x == 0) {
     for (int q = 0; q < slots; ++q) {
@@ -215,25 +315,63 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
       mbar_init(&a_full[q], 1);
       mbar_init(&a_empty[q], kMsgWarps);
     }
+    if constexpr (SLICED) {
+      for (int b = 0; b < plan.nbuf; ++b) {
+        mbar_init(&staged[b], kMsgWarps);
+        mbar_init(&freed[b], 1);
+      }
+    }
     mbar_fence_init();
   }
   __syncthreads();
+
+  if constexpr (SLICED) {
+    if (warp == kMsgWarps + 1) {   // the storer: a tile's rows, each by its own bulk copy
+      int buf = 0, t = 0;
+      for (MsgTile x = start; x.g < g1; ++t) {
+        MsgTile xn = x;
+        xn.next<SLICED>(parts, slices, N, tile_rows);
+        mbar_wait(&staged[buf], (t / plan.nbuf) & 1);
+        const int r0 = x.grp * kMsgGroupRows + x.i * tile_rows;
+        const int n_rows = N - r0 < tile_rows ? N - r0 : tile_rows;
+        const int c0 = col0(x);
+        const int cols = C - c0 < plan.width ? C - c0 : plan.width;
+        if (lane < n_rows)
+          bulk_store(msg + (static_cast<size_t>(x.s) * N + r0 + lane) * C + c0,
+                     staging + (static_cast<size_t>(buf) * tile_rows + lane) * plan.pitch,
+                     static_cast<uint32_t>(cols) * sizeof(bf16));
+        bulk_commit();
+        if (xn.g != x.g && lane < 2) {   // the item's statistics, the warps' in order
+          float v = 0.f;
+          for (int w = 0; w < kMsgWarps; ++w) v += wred[(buf * kMsgWarps + w) * 2 + lane];
+          stats[static_cast<size_t>(x.g) * 2 + lane] = v;
+        }
+        bulk_wait_read();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&freed[buf]);
+        buf = buf + 1 == plan.nbuf ? 0 : buf + 1;
+        x = xn;
+      }
+      return;
+    }
+  }
 
   if (warp == kMsgWarps) {   // the producer
     if (lane == 0) {
       tma_prefetch(&p_map);
       int cur = -1, t = 0, round = -1;
-      for (MsgTile x = start; x.g < g1; x.next(parts, N, tile_rows), ++t) {
+      for (MsgTile x = start; x.g < g1; x.next<SLICED>(parts, slices, N, tile_rows), ++t) {
         const int aq = t % kMsgAStages;
         if (t >= kMsgAStages) mbar_wait(&a_empty[aq], ((t / kMsgAStages) - 1) & 1);
         size_t lo;
         uint32_t bytes;
         a_span(x, lo, bytes);
+        if (SLICED && !plan.a_bytes) bytes = 0;
         mbar_arrive_expect_tx(&a_full[aq], bytes);
         if (bytes) bulk_load(a_ring + aq * plan.a_bytes, wbytes + lo, bytes, &a_full[aq]);
 
-        if (!stream && x.s == cur) continue;
-        cur = x.s;
+        if (!stream && panel(x) == cur) continue;
+        cur = panel(x);
         ++round;
         // in each warp's order of use: chunk j is warp j % 8's chunk j / 8
         for (int j = 0, w = 0, pj = 0; j < plan.chunks; ++j) {
@@ -242,8 +380,8 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
             slot_of(w, pj * plan.kchunks + kc, round, q, ph);
             if (ph > 0) mbar_wait(&empty[q], (ph - 1) & 1);
             mbar_arrive_expect_tx(&full[q], box_bytes);
-            tma_load_3d(smem + q * box_bytes, &p_map, &full[q], j * kChunk, kc * plan.kbox,
-                        x.s);
+            tma_load_3d(smem + q * box_bytes, &p_map, &full[q], col0(x) + j * kChunk,
+                        kc * plan.kbox, x.s);
           }
           if (++w == kMsgWarps) {
             w = 0;
@@ -266,7 +404,7 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
   const int ksteps = plan.kbox / 16;
   const int m = lane / 8;
   const uint32_t lrow = smem_u32(smem) + ((m % 2) * 8 + lane % 8) * kSwizzleBytes;
-  const int stage = tile_rows * C;   // bf16 of one staging buffer
+  const int stage = tile_rows * pitch;   // bf16 of one staging buffer
   const int row_bytes = T * static_cast<int>(sizeof(bf16));
   constexpr uint32_t kOnes = 0x3f803f80u;   // two bf16 ones
   int round = -1, cur = -1, buf = 0, parity = 0, t = 0;
@@ -279,21 +417,21 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
   float sx[2][4] = {}, sq[4] = {};
   for (MsgTile x = start; x.g < g1; ++t) {
     const int r0 = x.grp * kMsgGroupRows + x.i * tile_rows;
-    if (stream || x.s != cur) {   // this tile's boxes are a new load round
+    if (stream || panel(x) != cur) {   // this tile's boxes are a new load round
       ++round;
-      cur = x.s;
+      cur = panel(x);
     }
     MsgTile xn = x;
-    xn.next(parts, N, tile_rows);
-    const bool last = xn.g != x.g;   // the group's last tile
-    const bool release = stream || xn.g == g1 || xn.s != x.s;
+    xn.next<SLICED>(parts, slices, N, tile_rows);
+    const bool last = xn.g != x.g;   // the group's (SLICED: item's) last tile
+    const bool release = stream || xn.g == g1 || panel(xn) != panel(x);
     const int aq = t % kMsgAStages;
     size_t lo;
     uint32_t bytes;
     const size_t e0 = a_span(x, lo, bytes);
     // rows 16 mi + gq of the tile, in the stage or, past w_tail, in device
     // memory; the rows 8 further are row_bytes * 8 on
-    const unsigned char* rows = e0 + tile_bytes <= w_tail
+    const unsigned char* rows = (!SLICED || plan.a_bytes) && e0 + tile_bytes <= w_tail
                                     ? a_ring + aq * plan.a_bytes + (e0 - lo) + gq * row_bytes
                                     : wbytes + e0 + gq * row_bytes;
     auto a_pair = [&](int r, int k) {   // words k, k + 1 of row gq + r of the tile
@@ -325,7 +463,10 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
     if (plan.kchunks == 1) gather(0);
 
     bf16* out = staging + buf * stage;
-    bf16* out_row = out + gq * C + 2 * c;   // this lane's row gq, column 2c
+    bf16* out_row = out + gq * pitch + 2 * c;   // this lane's row gq, column 2c
+    if constexpr (SLICED) {   // the buffer's last stores have read it
+      if (t >= plan.nbuf) mbar_wait(&freed[buf], ((t / plan.nbuf) - 1) & 1);
+    }
     for (int j = warp, lr = 0; j < plan.chunks; j += kMsgWarps) {
       float acc[2][8][4];   // [m16 tile][n8 tile]
 #pragma unroll
@@ -366,6 +507,7 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
       // rows of 2C = 2000 bytes start 16 bytes into a 32-byte sector at
       // every other row, and stores cut at 64-column boundaries split
       // those sectors between two stores (measured 1.7x slower, PERF.md).
+      // SLICED: [16 mt x pitch], each row's slice stored by its own copy.
       // Rows past N and columns past C are zero: they add nothing to the
       // sums.
 #pragma unroll
@@ -388,8 +530,8 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
           const int col = j * kChunk + 16 * pr;   // of this lane: + 2c
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (col + 8 * (e / 2) < C)
-              *reinterpret_cast<uint32_t*>(out_row + (16 * mi + 8 * (e % 2)) * C + col +
+            if (SLICED || col + 8 * (e / 2) < C)
+              *reinterpret_cast<uint32_t*>(out_row + (16 * mi + 8 * (e % 2)) * pitch + col +
                                            8 * (e / 2)) = xf[e];
         }
       }
@@ -401,9 +543,12 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
     // proxy; thread 0 waits until the previous tile's store has read the
     // buffer the next tile writes; after the barrier it stores the tile's
     // rows below N.  At a group's last tile each warp sums its row sums
-    // and squares, the warps' sums go to `red` (alternating by group)
-    // and warp 1 adds them in order into the group's slot: no atomics, so
-    // two launches agree bit for bit.
+    // and squares, the warps' sums go to `red` (alternating by group) and
+    // warp 1 adds them in order into the group's slot: no atomics, so two
+    // launches agree bit for bit.  SLICED: no block barrier; each warp
+    // hands the buffer (and its sums, kept per buffer) to the storer warp
+    // by `staged`, which stores the rows and adds the sums in the same
+    // order.
     fence_proxy_async();
     if (last) {
       // every column of sx holds the row sums: rows gq and gq + 8 in
@@ -413,9 +558,17 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
 #pragma unroll
       for (int e = 0; e < 4; ++e) sx[0][e] = sx[1][e] = sq[e] = 0.f;
       if (lane == 0) {
-        red[parity][warp][0] = s1;
-        red[parity][warp][1] = s2;
+        float* rd = SLICED ? wred + (buf * kMsgWarps + warp) * 2 : red[parity][warp];
+        rd[0] = s1;
+        rd[1] = s2;
       }
+    }
+    if constexpr (SLICED) {   // hand the buffer to the storer warp
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&staged[buf]);
+      buf = buf + 1 == plan.nbuf ? 0 : buf + 1;
+      x = xn;
+      continue;
     }
     if (threadIdx.x == 0) bulk_wait_read();
     named_bar_sync(1, 32 * kMsgWarps);
@@ -436,7 +589,23 @@ graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restri
     buf = plan.nbuf == 2 ? buf ^ 1 : 0;
     x = xn;
   }
-  if (threadIdx.x == 0) bulk_wait_read();   // the stores have read shared memory
+  if (!SLICED && threadIdx.x == 0) bulk_wait_read();   // the stores have read shared memory
+}
+
+__global__ void __launch_bounds__(kMsgThreads, 1)
+graph_msg_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restrict__ w_aff,
+                 bf16* __restrict__ msg, float* __restrict__ stats, int B, int N, int C,
+                 int T, MsgPlan plan) {
+  graph_msg_block<false>(p_map, w_aff, msg, stats, B, N, C, T, plan);
+}
+
+// The wide form (the plan does not fit a row): the same pipeline over
+// column slices (graph_msg_block<true>).
+__global__ void __launch_bounds__(kMsgWideThreads, 1)
+graph_msg_wide_kernel(const __grid_constant__ CUtensorMap p_map, const bf16* __restrict__ w_aff,
+                      bf16* __restrict__ msg, float* __restrict__ stats, int B, int N, int C,
+                      int T, MsgPlan plan) {
+  graph_msg_block<true>(p_map, w_aff, msg, stats, B, N, C, T, plan);
 }
 
 // graph_update.  blockIdx.x: the 256-column block, y: the 128-row tile of
@@ -537,10 +706,10 @@ __device__ __forceinline__ void graph_update_block(
   }
   float mean, inv;
   if constexpr (RING) {
-    // msg's statistics from the message's wide form hold a slot per 64 x
-    // 64 tile (1625 a sample at N = 1600, C = 4104): the threads sum
-    // strided shares, each warp its lanes', then every thread the 8 warps'
-    // in order (the same bits in every thread)
+    // msg's statistics from the message's wide form hold a slot per
+    // (32-row group, column slice) (250 a sample at N = 1600, C = 4104):
+    // the threads sum strided shares, each warp its lanes', then every
+    // thread the 8 warps' in order (the same bits in every thread)
     float sa = 0.f, sb = 0.f;
     for (int j = threadIdx.x; j < parts1; j += kUpdThreads) {
       sa += stats1[(static_cast<size_t>(s) * parts1 + j) * 2];
@@ -743,6 +912,41 @@ extern "C" int cmpc_graph_update_parts(int N, int C) {
   return ((N + cmpc::kUpdBM - 1) / cmpc::kUpdBM) * ((C + cmpc::kUpdBN - 1) / cmpc::kUpdBN);
 }
 
+namespace cmpc {
+
+// The message's tensor map and launch, for either kernel: one block per SM,
+// at most one per work item.
+template <class Kernel>
+int launch_msg(Kernel kernel, int threads, const MsgPlan& plan, const void* w_aff,
+               const void* pooled, void* msg, void* stats, int B, int N, int C, int T,
+               void* stream) {
+  CUtensorMap p_map;
+  // [B][T][C] innermost first: the boxes read zero past T and past C
+  const uint64_t bf = sizeof(bf16);
+  const uint64_t p_dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(T),
+                              static_cast<uint64_t>(B)};
+  const uint64_t p_strides[2] = {C * bf, static_cast<uint64_t>(T) * C * bf};
+  const uint32_t p_box[3] = {kChunk, static_cast<uint32_t>(plan.kbox), 1};
+  int rc = encode_tmap(&p_map, pooled, 3, p_dims, p_strides, p_box);
+  if (rc) return rc;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  const long long items = static_cast<long long>(B) * plan.slices * cmpc_graph_msg_parts(N);
+  const int grid = items < sms ? static_cast<int>(items) : sms;
+  kernel<<<grid, threads, plan.smem, static_cast<cudaStream_t>(stream)>>>(
+      p_map, static_cast<const bf16*>(w_aff), static_cast<bf16*>(msg),
+      static_cast<float*>(stats), B, N, C, T, plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cmpc
+
 // w_aff [B*N, T] bf16, pooled [B, T, C] bf16 -> msg [B*N, C] bf16 and
 // stats [B, parts, 2] f32 (per 32-row group: sum, sum of squares of the
 // bf16 msg).  T >= 1; w_aff, pooled and msg 16-byte aligned (bulk copies,
@@ -755,30 +959,27 @@ extern "C" int cmpc_graph_msg(const void* w_aff, const void* pooled, void* msg,
   using namespace cmpc;
   if (B < 1 || N < 1 || C % 8 || cmpc_graph_msg_smem(C, T) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const MsgPlan plan = msg_plan(C, T);
-  CUtensorMap p_map;
-  // [B][T][C] innermost first: the boxes read zero past T and past C
-  const uint64_t bf = sizeof(bf16);
-  const uint64_t p_dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(T),
-                              static_cast<uint64_t>(B)};
-  const uint64_t p_strides[2] = {C * bf, static_cast<uint64_t>(T) * C * bf};
-  const uint32_t p_box[3] = {kChunk, static_cast<uint32_t>(plan.kbox), 1};
-  int rc = encode_tmap(&p_map, pooled, 3, p_dims, p_strides, p_box);
-  if (rc) return rc;
-  cudaError_t err = cudaFuncSetAttribute(
-      graph_msg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-          cudaSuccess)
-    return static_cast<int>(err);
-  const long long groups = static_cast<long long>(B) * cmpc_graph_msg_parts(N);
-  const int grid = groups < sms ? static_cast<int>(groups) : sms;
-  graph_msg_kernel<<<grid, kMsgThreads, plan.smem, static_cast<cudaStream_t>(stream)>>>(
-      p_map, static_cast<const bf16*>(w_aff), static_cast<bf16*>(msg),
-      static_cast<float*>(stats), B, N, C, T, plan);
-  return static_cast<int>(cudaGetLastError());
+  return launch_msg(graph_msg_kernel, kMsgThreads, msg_plan(C, T), w_aff, pooled, msg, stats,
+                    B, N, C, T, stream);
+}
+
+// Statistics slots per sample of the message's wide form: one per (32-row
+// group, column slice).
+extern "C" int cmpc_graph_msg_wide_parts(int N, int C, int T) {
+  return cmpc_graph_msg_parts(N) * cmpc::msg_wide_plan(C, T).slices;
+}
+
+// The contract of cmpc_graph_msg for any C (a multiple of 8) and T >= 1,
+// with stats [B, cmpc_graph_msg_wide_parts(N, C, T), 2], sample-major,
+// then slice, then group.
+extern "C" int cmpc_graph_msg_wide(const void* w_aff, const void* pooled, void* msg,
+                                   void* stats, int B, int N, int C, int T, void* stream) {
+  using namespace cmpc;
+  if (B < 1 || N < 1 || T < 1 || C % 8 || C < 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(w_aff) || !aligned16(pooled) || !aligned16(msg))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return launch_msg(graph_msg_wide_kernel, kMsgWideThreads, msg_wide_plan(C, T), w_aff,
+                    pooled, msg, stats, B, N, C, T, stream);
 }
 
 namespace cmpc {
@@ -856,82 +1057,4 @@ extern "C" int cmpc_graph_update_wide(const void* x, const void* msg, const void
   if (!aligned16(g1) || !aligned16(b1)) return static_cast<int>(cudaErrorMisalignedAddress);
   return launch_update(graph_update_wide_tma_kernel, kUpdWideSmem, x, msg, stats1, parts1, w,
                        bias, g1, b1, z, stats2, B, N, C, width, groups, stream);
-}
-
-// ---------------------------------------------------------------------------
-// The message's wide form, where its plan does not fit (C > kMsgMaxC, or C *
-// T past its shared memory).  No TPU kernel of its own: the Pallas block
-// spans the whole row at any C and T.  A simple tiled product
-// (csrc/wide.cuh), a block per 64 x 64 output tile of one sample: the tile
-// of w_aff[s] @ pooled[s], rounded to bf16 (no reduction over C).  Each
-// block writes its own statistics slot (sum, sum of squares of its rounded
-// outputs, summed over its threads in a fixed order), so the statistics
-// keep the [B, parts, 2] layout with parts = cmpc_graph_wide_parts(N, C).
-// Bound on the card: bytes (the [B*N, C] store; the product is [N, T] x
-// [T, C] per sample).  The update's wide form is graph_update_wide_tma_kernel
-// above.
-// ---------------------------------------------------------------------------
-#include "wide.cuh"
-
-namespace cmpc {
-
-// The block's (sum, sum of squares) into its slot of `stats` [B, parts, 2].
-__device__ __forceinline__ void wide_stats(float sum, float sumsq, float* stats, int s,
-                                           float* red) {
-  sum = block_sum(sum, red);
-  sumsq = block_sum(sumsq, red);
-  if (threadIdx.x == 0) {
-    const size_t part =
-        (static_cast<size_t>(s) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    stats[part * 2] = sum;
-    stats[part * 2 + 1] = sumsq;
-  }
-}
-
-__global__ void __launch_bounds__(kWideThreads)
-graph_msg_wide_kernel(const bf16* __restrict__ w_aff, const bf16* __restrict__ pooled,
-                      bf16* __restrict__ msg, float* __restrict__ stats, int N, int C, int T,
-                      bool avec) {
-  __shared__ WideSmem sm;
-  __shared__ float red[kWideThreads / 32];
-  const int c0 = blockIdx.x * kWideTile, row0 = blockIdx.y * kWideTile, s = blockIdx.z;
-  const size_t srow = static_cast<size_t>(s) * N;
-  const RowsLoad wa{w_aff + srow * T, T, N, T, avec};
-  const RowsLoad pb{pooled + static_cast<size_t>(s) * T * C, C, T, C, true};
-  wide_product(sm, wa, pb, row0, c0, T);
-  float sum = 0.f, sumsq = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < kWidePerThread; ++i) {
-    const int e = threadIdx.x + i * kWideThreads, r = e / kWideTile, j = e % kWideTile;
-    const int row = row0 + r, col = c0 + j;
-    if (row >= N || col >= C) continue;
-    const float v = round_bf(sm.c[r][j]);
-    msg[(srow + row) * C + col] = f2bf(v);
-    sum += v;
-    sumsq += v * v;
-  }
-  wide_stats(sum, sumsq, stats, s, red);
-}
-
-}  // namespace cmpc
-
-// Statistics slots per sample of the message's wide form: one per 64 x 64
-// tile.
-extern "C" int cmpc_graph_wide_parts(int N, int C) {
-  return cmpc::wide_tiles(N) * cmpc::wide_tiles(C);
-}
-
-// The contract of cmpc_graph_msg for any C (a multiple of 8) and T >= 1,
-// with stats [B, cmpc_graph_wide_parts(N, C), 2]; pooled 16-byte aligned.
-extern "C" int cmpc_graph_msg_wide(const void* w_aff, const void* pooled, void* msg,
-                                   void* stats, int B, int N, int C, int T, void* stream) {
-  using namespace cmpc;
-  if (B < 1 || N < 1 || T < 1 || C % 8 || C < 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (!aligned16(pooled)) return static_cast<int>(cudaErrorMisalignedAddress);
-  graph_msg_wide_kernel<<<dim3(wide_tiles(C), wide_tiles(N), B), kWideThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(w_aff), static_cast<const bf16*>(pooled),
-      static_cast<bf16*>(msg), static_cast<float*>(stats), N, C, T,
-      T % 8 == 0 && aligned16(w_aff));
-  return static_cast<int>(cudaGetLastError());
 }

@@ -60,7 +60,7 @@ SIGNATURES = {
         "cmpc_graph_msg_wide": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "cmpc_graph_update_wide": ([_P] * 3 + [_I] + [_P] * 6 + [_I] * 5
                                    + [_P], _I),
-        "cmpc_graph_wide_parts": ([_I, _I], _I),
+        "cmpc_graph_msg_wide_parts": ([_I, _I, _I], _I),
     },
     "se_sum": {
         "cmpc_se_sum": ([_P] + [_PP] * 4 + [_I, _P] + [_I] * 3 + [_P], _I),

@@ -16,8 +16,8 @@ the shape: a row wider than the affinity's or the SE sum's cluster covers,
 a graph width past the update's or the message's shared memory, a dz row
 past its ring.  The affinity's, the update's and the SE sum's run their
 main kernel's pipeline with the whole-row reduction carried in device
-memory, the dz pass's is a three-launch vector stream, and the message's
-is a simple tiled product (``csrc/wide.cuh``).  A wide launch counts in
+memory, the message's runs its main pipeline over column slices, and the
+dz pass's is a three-launch vector stream.  A wide launch counts in
 the wrapper's ``launches`` like any other, and also in its
 ``wide_launches`` (`wide_launch_counts`), so a run can show which form it
 took.
@@ -505,7 +505,7 @@ def graph_msg(w_aff, pooled):
     lib = build.library("graph_conv")
     # rows of msg staged whole (C <= 4096, C * T bounded), or the wide form
     wide = not lib.cmpc_graph_msg_smem(c, t)
-    parts = (lib.cmpc_graph_wide_parts(n, c) if wide else
+    parts = (lib.cmpc_graph_msg_wide_parts(n, c, t) if wide else
              lib.cmpc_graph_msg_parts(n))
     msg = torch.empty((bsz, n, c), dtype=torch.bfloat16, device=w_aff.device)
     stats = torch.empty((bsz, parts, 2), dtype=torch.float32,

@@ -479,21 +479,53 @@ def _wide_call(name, args, kw=None):
     return got, want
 
 
+# the message's wide form: C = 4096 with T = 300 (C * T past the plan),
+# C past 4096; (6, 1600, 4104, 20) is phase 17's shape
+WIDE_MSG = [(1, 16, 4096, 300), (2, 75, 4104, 20), (3, 100, 4104, 17),
+            (6, 1600, 4104, 20), (2, 1681, 4104, 300), (2, 75, 4160, 17),
+            (2, 75, 4352, 17), (1, 16, 8200, 1), (64, 100, 4104, 20),
+            (1, 40, 4104, 600), (1, 40, 4104, 1500)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n,c,t", [(1, 16, 4096, 300), (2, 75, 4104, 20),
-                                     (3, 100, 4104, 17)])
+@pytest.mark.parametrize("b,n,c,t", WIDE_MSG)
 def test_graph_msg_wide_form_where_the_plan_does_not_fit(cuda, b, n, c, t):
     """C = 4096 with T = 300 (or C past 4096) does not fit the message
-    kernel's shared memory: the wrapper launches the wide form, which
-    agrees with the plain version (msg and its statistics, one slot per
-    64 x 64 tile); T = 17 leaves w_aff rows 2-byte aligned."""
+    kernel's shared memory: the wrapper launches the wide form (the main
+    pipeline over column slices), which agrees with the plain version (msg
+    and its statistics, one slot per 32-row group and slice).  T = 17
+    leaves w_aff rows 2-byte aligned; T = 300 takes five K chunks of
+    pooled in 192-column slices, and N = 1681 ends in a 17-row group; at
+    T = 17 and 20, C = 4104 ends 776 columns into an 832-column slice,
+    C = 4160 fills its last one, C = 4352 ends 768 columns into a
+    896-column slice, and C = 8200 (T = 1) 520 into a 960-column slice.
+    64 samples of 100 rows put several 4-group slices in each block's
+    range, whose boxes are reloaded.  At T = 600 not even a
+    64-column slice keeps its boxes resident: they stream through the
+    per-warp rings, in 16-row tiles; at T = 1500 the tiles also read
+    w_aff's rows from device memory (no stage fits)."""
     lib = build.library("graph_conv")
     assert lib.cmpc_graph_msg_smem(1000, 20) > 0
     assert lib.cmpc_graph_msg_smem(4096, 300) == 0
     assert lib.cmpc_graph_msg_smem(4104, 1) == 0
     got, want = _wide_call("graph_msg", _msg_args(cuda, b, n, t, c))
-    assert got[1].shape == (b, lib.cmpc_graph_wide_parts(n, c), 2)
+    slots = lib.cmpc_graph_msg_wide_parts(n, c, t)
+    assert slots % lib.cmpc_graph_msg_parts(n) == 0
+    assert got[1].shape == (b, slots, 2)
     _close("graph_msg", got, want, n * c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c,t", [(6, 1600, 4104, 20), (2, 1681, 4104, 300),
+                                     (64, 100, 4104, 20)])
+def test_graph_msg_wide_form_repeats_bit_identically(cuda, b, n, c, t):
+    """Two launches of the wide form give the same msg and statistics bits:
+    each (group, slice) slot is summed in a fixed order, no atomics."""
+    args = _msg_args(cuda, b, n, t, c)
+    first, _ = _wide_call("graph_msg", args)
+    again, _ = _wide_call("graph_msg", args)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
@@ -537,19 +569,21 @@ def test_se_sum_wide_form_matches_plain_version(cuda, b, n, k, c):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("groups", [0, 2, 3])
-@pytest.mark.parametrize("n", [75, 100, 1600])
-def test_graph_update_wide_form_matches_plain_version(cuda, n, groups):
+@pytest.mark.parametrize("n,slots", [(75, None), (100, None), (1600, None),
+                                     (1600, 1625)])
+def test_graph_update_wide_form_matches_plain_version(cuda, n, slots, groups):
     """C = 4104, past the 4096 columns of LN1's affine that the update
     kernel stages: the wide form (the update's pipeline with LN1's affine
     carried in the ring), G = 1 (the ungrouped form), 2 and 3, 6 samples
     of n rows (75 and 100 end in a part-filled 128-row tile, 1600 is
     phase 17's), an 8-column last K step and W box; its statistics in the
     main kernel's layout, one slot per 128 x 256 block.  msg's statistics
-    come as the message's wide form writes them, a slot per 64 x 64 tile
-    (1625 a sample at N = 1600), which the block sums over its threads."""
+    come in as many slots as the message's wide form writes (one per
+    32-row group and column slice, 250 a sample at N = 1600) or, to hold
+    the block's strided sum of many slots, 1625."""
     lib = build.library("graph_conv")
     args = _update_args(cuda, 6, n, 4104, groups)
-    slots = lib.cmpc_graph_wide_parts(n, 4104)
+    slots = slots or lib.cmpc_graph_msg_wide_parts(n, 4104, 20)
     stats1 = (args[2] / slots).expand(-1, slots, -1).contiguous()
     args = (*args[:2], stats1, *args[3:])
     name = "graph_update_grouped" if groups else "graph_update"

@@ -16,7 +16,7 @@ the designs measured against it.  For the groups in SASS_KERNEL the tool
 also counts the kernel's SASS opcodes in each build (cuobjdump): the
 tensor-core products (HMMA), TMA loads and stores (UTMALDG, UTMASTG).
 
-    python3 tools/kernel_variants.py dz|raw|msg|se_wide|dz_wide [--out build/kernel_variants]
+    python3 tools/kernel_variants.py dz|raw|msg|msg_wide|se_wide|dz_wide [--out build/kernel_variants]
 
 Needs a CUDA GPU and nvcc; prints one line per shape and one JSON line.
 """
@@ -124,10 +124,8 @@ _MSG_NO_A_GATHER = [("      const uint32_t x0 = ok && k < T ? static_cast<uint32
 _MSG_NO_STATS = [
     ("          mma_m16n8k16(sx[(mi + pr) & 1], xf, kOnes, kOnes);\n", ""),
     ("            sq[e] = fmaf(lo, lo, fmaf(hi, hi, sq[e]));", "")]
-_MSG_NO_STAGING = [("            if (col + 8 * (e / 2) < C)\n"
-                    "              *reinterpret_cast<uint32_t*>(out_row",
-                    "            if (col + 8 * (e / 2) < C && C < 0)\n"
-                    "              *reinterpret_cast<uint32_t*>(out_row")]
+_MSG_NO_STAGING = [("            if (SLICED || col + 8 * (e / 2) < C)\n",
+                    "            if ((SLICED || col + 8 * (e / 2) < C) && C < 0)\n")]
 # the sums of squares on the tensor cores too, as the diagonals of x * x^T
 # (rows 0-7 and 8-15 of each m16 tile apart)
 _MSG_SQ_MMA = [
@@ -148,9 +146,9 @@ _MSG_SQ_MMA = [
      "#pragma unroll\n"
      "      for (int e = 0; e < 4; ++e) sq0[e] = sq1[e] = 0.f;")]
 _MSG_GRID_PER_GROUP = [
-    ("  const int grid = groups < sms ? static_cast<int>(groups) : sms;",
-     "  const int grid = static_cast<int>(groups);")]
-_MSG_16_ROW_TILES = [("  p.mt = 1024 + kMsgAStages", "  p.mt = C < 0 && 1024 + kMsgAStages")]
+    ("  const int grid = items < sms ? static_cast<int>(items) : sms;",
+     "  const int grid = static_cast<int>(items);")]
+_MSG_16_ROW_TILES = [("  p.mt = 1024 + tail", "  p.mt = width < 0 && 1024 + tail")]
 _MSG_SPLIT_STORES = [
     ("    if (threadIdx.x == 0) bulk_wait_read();\n    named_bar_sync(1, 32 * kMsgWarps);",
      "    bulk_wait_read();\n    named_bar_sync(1, 32 * kMsgWarps);"),
@@ -165,8 +163,84 @@ _MSG_SPLIT_STORES = [
     bulk_commit();
     if (C < 0) {
       const int n_rows = N - r0 < tile_rows ? N - r0 : tile_rows;"""),
-    ("  if (threadIdx.x == 0) bulk_wait_read();   // the stores have read shared memory",
-     "  bulk_wait_read();")]
+    ("  if (!SLICED && threadIdx.x == 0) bulk_wait_read();   // the stores have read shared memory",
+     "  if (!SLICED) bulk_wait_read();")]
+
+# graph_msg's wide form: no msg stores; one or three staging buffers; the
+# items ordered slices innermost (a block's boxes reloaded at every item)
+# instead of groups innermost
+_MSGW_NO_STORE = [("        if (lane < n_rows)\n          bulk_store(",
+                   "        if (lane < n_rows && C < 0)\n          bulk_store(")]
+_MSGW_THREE_BUFFERS = _const("kMsgMaxBufs", 2, 3) + [
+    ("  p.slices = slices;\n  return p;",
+     "  p.slices = slices;\n"
+     "  if (p.nbuf == 2 && p.smem + 16 * p.mt * p.pitch * 2 <= kMsgSmemMax) {\n"
+     "    p.smem += 16 * p.mt * p.pitch * 2;\n"
+     "    p.nbuf = 3;\n"
+     "  }\n  return p;")]
+# the chunks turned over the warps from tile to tile (warp w takes j = (w +
+# t) % 8, + 8, ... of tile t; resident boxes only), so a box has no single
+# user: every warp waits on all of a slice's boxes when it enters the slice
+# and releases all of them when it leaves (empty counts every warp)
+_MSGW_ROTATE = [
+    ("  const bool stream = plan.ring > 0;   // reload the boxes every tile\n",
+     "  const bool stream = plan.ring > 0;   // reload the boxes every tile\n"
+     "  const bool rotate = SLICED && !stream;\n"),
+    ("      mbar_init(&empty[q], 1);", "      mbar_init(&empty[q], rotate ? kMsgWarps : 1);"),
+    ("      cur = panel(x);\n    }",
+     "      cur = panel(x);\n"
+     "      if (rotate)\n"
+     "        for (int q = 0; q < slots; ++q) mbar_wait(&full[q], round & 1);\n    }"),
+    ("    for (int j = warp, lr = 0; j < plan.chunks; j += kMsgWarps) {",
+     "    for (int j = rotate ? (warp + t) % kMsgWarps : warp, lr = 0; j < plan.chunks;\n"
+     "         j += kMsgWarps) {"),
+    ("        slot_of(warp, lr, round, q, ph);\n",
+     "        if (rotate) {\n"
+     "          q = first_slot(j % kMsgWarps) + (j / kMsgWarps) * plan.kchunks + kc;\n"
+     "          ph = round;\n"
+     "        } else {\n"
+     "          slot_of(warp, lr, round, q, ph);\n"
+     "        }\n"),
+    ("        if (release) {   // the box's last use",
+     "        if (release && !rotate) {   // the box's last use"),
+    ("    if (lane == 0) mbar_arrive(&a_empty[aq]);   // this warp is done with the w_aff stage\n",
+     "    if (lane == 0) mbar_arrive(&a_empty[aq]);   // this warp is done with the w_aff stage\n"
+     "    if (rotate && release && lane == 0)\n"
+     "      for (int q = 0; q < slots; ++q) mbar_arrive(&empty[q]);\n")]
+# w_aff pairs read by one 4-byte load where T is even (rows 4-byte aligned)
+_MSGW_A_WORDS = [
+    ("      const bool ok = r0 + gq + r < N;\n",
+     "      const bool ok = r0 + gq + r < N;\n"
+     "      if (SLICED && T % 2 == 0)\n"
+     "        return ok && k < T ? *reinterpret_cast<const uint32_t*>(w) : 0u;\n")]
+# the widest slice capped at `cap` columns instead of kMsgSliceMax (None:
+# as wide as shared memory holds, 1088 columns at phase 17's shape)
+def _slice_cap(cap):
+    return [("    int w = cols < kMsgSliceMax ? cols : kMsgSliceMax;",
+             f"    int w = cols < {cap} ? cols : {cap};" if cap else "    int w = cols;")]
+
+
+_MSGW_ONE_BUFFER = [("  p.slices = slices;\n", "  p.slices = slices;\n  p.nbuf = 1;\n")]
+_MSGW_SLICES_INNERMOST = [
+    ("""    ++g;
+    if (++grp == parts) {
+      grp = 0;
+      if constexpr (SLICED) {
+        if (++sl < slices) return;
+        sl = 0;
+      }
+      ++s;
+    }""", """    ++g;
+    if constexpr (SLICED) {
+      if (++sl < slices) return;
+      sl = 0;
+    }
+    if (++grp == parts) {
+      grp = 0;
+      ++s;
+    }"""),
+    ("  const MsgTile start{g0, g0 / (parts * slices), g0 % parts, 0, (g0 / parts) % slices};",
+     "  const MsgTile start{g0, g0 / (parts * slices), (g0 / slices) % parts, 0, g0 % slices};")]
 
 # the SE sum's wide form: two blocks per SM (a 128-register cap)
 _SE_WIDE_TWO_PER_SM = [
@@ -228,6 +302,24 @@ GROUPS = {
         "final": [],
         "two blocks per SM": _SE_WIDE_TWO_PER_SM,
     }),
+    "msg_wide": ("graph_conv", "graph_msg", ["wide_bs2"], {
+        "final": [],
+        "no msg stores": _MSGW_NO_STORE,
+        "no product": _MSG_NO_PRODUCT,
+        "no staging writes": _MSG_NO_STAGING,
+        "no statistics": _MSG_NO_STATS,
+        "no A gather (a constant A)": _MSG_NO_A_GATHER,
+        "no product, staging, statistics or stores": _MSG_NO_PRODUCT + _MSG_NO_STAGING
+        + _MSG_NO_STATS + _MSGW_NO_STORE,
+        "three staging buffers": _MSGW_THREE_BUFFERS,
+        "chunks turned over the warps by tile": _MSGW_ROTATE,
+        "A pairs by 4-byte loads (even T)": _MSGW_A_WORDS,
+        "slices of at most 512 columns": _slice_cap(512),
+        "slices of at most 768 columns": _slice_cap(768),
+        "slices as wide as fit (1088 columns)": _slice_cap(None),
+        "one staging buffer": _MSGW_ONE_BUFFER,
+        "slices innermost": _MSGW_SLICES_INNERMOST,
+    }),
     "dz_wide": ("mutan_bwd", "mutan_bwd_dz", ["wide_train_bs2"], {
         "final": [],
         "no dz stores": _DZ_WIDE_NO_STORE,
@@ -242,7 +334,7 @@ GROUPS = {
 }
 # the kernel whose SASS opcodes (tensor-core products, TMA, shared-memory
 # traffic) the tool counts in each variant's build
-SASS_KERNEL = {"msg": "graph_msg_kernel"}
+SASS_KERNEL = {"msg": "graph_msg_kernel", "msg_wide": "graph_msg_wide_kernel"}
 SASS_OPS = ("HMMA", "LDSM", "UTMALDG", "UTMASTG", "UBLKCP", "STS", "LDG", "BAR",
             "SYNCS")
 
