@@ -43,6 +43,7 @@ from cmpc_refseg_torch.models.model import (ModelOutputs, apply_model,
 from cmpc_refseg_torch.serving.server import PredictService
 from cmpc_refseg_torch.train.trainer import (TrainState, create_train_state,
                                              make_train_step, train_loop)
+from cmpc_refseg_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -57,11 +58,13 @@ class Model:
         (back-padded) or 'valid_idx' [B] (front-padded), or for the 'bert'
         encoder 'words_feat' [B,T,768] and 'sequence_mask' [B,T]; numpy or
         tensors, moved to the model's device."""
-        feed = {k: torch.as_tensor(v, device=self.device)
-                for k, v in batch.items()}
-        with torch.inference_mode():
-            return apply_model(self.params, self.cfg, feed,
-                               model_state=self.model_state)
+        with span("cmpc.forward"):
+            with span("cmpc.feed"):
+                feed = {k: torch.as_tensor(v, device=self.device)
+                        for k, v in batch.items()}
+            with torch.inference_mode():
+                return apply_model(self.params, self.cfg, feed,
+                                   model_state=self.model_state)
 
 
 @dataclasses.dataclass

@@ -44,6 +44,7 @@ from cmpc_refseg_torch.ops.layers import conv2d, init_conv, split_stream
 from cmpc_refseg_torch.ops.normalization import l2_normalize
 from cmpc_refseg_torch.ops.resize import resize_bilinear
 from cmpc_refseg_torch.ops.spatial import spatial_coordinate_grid
+from cmpc_refseg_torch.utils.profiling import span
 
 LATERAL_IN_DIM = {"c3": 512, "c4": 1024, "c5": 2048}
 
@@ -268,69 +269,78 @@ def _apply_image(params, cfg: ModelConfig, batch: dict, *,
     route = dict(use_kernels=use_kernels)
 
     taps = tuple(cfg.levels) + (("c2",) if decoder else ())
-    vis = apply_backbone(params["backbone"], im, compute_dtype=dt,
-                         taps=taps, res4_blocks=cfg.res4_blocks)
-    if dt is not None:
-        vis = {k: v.to(dt) for k, v in vis.items()}
+    with span("cmpc.backbone"):
+        vis = apply_backbone(params["backbone"], im, compute_dtype=dt,
+                             taps=taps, res4_blocks=cfg.res4_blocks)
+        if dt is not None:
+            vis = {k: v.to(dt) for k, v in vis.items()}
 
-    text = encode_text(params["text"], cfg, batch.get("words"),
-                       batch.get("seq_len"), valid_idx=batch.get("valid_idx"),
-                       words_feat=batch.get("words_feat"),
-                       sequence_mask=batch.get("sequence_mask"))
-    words_parse = cmpc.apply_lang_parser(params["parser"], text.parse_feat,
-                                         text.seq_mask)
+    with span("cmpc.text"):
+        text = encode_text(params["text"], cfg, batch.get("words"),
+                           batch.get("seq_len"),
+                           valid_idx=batch.get("valid_idx"),
+                           words_feat=batch.get("words_feat"),
+                           sequence_mask=batch.get("sequence_mask"))
+        words_parse = cmpc.apply_lang_parser(params["parser"],
+                                             text.parse_feat, text.seq_mask)
 
-    laterals = {}
-    for lv in cfg.levels:
-        x = conv2d(params["laterals"][lv], vis[lv])
-        if cfg.tanh_lateral:   # CMPCv5_BiLSTM_model.py:121-125
-            x = torch.tanh(x)
-        laterals[lv] = l2_normalize(x, -1)
+    with span("cmpc.head"):
+        laterals = {}
+        for lv in cfg.levels:
+            x = conv2d(params["laterals"][lv], vis[lv])
+            if cfg.tanh_lateral:   # CMPCv5_BiLSTM_model.py:121-125
+                x = torch.tanh(x)
+            laterals[lv] = l2_normalize(x, -1)
 
-    b = im.shape[0]
-    h, w = laterals[cfg.levels[0]].shape[1:3]
-    spatial = spatial_coordinate_grid(h, w, device=im.device)[None].expand(
-        b, h, w, 8)
-    if cfg.hsv:
-        spatial = torch.cat([spatial, hsv_channels(im, h, w)], dim=-1)
+        b = im.shape[0]
+        h, w = laterals[cfg.levels[0]].shape[1:3]
+        spatial = spatial_coordinate_grid(h, w, device=im.device)[
+            None].expand(b, h, w, 8)
+        if cfg.hsv:
+            spatial = torch.cat([spatial, hsv_channels(im, h, w)], dim=-1)
 
-    fusion_list, gw_list = cmpc.apply_lang2vis_multi(
-        [params["levels"][lv] for lv in cfg.levels], cfg,
-        [laterals[lv] for lv in cfg.levels], text.words_feat, words_parse,
-        text.seq_mask, spatial, graph_stack=params.get("graph_stack"),
-        **route)
-    fusions, gw, up_levels = {}, {}, {}
-    for lv, fusion_lv, gw_lv in zip(cfg.levels, fusion_list, gw_list):
-        fusions[lv] = fusion_lv
-        gw[lv] = gw_lv
-        score_lv = conv2d(params["scores"][f"score_{lv}"], fusion_lv.float())
-        up_levels[lv] = resize_bilinear(score_lv, cfg.H, cfg.W)
+        fusion_list, gw_list = cmpc.apply_lang2vis_multi(
+            [params["levels"][lv] for lv in cfg.levels], cfg,
+            [laterals[lv] for lv in cfg.levels], text.words_feat,
+            words_parse, text.seq_mask, spatial,
+            graph_stack=params.get("graph_stack"), **route)
+        fusions, gw, up_levels = {}, {}, {}
+        for lv, fusion_lv, gw_lv in zip(cfg.levels, fusion_list, gw_list):
+            fusions[lv] = fusion_lv
+            gw[lv] = gw_lv
+            score_lv = conv2d(params["scores"][f"score_{lv}"],
+                              fusion_lv.float())
+            up_levels[lv] = resize_bilinear(score_lv, cfg.H, cfg.W)
 
-    nec = cmpc.valid_lang_feat(words_parse, text.words_feat,
-                               tuple(range(cfg.parse_classes - 1)))
-    fused = cmpc.apply_fusion_stack(params["fusion_stack"], cfg, fusions, nec,
-                                    **route)
+    with span("cmpc.fusion"):
+        nec = cmpc.valid_lang_feat(words_parse, text.words_feat,
+                                   tuple(range(cfg.parse_classes - 1)))
+        fused = cmpc.apply_fusion_stack(params["fusion_stack"], cfg, fusions,
+                                        nec, **route)
 
-    if decoder:
-        enc, st_aspp = aspp.apply_aspp(params["aspp"], model_state["aspp"],
-                                       fused, train=train)
-        pred, st_dec = aspp.apply_v3plus_decoder(
-            params["decoder"], model_state["decoder"], enc, vis["c2"],
-            train=train)
-        if train:
-            model_state = {"aspp": st_aspp, "decoder": st_dec}
-    else:
-        pred = conv2d(params["scores"]["score"], fused.float())
-    up = resize_bilinear(pred, cfg.H, cfg.W)
-    bbox = None
-    if cfg.bbox_head:
-        anchors = batch.get("anchors")
-        if anchors is None:
-            anchors = DEFAULT_ANCHORS[:cfg.num_anchors]
-        bbox = detection.apply_bbox_head(params["bbox"], fused, anchors,
-                                         stride=cfg.H // cfg.vf_h)
-    return ModelOutputs(pred, up, torch.sigmoid(up), up_levels, words_parse,
-                        gw, {} if model_state is None else model_state, bbox)
+    with span("cmpc.decode"):
+        if decoder:
+            enc, st_aspp = aspp.apply_aspp(params["aspp"],
+                                           model_state["aspp"], fused,
+                                           train=train)
+            pred, st_dec = aspp.apply_v3plus_decoder(
+                params["decoder"], model_state["decoder"], enc, vis["c2"],
+                train=train)
+            if train:
+                model_state = {"aspp": st_aspp, "decoder": st_dec}
+        else:
+            pred = conv2d(params["scores"]["score"], fused.float())
+        up = resize_bilinear(pred, cfg.H, cfg.W)
+        sigm = torch.sigmoid(up)
+        bbox = None
+        if cfg.bbox_head:
+            anchors = batch.get("anchors")
+            if anchors is None:
+                anchors = DEFAULT_ANCHORS[:cfg.num_anchors]
+            bbox = detection.apply_bbox_head(params["bbox"], fused, anchors,
+                                             stride=cfg.H // cfg.vf_h)
+    return ModelOutputs(pred, up, sigm, up_levels, words_parse, gw,
+                        {} if model_state is None else model_state, bbox)
 
 
 # ---------------------------------------------------------------------------

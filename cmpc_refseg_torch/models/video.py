@@ -43,6 +43,7 @@ from cmpc_refseg_torch.ops.layers import (conv2d, init_conv, init_layer_norm,
 from cmpc_refseg_torch.ops.normalization import l2_normalize, tf1_layer_norm
 from cmpc_refseg_torch.ops.resize import resize_bilinear
 from cmpc_refseg_torch.ops.spatial import spatial_coordinate_grid
+from cmpc_refseg_torch.utils.profiling import span
 
 _matmul_f32 = cmpc._matmul_f32
 
@@ -180,65 +181,72 @@ def apply_video_model(params, cfg: ModelConfig, batch: dict, *,
         raise ValueError(f"{cfg.variant or 'this config'} is not the video "
                          "model: use models.model.apply_model")
     route = dict(use_kernels=use_kernels)
-    frames = sampled_frames(batch, cfg)
-    b, f = frames.shape[:2]
-    frames_bf = frames.reshape(b * f, cfg.H, cfg.W, 3)
     dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
-    vis = apply_backbone(params["backbone"], frames_bf, compute_dtype=dt,
-                         taps=tuple(cfg.levels), res4_blocks=cfg.res4_blocks)
-    if dt is not None:
-        vis = {k: v.to(dt) for k, v in vis.items()}
+    with span("cmpc.backbone"):
+        frames = sampled_frames(batch, cfg)
+        b, f = frames.shape[:2]
+        frames_bf = frames.reshape(b * f, cfg.H, cfg.W, 3)
+        vis = apply_backbone(params["backbone"], frames_bf, compute_dtype=dt,
+                             taps=tuple(cfg.levels),
+                             res4_blocks=cfg.res4_blocks)
+        if dt is not None:
+            vis = {k: v.to(dt) for k, v in vis.items()}
 
-    text = encode_text(params["text"], cfg, batch.get("words"),
-                       batch.get("seq_len"), valid_idx=batch.get("valid_idx"))
-    # the JAX package also computes a max-pooled sentence feature
-    # (reference :143-145) that nothing reads; it is left out
-    words_parse = cmpc.apply_lang_parser(params["parser"], text.parse_feat,
-                                         text.seq_mask)
-    ea = cmpc.valid_lang_feat(words_parse, text.words_feat, (0, 1))
-    ac = cmpc.valid_lang_feat(words_parse, text.words_feat, (3,))
-    valid = cmpc.valid_lang_feat(words_parse, text.words_feat, (0, 1, 2, 3))
+    with span("cmpc.text"):
+        text = encode_text(params["text"], cfg, batch.get("words"),
+                           batch.get("seq_len"),
+                           valid_idx=batch.get("valid_idx"))
+        # the JAX package also computes a max-pooled sentence feature
+        # (reference :143-145) that nothing reads; it is left out
+        words_parse = cmpc.apply_lang_parser(params["parser"],
+                                             text.parse_feat, text.seq_mask)
+        ea = cmpc.valid_lang_feat(words_parse, text.words_feat, (0, 1))
+        ac = cmpc.valid_lang_feat(words_parse, text.words_feat, (3,))
+        valid = cmpc.valid_lang_feat(words_parse, text.words_feat,
+                                     (0, 1, 2, 3))
 
-    h, w = cfg.vf_h, cfg.vf_w
-    grid = spatial_coordinate_grid(h, w, device=frames.device)
-    spatial = grid[None].expand(b, h, w, 8)
-    # the clip as one mutan sample of F*h rows: the grid once per frame
-    spatial_clip = grid.repeat(f, 1, 1)[None].expand(b, f * h, w, 8)
-    center = f // 2
-    centers, center_mms, ctxs = [], [], []
-    for lv in cfg.levels:
-        p = params["levels"][lv]
-        lat = l2_normalize(conv2d(params["laterals"][lv], vis[lv]), -1)
-        c = lat.shape[-1]
-        mm = cmpc.apply_mutan(p["mutan"], ea, spatial_clip,
-                              lat.reshape(b, f * h, w, c), **route)
-        mm_bf = mm.reshape(b * f, h, w, c)
-        frame_vecs = _temp_graph(p, mm_bf, ac, b, f)
-        center_mm = mm_bf.reshape(b, f, h, w, c)[:, center].contiguous()
-        centers.append(lat.reshape(b, f, h, w, c)[:, center])
-        center_mms.append(center_mm)
-        ctxs.append(_temp_ctx(p, center_mm, frame_vecs))
+    with span("cmpc.head"):
+        h, w = cfg.vf_h, cfg.vf_w
+        grid = spatial_coordinate_grid(h, w, device=frames.device)
+        spatial = grid[None].expand(b, h, w, 8)
+        # the clip as one mutan sample of F*h rows: the grid once per frame
+        spatial_clip = grid.repeat(f, 1, 1)[None].expand(b, f * h, w, 8)
+        center = f // 2
+        centers, center_mms, ctxs = [], [], []
+        for lv in cfg.levels:
+            p = params["levels"][lv]
+            lat = l2_normalize(conv2d(params["laterals"][lv], vis[lv]), -1)
+            c = lat.shape[-1]
+            mm = cmpc.apply_mutan(p["mutan"], ea, spatial_clip,
+                                  lat.reshape(b, f * h, w, c), **route)
+            mm_bf = mm.reshape(b * f, h, w, c)
+            frame_vecs = _temp_graph(p, mm_bf, ac, b, f)
+            center_mm = mm_bf.reshape(b, f, h, w, c)[:, center].contiguous()
+            centers.append(lat.reshape(b, f, h, w, c)[:, center])
+            center_mms.append(center_mm)
+            ctxs.append(_temp_ctx(p, center_mm, frame_vecs))
 
-    sgraphs, gw_list = cmpc.apply_spa_graph_levels(
-        [params["levels"][lv]["graph"] for lv in cfg.levels], cfg,
-        center_mms, text.words_feat, words_parse, text.seq_mask,
-        graph_stack=params.get("graph_stack"), **route)
+        sgraphs, gw_list = cmpc.apply_spa_graph_levels(
+            [params["levels"][lv]["graph"] for lv in cfg.levels], cfg,
+            center_mms, text.words_feat, words_parse, text.seq_mask,
+            graph_stack=params.get("graph_stack"), **route)
 
-    fusions, up_levels, gw = {}, {}, {}
-    for lv, center_vis, sgraph, ctx, gw_lv in zip(
-            cfg.levels, centers, sgraphs, ctxs, gw_list):
-        gw[lv] = gw_lv
-        fusions[lv] = cmpc.fuse_parts(params["levels"][lv]["fusion"],
-                                      [center_vis, sgraph, ctx, valid,
-                                       spatial])
-        score_lv = conv2d(params["scores"][f"score_{lv}"],
-                          fusions[lv].float())
-        up_levels[lv] = resize_bilinear(score_lv, cfg.H, cfg.W)
+        fusions, up_levels, gw = {}, {}, {}
+        for lv, center_vis, sgraph, ctx, gw_lv in zip(
+                cfg.levels, centers, sgraphs, ctxs, gw_list):
+            gw[lv] = gw_lv
+            fusions[lv] = cmpc.fuse_parts(params["levels"][lv]["fusion"],
+                                          [center_vis, sgraph, ctx, valid,
+                                           spatial])
+            score_lv = conv2d(params["scores"][f"score_{lv}"],
+                              fusions[lv].float())
+            up_levels[lv] = resize_bilinear(score_lv, cfg.H, cfg.W)
 
-    fused = cmpc.apply_fusion_stack(params["fusion_stack"], cfg, fusions,
-                                    valid, **route)
-    pred = conv2d(params["scores"]["score"], fused.float())
-    up = resize_bilinear(pred, cfg.H, cfg.W)
-    return ModelOutputs(pred, up, torch.sigmoid(up), up_levels, words_parse,
-                        gw, {})
-
+    with span("cmpc.fusion"):
+        fused = cmpc.apply_fusion_stack(params["fusion_stack"], cfg, fusions,
+                                        valid, **route)
+    with span("cmpc.decode"):
+        pred = conv2d(params["scores"]["score"], fused.float())
+        up = resize_bilinear(pred, cfg.H, cfg.W)
+        sigm = torch.sigmoid(up)
+    return ModelOutputs(pred, up, sigm, up_levels, words_parse, gw, {})

@@ -57,6 +57,7 @@ from cmpc_refseg_torch.data.image import IMAGE_MEAN_BGR
 from cmpc_refseg_torch.models.model import (apply_model, compute_loss,
                                             init_model, init_model_state,
                                             prepare_backbone)
+from cmpc_refseg_torch.ops.metrics import batched_mask_iu
 from cmpc_refseg_torch.parallel.mesh import (Mesh, agree_any,
                                              all_reduce_mean_,
                                              check_replicated, distributed,
@@ -69,6 +70,7 @@ from cmpc_refseg_torch.train.optimizer import (ZeroAdam, accumulate,
                                                partition_params,
                                                polynomial_lr, scale_bias_grads)
 from cmpc_refseg_torch.utils.moving_average import MovingAverage
+from cmpc_refseg_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -250,36 +252,36 @@ def compute_gradients(state: TrainState, cfg: ModelConfig, batch: dict, *,
     the kernel route is held against).  A video config's batch goes
     through `device_clip_prologue`, and its metrics have no 'train_mIoU'
     (the JAX package's video step has none)."""
-    if cfg.video:
-        b = device_clip_prologue(batch, state.device, cfg)
-    else:
-        b = device_image_prologue(batch, state.device)
-    if cfg.is_aug and not cfg.video:
-        b["im"] = brightness_aug(aug_generator(state.step), b["im"])
     if trainable is None:
         if state.zero is not None:
             raise ValueError("a state under a layout stores shards: pass "
                              "trainable=state.zero.gather(state.trainable)")
         trainable = state.trainable
+    with span("cmpc.feed"):
+        if cfg.video:
+            b = device_clip_prologue(batch, state.device, cfg)
+        else:
+            b = device_image_prologue(batch, state.device)
+        if cfg.is_aug and not cfg.video:
+            b["im"] = brightness_aug(aug_generator(state.step), b["im"])
     params = merge_params(trainable, state.frozen)
     outputs = apply_model(params, cfg, b, model_state=state.model_state,
                           train=True, use_kernels=use_kernels)
     state.model_state = outputs.model_state
-    total, metrics = compute_loss(outputs, b["target"], cfg, params,
-                                  label_bbox=b.get("label_bbox"),
-                                  true_bbox=b.get("true_bbox"))
-    for _, leaf in named_leaves(trainable):
-        leaf.grad = None
-    total.backward()
-    scale_bias_grads(trainable)
-    if cfg.video:
-        return total.detach(), {k: v.detach() for k, v in metrics.items()}
-    with torch.no_grad():
-        # on-graph batch mIoU summary (CMPC_model.py:486-490)
-        pred, labl = outputs.up > 0, b["target"] > 0
-        inter = (pred & labl).sum(dim=(1, 2, 3)).float()
-        union = (pred | labl).sum(dim=(1, 2, 3)).float()
-        metrics["train_mIoU"] = torch.mean(inter / union.clamp(min=1))
+    with span("cmpc.loss"):
+        total, metrics = compute_loss(outputs, b["target"], cfg, params,
+                                      label_bbox=b.get("label_bbox"),
+                                      true_bbox=b.get("true_bbox"))
+        if not cfg.video:
+            # on-graph batch mIoU summary (CMPC_model.py:486-490)
+            inter, union = batched_mask_iu(outputs.up > 0, b["target"] > 0)
+            metrics["train_mIoU"] = torch.mean(
+                inter.float() / union.clamp(min=1).float())
+    with span("cmpc.backward"):
+        for _, leaf in named_leaves(trainable):
+            leaf.grad = None
+        total.backward()
+        scale_bias_grads(trainable)
     return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
 
@@ -327,11 +329,16 @@ def make_train_step(cfg: ModelConfig, *,
     k = cfg.grad_accum
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        trainable = state.trainable if state.zero is None else \
-            state.zero.gather(state.trainable)
-        _, metrics = compute_gradients(state, cfg, batch,
-                                       use_kernels=use_kernels,
-                                       trainable=trainable)
+        with span("cmpc.step"):
+            trainable = state.trainable if state.zero is None else \
+                state.zero.gather(state.trainable)
+            _, metrics = compute_gradients(state, cfg, batch,
+                                           use_kernels=use_kernels,
+                                           trainable=trainable)
+            with span("cmpc.update"):
+                return _update(state, trainable, metrics)
+
+    def _update(state: TrainState, trainable: dict, metrics: dict) -> dict:
         lr = schedule(state.step // k)
         leaves = [p for _, p in named_leaves(trainable)]
         grads = [p.grad for p in leaves]
