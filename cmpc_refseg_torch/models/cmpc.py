@@ -48,45 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from cmpc_refseg_torch.ops import autograd, kernels
+from cmpc_refseg_torch.ops.kernels import matmul_f32
 from cmpc_refseg_torch.ops.layers import (conv2d, glorot_uniform, init_conv,
                                           init_layer_norm, split_stream)
 from cmpc_refseg_torch.ops.normalization import l2_normalize, tf1_layer_norm
-
-
-class _MatmulF32(torch.autograd.Function):
-    """a @ b of bf16 CUDA matrices with an f32 result (cuBLAS, f32
-    accumulation), differentiable: the backward's two products take the
-    cotangent in bf16 and accumulate in f32, and each gradient comes back
-    in its operand's dtype, as JAX's transpose of the product does."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return torch.mm(a, b, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = g.to(a.dtype)
-        need_a, need_b = ctx.needs_input_grad
-        ga = torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype) \
-            if need_a else None
-        gb = torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype) \
-            if need_b else None
-        return ga, gb
-
-
-def _matmul_f32(a, b):
-    """a @ b with f32 accumulation and an f32 result, whatever the inputs'
-    dtype (the JAX package's ``preferred_element_type=float32``).  On CUDA
-    a bf16 product with a 2-D right operand goes to cuBLAS as it is, with
-    an f32 output, through `_MatmulF32` (``torch.mm(out_dtype=)`` has no
-    derivative); elsewhere the operands are widened first (the same exact
-    products and f32 sums)."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and b.dim() == 2:
-        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return a.float() @ b.float()
 
 
 # the kernels' column multiples: 16-byte bf16 rows for the TMA kernels
@@ -255,8 +220,8 @@ def _graph_conv(gp, x_nodes, w_aff, v_aff):
     dt = x_nodes.dtype
     w_aff = w_aff.to(dt)
     v_aff = v_aff.to(dt)
-    pooled = _matmul_f32(v_aff.transpose(1, 2), x_nodes).to(dt)   # [B,T,C]
-    msg = _matmul_f32(w_aff, pooled).to(dt)
+    pooled = matmul_f32(v_aff.transpose(1, 2), x_nodes).to(dt)   # [B,T,C]
+    msg = matmul_f32(w_aff, pooled).to(dt)
     msg = tf1_layer_norm(msg[:, None], gp["feat_ln"]["gamma"],
                          gp["feat_ln"]["beta"])[:, 0]
     y = torch.relu(x_nodes + msg)
@@ -388,8 +353,9 @@ def _double_softmax_affinity(p, cfg, x, words_trans, words_parse):
     graph_trans = conv2d(p["spa_graph_trans2"], x)              # [B,N,A]
     if cfg.l2norm_affinity:
         graph_trans = l2_normalize(graph_trans, -1)
-    affi = _matmul_f32(graph_trans,
-                       words_trans.to(x.dtype).transpose(1, 2)) \
+    # f32 logits: widened (`matmul_f32`)
+    affi = matmul_f32(graph_trans.float(),
+                      words_trans.to(x.dtype).float().transpose(1, 2)) \
         / math.sqrt(cfg.v_emb_dim)
     return words_parse[:, :, :, 2].float() * torch.softmax(affi, dim=1)
 
@@ -590,7 +556,7 @@ def fuse_parts(params, parts):
     y, row = None, 0
     for part in parts:
         n = part.shape[-1]
-        t = _matmul_f32(part.to(dt), w[row:row + n])
+        t = matmul_f32(part.to(dt), w[row:row + n])
         y = t if y is None else y + t
         row += n
     return torch.relu(y + params["biases"].float()).to(dt)
@@ -617,11 +583,13 @@ def _apply_gv(p, cfg, feat, lang_feat):
     b, h, w, c = feat.shape
     key = conv2d(p["spa_graph_key"], feat).reshape(b, h * w, cfg.mlp_dim)
     query = conv2d(p["lang_query"], lang_feat).reshape(b, 1, cfg.mlp_dim)
-    attn = _matmul_f32(key, query.to(key.dtype).transpose(1, 2)) \
+    # f32 logits and an f32 pooled vector: widened (`matmul_f32`)
+    attn = matmul_f32(key.float(),
+                      query.to(key.dtype).float().transpose(1, 2)) \
         / math.sqrt(cfg.mlp_dim)
     attn = torch.softmax(attn, dim=1)                         # [B,HW,1] f32
-    pooled = _matmul_f32(attn.to(feat.dtype).transpose(1, 2),
-                         feat.reshape(b, h * w, c))           # [B,1,C] f32
+    pooled = matmul_f32(attn.to(feat.dtype).float().transpose(1, 2),
+                        feat.float().reshape(b, h * w, c))    # [B,1,C] f32
     gv = torch.cat([pooled.reshape(b, 1, 1, c), lang_feat.float()], dim=-1)
     gv = conv2d(p["gv_lang"], gv)
     return l2_normalize(gv, dim=(1, 2, 3))
@@ -834,13 +802,13 @@ def convgru_step(p, x, h):
     dtype."""
     dt = x.dtype
     z = torch.cat([x, h], dim=-1)
-    y = _matmul_f32(z, p["gates_kernel"][0, 0].to(dt)).to(dt)
+    y = matmul_f32(z, p["gates_kernel"][0, 0].to(dt)).to(dt)
     r, u = torch.chunk(y, 2, dim=-1)
     ln = p["ln"]
     r = torch.sigmoid(tf1_layer_norm(r, ln[0]["gamma"], ln[0]["beta"]))
     u = torch.sigmoid(tf1_layer_norm(u, ln[1]["gamma"], ln[1]["beta"]))
     z2 = torch.cat([x, r * h], dim=-1)
-    cand = _matmul_f32(z2, p["cand_kernel"][0, 0].to(dt)).to(dt)
+    cand = matmul_f32(z2, p["cand_kernel"][0, 0].to(dt)).to(dt)
     cand = torch.tanh(tf1_layer_norm(cand, ln[2]["gamma"], ln[2]["beta"]))
     return u * h + (1 - u) * cand
 

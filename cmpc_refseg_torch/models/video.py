@@ -38,14 +38,13 @@ from cmpc_refseg_torch.models import cmpc
 from cmpc_refseg_torch.models.backbone import apply_backbone, init_backbone
 from cmpc_refseg_torch.models.language import encode_text, init_text_encoder
 from cmpc_refseg_torch.models.model import LATERAL_IN_DIM, ModelOutputs
+from cmpc_refseg_torch.ops.kernels import matmul_f32
 from cmpc_refseg_torch.ops.layers import (conv2d, init_conv, init_layer_norm,
                                           split_stream)
 from cmpc_refseg_torch.ops.normalization import l2_normalize, tf1_layer_norm
 from cmpc_refseg_torch.ops.resize import resize_bilinear
 from cmpc_refseg_torch.ops.spatial import spatial_coordinate_grid
 from cmpc_refseg_torch.utils.profiling import span
-
-_matmul_f32 = cmpc._matmul_f32
 
 
 def _init_gconv(key, dim):
@@ -106,7 +105,7 @@ def _gconv_dense(gp, x_nodes, adj):
     (CMPC_video...py:418-429): x_nodes [B, N, C] in the compute dtype, adj
     f32; the message accumulated in f32, the layer norms' statistics f32."""
     dt = x_nodes.dtype
-    msg = _matmul_f32(adj, x_nodes).to(dt)
+    msg = matmul_f32(adj, x_nodes).to(dt)
     msg = tf1_layer_norm(msg[:, None], gp["feat_ln"]["gamma"],
                          gp["feat_ln"]["beta"])[:, 0]
     y = torch.relu(x_nodes + msg)
@@ -126,14 +125,16 @@ def _temp_graph(p, mm_feat_bf, ac_lang, b: int, f: int):
     vis_trans = conv2d(p["tg_vtrans"], mm_feat_bf).reshape(b, f * h * w, c)
     lang_trans = conv2d(p["tg_ltrans"], ac_lang).reshape(b, -1, 1)
     # one language vector per clip, the same for its F frames
-    attn = _matmul_f32(vis_trans, lang_trans).reshape(b * f, 1, h * w)
+    # the attention logits here and below are f32: widened (`matmul_f32`)
+    attn = matmul_f32(vis_trans.float(), lang_trans.float()).reshape(
+        b * f, 1, h * w)
     attn = torch.softmax(attn / math.sqrt(c), dim=2)          # [BF,1,HW] f32
-    frame_vec = _matmul_f32(attn, mm_feat_bf.reshape(b * f, h * w, c))
+    frame_vec = matmul_f32(attn, mm_feat_bf.reshape(b * f, h * w, c))
     frame_vec = frame_vec.to(dt).reshape(b, 1, f, c)
     q = conv2d(p["tg_query"], frame_vec).reshape(b, f, c)
     k = conv2d(p["tg_key"], frame_vec).reshape(b, f, c)
-    adj = torch.softmax(_matmul_f32(q, k.transpose(1, 2)) / math.sqrt(c),
-                        dim=2)                                 # [B,F,F] f32
+    adj = torch.softmax(matmul_f32(q.float(), k.float().transpose(1, 2))
+                        / math.sqrt(c), dim=2)                 # [B,F,F] f32
     out = _gconv_dense(p["tg_gconv"], frame_vec.reshape(b, f, c), adj)
     return l2_normalize(out, -1)
 
@@ -145,9 +146,11 @@ def _temp_ctx(p, center_mm, frame_vecs):
     b, h, w, c = center_mm.shape
     mm_trans = conv2d(p["mm_trans"], center_mm).reshape(b, h * w, c)
     ctx_trans = conv2d(p["ctx_trans"], frame_vecs[:, None]).reshape(b, -1, c)
-    attn = torch.softmax(_matmul_f32(mm_trans, ctx_trans.transpose(1, 2))
+    # f32 logits: widened (`matmul_f32`)
+    attn = torch.softmax(matmul_f32(mm_trans.float(),
+                                    ctx_trans.float().transpose(1, 2))
                          / math.sqrt(c), dim=2)                # [B,HW,F] f32
-    ctx = _matmul_f32(attn, frame_vecs)
+    ctx = matmul_f32(attn, frame_vecs)
     return l2_normalize(ctx.reshape(b, h, w, c), -1).to(center_mm.dtype)
 
 

@@ -22,6 +22,11 @@ the wrapper's ``launches`` like any other, and also in its
 ``wide_launches`` (`wide_launch_counts`), so a run can show which form it
 took.
 
+The plain versions' products, and the head's other products in the
+compute dtype, go through `matmul_f32`: bf16 on cuBLAS's tensor cores with
+f32 accumulation on the card, widened to f32 elsewhere, each call counted
+by route (`product_route_counts`).
+
 Which TPU kernel each replaces, what bounds it on the card and what its
 design does about that is noted at the top of its source file.
 """
@@ -90,6 +95,67 @@ def _check_groups(bsz: int, groups: int, what: str) -> None:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# products with f32 accumulation (cuBLAS)
+# ---------------------------------------------------------------------------
+
+def _mm_f32(a, b):
+    """a @ b of two matrices or two equal batches of them, f32 result."""
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    return mm(a, b, out_dtype=torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """a @ b of bf16 CUDA operands with an f32 result (cuBLAS on the tensor
+    cores, f32 accumulation), differentiable: the backward's two products
+    take the cotangent in bf16 (see `matmul_f32`) and accumulate in f32,
+    and each gradient comes back in its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        need_a, need_b = ctx.needs_input_grad
+        ga = _mm_f32(g, b.mT).to(a.dtype) if need_a else None
+        gb = _mm_f32(a.mT, g).to(b.dtype) if need_b else None
+        return ga, gb
+
+
+# `matmul_f32`'s calls by route (`product_route_counts`)
+_ROUTES = {"tensor_core": 0, "widened": 0}
+
+
+def matmul_f32(a, b):
+    """a @ b with f32 accumulation and an f32 result, whatever the inputs'
+    dtype (the JAX package's ``preferred_element_type=float32``).  Two bf16
+    CUDA operands, `b` a matrix (shared by a's leading axes) or both
+    batches [B, M, K] @ [B, K, N] (transposed views too), go to cuBLAS as
+    they are through `_MatmulF32`; anything else (f32, f64, mixed dtypes,
+    CPU tensors) is widened to f32 first: the same exact products and f32
+    sums.  `product_route_counts` counts the calls by route.
+
+    `_MatmulF32`'s backward rounds the cotangent to bf16, which loses
+    nothing where the caller rounds the product to bf16.  A product whose
+    f32 result is used as it is (attention logits, a pooled vector) is
+    called with widened operands, so that its backward keeps the f32
+    cotangent, as the JAX package's transpose of the product does."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and (
+            b.dim() == 2 or a.dim() == b.dim() == 3
+            and a.shape[0] == b.shape[0]):
+        _ROUTES["tensor_core"] += 1
+        if b.dim() == 3:
+            return _MatmulF32.apply(a, b)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    _ROUTES["widened"] += 1
+    return a.float() @ b.float()
 
 
 # ---------------------------------------------------------------------------
@@ -329,13 +395,14 @@ def spa_affinity_plain(x, wg, bg, wt, rel, mask, *, scale: float, l2n: bool,
     [B, N, T] f32.  `masked`: softmax over T of the masked logits (the
     'masked' / 'unmasked' graph norms); else softmax then mask."""
     dt = x.dtype
-    gt = (x.float() @ wg.float()).to(dt) + bg.to(dt)
+    gt = matmul_f32(x, wg).to(dt) + bg.to(dt)
     if l2n:
         gf = gt.float()
         sq = torch.sum(gf * gf, dim=-1, keepdim=True)
         gt = (gf * torch.reciprocal(torch.sqrt(torch.clamp(sq, min=1e-12)))
               ).to(dt)
-    affi = gt.float() @ wt.to(dt).float().transpose(1, 2)     # [B, N, T]
+    # f32 logits: widened (`matmul_f32`)
+    affi = matmul_f32(gt.float(), wt.to(dt).float().transpose(1, 2))
     affi = rel * (affi / scale)
     if masked:
         neg = torch.finfo(torch.float32).min
@@ -485,7 +552,7 @@ def graph_msg_plain(w_aff, pooled):
     whole-sample (sum, sum of squares) of the rounded msg.
 
     w_aff [B, N, T], pooled [B, T, C] -> (msg [B, N, C], stats [B, P, 2] f32)."""
-    msg = (w_aff.float() @ pooled.float()).to(pooled.dtype)
+    msg = matmul_f32(w_aff, pooled).to(pooled.dtype)
     return msg, _sum_stats(msg)
 
 
@@ -532,7 +599,7 @@ def graph_update_plain(x, msg, stats1, w, b, g1, b1, *, width=None):
     `width`: LN1's count of true columns (`ln_from_stats`)."""
     dt = x.dtype
     y = torch.relu(x + ln_from_stats(msg, stats1, g1, b1, width).to(dt))
-    z = (y.float() @ w.float()).to(dt) + b
+    z = matmul_f32(y, w).to(dt) + b
     return z, _sum_stats(z)
 
 
@@ -630,7 +697,7 @@ def se_sum_plain(feat, others, gates, ws, bs):
     dt = feat.dtype
     acc = feat
     for o, g, w, b in zip(others, gates, ws, bs):
-        t = (o.float() @ w.float()).to(dt) + b
+        t = matmul_f32(o, w).to(dt) + b
         acc = acc + torch.relu(t) * g[:, None, :]
     af = acc.float()
     sq = torch.sum(af * af, dim=-1, keepdim=True)
@@ -693,7 +760,7 @@ def convlstm_gates_plain(x, h, c, w, ci, cf):
     x, h, c [B, N, C]; w [2C, 4C]; ci, cf [N, C] (x dtype) ->
     (gates [4, B, N, C], stats [B, P, 3, 2] f32)."""
     dt = x.dtype
-    y = (torch.cat([x, h], dim=-1).float() @ w.float()).to(dt)
+    y = matmul_f32(torch.cat([x, h], dim=-1), w).to(dt)
     j, i, f, o = torch.split(y, x.shape[-1], dim=-1)
     i = i + ci * c
     f = f + cf * c
@@ -824,8 +891,16 @@ def wide_launch_counts() -> dict:
     return {k.__name__: k.wide_launches for k in WIDE}
 
 
+def product_route_counts() -> dict:
+    """The `matmul_f32` calls by route: 'tensor_core' (bf16 on cuBLAS) and
+    'widened' (operands widened to f32)."""
+    return dict(_ROUTES)
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     for k in WIDE:
         k.wide_launches = 0
+    for route in _ROUTES:
+        _ROUTES[route] = 0

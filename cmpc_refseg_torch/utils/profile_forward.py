@@ -7,9 +7,11 @@ one train step (Trainer.step: forward, backward, Adam) on seeded uint8
 batches, and prints the device
 time per kernel name and per category (the port's own kernels,
 convolutions, GEMMs, other), the device's busy share of the wall time, the
-host time per call, and the time of each of the program's stages
-(`stage_rows`).  The Chrome trace goes to <out>/forward/trace.json
-(<out>/train/trace.json with --train), written by `utils.profiling.trace`.
+host time per call, the products of `ops.kernels.matmul_f32` by route,
+and the time of each of the program's stages (`stage_rows`) with its
+largest device operations (`stage_kernels`).  The Chrome trace goes to
+<out>/forward/trace.json (<out>/train/trace.json with --train), written by
+`utils.profiling.trace`.
 
     python -m cmpc_refseg_torch.utils.profile_forward [--batch 8]
         [--steps 3] [--train] [--model NAME] [--out DIR]
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from cmpc_refseg_torch.api import build_model, build_trainer
+from cmpc_refseg_torch.ops import kernels
 from cmpc_refseg_torch.utils.profiling import trace
 
 CATEGORIES = (
@@ -103,10 +106,10 @@ def stage_rows(spans, launch_at: dict, device_ops, calls: int) -> dict:
     return {name: [v / calls for v in r] for name, r in rows.items()}
 
 
-def profiled_stages(prof, calls: int) -> dict:
-    """`stage_rows` of a finished CPU + CUDA `torch.profiler` profile: the
-    device's operations linked to the CUDA runtime or driver calls that
-    launched them by correlation ID."""
+def _profiled_events(prof):
+    """(spans, launch_at, device operations [(correlation ID, start, end,
+    name)]) of a finished CPU + CUDA `torch.profiler` profile, as
+    `stage_rows` takes them."""
     spans, launch_at, ops = [], {}, []
     events = prof.events()
     host = {ev.name for ev in events
@@ -116,12 +119,35 @@ def profiled_stages(prof, calls: int) -> dict:
         if str(ev.device_type).endswith("CUDA"):
             if ev.name not in host and not getattr(
                     ev, "is_user_annotation", False):
-                ops.append((ev.id, *iv))
+                ops.append((ev.id, *iv, ev.name))
         elif ev.name.startswith("cmpc."):
             spans.append((ev.name, *iv))
         elif ev.name.startswith("cu"):
             launch_at[ev.id] = iv[0]
-    return stage_rows(spans, launch_at, ops, calls)
+    return spans, launch_at, ops
+
+
+def profiled_stages(prof, calls: int) -> dict:
+    """`stage_rows` of a finished CPU + CUDA `torch.profiler` profile: the
+    device's operations linked to the CUDA runtime or driver calls that
+    launched them by correlation ID."""
+    spans, launch_at, ops = _profiled_events(prof)
+    return stage_rows(spans, launch_at, [op[:3] for op in ops], calls)
+
+
+def stage_kernels(prof, calls: int) -> dict:
+    """{stage: {device operation's name: [device ms, operations] per
+    call}} of a finished CPU + CUDA profile, each operation under its
+    stage as in `profiled_stages`."""
+    spans, launch_at, ops = _profiled_events(prof)
+    at = innermost(spans)
+    out = {}
+    for corr, s, e, name in ops:
+        row = out.setdefault(at(launch_at[corr]) if corr in launch_at
+                             else "unlinked", {}).setdefault(name, [0.0, 0])
+        row[0] += (e - s) / 1e3 / calls
+        row[1] += 1 / calls
+    return out
 
 
 def main():
@@ -172,11 +198,13 @@ def main():
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
+    kernels.reset_launch_counts()
     with trace(os.path.join(args.out, "train" if args.train
                             else "forward")) as prof:
         for _ in range(args.steps):
             call(feed)
         torch.cuda.synchronize()
+    routes = kernels.product_route_counts()
 
     rows, host_ops = [], 0
     averages = prof.key_averages()
@@ -210,12 +238,19 @@ def main():
     print(f"top device kernels (ms per {what}, launches per {what}):")
     for ms, n, name in rows[:30]:
         print(f"  {ms:9.4f}  {n:5d}  {name[:110]}")
+    print(f"products (matmul_f32) per {what}: " + ", ".join(
+        f"{route} {n / args.steps:g}" for route, n in routes.items()))
     print(f"stages (per {what}: spans, host ms, then the stage's own "
           "device ms, device operations and device idle ms):")
     for name, r in sorted(profiled_stages(prof, args.steps).items(),
                           key=lambda kv: -kv[1][2]):
         print(f"  {name:14s} {r[0]:4.1f} {r[1]:9.3f} {r[2]:9.3f} "
               f"{r[3]:8.1f} {r[4]:9.3f}")
+    print(f"each stage's top device operations (ms and operations per "
+          f"{what}):")
+    for name, ops in sorted(stage_kernels(prof, args.steps).items()):
+        for op, (ms, n) in sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]:
+            print(f"  {name:14s} {ms:9.4f} {n:6.1f}  {op[:100]}")
 
 
 if __name__ == "__main__":

@@ -17,6 +17,8 @@ partials, are held per sample as a mean and a variance, each within
 STATS_TOL of its own scale: the same f32 sums in other orders move them far
 less, while a wrong or missing column moves them by its whole size."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -930,6 +932,109 @@ def test_small_train_step_kernel_route_matches_plain_route(cuda):
     torch.cuda.synchronize()
     assert np.isfinite(float(metrics["loss_total"]))
     assert kernels.launch_counts() == _expected_launches(cfg, 3, train=True)
+
+
+# ---------------------------------------------------------------------------
+# the f32-accumulating product (kernels.matmul_f32) on the tensor cores
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sa,sb,transposed", [
+    ((300, 136), (136, 72), False), ((3, 300, 136), (136, 72), False),
+    ((3, 300, 136), (3, 136, 72), False), ((3, 300, 136), (3, 136, 72), True),
+    ((4, 1600, 20), (4, 20, 1000), False)])
+def test_matmul_f32_tensor_core_route_matches_the_widened_product(
+        cuda, sa, sb, transposed):
+    """bf16 CUDA operands through cuBLAS with an f32 result: the forward
+    within 1e-5 of the widened f32 product (both sum exact products in
+    f32, in other orders), and each gradient, from a bf16-exact
+    cotangent, that of the widened product up to the rounding to its
+    operand's bf16."""
+    a = _rnd(cuda, *sa)
+    b = (_rnd(cuda, *sb[:-2], sb[-1], sb[-2]).transpose(-1, -2)
+         if transposed else _rnd(cuda, *sb))
+    cot = _rnd(cuda, *sa[:-1], sb[-1]).float()
+    x, y = a.detach().requires_grad_(), b.detach().requires_grad_()
+    kernels.reset_launch_counts()
+    out = kernels.matmul_f32(x, y)
+    gx, gy = torch.autograd.grad(out, (x, y), cot)
+    assert kernels.product_route_counts() == {"tensor_core": 1,
+                                              "widened": 0}
+    ref = a.float() @ b.float()
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    for grad, want in ((gx, cot @ b.float().mT), (gy, a.float().mT @ cot)):
+        if want.dim() > grad.dim():     # b shared by a's batch
+            want = want.sum(0)
+        assert grad.dtype == torch.bfloat16
+        torch.testing.assert_close(grad.float(), want, rtol=2 ** -8,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+# f32 GEMMs off the tensor cores: cuBLAS's SIMT and FP32 xmma kernels
+F32_GEMM = re.compile(r"sgemm|(?<!implicit_)gemm_f32f32", re.I)
+
+
+@pytest.mark.gpu
+def test_small_train_step_recompute_runs_no_f32_gemm(cuda, monkeypatch):
+    """A TINY bf16 flagship train step on the card: every `matmul_f32` call
+    with two bf16 operands goes to the tensor cores and every other call
+    widens (here only the f32 logits and pooled vector, called with f32
+    operands); inside ``cmpc.backward`` the head ops' recomputed plain
+    routes (`ops.autograd._Recompute.backward`, marked here by a
+    ``cmpc.recompute`` range) run bf16 tensor-core GEMMs, and f32 GEMMs
+    only for their widened calls: at most three (the product and its two
+    gradients) each.  The f32 GEMMs elsewhere in the backward, listed on
+    failure, are the f32 products of the precision policy (the LSTM, the
+    parser, the global vector, the logits' resize)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+    from cmpc_refseg_torch.api import build_trainer
+    from cmpc_refseg_torch.models import cmpc
+    from cmpc_refseg_torch.ops import autograd
+    from cmpc_refseg_torch.utils.profile_forward import stage_kernels
+    recompute, product = autograd._Recompute.backward, kernels.matmul_f32
+    inside, calls = [0], []     # (in the recompute, widened) per call
+
+    def marked(ctx, *grads):
+        inside[0] += 1
+        try:
+            with record_function("cmpc.recompute"):
+                return recompute(ctx, *grads)
+        finally:
+            inside[0] -= 1
+
+    def counted(a, b):
+        calls.append((inside[0] > 0,
+                      not a.dtype == b.dtype == torch.bfloat16))
+        return product(a, b)
+    monkeypatch.setattr(autograd._Recompute, "backward", staticmethod(marked))
+    for module in (kernels, cmpc):
+        monkeypatch.setattr(module, "matmul_f32", counted)
+    trainer = build_trainer("CMPC_model", dtype="bfloat16", **TINY)
+    rng = np.random.default_rng(2)
+    words = np.zeros((3, 6), np.int64)
+    words[:, :4] = rng.integers(3, 30, (3, 4))
+    batch = {"im_u8": rng.integers(0, 256, (3, 32, 32, 3), dtype=np.uint8),
+             "target_u8": (rng.random((3, 32, 32, 1)) > 0.6).astype(
+                 np.uint8), "words": words, "seq_len": np.array([4, 2, 6])}
+    trainer.step(batch)
+    kernels.reset_launch_counts()
+    calls.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step(batch)
+        torch.cuda.synchronize()
+    widened = [w for _, w in calls]
+    assert kernels.product_route_counts() == {
+        "tensor_core": widened.count(False), "widened": widened.count(True)}
+    stages = stage_kernels(prof, 1)
+    ops = stages["cmpc.recompute"]
+    f32 = sum(n for name, (_, n) in ops.items() if F32_GEMM.search(name))
+    left = sorted(n for n in stages["cmpc.backward"] if F32_GEMM.search(n))
+    assert f32 <= 3 * calls.count((True, True)), (sorted(ops), left)
+    assert any(re.search(r"gemm.*bf16|nvjet", n) for n in ops), sorted(ops)
+    assert calls.count((True, False)) > calls.count((True, True))
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,12 @@ at a TINY geometry of the flagship and the video model.
 - `utils.profile_forward.stage_rows` on synthetic intervals: each device
   operation under the innermost span around its launch call (a second
   thread's launches inside ``cmpc.backward`` too), outside every span, or
-  unlinked; a stage's own device and idle time.
+  unlinked; a stage's own device and idle time.  `stage_kernels` on
+  hand-made profile events: each stage's device time and operations by
+  name.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 from cmpc_refseg_torch.api import build_model, build_trainer
 from cmpc_refseg_torch.utils import profiling
 from cmpc_refseg_torch.utils.profile_forward import (profiled_stages,
+                                                    stage_kernels,
                                                     stage_rows)
 
 torch.set_num_threads(2)
@@ -120,3 +125,27 @@ def test_stage_rows_by_hand():
     assert sorted(rows) == sorted(want)
     for name, row in want.items():
         assert rows[name] == pytest.approx(row), name
+
+
+def test_stage_kernels_by_hand():
+    """`stage_kernels` on a profile's events: spans, launch calls and
+    device operations linked by correlation ID, each operation's time
+    under the innermost span around its launch, per call, by name."""
+    def ev(name, start, end, cid=0, device="DeviceType.CPU"):
+        return SimpleNamespace(name=name, id=cid, device_type=device,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=end))
+    cuda = "DeviceType.CUDA"
+    events = [ev("cmpc.step", 0, 100), ev("cmpc.backward", 50, 90),
+              ev("cudaLaunchKernel", 10, 11, 1),
+              ev("cudaLaunchKernel", 60, 61, 2),
+              ev("cudaLaunchKernel", 70, 71, 3),
+              ev("gemm_bf16", 12, 20, 1, cuda), ev("gemm_bf16", 62, 66, 2,
+                                                   cuda),
+              ev("add", 72, 80, 3, cuda), ev("copy", 120, 124, 9, cuda)]
+    got = stage_kernels(SimpleNamespace(events=lambda: events), 2)
+    # [device ms, operations] per call
+    assert got == {"cmpc.step": {"gemm_bf16": [0.004, 0.5]},
+                   "cmpc.backward": {"gemm_bf16": [0.002, 0.5],
+                                     "add": [0.004, 0.5]},
+                   "unlinked": {"copy": [0.002, 0.5]}}
