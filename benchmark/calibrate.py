@@ -3,11 +3,11 @@
 from, on the card at the cell's own size, in one process: the program's on
 a dozen seeds or more (through the window's own call: an infer cell's every
 pool batch once after the warm-up, a train cell's first three steps), the
-control's (the reference in fp8 put in the program's place) and each
-planted fault's (`faults.py`) on three seeds or more.  Prints one JSON line
-per reading and a summary: each number's lower reading (the largest the
-program gives) and upper ones (the smallest of the control and of each
-fault).  A benchmark run never runs this.
+control's (the configuration's reference in fp8 put in the program's
+place) and each planted fault's (`faults.py`) on three seeds or more.
+Prints one JSON line per reading and a summary: each number's lower
+reading (the largest the program gives) and upper ones (the smallest of
+the control and of each fault).  A benchmark run never runs this.
 
     python3 benchmark/calibrate.py --workload NAME --seeds A,B,...
         [--control-seeds C,...] [--fault-seeds F,...] [--out FILE]
@@ -33,13 +33,13 @@ def program_readings(res, seed, device, plant=None):
     import cell
     import program as prog
     from generate import make_pool
-    from reference.weights import make_params
     _, conf, mix, *_ = res
     model = conf["model"]
+    ref = cell.reference_of(conf)
     cfg = prog.port_config(conf, mix)
     pool = make_pool(model, mix, seed, device)
-    program = cell.make_program(cfg, make_params(model, seed, device), mix,
-                                device)
+    program = cell.make_program(cfg, ref.make_params(model, seed, device),
+                                mix, device)
     if plant is not None:
         program = plant(program)
     record = answers = None
@@ -50,7 +50,8 @@ def program_readings(res, seed, device, plant=None):
         answers = {i: program(batch) for i, batch in enumerate(pool)}
     program = None
     cell.free(device)
-    return cell.readings_of(model, mix, seed, pool, answers, record, device)
+    return cell.readings_of(ref, model, mix, seed, pool, answers, record,
+                            device)
 
 
 def control_readings(res, seed, device):
@@ -59,24 +60,26 @@ def control_readings(res, seed, device):
     from generate import make_pool
     _, conf, mix, *_ = res
     model = conf["model"]
+    ref = cell.reference_of(conf)
     pool = make_pool(model, mix, seed, device)
     if mix["mode"] == "infer":
         def answer_of(slot, params, ops):
-            return check.infer_reference(model, pool[slot], params, ops,
+            return check.infer_reference(ref, model, pool[slot], params, ops,
                                          mix["ref_block"], device)
-        return check.infer_readings(model, mix, seed, pool,
+        return check.infer_readings(ref, model, mix, seed, pool,
                                     dict.fromkeys(range(len(pool))), device,
                                     precision="fp8", answer_of=answer_of)
     frames = len(model["sampled_frames"]) if model["video"] else 1
     kw = dict(block=mix["ref_block"] * frames)
     steps = mix["warm_calls"]
-    losses, grad1, change = check.reference_steps(model, pool, seed, steps,
-                                                  device, "fp8", **kw)
+    losses, grad1, change = check.reference_steps(ref, model, pool, seed,
+                                                  steps, device, "fp8", **kw)
     record = {"losses": losses, "grads": grad1,
               "grad_norms": {k: float(v.norm()) for k, v in grad1.items()},
               "change_norms": {k: float(v.norm()) for k, v in change.items()}}
     cell.free(device)
-    reference = check.reference_steps(model, pool, seed, steps, device, **kw)
+    reference = check.reference_steps(ref, model, pool, seed, steps, device,
+                                      **kw)
     return check.train_readings(record, reference)
 
 

@@ -5,14 +5,17 @@ A cell (an entry of BENCHMARK.json's `workloads`) names a configuration
 (benchmark/configs/<file>) and a traffic mix (benchmark/traffic/<mix>.json);
 its limits are benchmark/limits/<cell>.json, its per-layer metrics the
 readers benchmark/metrics/<metric>.py (or <stem>.py for <stem>.<part>).
+The configuration names its plain reference (`reference_of`; the contract
+is in benchmark/reference/flagship.py, the one used where it names none).
 
-Set-up: the weights and the pool from the seed, the program built, every
-shape the window uses warmed (a train cell's warm-up is the check's first
-three steps, through the window's own call).  The window: a closed loop,
-one call after another over the pool, for `seconds`; each call's time is
-taken from its start to its answer on the host.  The traced run then
-profiles `trace_calls` more calls.  After the window the program is freed
-and the reference checks what the timed path produced.
+Set-up: the configuration checked against what its reference follows, the
+weights and the pool from the seed, the program built, every shape the
+window uses warmed (a train cell's warm-up is the check's first three
+steps, through the window's own call).  The window: a closed loop, one
+call after another over the pool, for `seconds`; each call's time is taken
+from its start to its answer on the host.  The traced run then profiles
+`trace_calls` more calls.  After the window the program is freed and the
+configuration's reference checks what the timed path produced.
 """
 
 from __future__ import annotations
@@ -31,10 +34,10 @@ import devtrace
 import generate
 import peaks
 import program as prog
-from reference import model as ref
-from reference.weights import make_params, meta_params
 
 BENCH = Path(__file__).resolve().parent
+# the plain reference of a configuration that names none
+DEFAULT_REFERENCE = "benchmark/reference/flagship.py"
 
 
 def load_json(path):
@@ -75,6 +78,18 @@ def resolve(manifest: dict, workload: str, root: Path):
     return cell, conf, mix, limits, e2e, per_layer
 
 
+def reference_of(conf: dict):
+    """The plain reference module that a configuration names with its
+    'reference' key, else the flagship's, once it has checked the
+    configuration's model (`check_supported`, which raises ValueError for
+    one it does not follow).  The path is taken from the root of the
+    checkout that holds this harness, the `root` that run.py and
+    calibrate.py give `resolve`; an absolute path is taken as it is."""
+    mod = load_module(BENCH.parent / conf.get("reference", DEFAULT_REFERENCE))
+    mod.check_supported(conf["model"])
+    return mod
+
+
 def cost_spec(model: dict, mix: dict) -> dict:
     """The widths the kernels' cost functions take at this cell."""
     return {"batch": mix["batch"],
@@ -86,13 +101,13 @@ def cost_spec(model: dict, mix: dict) -> dict:
             "levels": len(model["levels"])}
 
 
-def flops_per_sample(model: dict, mix: dict) -> float:
+def flops_per_sample(ref, model: dict, mix: dict) -> float:
     """Model FLOPs a sample, counted by FlopCounterMode over the
-    reference's forward on the meta device (and for training the
+    reference `ref`'s forward on the meta device (and for training the
     backward of the head's leaves: the backbone is frozen)."""
     from torch.utils.flop_counter import FlopCounterMode
     b, t = mix["batch"], model["num_steps"]
-    params = meta_params(model)
+    params = ref.meta_params(model)
     img = (b, len(model["sampled_frames"])) if model["video"] else (b,)
     key = "frames" if model["video"] else "im"
     batch = {key: torch.empty(*img, model["H"], model["W"], 3, device="meta"),
@@ -103,7 +118,7 @@ def flops_per_sample(model: dict, mix: dict) -> float:
     train = mix["mode"] == "train"
     with FlopCounterMode(display=False) as counter:
         if train:
-            head = check.head_of(params)
+            head = ref.head_of(params)
             for _, leaf in check.leaf_items(head):
                 leaf.requires_grad_()
             out = ref.forward_frozen_backbone(ref.Ops(), params, model, batch,
@@ -174,9 +189,10 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float,
     _, conf, mix, limits, e2e, per_layer = resolved or resolve(
         manifest, workload, root)
     model = conf["model"]
+    ref = reference_of(conf)
     train = mix["mode"] == "train"
     cfg = prog.port_config(conf, mix)
-    params = make_params(model, seed, device)
+    params = ref.make_params(model, seed, device)
     pool = generate.make_pool(model, mix, seed, device)
     program = make_program(cfg, params, mix, device)
     del params
@@ -206,8 +222,8 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float,
     out = {"attempted": n, "failed": 0, "breakdown": None,
            "memory_peak_bytes": max(setup_peak, window_peak)}
     if trace:
-        metrics, tr = traced(program, pool, mix, model, per_layer, rate,
-                             warm + n, device)
+        metrics, tr = traced(ref, program, pool, mix, model, per_layer,
+                             rate, warm + n, device, log)
         out["metrics"] = metrics
         out["busy_s"], out["window_s"] = tr.busy_s, tr.window_s
         out["breakdown"] = {"device_ops": tr.top_ops(),
@@ -216,7 +232,7 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float,
         out["metrics"] = read_metrics(e2e, wctx)
     program = None
     free(device)
-    readings = readings_of(model, mix, seed, pool, answers,
+    readings = readings_of(ref, model, mix, seed, pool, answers,
                            record if train else None, device)
     for k, v in readings.items():
         if isinstance(v, float):
@@ -225,17 +241,21 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float,
     return out
 
 
-def readings_of(model, mix, seed, pool, answers, record, device):
+def readings_of(ref, model, mix, seed, pool, answers, record, device):
+    """The check's readings of the program's infer `answers` or train
+    `record` against the reference `ref`."""
     if record is None:
-        return check.infer_readings(model, mix, seed, pool, answers, device)
+        return check.infer_readings(ref, model, mix, seed, pool, answers,
+                                    device)
     frames = len(model["sampled_frames"]) if model["video"] else 1
-    reference = check.reference_steps(model, pool, seed, mix["warm_calls"],
-                                      device,
+    reference = check.reference_steps(ref, model, pool, seed,
+                                      mix["warm_calls"], device,
                                       block=mix["ref_block"] * frames)
     return check.train_readings(record, reference)
 
 
-def traced(program, pool, mix, model, per_layer, rate, first, device):
+def traced(ref, program, pool, mix, model, per_layer, rate, first, device,
+           log=print):
     """Profile `trace_calls` calls and read the per-layer metrics."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA if device.type == "cuda"
@@ -248,8 +268,10 @@ def traced(program, pool, mix, model, per_layer, rate, first, device):
     tr = devtrace.from_profiler(p, mix["trace_calls"])
     ctx = Ctx(trace=tr, samples_per_s=rate, spec=cost_spec(model, mix),
               launches={k: after[k] - before[k] for k in after},
-              flops_per_sample=flops_per_sample(model, mix), peaks=peaks,
-              bench=BENCH)
+              flops_per_sample=flops_per_sample(ref, model, mix),
+              peaks=peaks, bench=BENCH)
+    log(f"flops_per_sample {ctx.flops_per_sample!r}; kernel widths "
+        f"{json.dumps(ctx.spec, sort_keys=True)}")
     return read_metrics(per_layer, ctx), tr
 
 

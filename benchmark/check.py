@@ -1,6 +1,8 @@
 """The comparison that decides `correct`: the readings of what the timed
-path produced against the plain reference (`reference/model.py`, float32,
-TF32 off), each held to its limit in benchmark/limits/<cell>.json.
+path produced against the plain reference that the cell's configuration
+names (`cell.reference_of`: a module of the contract in
+reference/flagship.py, passed in as `ref`; float32, TF32 off), each held
+to its limit in benchmark/limits/<cell>.json.
 
 Infer cells: `sigm_err_scaled`, ||s - s_ref|| over every sampled pixel of
 the masks' probabilities (the answers the window copied to the host) in
@@ -33,8 +35,6 @@ import statistics
 import torch
 
 from generate import reference_batch
-from reference import model as ref
-from reference.weights import make_params
 
 BETA1 = 0.9
 TINY_GRAD = 1e-3
@@ -52,17 +52,13 @@ def leaf_items(tree, prefix=()):
         yield prefix, tree
 
 
-def head_of(params):
-    return {k: v for k, v in params.items() if k != "backbone"}
-
-
 # ---------------------------------------------------------------------------
 # infer
 # ---------------------------------------------------------------------------
 
-def infer_reference(model, batch, params, ops, block, device):
-    """The reference's sigm [B, H, W] of a pool batch, `block` rows at a
-    time, on the host."""
+def infer_reference(ref, model, batch, params, ops, block, device):
+    """The reference `ref`'s sigm [B, H, W] of a pool batch, `block` rows
+    at a time, on the host."""
     n = len(batch["words"])
     outs = []
     with torch.no_grad(), ref.tf32_off():
@@ -73,17 +69,17 @@ def infer_reference(model, batch, params, ops, block, device):
     return torch.cat(outs)
 
 
-def infer_readings(model, mix, seed, pool, answers, device,
+def infer_readings(ref, model, mix, seed, pool, answers, device,
                    precision="float32", answer_of=None):
     """The infer readings of the program's `answers` {slot: sigm [B, H, W]
-    on the host} at the slots `check_slots` draws; `answer_of(slot,
-    params, ops)`, when given, stands in for the program (the control: the
-    reference in `precision`)."""
-    params = make_params(model, seed, device)
+    on the host} against the reference `ref` at the slots `check_slots`
+    draws; `answer_of(slot, params, ops)`, when given, stands in for the
+    program (the control: the reference in `precision`)."""
+    params = ref.make_params(model, seed, device)
     gots, wants, halves = [], [], []
     for slot in check_slots(mix, seed, answers):
         def reference(ops):
-            return infer_reference(model, pool[slot], params, ops,
+            return infer_reference(ref, model, pool[slot], params, ops,
                                    mix["ref_block"], device)
         wants.append(reference(ref.Ops()))
         halves.append(reference(ref.Ops("bfloat16")))
@@ -109,15 +105,16 @@ def check_slots(mix, seed, answers):
 # train
 # ---------------------------------------------------------------------------
 
-def reference_steps(model, pool, seed, steps, device, precision="float32",
-                    block=8):
-    """The reference's `steps` train steps from the seed's weights on pool
-    batches 0.. steps-1: (losses, first gradient {path: tensor}, change
-    {path: tensor}).  The frozen backbone runs without gradient, `block`
-    rows at a time; the head forward and backward over the whole batch."""
+def reference_steps(ref, model, pool, seed, steps, device,
+                    precision="float32", block=8):
+    """The reference `ref`'s `steps` train steps from the seed's weights
+    on pool batches 0.. steps-1: (losses, first gradient {path: tensor},
+    change {path: tensor}).  The frozen backbone runs without gradient,
+    `block` rows at a time; the head forward and backward over the whole
+    batch."""
     ops = ref.Ops(precision)
-    params = make_params(model, seed, device)
-    head = head_of(params)
+    params = ref.make_params(model, seed, device)
+    head = ref.head_of(params)
     leaves = [t.requires_grad_() for _, t in leaf_items(head)]
     start = [t.detach().clone() for t in leaves]
     opt = torch.optim.Adam(leaves, lr=model["start_lr"], betas=(BETA1, 0.999),

@@ -29,11 +29,13 @@ def manifest():
         return json.load(f)
 
 
-def tiny(workload, batch=4, dtype="float32", **mix):
-    """`cell.resolve`'s tuple for `workload` at TINY widths, `batch`
-    samples a call and a pool of 4, the program in `dtype`."""
+def tiny(workload, batch=4, dtype="float32", *, bench=None, **mix):
+    """`cell.resolve`'s tuple for `workload` of BENCHMARK.json (or of the
+    manifest `bench`) at TINY widths, `batch` samples a call and a pool
+    of 4, the program in `dtype`."""
     import cell
-    c, conf, m, limits, e2e, pl = cell.resolve(manifest(), workload, ROOT)
+    c, conf, m, limits, e2e, pl = cell.resolve(bench or manifest(), workload,
+                                               ROOT)
     conf = copy.deepcopy(conf)
     conf["overrides"] = {**TINY, "compute_dtype": dtype}
     conf["model"].update(TINY, compute_dtype=dtype)

@@ -53,12 +53,13 @@ def test_forward(kind, batch):
 
 @pytest.mark.parametrize("kind,batch", [("image", 3), ("video", 2)])
 def test_loss_gradients(kind, batch):
-    from check import head_of, leaf_items
+    from check import leaf_items
     from cmpc_refseg_torch.models.model import init_model_state
     from cmpc_refseg_torch.train.trainer import (compute_gradients,
                                                  train_state_from_params)
     from generate import reference_batch
     from reference import model as ref
+    from reference.flagship import head_of
     from reference.weights import make_params
     model, _, cfg, params, pool, dev = setup(CELLS[kind][1], batch, 13)
     state = train_state_from_params(params, cfg,
